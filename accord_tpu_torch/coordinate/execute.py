@@ -1,0 +1,198 @@
+"""Stable + Read round, then Persist.
+
+Rebuild of ref: accord-core/src/main/java/accord/coordinate/ExecuteTxn.java:53-162
+and Stabilise.java:47 — the stable round is fused with the read
+(Commit.stableAndRead, ref: messages/Commit.java:175): every replica gets the
+Stable distribution; one replica per execution shard additionally performs
+the read once its drain releases the txn.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Set
+
+from .. import api
+from ..messages.commit import Commit, CommitKind, CommitNack, CommitOk
+from ..messages.read_data import ReadNack, ReadOk, ReadTxnData
+from ..primitives.deps import Deps
+from ..primitives.keys import Route
+from ..primitives.timestamp import Timestamp, TxnId
+from ..obs import spans_of
+from ..primitives.txn import Txn
+from ..utils import async_chain
+from .errors import Exhausted, Timeout
+from .persist import persist
+from .tracking import QuorumTracker, ReadTracker, RequestStatus
+
+
+def execute(node, txn_id: TxnId, txn: Txn, route: Route,
+            execute_at: Timestamp, deps: Deps,
+            ballot=None) -> async_chain.AsyncChain:
+    """Returns chain of the client Result (settled at persist-start,
+    ref: CoordinationAdapter.java:189-194).  A recovery coordinator passes
+    its ballot so its Stable distribution overrides lower promises."""
+    return _ExecuteTxn(node, txn_id, txn, route, execute_at, deps,
+                       ballot)._start()
+
+
+class _ExecuteTxn(api.Callback):
+    def __init__(self, node, txn_id, txn, route, execute_at, deps, ballot=None):
+        from ..primitives.timestamp import Ballot
+        self.node = node
+        self.txn_id = txn_id
+        self.txn = txn
+        self.route = route
+        self.execute_at = execute_at
+        self.deps = deps
+        self.ballot = ballot if ballot is not None else Ballot.ZERO
+        self.all_topologies = node.topology().with_unsynced_epochs(
+            route.participants, txn_id.epoch(), execute_at.epoch())
+        exec_topology = self.all_topologies.for_epoch(execute_at.epoch())
+        from ..topology.topology import Topologies
+        self.read_tracker = ReadTracker(Topologies.single(exec_topology))
+        self.stable_tracker = QuorumTracker(self.all_topologies)
+        self.data = None
+        self.read_nodes: Set[int] = set()
+        self.result: async_chain.AsyncResult = async_chain.AsyncResult()
+        self.done = False
+        self.stable_done = False
+        # A txn with no read payload (sync points, blind writes) needs no
+        # read round: replicas gate the Apply on their local drain anyway
+        # (ref: CoordinateSyncPoint applies without a read leg; ExecuteTxn
+        # only contacts the read set for txns that read).  Crucially this
+        # keeps sync points executable while replicas are bootstrapping:
+        # ReadTxnData Nacks Unavailable during bootstrap, and the bootstrap
+        # fence is itself a sync point — read legs there would deadlock.
+        self.read_done = txn.read is None
+        self._spans = spans_of(node)
+        self._sp_stable = None
+        self._sp_read = None
+
+    def _read_nodes(self) -> Set[int]:
+        """One replica per execution shard, preferring ourselves then the
+        widest-covering replica (ref: ReadTracker initial contact via
+        SizeOfIntersectionSorter)."""
+        from ..impl.sorter import pick_read_nodes
+        return pick_read_nodes(
+            self.node, self.read_tracker.trackers,
+            self.all_topologies.for_epoch(self.execute_at.epoch()))
+
+    def _start(self) -> async_chain.AsyncChain:
+        from ..utils import faults
+        if faults.TRANSACTION_INSTABILITY:
+            # FAULT INJECTION (ref: Faults.TRANSACTION_INSTABILITY consumed
+            # at CoordinationAdapter.java:173): deliberately skip ensuring
+            # stability before execution so the burn proves it would catch
+            # the resulting recovery hazard
+            self.stable_done = True
+        if not self.read_done:
+            self.read_nodes = self._read_nodes()
+        if self._spans is not None:
+            key = str(self.txn_id)
+            self._sp_stable = self._spans.begin(
+                key, "stable", node=self.node.node_id,
+                execute_at=str(self.execute_at))
+            if not self.read_done:
+                self._sp_read = self._spans.begin(
+                    key, "read", node=self.node.node_id,
+                    read_nodes=sorted(self.read_nodes))
+        for n in self.read_nodes:
+            self.read_tracker.record_in_flight(n)
+        for to in sorted(self.stable_tracker.nodes()):
+            request = Commit(CommitKind.Stable, self.txn_id, self.txn,
+                             self.route, self.execute_at, self.deps,
+                             read=to in self.read_nodes, ballot=self.ballot,
+                             min_epoch=self.all_topologies.oldest_epoch())
+            self.node.send(to, request, self)
+        return self.result
+
+    # -- Callback -----------------------------------------------------------
+    def on_success(self, from_id: int, reply) -> None:
+        if self.done:
+            return
+        if isinstance(reply, CommitOk):
+            if self.stable_tracker.record_success(from_id) is RequestStatus.Success:
+                self.stable_done = True
+                if self._spans is not None:     # stable quorum RTT
+                    self._spans.end(self._sp_stable)
+                self._maybe_finish()
+        elif isinstance(reply, ReadOk):
+            if reply.data is not None:
+                self.data = (reply.data if self.data is None
+                             else self.data.merge(reply.data))
+            if self.read_tracker.record_read_success(from_id) is RequestStatus.Success:
+                self.read_done = True
+                if self._spans is not None:     # drain release + data RTT
+                    self._spans.end(self._sp_read)
+                self._maybe_finish()
+        elif isinstance(reply, ReadNack):
+            self._read_failed(from_id)
+        elif isinstance(reply, CommitNack):
+            if reply.reason == "Insufficient":
+                # resend with full hydration (ref: ExecuteTxn stableMaximal),
+                # preserving the read leg if this was a read-designated node
+                request = Commit(CommitKind.Stable, self.txn_id, self.txn,
+                                 self.route, self.execute_at, self.deps,
+                                 read=from_id in self.read_nodes,
+                                 ballot=self.ballot,
+                                 min_epoch=self.all_topologies.oldest_epoch())
+                self.node.send(from_id, request, self)
+            else:
+                self._fail(Exhausted(self.txn_id))
+
+    def on_failure(self, from_id: int, failure: BaseException) -> None:
+        if self.done:
+            return
+        if self.stable_tracker.record_failure(from_id) is RequestStatus.Failed:
+            self._fail(Timeout(self.txn_id))
+            return
+        self._read_failed(from_id)
+
+    def _read_failed(self, from_id: int) -> None:
+        # read-less txns (sync points, blind writes) have no read legs to
+        # repair — a replica failure only affects the stable quorum
+        if self.txn.read is None:
+            return
+        status, to_contact = self.read_tracker.record_read_failure(from_id)
+        if status is RequestStatus.Failed:
+            self._fail(Exhausted(self.txn_id))
+            return
+        if status is RequestStatus.Success:
+            self.read_done = True
+            self._maybe_finish()
+            return
+        for to in to_contact:
+            self.read_tracker.record_in_flight(to)
+            self.node.send(to, ReadTxnData(self.txn_id, self.route,
+                                           self.execute_at.epoch()), self)
+
+    # -- completion ---------------------------------------------------------
+    def _maybe_finish(self) -> None:
+        if self.done or not (self.stable_done and self.read_done):
+            return
+        self.done = True
+        writes = self.txn.execute(self.txn_id, self.execute_at, self.data)
+        result = (self.txn.result(self.txn_id, self.execute_at, self.data)
+                  if self.txn.query is not None else None)
+        persist(self.node, self.txn_id, self.txn, self.route, self.execute_at,
+                self.deps, writes, result)
+        # client is answered at persist-start (ref: CoordinationAdapter:189-194).
+        # Sync points settle with their coordination handle so callers (the
+        # durability rounds, bootstrap) can hand the decided executeAt+deps
+        # to the fused ApplyThenWaitUntilApplied leg (ref: SyncPoint.java).
+        if result is None and self.txn_id.kind().is_sync_point():
+            from ..primitives.writes import SyncPoint
+            self.result.set_success(SyncPoint(self.txn_id, self.deps,
+                                              self.route, self.execute_at))
+        else:
+            self.result.set_success(result)
+
+    def _fail(self, exc: BaseException) -> None:
+        if not self.done:
+            self.done = True
+            if self._spans is not None:
+                self._spans.end(self._sp_stable,
+                                outcome=type(exc).__name__)
+                self._spans.end(self._sp_read,
+                                outcome=type(exc).__name__)
+            self.result.set_failure(exc)

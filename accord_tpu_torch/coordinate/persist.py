@@ -1,0 +1,76 @@
+"""Persist: distribute Apply, record durability.
+
+Rebuild of ref: accord-core/src/main/java/accord/coordinate/Persist.java:43-170.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from .. import api
+from ..messages.apply import Apply, ApplyReply, ApplyReplyKind
+from ..primitives.deps import Deps
+from ..primitives.keys import Route
+from ..primitives.timestamp import Timestamp, TxnId
+from ..primitives.txn import Txn
+from ..obs import spans_of
+from ..primitives.writes import Writes
+from .tracking import AppliedTracker, RequestStatus
+
+
+def persist(node, txn_id: TxnId, txn: Txn, route: Route,
+            execute_at: Timestamp, deps: Deps, writes: Optional[Writes],
+            result) -> None:
+    _Persist(node, txn_id, txn, route, execute_at, deps, writes, result)._start()
+
+
+class _Persist(api.Callback):
+    def __init__(self, node, txn_id, txn, route, execute_at, deps, writes, result):
+        self.node = node
+        self.txn_id = txn_id
+        self.txn = txn
+        self.route = route
+        self.execute_at = execute_at
+        self.deps = deps
+        self.writes = writes
+        self.txn_result = result
+        self.topologies = node.topology().with_unsynced_epochs(
+            route.participants, txn_id.epoch(), execute_at.epoch())
+        self.tracker = AppliedTracker(self.topologies)
+        self.durable_recorded = False
+        self._spans = spans_of(node)
+        self._sp = None
+
+    def _start(self) -> None:
+        if self._spans is not None:
+            self._sp = self._spans.begin(
+                str(self.txn_id), "apply", node=self.node.node_id)
+        request = Apply("minimal", self.txn_id, self.route, self.execute_at,
+                        self.deps, self.writes, self.txn_result)
+        for to in sorted(self.tracker.nodes()):
+            self.node.send(to, request, self)
+
+    def on_success(self, from_id: int, reply: ApplyReply) -> None:
+        if reply.kind is ApplyReplyKind.Insufficient:
+            # straggler is missing txn/deps: send maximal
+            request = Apply("maximal", self.txn_id, self.route,
+                            self.execute_at, self.deps, self.writes,
+                            self.txn_result, txn=self.txn)
+            self.node.send(from_id, request, self)
+            return
+        status = self.tracker.record_success(from_id)
+        if status is RequestStatus.Success and not self.durable_recorded:
+            self.durable_recorded = True
+            if self._spans is not None:    # duration = time to majority-durable
+                self._spans.end(self._sp)
+            # a quorum of every shard has applied: the txn is majority-durable.
+            # Tell every replica so progress logs stand down and truncation
+            # watermarks can advance (ref: Persist.java InformDurable leg).
+            from ..local.status import Durability
+            from ..messages.inform import InformDurable
+            inform = InformDurable(self.txn_id, self.route, Durability.Majority)
+            for to in sorted(self.tracker.nodes()):
+                self.node.send(to, inform)
+
+    def on_failure(self, from_id: int, failure: BaseException) -> None:
+        self.tracker.record_failure(from_id)

@@ -1,0 +1,427 @@
+"""The liveness engine: per-store progress log driving recovery and fetch.
+
+Rebuild of ref: accord-core/src/main/java/accord/impl/SimpleProgressLog.java:77-714.
+Two state machines per store:
+
+- HomeState (this node is a home-shard replica for the txn): every tracked
+  txn cycles Expected -> NoProgress -> Investigating on a periodic scan; an
+  Investigating txn runs MaybeRecover (CheckStatus probe, escalating to full
+  Recover).  Progress observed remotely resets to Expected with the new
+  ProgressToken; a terminal outcome retires the entry.
+
+- BlockedState (any store): a local txn is waiting on a dependency whose
+  Commit/Apply this node missed.  The scan runs FetchData for the blocker,
+  propagating remote knowledge into the local stores; if the blocker is
+  genuinely stuck, its own home shard recovers it.
+
+The scan timer is self-disarming: it only reschedules while entries remain,
+so a quiescent cluster schedules nothing (keeps the discrete-event sim's
+run_until_quiescent meaningful, and is how the reference behaves under
+LocalConfig.getProgressLogScheduleDelay pacing).
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Dict, Optional
+
+from .. import api
+from ..primitives.timestamp import TxnId
+from ..primitives.writes import ProgressToken
+
+
+class _Progress(enum.IntEnum):
+    """(ref: SimpleProgressLog Progress)."""
+    Expected = 0
+    NoProgress = 1
+    Investigating = 2
+
+
+# Fruitless-retry backoff caps, in scan periods (~0.5-0.9s of sim time
+# each).  Blocked (fetch) entries pile up by the dozen behind a wedged
+# dependency — at the old shared cap of 16 their refetches compounded into a
+# CheckStatus storm that stalled the simulation, so they back WAY off;
+# liveness only needs eventual retry.  Home (recovery) entries stay on a
+# shorter leash: recovery drives op completion, and a cap that can exceed
+# the burn's post-heal drain window turns one preemption into an
+# unresolved-op flake.
+_HOME_BACKOFF_CAP = 32
+_BLOCKED_BACKOFF_CAP = 128
+
+
+class _HomeEntry:
+    __slots__ = ("txn_id", "route", "progress", "token", "countdown", "backoff")
+
+    def __init__(self, txn_id: TxnId, route):
+        self.txn_id = txn_id
+        self.route = route
+        self.progress = _Progress.Expected
+        self.token = ProgressToken.none()
+        self.countdown = 2   # scans before investigating
+        self.backoff = 2     # doubled on each fruitless investigation
+
+    def observed_progress(self) -> None:
+        self.progress = _Progress.Expected
+        self.countdown = 2
+        self.backoff = 2
+
+    def no_progress(self) -> None:
+        self.progress = _Progress.NoProgress
+        self.backoff = min(self.backoff * 2, _HOME_BACKOFF_CAP)
+        self.countdown = self.backoff
+
+
+class _BlockedEntry:
+    __slots__ = ("txn_id", "participants", "progress", "countdown", "backoff",
+                 "empty_fetches")
+
+    def __init__(self, txn_id: TxnId, participants):
+        self.txn_id = txn_id
+        self.participants = participants
+        self.progress = _Progress.Expected
+        self.countdown = 2
+        self.backoff = 2
+        self.empty_fetches = 0   # consecutive fetches that learned nothing
+
+    def no_progress(self) -> None:
+        self.progress = _Progress.NoProgress
+        self.backoff = min(self.backoff * 2, _BLOCKED_BACKOFF_CAP)
+        self.countdown = self.backoff
+
+
+class SimpleProgressLog(api.ProgressLog):
+    """(ref: impl/SimpleProgressLog.java)."""
+
+    # bound on waiting for a past epoch's topology before dropping a
+    # stand-down signal (matches the ephemeral/invalidate 15s fallback)
+    EPOCH_WAIT_MICROS = 15_000_000
+
+    def __init__(self, store, scan_delay_micros: int = 500_000):
+        self.store = store
+        self.scan_delay_micros = scan_delay_micros
+        self.home: Dict[TxnId, _HomeEntry] = {}
+        self.blocked: Dict[TxnId, _BlockedEntry] = {}
+        self._scheduled = None
+        # stand-down signals dropped because a past epoch's topology never
+        # arrived within the bounded wait (diagnostic, surfaced via stats)
+        self.inform_durable_dropped = 0
+
+    # -- scheduling ----------------------------------------------------------
+    def _arm(self) -> None:
+        if self._scheduled is None and (self.home or self.blocked):
+            node = self.store.node
+            # stagger scans per node/store so home replicas of the same txn
+            # do not investigate (and mutually preempt) in lock-step
+            # (ref: SimpleProgressLog randomized scheduling jitter).  The
+            # offset mixes the FULL node/store ids so any pair of nodes gets
+            # distinct offsets (small moduli left ids congruent mod 8 in
+            # lock-step for clusters larger than 8 nodes).
+            mix = (node.node_id * 0x9E3779B1 ^ self.store.store_id * 0x85EBCA77)
+            delay = self.scan_delay_micros + (mix % 399_989)
+            self._scheduled = node.scheduler.once(delay, self._scan)
+
+    def _scan(self) -> None:
+        self._scheduled = None
+        node = self.store.node
+        if not getattr(node, "alive", True):
+            return   # this incarnation's process died (restart_node)
+        for entry in list(self.home.values()):
+            if entry.progress is _Progress.Investigating:
+                continue
+            if entry.txn_id in node._coordinating:
+                # a live local coordinator is driving this txn — don't
+                # preempt ourselves (ref: progress log skips local owner)
+                entry.observed_progress()
+                continue
+            entry.countdown -= 1
+            if entry.countdown <= 0:
+                entry.progress = _Progress.Investigating
+                self._investigate(entry)
+        for entry in list(self.blocked.values()):
+            if entry.progress is _Progress.Investigating:
+                continue
+            entry.countdown -= 1
+            if entry.countdown <= 0:
+                entry.progress = _Progress.Investigating
+                self._fetch(entry)
+        self._arm()
+
+    # -- home-shard recovery -------------------------------------------------
+    def _investigate(self, entry: _HomeEntry) -> None:
+        from ..coordinate.recover import maybe_recover
+        node = self.store.node
+        txn_id = entry.txn_id
+
+        def on_done(value, failure):
+            current = self.home.get(txn_id)
+            if current is not entry:
+                return
+            if failure is not None:
+                # peer unreachable or preempted: back off, try again later
+                entry.no_progress()
+                node.agent.on_handled_exception(failure)
+            else:
+                outcome, info = value
+                if outcome == "progressed":
+                    if info is not None and info > entry.token:
+                        # organic progress = durability/phase advanced;
+                        # ballot-only movement is the signature of recovery
+                        # attempts (ours or the OTHER home replicas') — if
+                        # it reset the backoff, the replicas would re-arm
+                        # each other forever, mutually preempting ballots
+                        # at full scan cadence (the 1.4M-CheckStatus grind
+                        # on long windows)
+                        organic = (info.durability, info.status_phase) > \
+                            (entry.token.durability,
+                             entry.token.status_phase)
+                        entry.token = entry.token.merge(info)
+                        if organic:
+                            entry.observed_progress()
+                        else:
+                            entry.no_progress()
+                    else:
+                        entry.no_progress()
+                else:
+                    # recovered to a terminal outcome
+                    self.home.pop(txn_id, None)
+            self._arm()
+
+        maybe_recover(node, txn_id, entry.route, entry.token).begin(on_done)
+
+    # -- blocked-dependency fetch -------------------------------------------
+    def _local_knowledge_maximal(self, txn_id: TxnId) -> bool:
+        """True when a fetch could teach this store nothing: the local copy
+        already has the outcome (PreApplied+) or is terminal.  What remains
+        is local execution of the blocker's OWN dependency frontier, which
+        the drain completes as those deps' own blocked entries resolve —
+        refetching the blocker meanwhile is pure noise, and with dozens of
+        dependents re-registering on every scan it compounds into a
+        CheckStatus storm behind wedged fences (the seed-3 122k-message
+        grind; ref SimpleProgressLog waits for HasOutcome, then stands
+        down to local execution)."""
+        from ..local.status import Status
+        cmd = self.store.commands.get(txn_id)
+        return cmd is not None and (
+            cmd.save_status.status >= Status.PreApplied
+            or cmd.is_invalidated() or cmd.is_truncated())
+
+    def _fetch(self, entry: _BlockedEntry) -> None:
+        from ..coordinate.fetch_data import fetch_data
+        from ..local.status import Status
+        node = self.store.node
+        txn_id = entry.txn_id
+
+        if self._local_knowledge_maximal(txn_id):
+            self.blocked.pop(txn_id, None)
+            return
+
+        if entry.participants is None or entry.participants.is_empty():
+            # we know the id but not where it lives: discover a route first
+            # (ref: coordinate/FindSomeRoute.java — recovery/fetch no longer
+            # assumes the caller knows the route)
+            from ..coordinate.find_route import find_some_route
+
+            def on_route(route, failure):
+                current = self.blocked.get(txn_id)
+                if current is not entry:
+                    return
+                if failure is not None or route is None:
+                    entry.no_progress()
+                    if failure is None:
+                        # nobody anywhere knows this id: an abandoned
+                        # coordination — escalate to invalidation so waiters
+                        # unblock (the same escape hatch as the fetch leg;
+                        # the blocker intersects our ranges or we would not
+                        # be waiting on it, and one participating shard's
+                        # quorum suffices for the invalidation ballot)
+                        entry.empty_fetches += 1
+                        if entry.empty_fetches >= 2:
+                            entry.empty_fetches = 0
+                            node.invalidate_abandoned(
+                                txn_id, self.store.owned_current())
+                else:
+                    entry.participants = route.participants
+                    entry.progress = _Progress.Expected
+                    entry.countdown = 0
+                self._arm()
+
+            find_some_route(node, txn_id, entry.participants).begin(on_route)
+            return
+
+        def on_done(merged, failure):
+            current = self.blocked.get(txn_id)
+            if current is not entry:
+                return
+            if failure is not None:
+                entry.no_progress()
+                node.agent.on_handled_exception(failure)
+            elif merged is not None and (
+                    merged.save_status.status >= Status.PreApplied
+                    or merged.save_status.status is Status.Invalidated):
+                # outcome propagated locally: no longer blocked
+                self.blocked.pop(txn_id, None)
+                # remotely-established durability the home shard may have
+                # missed: tell it directly so its progress log stands down
+                # (ref: messages/InformHomeDurable.java)
+                from ..local.status import Durability
+                if merged.route is not None \
+                        and merged.route.home_key is not None \
+                        and merged.durability >= Durability.Majority:
+                    self._inform_home_durable(txn_id, merged)
+            else:
+                # known but undecided: recovery is the home shard's job —
+                # kick it (ref: InformHomeOfTxn) and keep fetching until the
+                # outcome propagates to us
+                entry.no_progress()
+                if merged is not None and merged.route is not None:
+                    entry.empty_fetches = 0
+                    self._inform_home(txn_id, merged.route)
+                else:
+                    # NOTHING known anywhere (no route, no definition): the
+                    # blocker is an abandoned coordination — no home shard
+                    # will ever recover it.  Escalate to invalidation so
+                    # waiters can drop it (ref: the Invalidate leg of
+                    # FetchData/Infer for unwitnessed blockers).
+                    entry.empty_fetches += 1
+                    if entry.empty_fetches >= 2:
+                        entry.empty_fetches = 0
+                        node.invalidate_abandoned(txn_id, entry.participants)
+            self._arm()
+
+        fetch_data(node, txn_id, entry.participants, txn_id.epoch()) \
+            .begin(on_done)
+
+    def _inform_home_durable(self, txn_id: TxnId, merged) -> None:
+        from ..messages.inform import InformHomeDurable
+        from ..primitives.keys import Ranges
+        node = self.store.node
+        route = merged.route
+        request = InformHomeDurable(txn_id, route, merged.execute_at,
+                                    merged.durability)
+        # resolve home-shard owners AT the txn's epoch — the receiver
+        # applies over stores owning the home range at txn_id.epoch(), so
+        # targeting current-epoch owners would no-op after the home range
+        # moves (and the real home would never hear)
+        manager = node.topology_manager
+        if not manager.has_epoch(txn_id.epoch()):
+            # the blocked entry is already popped, so a silent drop would
+            # lose the stand-down signal for good — wait for the epoch, but
+            # BOUNDED: a (typically old) epoch whose history is never
+            # delivered must not leak this callback forever.  First of
+            # epoch-arrival / deadline wins; on deadline the signal is
+            # dropped with a diagnostic counter (the home shard will
+            # re-learn durability from the next durability-service round).
+            state = {"done": False}
+
+            def on_epoch():
+                if not state["done"]:
+                    state["done"] = True
+                    self._inform_home_durable(txn_id, merged)
+
+            def on_deadline():
+                if not state["done"]:
+                    state["done"] = True
+                    self.inform_durable_dropped += 1
+
+            node.with_epoch(txn_id.epoch(), on_epoch)
+            node.scheduler.once(self.EPOCH_WAIT_MICROS, on_deadline)
+            return
+        topology = manager.get_topology_for_epoch(txn_id.epoch())
+        home = Ranges.of(route.home_as_range())
+        for shard in topology.for_selection(home):
+            for to in shard.nodes:
+                node.send(to, request)
+
+    def _inform_home(self, txn_id: TxnId, route) -> None:
+        """Tell the home shard's replicas to track (and so recover) the txn
+        (ref: messages/InformOfTxnId.java / InformHomeOfTxn)."""
+        from ..coordinate.find_route import inform_home_of_txn
+        inform_home_of_txn(self.store.node, txn_id, route)
+
+    # -- helpers -------------------------------------------------------------
+    def _track_home(self, safe, txn_id: TxnId) -> None:
+        cmd = safe.get(txn_id)
+        if cmd.route is None:
+            return
+        node = self.store.node
+        if not node.is_home_shard_replica(txn_id, cmd.route):
+            return
+        if txn_id not in self.home:
+            self.home[txn_id] = _HomeEntry(txn_id, cmd.route)
+        self._arm()
+
+    def _refresh(self, safe, txn_id: TxnId) -> None:
+        """Reset the investigation backoff ONLY on organic progress — the
+        status PHASE or durability advancing.  Ballot movement alone is the
+        signature of recovery attempts (ours or a peer's): AcceptInvalidate
+        and BeginRecovery rounds fire the accepted/stable hooks on every
+        futile pass, and resetting backoff on them locks wedged home
+        entries into an investigate -> ballot-bump -> reset spin that
+        floods the cluster with CheckStatus quorums (the seed-15 storm:
+        ~380 investigations per txn per minute)."""
+        entry = self.home.get(txn_id)
+        if entry is None or entry.progress is _Progress.Investigating:
+            return
+        cmd = safe.if_present(txn_id)
+        if cmd is None:
+            return
+        if (int(cmd.durability), int(cmd.save_status.status.phase)) > \
+                (entry.token.durability, entry.token.status_phase):
+            entry.token = entry.token.merge(ProgressToken(
+                int(cmd.durability), int(cmd.save_status.status.phase),
+                cmd.promised, entry.token.accepted))
+            entry.observed_progress()
+
+    # -- ProgressLog hooks ---------------------------------------------------
+    def unwitnessed(self, safe, txn_id: TxnId) -> None:
+        self._track_home(safe, txn_id)
+
+    def pre_accepted(self, safe, txn_id: TxnId) -> None:
+        self._track_home(safe, txn_id)
+
+    def accepted(self, safe, txn_id: TxnId) -> None:
+        self._track_home(safe, txn_id)
+        self._refresh(safe, txn_id)
+
+    def precommitted(self, safe, txn_id: TxnId) -> None:
+        self._refresh(safe, txn_id)
+
+    def stable(self, safe, txn_id: TxnId) -> None:
+        self._track_home(safe, txn_id)
+        self._refresh(safe, txn_id)
+        # do NOT pop blocked here: a dep that reached Stable locally can
+        # still wedge dependents if its Apply was lost — keep fetching its
+        # outcome until it actually applies (durable_local) or is cleared
+        # (ref: BlockingState waits for HasOutcome, not just committed)
+
+    def ready_to_execute(self, safe, txn_id: TxnId) -> None:
+        self._refresh(safe, txn_id)
+
+    def executed(self, safe, txn_id: TxnId) -> None:
+        self._refresh(safe, txn_id)
+
+    def durable_local(self, safe, txn_id: TxnId) -> None:
+        # applied locally; remains tracked until durable at a quorum
+        self._refresh(safe, txn_id)
+        self.blocked.pop(txn_id, None)
+
+    def durable(self, safe, txn_id: TxnId) -> None:
+        self.home.pop(txn_id, None)
+        self.blocked.pop(txn_id, None)
+
+    def waiting(self, blocked_by: TxnId, blocked_until: int, route,
+                participants) -> None:
+        if participants is None or blocked_by in self.blocked:
+            return
+        if self._local_knowledge_maximal(blocked_by):
+            return   # nothing fetchable: local drain owns its completion
+        self.blocked[blocked_by] = _BlockedEntry(blocked_by, participants)
+        self._arm()
+
+    def clear(self, txn_id: TxnId) -> None:
+        self.home.pop(txn_id, None)
+        self.blocked.pop(txn_id, None)
+
+
+def simple_progress_log_factory(scan_delay_micros: int = 500_000):
+    return lambda store: SimpleProgressLog(store, scan_delay_micros)

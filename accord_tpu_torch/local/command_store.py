@@ -1,0 +1,852 @@
+"""Per-node metadata shards: CommandStore / SafeCommandStore / CommandStores.
+
+Rebuild of ref: accord-core/src/main/java/accord/local/CommandStore.java:80,
+SafeCommandStore.java:56, CommandStores.java:78, PreLoadContext.java:42.
+
+A CommandStore is one single-threaded metadata shard owning a set of token
+ranges: all commands, per-key conflict indexes (CommandsForKey), and the
+watermark maps.  Tasks are submitted with a PreLoadContext and run with an
+exclusive SafeCommandStore view; in this build the "thread" is a deterministic
+task queue drained through the node's Scheduler, so the whole node group is
+simulator-controlled (and the store's array state can be shipped to the TPU
+between tasks without synchronisation).
+
+CommandStores is the shard group: it splits the node's owned ranges over a
+fixed number of stores (ShardDistributor.EvenSplit analogue) and scatter-
+gathers map-reduce-consume tasks across intersecting stores
+(ref: CommandStores.java:575-643).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
+
+from ..primitives.deps import PartialDeps
+from ..primitives.keys import Range, Ranges, RoutingKeys, Unseekables
+from ..primitives.timestamp import Kinds, Timestamp, TxnId
+from ..utils import async_chain, invariants
+from ..utils.interval_map import ReducingRangeMap
+from .command import Command
+from .commands_for_key import CommandsForKey, InternalStatus
+from .fastpath import proto_fastpath_enabled, store_group_enabled
+from .redundant import DurableBefore, MaxConflicts, RedundantBefore
+from .status import SaveStatus
+
+_FASTPATH = proto_fastpath_enabled()
+# r20 store-grouped execution: every task that shares a drain tick shares
+# ONE SafeCommandStore acquisition (merged PreLoadContext, one page-in
+# pass, op-boundary notification flushes).  Captured at import like
+# _FASTPATH; ACCORD_TPU_STORE_GROUP=off restores the per-task path.
+_STORE_GROUP = store_group_enabled()
+
+
+class PreLoadContext:
+    """Declares what a task needs in memory before running
+    (ref: local/PreLoadContext.java:42-90).  In-memory stores satisfy any
+    context immediately; a paging/journal store uses it to schedule loads."""
+
+    __slots__ = ("primary_txn_id", "additional_txn_ids", "keys")
+
+    def __init__(self, primary_txn_id: Optional[TxnId] = None,
+                 additional_txn_ids: Sequence[TxnId] = (),
+                 keys: Optional[Unseekables] = None):
+        self.primary_txn_id = primary_txn_id
+        self.additional_txn_ids = tuple(additional_txn_ids)
+        self.keys = keys
+
+    @classmethod
+    def empty(cls) -> "PreLoadContext":
+        return _EMPTY_CONTEXT
+
+    @classmethod
+    def for_txn(cls, txn_id: TxnId, keys: Optional[Unseekables] = None) -> "PreLoadContext":
+        return cls(txn_id, (), keys)
+
+
+_EMPTY_CONTEXT = PreLoadContext()
+
+
+def _merge_contexts(batch) -> PreLoadContext:
+    """Union of a grouped batch's declared contexts (r20): one merged
+    PreLoadContext covering every sub-op's txn ids — the single page-in
+    pass / context load the grouped drain performs up front.  Keys are
+    not merged (no consumer loads by key; in-memory stores satisfy any
+    context immediately)."""
+    if len(batch) == 1:
+        return batch[0][0]
+    primary = None
+    additional: List[TxnId] = []
+    seen: Set[TxnId] = set()
+    for context, _fn, _out in batch:
+        for tid in (context.primary_txn_id, *context.additional_txn_ids):
+            if tid is not None and tid not in seen:
+                seen.add(tid)
+                if primary is None:
+                    primary = tid
+                else:
+                    additional.append(tid)
+    if primary is None:
+        return _EMPTY_CONTEXT
+    return PreLoadContext(primary, additional)
+
+
+class RangesForEpoch:
+    """Per-store epoch -> owned-ranges history
+    (ref: CommandStores.java:142-336).
+
+    ``at``/``all_between`` run once per (message, store) on the serving
+    hot path — the r18 profile showed them as a top frame — so both are
+    memoized behind the PROTO_FASTPATH knob.  ``snapshot`` is the ONLY
+    mutation point, so clearing the memo there keeps every cached answer
+    bit-identical to the straight-line recompute."""
+
+    __slots__ = ("_by_epoch", "_at_memo", "_between_memo")
+
+    def __init__(self):
+        self._by_epoch: Dict[int, Ranges] = {}
+        self._at_memo: Dict[int, Ranges] = {}
+        self._between_memo: Dict[Tuple[int, int], Ranges] = {}
+
+    def snapshot(self, epoch: int, ranges: Ranges) -> None:
+        self._by_epoch[epoch] = ranges
+        self._at_memo.clear()
+        self._between_memo.clear()
+
+    def at(self, epoch: int) -> Ranges:
+        if _FASTPATH:
+            hit = self._at_memo.get(epoch)
+            if hit is not None:
+                return hit
+        if not self._by_epoch:
+            return Ranges.empty()
+        best = None
+        for e in sorted(self._by_epoch):
+            if e <= epoch:
+                best = e
+        if best is None:
+            best = min(self._by_epoch)
+        out = self._by_epoch[best]
+        if _FASTPATH:
+            self._at_memo[epoch] = out
+        return out
+
+    def current(self) -> Ranges:
+        if not self._by_epoch:
+            return Ranges.empty()
+        return self._by_epoch[max(self._by_epoch)]
+
+    def earliest(self) -> Ranges:
+        """The store's first-epoch snapshot — the ranges it has held since
+        its node joined (data present without any bootstrap)."""
+        if not self._by_epoch:
+            return Ranges.empty()
+        return self._by_epoch[min(self._by_epoch)]
+
+    def all_between(self, min_epoch: int, max_epoch: int) -> Ranges:
+        """Union of every snapshot in effect during [min_epoch, max_epoch]:
+        the snapshots declared inside the window plus the one already active
+        at min_epoch."""
+        if _FASTPATH:
+            hit = self._between_memo.get((min_epoch, max_epoch))
+            if hit is not None:
+                return hit
+        out = self.at(min_epoch)
+        for e, r in self._by_epoch.items():
+            if min_epoch <= e <= max_epoch:
+                out = out.with_(r)
+        if _FASTPATH:
+            self._between_memo[(min_epoch, max_epoch)] = out
+        return out
+
+    def all(self) -> Ranges:
+        out = Ranges.empty()
+        for r in self._by_epoch.values():
+            out = out.with_(r)
+        return out
+
+
+class CommandStore:
+    """One single-threaded metadata shard (ref: local/CommandStore.java:80)."""
+
+    def __init__(self, store_id: int, node, paged_limit: Optional[int] = None):
+        self.store_id = store_id
+        self.node = node                      # local.node.Node
+        # paged mode (ref: the cache-limited DelayedCommandStores): above
+        # this many command records, terminal commands are paged out to the
+        # journal and reloaded on demand via PreLoadContext / page_in
+        self.paged_limit = paged_limit
+        self.ranges_for_epoch = RangesForEpoch()
+        self.commands: Dict[TxnId, Command] = {}
+        self.commands_for_key: Dict[int, CommandsForKey] = {}
+        # Range-domain txns indexed for the range scan path
+        # (ref: InMemoryCommandStore.rangeCommands TreeMap scan :524).
+        # Mutate ONLY via put_range_command/drop_range_command: the interval
+        # index below is rebuilt lazily on version change.
+        self.range_commands: Dict[TxnId, Ranges] = {}
+        self._range_index = None
+        self._range_index_version = -1
+        self._range_version = 0
+        self.max_conflicts = MaxConflicts()
+        self.redundant_before = RedundantBefore()
+        self.durable_before = DurableBefore()
+        from ..impl.timestamps_for_key import TimestampsForKeys
+        self.timestamps_for_key = TimestampsForKeys()
+        # ranges adopted this epoch whose snapshot has not yet arrived —
+        # reads are Nacked until clear (ref: safeToRead,
+        # local/CommandStore.java:159-176), and writes landing on them are
+        # deferred so the snapshot's earlier appends install first
+        self.bootstrapping: Ranges = Ranges.empty()
+        self._bootstrap_waiters: List[Callable[[], None]] = []
+        self.n_stale_marks = 0      # diagnostics: staleness escape hatches
+        self.reject_before: Optional[ReducingRangeMap] = None
+        # under _STORE_GROUP the queue holds (context, fn, out) entries;
+        # otherwise opaque task closures (the original per-task path)
+        self._queue: List = []
+        self._draining = False
+        # r20 grouped-execution census: ops per merged SafeCommandStore
+        # acquisition (1 = no sharing; mirrors the outbound batch census)
+        self.group_sizes: Dict[int, int] = {}
+        # transient (non-durable) listeners: txn_id -> [fn(safe, command)]
+        # (ref: Command.TransientListener / ReadData registration)
+        self.transient_listeners: Dict[TxnId, List[Callable]] = {}
+        self.progress_log = node.progress_log_factory(self)
+        # device-backed conflict index + drain graph (the TPU protocol path);
+        # None = pure host mode (listener-driven drain, CFK fold scans)
+        if getattr(node, "device_mode", False):
+            from .device_index import DeviceState
+            self.device: Optional["DeviceState"] = DeviceState(
+                self, device=node.device)
+        else:
+            self.device = None
+
+    def defer_until_bootstrap(self, fn: Callable[[], None]) -> None:
+        self._bootstrap_waiters.append(fn)
+
+    def bootstrap_complete(self) -> None:
+        waiters, self._bootstrap_waiters = self._bootstrap_waiters, []
+        for fn in waiters:   # replay in defer order == executeAt drain order
+            fn()
+
+    # -- executor contract (ref: CommandStore submit/execute) ---------------
+    def execute(self, context: PreLoadContext,
+                fn: Callable[["SafeCommandStore"], "object"]) -> async_chain.AsyncChain:
+        """Queue fn to run with exclusive access; returns chain of result."""
+        out: async_chain.AsyncResult = async_chain.AsyncResult()
+
+        if not getattr(self.node, "alive", True):
+            # dead incarnation (restart_node): its queued work must not run —
+            # ghost tasks would keep writing registers into the shared
+            # journal and data store, contaminating the new incarnation's
+            # durable state.  The chain never settles, like a crashed process.
+            return out
+
+        if _STORE_GROUP:
+            # grouped route: queue the structured entry; the drain merges
+            # every same-tick entry under ONE SafeCommandStore
+            self._queue.append((context, fn, out))
+            self._schedule_drain()
+            return out
+
+        def task():
+            # honor the PreLoadContext contract (ref: PreLoadContext.java:42):
+            # everything the task declared is in memory before it runs.  With
+            # the journal as backing store the load is synchronous; a disk
+            # journal would await the reads here before scheduling fn.
+            self._load_context(context)
+            safe = SafeCommandStore(self, context)
+            try:
+                result = fn(safe)
+            except BaseException as e:  # noqa: BLE001
+                safe.complete()
+                out.set_failure(e)
+                return
+            safe.complete()
+            out.set_success(result)
+
+        self._queue.append(task)
+        self._schedule_drain()
+        return out
+
+    def _schedule_drain(self) -> None:
+        if self._draining:
+            return
+        self._draining = True
+        self.node.scheduler.now(self._drain)
+
+    def _drain(self) -> None:
+        if not getattr(self.node, "alive", True):
+            self._queue.clear()   # the process died with this work pending
+            self._draining = False
+            return
+        if _STORE_GROUP:
+            self._drain_grouped()
+        else:
+            while self._queue:
+                task = self._queue.pop(0)
+                try:
+                    task()
+                except BaseException as e:  # noqa: BLE001
+                    self.node.agent.on_uncaught_exception(e)
+        self._draining = False
+        if self.paged_limit is not None:
+            self._maybe_page_out()
+
+    def _drain_grouped(self) -> None:
+        """Run every same-tick queued op under ONE SafeCommandStore.
+
+        Each batch = the queue as it stands: one merged PreLoadContext
+        (one page-in pass), one SafeCommandStore, then the per-op fn
+        bodies in queue order.  After each fn its deferred notifications
+        flush at the OP BOUNDARY (queued exactly where the per-op
+        ``complete()`` would have queued them) and its chain settles —
+        so the store-queue task order, listener_update call order and
+        reply emission order are byte-identical to the per-task drain.
+        Ops queued DURING the batch (notification tasks, nested
+        executes) form the next batch, preserving the per-op FIFO."""
+        while self._queue:
+            batch, self._queue = self._queue, []
+            self.group_sizes[len(batch)] = \
+                self.group_sizes.get(len(batch), 0) + 1
+            if self.paged_limit is not None:
+                for context, _fn, _out in batch:
+                    self._load_context(context)
+            safe = SafeCommandStore(self, _merge_contexts(batch))
+            for _context, fn, out in batch:
+                try:
+                    result = fn(safe)
+                except BaseException as e:  # noqa: BLE001
+                    safe.flush_pending()
+                    try:
+                        out.set_failure(e)
+                    except BaseException as e2:  # noqa: BLE001
+                        self.node.agent.on_uncaught_exception(e2)
+                    continue
+                safe.flush_pending()
+                try:
+                    out.set_success(result)
+                except BaseException as e:  # noqa: BLE001
+                    self.node.agent.on_uncaught_exception(e)
+            safe.complete()   # no-op: every op's pendings already flushed
+
+    # -- journal-backed paging ----------------------------------------------
+    def _load_context(self, context: PreLoadContext) -> None:
+        if self.paged_limit is None:
+            return   # nothing is ever paged out: every lookup would miss
+        for txn_id in (context.primary_txn_id, *context.additional_txn_ids):
+            if txn_id is not None and txn_id not in self.commands:
+                self.page_in(txn_id)
+
+    def page_in(self, txn_id: TxnId):
+        """Reload a paged-out (terminal) command from the journal.  Returns
+        the installed Command or None if the journal has no record (never
+        witnessed, or erased — the watermarks answer for those)."""
+        journal = self.node.journal
+        if journal is None:
+            return None
+        cmd = journal.reconstruct(self, txn_id)
+        if cmd is None or not (cmd.save_status is SaveStatus.Applied
+                               or cmd.is_truncated() or cmd.is_invalidated()):
+            return None   # only terminal commands are ever paged out
+        self.commands[txn_id] = cmd
+        return cmd
+
+    def _maybe_page_out(self) -> None:
+        """Evict terminal commands beyond the page limit; the journal
+        retains their registers + bodies for page_in.  Listener sets on
+        terminal commands are dead (notifications fire on transitions, and
+        terminal commands have none left).  A command is only evicted after
+        proving the journal round-trips it to the SAME terminal status —
+        paging must never degrade state (a degraded Stable without its
+        frontier would execute early on reload)."""
+        excess = len(self.commands) - self.paged_limit
+        if excess <= 0:
+            return
+        journal = self.node.journal
+        if journal is None:
+            return
+        evictable = sorted(tid for tid, cmd in self.commands.items()
+                           if (cmd.save_status is SaveStatus.Applied
+                               or cmd.is_truncated() or cmd.is_invalidated())
+                           and journal.has_register(self.store_id, tid))
+        for tid in evictable:
+            if excess <= 0:
+                break
+            rc = journal.reconstruct(self, tid, probe=True)
+            if rc is None or rc.save_status is not \
+                    self.commands[tid].save_status:
+                continue   # not faithfully reloadable: keep it in memory
+            del self.commands[tid]
+            self.transient_listeners.pop(tid, None)
+            excess -= 1
+
+    # -- range-txn interval index -------------------------------------------
+    def put_range_command(self, txn_id: TxnId, ranges: Ranges) -> None:
+        if self.range_commands.get(txn_id) == ranges:
+            return   # re-registration on a status message: index unchanged
+        self.range_commands[txn_id] = ranges
+        self._range_version += 1
+
+    def drop_range_command(self, txn_id: TxnId) -> None:
+        if self.range_commands.pop(txn_id, None) is not None:
+            self._range_version += 1
+
+    def range_index(self):
+        """Checkpointed interval index over the range-domain txns — the
+        CINTIA stabbing structure (ref: utils/SearchableRangeList.java:19-48),
+        rebuilt lazily after mutations (range txns mutate rarely — epoch
+        fences and durability rounds — while the PreAccept scan stabs it on
+        every keyed dep computation)."""
+        if self._range_index_version != self._range_version:
+            from ..utils.interval_index import SearchableRangeList
+            self._range_index = SearchableRangeList(
+                (r.start, r.end, tid)
+                for tid, rs in self.range_commands.items() for r in rs)
+            self._range_index_version = self._range_version
+        return self._range_index
+
+    # -- state helpers ------------------------------------------------------
+    def cfk(self, token: int) -> CommandsForKey:
+        c = self.commands_for_key.get(token)
+        if c is None:
+            c = self.commands_for_key[token] = CommandsForKey(token)
+        return c
+
+    def command_if_present(self, txn_id: TxnId) -> Optional[Command]:
+        return self.commands.get(txn_id)
+
+    def command_maybe_paged(self, txn_id: TxnId) -> Optional[Command]:
+        """Command record, reloading a paged-out terminal one if needed —
+        for readers that bypass SafeCommandStore (scans, barriers)."""
+        cmd = self.commands.get(txn_id)
+        if cmd is None and self.paged_limit is not None:
+            cmd = self.page_in(txn_id)
+        return cmd
+
+    # -- exclusive sync point fencing (ref: CommandStore.rejectBefore) ------
+    def mark_reject_before(self, ranges: Ranges, txn_id: TxnId) -> None:
+        """An ExclusiveSyncPoint at txn_id fences these ranges: later
+        PreAccepts/Accepts of LOWER TxnIds are rejected, guaranteeing no txn
+        below the fence can newly decide (the bootstrap-snapshot coverage
+        invariant relies on this)."""
+        m = self.reject_before if self.reject_before is not None \
+            else ReducingRangeMap.empty()
+        self.reject_before = m.add(ranges, txn_id,
+                                   lambda a, b: a if a >= b else b)
+
+    def reject_before_floor(self, keys_or_ranges) -> Optional[TxnId]:
+        if self.reject_before is None:
+            return None
+        from .redundant import _as_ranges
+        ranges = _as_ranges(keys_or_ranges)
+        return self.reject_before.fold_over_ranges(
+            ranges, lambda v, acc: v if acc is None or v > acc else acc, None)
+
+    def owned_at(self, epoch: int) -> Ranges:
+        return self.ranges_for_epoch.at(epoch)
+
+    def owned_current(self) -> Ranges:
+        return self.ranges_for_epoch.current()
+
+    def unsafe_set_command(self, command: Command) -> None:
+        self.commands[command.txn_id] = command
+
+    def __repr__(self):
+        return f"CommandStore#{self.store_id}@{self.node.node_id}"
+
+
+class SafeCommandStore:
+    """Exclusive view of a CommandStore during one task
+    (ref: local/SafeCommandStore.java:56).  Listener notifications triggered
+    by updates are deferred until the task completes to avoid reentrancy."""
+
+    def __init__(self, store: CommandStore, context: PreLoadContext):
+        self.store = store
+        self.context = context
+        self._pending_notifications: List[Tuple[TxnId, TxnId]] = []
+        self._pending_transients: List[TxnId] = []
+        self._completed = False
+
+    # -- command access -----------------------------------------------------
+    def get(self, txn_id: TxnId) -> Command:
+        """Get or create the command record (ref: SafeCommandStore.get with
+        truncation-on-read via RedundantBefore, :79-189).  A paged-out
+        terminal command reloads from the journal first."""
+        cmd = self.store.commands.get(txn_id)
+        if cmd is None and self.store.paged_limit is not None:
+            cmd = self.store.page_in(txn_id)
+        if cmd is None:
+            cmd = Command(txn_id)
+            self.store.commands[txn_id] = cmd
+        return cmd
+
+    def if_present(self, txn_id: TxnId) -> Optional[Command]:
+        cmd = self.store.commands.get(txn_id)
+        if cmd is None and self.store.paged_limit is not None:
+            cmd = self.store.page_in(txn_id)
+        return cmd
+
+    def update(self, command: Command, notify: bool = True) -> Command:
+        """Install a new version of the command; queues listener
+        notifications for any watchers."""
+        prev = self.store.commands.get(command.txn_id)
+        self.store.commands[command.txn_id] = command
+        journal = self.store.node.journal
+        if journal is not None:
+            # the command's fixed-width columns are the journal's registers;
+            # variable-size fields reconstruct from the message log
+            # (ref: SerializerSupport.reconstruct's register arguments)
+            journal.record_registers(self.store.store_id, command)
+        if notify and prev is not None and command.save_status != prev.save_status:
+            for listener in command.listeners:
+                self._pending_notifications.append((listener, command.txn_id))
+            if command.txn_id in self.store.transient_listeners:
+                self._pending_transients.append(command.txn_id)
+        return command
+
+    def notify_listeners(self, command: Command) -> None:
+        for listener in command.listeners:
+            self._pending_notifications.append((listener, command.txn_id))
+
+    def add_transient_listener(self, txn_id: TxnId, fn: Callable) -> None:
+        self.store.transient_listeners.setdefault(txn_id, []).append(fn)
+
+    def remove_transient_listeners(self, txn_id: TxnId) -> None:
+        self.store.transient_listeners.pop(txn_id, None)
+
+    def remove_transient_listener(self, txn_id: TxnId, fn: Callable) -> None:
+        fns = self.store.transient_listeners.get(txn_id)
+        if fns is not None:
+            try:
+                fns.remove(fn)
+            except ValueError:
+                pass
+            if not fns:
+                del self.store.transient_listeners[txn_id]
+
+    def notify_transient(self, command: Command) -> None:
+        fns = self.store.transient_listeners.get(command.txn_id)
+        if fns:
+            for fn in list(fns):
+                fn(self, command)
+
+    # -- cfk / scans --------------------------------------------------------
+    def cfk(self, token: int) -> CommandsForKey:
+        return self.store.cfk(token)
+
+    def map_reduce_active(self, keys_or_ranges, started_before: Timestamp,
+                          witnesses: Kinds, fn, acc):
+        """The PreAccept conflict scan over this store's owned slice
+        (ref: SafeCommandStore.java:269-286; InMemoryCommandStore.java:863-877).
+        Covers both the per-key indexes and the range-txn scan.
+
+        The scan window is the store's FULL ownership history, not just the
+        ranges owned at started_before's epoch: a dual-quorum PreAccept at a
+        prior-epoch replica (epoch handoff — the replica owns NOTHING in the
+        new epoch) must still report the in-flight txns it witnessed on its
+        old ranges, or the new owner's capture fence collects empty deps and
+        writes committed at the old quorum are lost across the handoff.  The
+        caller already slices ``keys_or_ranges`` to the message's epoch
+        window; extra history only ever ADDS witnessed conflicts (safe)."""
+        owned = self.store.ranges_for_epoch.all()
+        if isinstance(keys_or_ranges, Ranges):
+            scan_ranges = keys_or_ranges.slice(owned)
+            for token, cfk in self.store.commands_for_key.items():
+                if scan_ranges.contains_token(token):
+                    acc = cfk.map_reduce_active(started_before, witnesses,
+                                                lambda tid, a, t=token: fn(t, tid, a), acc)
+            acc = self._scan_range_commands_ranges(scan_ranges, started_before,
+                                                   witnesses, fn, acc)
+        else:
+            for token in keys_or_ranges.tokens():
+                if not owned.contains_token(token):
+                    continue
+                cfk = self.store.commands_for_key.get(token)
+                if cfk is not None:
+                    acc = cfk.map_reduce_active(started_before, witnesses,
+                                                lambda tid, a, t=token: fn(t, tid, a), acc)
+                acc = self._scan_range_commands_token(token, started_before,
+                                                      witnesses, fn, acc)
+        return acc
+
+    def _range_txn_live(self, tid: TxnId, started_before, witnesses) -> bool:
+        if tid >= started_before or not witnesses.test(tid.kind()):
+            return False
+        cmd = self.store.command_maybe_paged(tid)
+        return cmd is None or not cmd.is_invalidated()
+
+    def _scan_range_commands_token(self, token: int, started_before, witnesses,
+                                   fn, acc):
+        for _s, _e, tid in self.store.range_index().stabbing(token):
+            if self._range_txn_live(tid, started_before, witnesses):
+                acc = fn(Ranges.of(Range(token, token + 1)), tid, acc)
+        return acc
+
+    def _scan_range_commands_ranges(self, scan: Ranges, started_before,
+                                    witnesses, fn, acc):
+        index = self.store.range_index()
+        per_tid: Dict[TxnId, List[Range]] = {}
+        for sel in scan:
+            for s, e, tid in index.overlapping(sel.start, sel.end):
+                per_tid.setdefault(tid, []).append(
+                    Range(max(s, sel.start), min(e, sel.end)))
+        for tid in sorted(per_tid):
+            if self._range_txn_live(tid, started_before, witnesses):
+                acc = fn(Ranges.of(*per_tid[tid]), tid, acc)
+        return acc
+
+    def map_reduce_full(self, keys_or_ranges, test_txn_id: TxnId,
+                        witnesses: Kinds, fn, acc):
+        """Recovery-time scan over ALL witnessed txns
+        (ref: SafeCommandStore mapReduceFull).  Full ownership history for
+        the same reason as map_reduce_active: recovery votes from a
+        prior-epoch replica must include its old-range witnesses."""
+        owned = self.store.ranges_for_epoch.all()
+        if isinstance(keys_or_ranges, Ranges):
+            scan_ranges = keys_or_ranges.slice(owned)
+            for token, cfk in self.store.commands_for_key.items():
+                if scan_ranges.contains_token(token):
+                    acc = cfk.map_reduce_full(test_txn_id, witnesses,
+                                              lambda info, a, t=token: fn(t, info, a), acc)
+            for tid, ranges in self.store.range_commands.items():
+                if witnesses.test(tid.kind()) and not ranges.intersecting(scan_ranges).is_empty():
+                    cmd = self.store.command_maybe_paged(tid)
+                    info = _range_txn_info(tid, cmd)
+                    if info is not None:
+                        acc = fn(ranges[0].start, info, acc)
+        else:
+            for token in keys_or_ranges.tokens():
+                if not owned.contains_token(token):
+                    continue
+                cfk = self.store.commands_for_key.get(token)
+                if cfk is not None:
+                    acc = cfk.map_reduce_full(test_txn_id, witnesses,
+                                              lambda info, a, t=token: fn(t, info, a), acc)
+                for tid, ranges in self.store.range_commands.items():
+                    if witnesses.test(tid.kind()) and ranges.contains_token(token):
+                        cmd = self.store.command_maybe_paged(tid)
+                        info = _range_txn_info(tid, cmd)
+                        if info is not None:
+                            acc = fn(token, info, acc)
+        return acc
+
+    # -- watermarks ---------------------------------------------------------
+    def ranges(self, epoch: int) -> Ranges:
+        return self.store.owned_at(epoch)
+
+    def max_conflict(self, keys_or_ranges) -> Timestamp:
+        return self.store.max_conflicts.get_max(keys_or_ranges)
+
+    def update_max_conflicts(self, keys_or_ranges, ts: Timestamp) -> None:
+        self.store.max_conflicts.update(keys_or_ranges, ts)
+
+    def redundant_before(self) -> RedundantBefore:
+        return self.store.redundant_before
+
+    def durable_before(self) -> DurableBefore:
+        return self.store.durable_before
+
+    def progress_log(self):
+        return self.store.progress_log
+
+    def node(self):
+        return self.store.node
+
+    def time(self):
+        return self.store.node
+
+    def agent(self):
+        return self.store.node.agent
+
+    def data_store(self):
+        return self.store.node.data_store
+
+    # -- completion ---------------------------------------------------------
+    def complete(self) -> None:
+        """Flush deferred listener notifications (each as its own store task,
+        mirroring the reference's executor hand-off per listener update)."""
+        if self._completed:
+            return
+        self._completed = True
+        self.flush_pending()
+
+    def flush_pending(self) -> None:
+        """Emit the deferred notifications accumulated so far, leaving the
+        safe view open.  This is the r20 grouped drain's OP-BOUNDARY flush:
+        called after each sub-op's fn, it queues that op's notification
+        task exactly where the per-op ``complete()`` would have — same
+        store-queue order, same listener_update sequence."""
+        notifications, self._pending_notifications = self._pending_notifications, []
+        transients, self._pending_transients = self._pending_transients, []
+        if not notifications and not transients:
+            return
+        from . import commands as commands_mod
+
+        def run(safe: "SafeCommandStore"):
+            for listener_id, updated_id in notifications:
+                commands_mod.listener_update(safe, listener_id, updated_id)
+            for txn_id in transients:
+                cmd = safe.if_present(txn_id)
+                if cmd is not None:
+                    safe.notify_transient(cmd)
+        self.store.execute(PreLoadContext.empty(), run)
+
+
+def _range_txn_info(tid: TxnId, cmd: Optional[Command]):
+    from .commands_for_key import InternalStatus, TxnInfo
+    if cmd is None:
+        return TxnInfo(tid, InternalStatus.TRANSITIVELY_KNOWN)
+    if cmd.is_invalidated():
+        return TxnInfo(tid, InternalStatus.INVALIDATED)
+    from .status import Status
+    if cmd.has_been(Status.Applied):
+        st = InternalStatus.APPLIED
+    elif cmd.has_been(Status.Stable):
+        st = InternalStatus.STABLE
+    elif cmd.has_been(Status.Committed):
+        st = InternalStatus.COMMITTED
+    elif cmd.has_been(Status.Accepted):
+        st = InternalStatus.ACCEPTED
+    else:
+        st = InternalStatus.PREACCEPTED
+    return TxnInfo(tid, st, cmd.execute_at)
+
+
+class CommandStores:
+    """The shard group for one node (ref: local/CommandStores.java:78)."""
+
+    def __init__(self, node, num_stores: int = 1, distributor=None):
+        from .shard_distributor import EvenSplit
+        self.node = node
+        self.num_stores = num_stores
+        self.stores: List[CommandStore] = []
+        self._next_id = 0
+        # pluggable range->store policy (ref: local/ShardDistributor.java)
+        self.distributor = distributor if distributor is not None \
+            else EvenSplit()
+
+    # -- topology -----------------------------------------------------------
+    def update_topology(self, topology, epoch: Optional[int] = None,
+                        bootstrap: bool = True) -> None:
+        """Assign this node's owned ranges across stores and bootstrap any
+        newly-adopted ranges (ref: CommandStores.updateTopology :401-482).
+
+        Assignment is STICKY: ranges a store already holds never migrate to
+        a sibling store (moving them would spuriously re-bootstrap data this
+        node already serves); only net-new ranges are distributed, evenly by
+        token span (ShardDistributor.EvenSplit analogue)."""
+        epoch = epoch if epoch is not None else topology.epoch
+        owned = topology.ranges_for_node(self.node.node_id)
+        first = not self.stores
+        if first:
+            for _ in range(self.num_stores):
+                store = CommandStore(self._next_id, self.node,
+                                     paged_limit=getattr(self.node,
+                                                         "paged_limit", None))
+                self._next_id += 1
+                self.stores.append(store)
+            for store, chunk in zip(self.stores,
+                                    self.distributor.split(owned, len(self.stores))):
+                store.ranges_for_epoch.snapshot(epoch, chunk)
+            return
+
+        prev_union = Ranges.empty()
+        for store in self.stores:
+            prev_union = prev_union.with_(store.ranges_for_epoch.current())
+        net_new = owned.without(prev_union)
+        new_chunks = self.distributor.split(net_new, len(self.stores))
+        for store, extra in zip(self.stores, new_chunks):
+            retained = store.ranges_for_epoch.current().intersecting(owned)
+            store.ranges_for_epoch.snapshot(epoch, retained.with_(extra))
+            if not extra.is_empty() and bootstrap:
+                from .bootstrap import Bootstrap
+                Bootstrap(store, extra, epoch).start()
+
+    # -- scatter-gather -----------------------------------------------------
+    def intersecting(self, select: Unseekables, min_epoch: int,
+                     max_epoch: int) -> List[CommandStore]:
+        out = []
+        for store in self.stores:
+            owned = store.ranges_for_epoch.all_between(min_epoch, max_epoch)
+            if not owned.is_empty() and (
+                    select.intersects(owned) if not isinstance(select, Ranges)
+                    else owned.intersects(select)):
+                out.append(store)
+        return out
+
+    def for_each(self, context: PreLoadContext, select: Unseekables,
+                 min_epoch: int, max_epoch: int,
+                 fn: Callable[[SafeCommandStore], None]) -> async_chain.AsyncChain:
+        stores = self.intersecting(select, min_epoch, max_epoch)
+        chains = [s.execute(context, fn) for s in stores]
+        return async_chain.all_of(chains).map(lambda _: None)
+
+    def map_reduce(self, context: PreLoadContext, select: Unseekables,
+                   min_epoch: int, max_epoch: int,
+                   map_fn: Callable[[SafeCommandStore], "object"],
+                   reduce_fn: Callable[["object", "object"], "object"]
+                   ) -> async_chain.AsyncChain:
+        """(ref: CommandStores.mapReduce :575-643)."""
+        stores = self.intersecting(select, min_epoch, max_epoch)
+        if not stores:
+            return async_chain.success(None)
+        chains = [s.execute(context, map_fn) for s in stores]
+        return async_chain.reduce(chains, reduce_fn)
+
+    def unavailable_for_read(self, participants) -> bool:
+        """Safe-to-read gate: any intersecting store still bootstrapping its
+        snapshot cannot serve reads (ref: safeToRead,
+        local/CommandStore.java:159-176)."""
+        return bool(self._read_blockers(participants))
+
+    def _read_blockers(self, participants) -> List[CommandStore]:
+        return [s for s in self.stores
+                if not s.bootstrapping.is_empty()
+                and participants.intersects(s.bootstrapping)]
+
+    def when_readable(self, participants, fn: Callable[[], None],
+                      on_unavailable: Optional[Callable[[], None]] = None,
+                      deadline_micros: int = 500_000) -> None:
+        """Run ``fn`` once no intersecting store is mid-bootstrap — reads
+        DEFER behind the safe-to-read gate rather than refusing (the
+        reference's ReadData waits on safeToRead; refusing turns every
+        bootstrap window into read unavailability for the whole shard).
+
+        The deferral carries a deadline: a bootstrap can itself be gated on
+        transactions whose Apply needs this read (the fence awaits every
+        lower TxnId), so waiting forever deadlocks the cycle.  Past the
+        deadline, ``on_unavailable`` fires and the coordinator falls back to
+        another replica / recovery, which breaks the cycle."""
+        blockers = self._read_blockers(participants)
+        if not blockers:
+            fn()
+            return
+        state = {"n": len(blockers), "fired": False}
+
+        def one_done():
+            state["n"] -= 1
+            if state["n"] == 0 and not state["fired"]:
+                state["fired"] = True
+                # re-check: another bootstrap may have begun meanwhile
+                self.when_readable(participants, fn, on_unavailable,
+                                   deadline_micros)
+
+        def expire():
+            if not state["fired"]:
+                state["fired"] = True
+                # drop the dead waiters: a wedged bootstrap must not pin one
+                # read continuation per expired deferral for its whole outage
+                for s in blockers:
+                    try:
+                        s._bootstrap_waiters.remove(one_done)
+                    except ValueError:
+                        pass
+                if on_unavailable is not None:
+                    on_unavailable()
+
+        for s in blockers:
+            s.defer_until_bootstrap(one_done)
+        if on_unavailable is not None:
+            self.node.scheduler.once(deadline_micros, expire)
+
+    def unsafe_all_stores(self) -> List[CommandStore]:
+        return list(self.stores)

@@ -1,0 +1,604 @@
+"""The per-process node facade.
+
+Rebuild of ref: accord-core/src/main/java/accord/local/Node.java:100-780 —
+owns the MessageSink, TopologyManager, CommandStores, the HLC
+(``unique_now`` CAS loop :341-366), the coordinate() entry point (:567-596),
+receive() dispatch (:715-736), epoch await (:296-329) and home/progress key
+selection (:598-673).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+from .. import api
+from ..primitives.keys import Ranges, Route, RoutingKeys, Seekables
+from ..primitives.timestamp import Domain, Timestamp, TxnId, TxnKind
+from ..primitives.txn import Txn
+from ..topology.manager import TopologyManager
+from ..topology.topology import Topologies, Topology
+from ..utils import async_chain, invariants
+from .command_store import CommandStores, PreLoadContext
+from .fastpath import proto_fastpath_enabled
+
+_FASTPATH = proto_fastpath_enabled()
+
+
+def _resolve_device_mode(device_mode: Optional[bool]) -> bool:
+    """Device protocol path (the kernels): explicit arg > ACCORD_TPU_DEVICE
+    env > on."""
+    if device_mode is not None:
+        return device_mode
+    import os
+    env = os.environ.get("ACCORD_TPU_DEVICE")
+    if env is not None:
+        return env.lower() not in ("0", "false", "off", "")
+    return True
+
+
+class Node:
+    """(ref: local/Node.java)."""
+
+    def __init__(self, node_id: int,
+                 message_sink: api.MessageSink,
+                 config_service: api.ConfigurationService,
+                 scheduler: api.Scheduler,
+                 data_store: api.DataStore,
+                 agent: api.Agent,
+                 random,
+                 now_micros: Callable[[], int],
+                 progress_log_factory: Optional[Callable] = None,
+                 num_stores: int = 2,
+                 local_config: Optional[api.LocalConfig] = None,
+                 device_mode: Optional[bool] = None,
+                 journal=None,
+                 device="cuda",
+                 paged_limit: Optional[int] = None):
+        self.node_id = node_id
+        # journal-backed command paging threshold (None = keep everything)
+        self.paged_limit = paged_limit
+        self.message_sink = message_sink
+        self.config_service = config_service
+        self.scheduler = scheduler
+        self.data_store = data_store
+        self.agent = agent
+        self.random = random
+        self.now_micros = now_micros
+        self.local_config = local_config or api.LocalConfig()
+        self.device_mode = _resolve_device_mode(device_mode)
+        # the torch device every CommandStore's DeviceState runs on: "cuda"
+        # unless the caller asks for the CPU
+        self.device = device
+        if progress_log_factory is None:
+            from ..impl.progress_log import SimpleProgressLog
+            progress_log_factory = SimpleProgressLog
+        self.progress_log_factory = progress_log_factory
+        self.topology_manager = TopologyManager(node_id)
+        # observability bundle (obs.Observability) the harness attaches —
+        # the sim cluster and maelstrom runner share one per run; None
+        # means unobserved (zero cost beyond getattr+None checks)
+        self.obs = None
+        # per-node device dispatch scheduler (r08): coalesces deps flushes
+        # and drain ticks across this node's CommandStores into fused
+        # kernel launches when the cost model says fusion wins; None in
+        # pure host mode (no device launches to coalesce)
+        if self.device_mode:
+            from .dispatch import DeviceDispatcher
+            self.dispatcher = DeviceDispatcher(self)
+        else:
+            self.dispatcher = None
+        self.command_stores = CommandStores(self, num_stores)
+        self.journal = journal
+        self.alive = True
+        self._hlc = 0
+        self._hlc_reserved = 0
+        if journal is not None:
+            # a restarted incarnation must never reissue a timestamp the
+            # previous one used: the journal's high-water mark bounds every
+            # id this node WITNESSED, and the flush-before-issue reservation
+            # (reserve_hlc) bounds every id a past incarnation ISSUED — even
+            # one whose PreAccepts were all dropped in a partition
+            self._hlc = max(journal.max_hlc + 1, journal.hlc_reserved)
+            self._hlc_reserved = journal.hlc_reserved
+        self._coordinating: Dict[TxnId, object] = {}  # active coordinations
+        self._pending_topologies: Dict[int, Topology] = {}  # out-of-order epochs
+        # PROTO_FASTPATH: (topology, owned Ranges) pair for _owned_ranges
+        self._owned_memo = None
+        # r20 store-grouped execution counters (the serving stats surface
+        # reads them): ops delivered through receive_group, and ops that
+        # fell back to the per-op path (cross-epoch waits at receive_group;
+        # control verbs / reconfig gossip at the envelope unbatcher)
+        self.n_grouped_ops = 0
+        self.n_group_fallbacks = 0
+
+    # -- time (ref: Node.java:341-366) --------------------------------------
+    HLC_RESERVE_BATCH = 1 << 20   # ids per journal reservation write
+
+    def _reserve_hlc(self) -> None:
+        """Flush-before-issue, batched: before handing out an id at or past
+        the journaled reservation, persist a new bound ``hlc + K`` — one
+        journal write per ~million ids buys an exact restart floor."""
+        if self.journal is not None and self._hlc >= self._hlc_reserved:
+            self._hlc_reserved = self._hlc + self.HLC_RESERVE_BATCH
+            self.journal.reserve_hlc(self._hlc_reserved)
+
+    def unique_now(self) -> Timestamp:
+        now = self.now_micros()
+        self._hlc = max(self._hlc + 1, now)
+        self._reserve_hlc()
+        return Timestamp.from_values(self.epoch(), self._hlc, self.node_id)
+
+    def unique_now_at_least(self, at_least: Timestamp) -> Timestamp:
+        now = self.now_micros()
+        self._hlc = max(self._hlc + 1, now, at_least.hlc() + 1)
+        self._reserve_hlc()
+        epoch = max(self.epoch(), at_least.epoch())
+        return Timestamp.from_values(epoch, self._hlc, self.node_id)
+
+    def now(self) -> Timestamp:
+        return Timestamp.from_values(self.epoch(), self.now_micros(), self.node_id)
+
+    def next_txn_id(self, kind: TxnKind, domain: Domain) -> TxnId:
+        ts = self.unique_now()
+        return TxnId.create(ts.epoch(), ts.hlc(), kind, domain, self.node_id)
+
+    # -- topology -----------------------------------------------------------
+    def epoch(self) -> int:
+        return self.topology_manager.epoch()
+
+    def topology(self) -> TopologyManager:
+        return self.topology_manager
+
+    def on_topology_update(self, topology: Topology) -> None:
+        """(ref: Node.java:247 ConfigurationService.Listener).  Epochs must
+        be ingested contiguously; later epochs arriving early are buffered."""
+        if self.topology_manager.has_epoch(topology.epoch):
+            return
+        known = self.topology_manager.epoch()
+        if known != 0 and topology.epoch > known + 1:
+            self._pending_topologies[topology.epoch] = topology
+            self.config_service.fetch_topology_for_epoch(known + 1)
+            return
+        first = known == 0
+        self.topology_manager.on_topology_update(topology)
+        self.command_stores.update_topology(topology)
+        if not first:
+            self._start_epoch_sync(topology)
+        nxt = self._pending_topologies.pop(topology.epoch + 1, None)
+        if nxt is not None:
+            self.on_topology_update(nxt)
+
+    def restore_topologies(self, topologies) -> None:
+        """Restart path: re-ingest the epoch history WITHOUT re-bootstrapping
+        (the data store is durable; the journal restores the metadata) and
+        without re-fencing every historical epoch (the previous incarnation
+        already synced them — the reject_before fences themselves come back
+        via journal reconstruction of the sync-point commands)."""
+        latest = None
+        for topology in sorted(topologies, key=lambda t: t.epoch):
+            if self.topology_manager.has_epoch(topology.epoch):
+                continue
+            self.topology_manager.on_topology_update(topology)
+            self.command_stores.update_topology(topology, bootstrap=False)
+            latest = topology
+        if latest is not None:
+            self._ack_epoch(latest.epoch)
+
+    def _start_epoch_sync(self, topology: Topology) -> None:
+        """Fence the new epoch: an ExclusiveSyncPoint over our owned ranges
+        captures every in-flight earlier txn; once it executes, this node's
+        view is caught up and it acks the epoch so coordination can use the
+        new topology's fast path (ref: TopologyManager epoch sync,
+        CommandStores.updateTopology sync leg)."""
+        from ..coordinate.sync_point import coordinate_sync_point
+        epoch = topology.epoch
+        owned = topology.ranges_for_node(self.node_id)
+        if owned.is_empty():
+            self._ack_epoch(epoch)
+            return
+        sync_id = self.next_txn_id(TxnKind.ExclusiveSyncPoint, Domain.Range)
+
+        def on_done(_sp, failure):
+            if failure is not None:
+                # Invalidate the abandoned fence id FIRST: replicas that
+                # witnessed it hold it in later txns' dep sets, and an
+                # undecided zombie dep stalls their execution until a slow
+                # recovery cycle invalidates it.  Then retry with a fresh id
+                # after a jittered backoff (don't stampede a recovery that
+                # may be finishing the old one — invalidation is
+                # best-effort and loses cleanly to a live ballot).
+                self.agent.on_handled_exception(failure)
+                self.invalidate_abandoned(sync_id, owned)
+                delay = 1_000_000 + self.random.next_int(1_000_000)
+                self.scheduler.once(delay,
+                                    lambda: self._start_epoch_sync(topology))
+            else:
+                self._ack_epoch(epoch)
+
+        coordinate_sync_point(self, owned, exclusive=True,
+                              txn_id=sync_id).begin(on_done)
+
+    def invalidate_abandoned(self, txn_id: TxnId, participants) -> None:
+        """Best-effort invalidation of a coordination this node is
+        abandoning (a fence id it will not retry).  If the txn actually
+        decided somewhere, the invalidation ballot loses and recovery
+        completes it — either terminal state unblocks waiters."""
+        from ..coordinate.recover import _next_ballot_bits, _propose_invalidate
+        from ..primitives.keys import Route as _Route
+        from ..primitives.timestamp import Ballot
+        route = _Route(None, participants, is_full=False)
+        ballot = Ballot(*_next_ballot_bits(self))
+        try:
+            topologies = self.topology().for_epoch(participants,
+                                                   txn_id.epoch())
+        except Exception:
+            return
+        _propose_invalidate(self, txn_id, route, ballot, topologies,
+                            on_invalidated=lambda: None,
+                            on_redundant=lambda: None,
+                            on_failed=lambda _f: None)
+
+    def _ack_epoch(self, epoch: int) -> None:
+        self.topology_manager.on_epoch_sync_complete(self.node_id, epoch)
+        self.config_service.acknowledge_epoch(api.EpochReady.done(epoch))
+
+    def with_epoch(self, epoch: int, fn: Callable[[], None]) -> None:
+        """Run fn once the epoch's topology is known (ref: Node.java:296-329)."""
+        if self.topology_manager.has_epoch(epoch):
+            fn()
+            return
+        self.config_service.fetch_topology_for_epoch(epoch)
+        self.topology_manager.await_epoch(epoch).begin(
+            lambda _t, fail: fn() if fail is None else
+            self.agent.on_uncaught_exception(fail))
+
+    # -- routing (ref: Node.java:598-673) -----------------------------------
+    def compute_route(self, txn_id: TxnId, keys: Seekables) -> Route:
+        home_key = self.select_home_key(txn_id, keys)
+        return Route.full(home_key, keys.to_unseekables())
+
+    def _owned_ranges(self) -> Ranges:
+        """This node's owned ranges in the CURRENT topology.  Topology is
+        immutable and ``ranges_for_node`` allocates a fresh Ranges per
+        call, so under PROTO_FASTPATH the answer is cached keyed on the
+        topology object's identity (one entry — replaced on epoch change)
+        instead of being rebuilt for every message's progress-key probe."""
+        topology = self.topology_manager.current()
+        if not _FASTPATH:
+            return topology.ranges_for_node(self.node_id)
+        cached = self._owned_memo
+        if cached is None or cached[0] is not topology:
+            cached = (topology, topology.ranges_for_node(self.node_id))
+            self._owned_memo = cached
+        return cached[1]
+
+    def select_home_key(self, txn_id: TxnId, keys: Seekables) -> int:
+        """Pick a home key among the txn's keys, preferring one this node
+        owns (ref: Node.selectHomeKey)."""
+        owned = self._owned_ranges()
+        if isinstance(keys, Ranges):
+            for r in keys:
+                if owned.contains_token(r.start):
+                    return r.start
+            return keys[0].start
+        for k in keys:
+            if owned.contains_token(k.token()):
+                return k.token()
+        return keys[0].token()
+
+    def select_progress_key(self, txn_id: TxnId, route: Route) -> Optional[int]:
+        """The home key if we replicate it, else None (ref: Node.java:652-673)."""
+        owned = self._owned_ranges()
+        return route.home_key if owned.contains_token(route.home_key) else None
+
+    def is_home_shard_replica(self, txn_id: TxnId, route: Route) -> bool:
+        return self._owned_ranges().contains_token(route.home_key)
+
+    # -- messaging ----------------------------------------------------------
+    def send(self, to: int, request,
+             callback: Optional[api.Callback] = None) -> None:
+        if callback is not None:
+            self.message_sink.send_with_callback(to, request, callback)
+        else:
+            self.message_sink.send(to, request)
+
+    def send_to_all(self, nodes, request_factory,
+                    callback: Optional[api.Callback] = None) -> None:
+        for to in sorted(nodes):
+            self.send(to, request_factory(to), callback)
+
+    def reply(self, to: int, reply_context, reply) -> None:
+        self.message_sink.reply(to, reply_context, reply)
+
+    def receive(self, request, from_id: int, reply_context) -> None:
+        """(ref: Node.java:715-736)."""
+        wait_for = getattr(request, "wait_for_epoch", 0)
+        if wait_for > self.topology_manager.epoch():
+            self.config_service.fetch_topology_for_epoch(wait_for)
+            self.topology_manager.await_epoch(wait_for).begin(
+                lambda _t, fail: self.receive(request, from_id, reply_context)
+                if fail is None else None)
+            return
+        self.scheduler.now(lambda: self._process(request, from_id, reply_context))
+
+    def receive_group(self, items, from_id: int) -> None:
+        """r20 store-grouped delivery: a run of protocol requests from one
+        ``accord_batch`` envelope processes under ONE scheduler hop — the
+        per-op ``_process`` bodies run back-to-back in a single callback,
+        so their store tasks land in one queue tick and the grouped drain
+        merges them under one SafeCommandStore.  Per-op semantics are
+        unchanged: each item gets the same epoch gate, witness stamps,
+        journal record and handler body it would get via ``receive``.
+        Items awaiting a later epoch fall back to the per-op path (the
+        grouper cannot prove when their wait resolves)."""
+        ready = []
+        for request, reply_context in items:
+            wait_for = getattr(request, "wait_for_epoch", 0)
+            if wait_for > self.topology_manager.epoch():
+                self.n_group_fallbacks += 1
+                self.receive(request, from_id, reply_context)
+            else:
+                ready.append((request, reply_context))
+        if not ready:
+            return
+        self.n_grouped_ops += len(ready)
+
+        def run():
+            for request, reply_context in ready:
+                self._process(request, from_id, reply_context)
+
+        self.scheduler.now(run)
+
+    def witness_timestamp(self, ts) -> None:
+        """HLC receive rule: merge a remotely-witnessed timestamp into the
+        local clock so later ids exceed it (ref: Node.java uniqueNow(atLeast)
+        — without it, a node with a lagging physical clock keeps issuing ids
+        below its peers' epoch fences and every txn it coordinates bounces)."""
+        h = ts.hlc()
+        if h > self._hlc:
+            self._hlc = h
+
+    def _process(self, request, from_id: int, reply_context) -> None:
+        tid = getattr(request, "txn_id", None)
+        if tid is not None:
+            self.witness_timestamp(tid)
+        ex = getattr(request, "execute_at", None)
+        if ex is not None:
+            self.witness_timestamp(ex)
+        if self.journal is not None and request.type.has_side_effects:
+            self.journal.record_message(request, from_id)
+        try:
+            request.process(self, from_id, reply_context)
+        except BaseException as e:  # noqa: BLE001
+            try:
+                self.message_sink.reply_with_unknown_failure(from_id, reply_context, e)
+            except BaseException:
+                pass
+            self.agent.on_handled_exception(e)
+
+    # -- local scatter-gather (ref: Node.java mapReduceConsumeLocal) --------
+    def map_reduce_consume_local(self, context: PreLoadContext, select,
+                                 min_epoch: int, max_epoch: int, map_fn,
+                                 reduce_fn, consume: Callable) -> None:
+        chain = self.command_stores.map_reduce(context, select, min_epoch,
+                                               max_epoch, map_fn, reduce_fn)
+        chain.begin(lambda result, fail: consume(result, fail))
+
+    def for_each_local(self, context: PreLoadContext, select, min_epoch: int,
+                       max_epoch: int, fn) -> async_chain.AsyncChain:
+        return self.command_stores.for_each(context, select, min_epoch,
+                                            max_epoch, fn)
+
+    # -- coordination entry (ref: Node.java:567-596) ------------------------
+    def coordinate(self, txn: Txn,
+                   txn_id: Optional[TxnId] = None,
+                   _retries: int = 0) -> async_chain.AsyncResult:
+        from ..coordinate.coordinate_transaction import CoordinateTransaction
+        from ..coordinate.errors import Rejected
+        if txn.kind is TxnKind.EphemeralRead:
+            # non-durable: no consensus rounds, no recovery, no watchdog —
+            # a failure surfaces to the caller, who simply retries
+            # (ref: CoordinateEphemeralRead)
+            from ..coordinate.ephemeral import coordinate_ephemeral_read
+            return coordinate_ephemeral_read(self, txn)
+        explicit_id = txn_id is not None
+        if txn_id is None:
+            txn_id = self.next_txn_id(txn.kind, txn.domain())
+        result = async_chain.AsyncResult()
+        self._coordinating[txn_id] = result
+        result.begin(lambda _r, _f: self._coordinating.pop(txn_id, None))
+
+        from ..obs import spans_of
+        sp = spans_of(self)
+        if sp is not None:
+            # root span of this txn's tree: the client-visible window.
+            # Phase children (preaccept/accept/stable/read/apply) attach
+            # in the coordinate FSMs; a fence-Rejected retry runs under a
+            # FRESH TxnId, so the retry's tree is its own root — the
+            # ``retries`` attr counts the hop and the old root carries
+            # the terminating ``retry`` event.
+            sp.begin_txn(str(txn_id), node=self.node_id,
+                         kind=txn.kind.name, retries=_retries)
+            result.begin(lambda _r, f: sp.end_txn(
+                str(txn_id), "ok" if f is None else type(f).__name__))
+
+        superseded = {"flag": False}
+
+        def settle(value, failure):
+            # A caller-pinned TxnId (sync-point fences: the id IS the
+            # bootstrap/epoch watermark) must NOT be transparently swapped
+            # for a fresh one — propagate Rejected so the caller re-picks
+            # its fence id and re-marks its watermark.
+            if isinstance(failure, Rejected) and not explicit_id \
+                    and _retries < 5:
+                # fenced by an ExclusiveSyncPoint: the TxnId can never newly
+                # decide here — but unfenced replicas may retain (fast-path)
+                # PreAccepts of it that a later recovery could complete.
+                # Invalidate the old id FIRST (always immediately — it runs
+                # in the OLD id's epoch), and only then retry with a fresh
+                # id (ref: CoordinateTransaction.java:87-94
+                # proposeAndCommitInvalidate before any client retry);
+                # retrying immediately risks the payload applying under both
+                # ids.  Mark this attempt superseded so its watchdog does
+                # not race the invalidation.  When the rejecting fence's
+                # bound is known, bump the HLC past it so the fresh id
+                # clears the fence; a fence minted in a LATER epoch
+                # additionally makes the retry wait for that topology
+                # (epoch-major timestamps — see _invalidate_then_retry).
+                floor = getattr(failure, "floor", None)
+                retry_epoch = None
+                if floor is not None:
+                    self.unique_now_at_least(floor)
+                    if floor.epoch() > self.epoch():
+                        retry_epoch = floor.epoch()
+                if sp is not None:
+                    # the old id's tree ends here; the retry's fresh id
+                    # opens its own root (retries attr links the hop count)
+                    sp.event(str(txn_id), "retry",
+                             reason="Rejected", attempt=_retries + 1)
+                    sp.end_txn(str(txn_id), "Rejected-retried")
+                superseded["flag"] = True
+                self._coordinating.pop(txn_id, None)
+                self._invalidate_then_retry(txn, txn_id, _retries, result,
+                                            retry_at_epoch=retry_epoch)
+                return
+            result.settle(value, failure)
+
+        def start():
+            CoordinateTransaction.coordinate(self, txn_id, txn).begin(settle)
+            self.scheduler.once(15_000_000, watchdog)
+
+        def watchdog():
+            # a coordination whose every round was lost/preempted can wedge
+            # while the txn itself reaches a terminal outcome via recovery;
+            # adopt that outcome for the client (ref: the coordinator-side
+            # Recover adoption in Node.recover / CoordinationAdapter)
+            if result.is_done() or superseded["flag"]:
+                return
+            from ..coordinate.recover import Recover
+            if sp is not None:
+                sp.event(str(txn_id), "watchdog_recover")
+            route = self.compute_route(txn_id, txn.keys)
+            Recover.recover(self, txn_id, route, txn).begin(on_recovered)
+
+        def on_recovered(value, failure):
+            if result.is_done() or superseded["flag"]:
+                return
+            if failure is not None:
+                from ..coordinate.errors import Invalidated, Truncated
+                if isinstance(failure, (Truncated, Invalidated)):
+                    # terminal: the txn's window is below the redundancy
+                    # watermark with no decided state reachable — the op is
+                    # indeterminate for the client; retrying the recovery
+                    # can never learn more (ref: Infer's truncated-outcome
+                    # mapping in coordinate/Infer.java)
+                    result.set_failure(failure)
+                    return
+                self.agent.on_handled_exception(failure)
+                self.scheduler.once(5_000_000, watchdog)
+                return
+            outcome, payload = value
+            if outcome == "invalidated":
+                from ..coordinate.errors import Invalidated
+                result.set_failure(Invalidated(txn_id))
+            elif outcome in ("applied", "executed") and payload is not None:
+                result.set_success(payload)
+            else:
+                # applied but the outcome was already erased everywhere we
+                # asked: the txn took effect but the client result is gone
+                from ..coordinate.errors import Truncated
+                result.set_failure(Truncated(txn_id))
+
+        self.with_epoch(txn_id.epoch(), start)
+        return result
+
+    def _invalidate_then_retry(self, txn: Txn, old_id: TxnId, retries: int,
+                               result: async_chain.AsyncResult,
+                               attempt: int = 0,
+                               retry_at_epoch: Optional[int] = None) -> None:
+        """Invalidate a fence-Rejected TxnId before the client retry
+        (ref: coordinate/Invalidate.java proposeAndCommitInvalidate via
+        CoordinateTransaction.java:87-94).  If invalidation reports the old
+        id redundant — it actually decided somewhere — adopt its outcome
+        instead of issuing a duplicate transaction.  ``retry_at_epoch``
+        makes the FRESH id wait for a later fence epoch's topology;
+        invalidation itself always runs immediately in the old id's epoch
+        (deferring it would leave recoverable PreAccepts of the old id
+        while the client already resubmitted — the double-apply hazard)."""
+        from ..coordinate.recover import (Recover, _next_ballot_bits,
+                                          _propose_invalidate)
+        from ..primitives.timestamp import Ballot
+        route = self.compute_route(old_id, txn.keys)
+        ballot = Ballot(*_next_ballot_bits(self))
+        topologies = self.topology().for_epoch(route.participants,
+                                               old_id.epoch())
+
+        def retry():
+            def go():
+                self.coordinate(txn, _retries=retries + 1).begin(
+                    result.settle)
+            if retry_at_epoch is None or retry_at_epoch <= self.epoch():
+                go()
+                return
+            fired = {"flag": False}
+
+            def once():
+                if not fired["flag"]:
+                    fired["flag"] = True
+                    go()
+
+            # await_epoch never fails on its own: back it with a deadline
+            # that retries in the CURRENT epoch rather than hanging the
+            # client (the fresh id may be re-rejected, but retries are
+            # bounded and the old id is already invalidated)
+            self.with_epoch(retry_at_epoch, once)
+            self.scheduler.once(15_000_000, once)
+
+        def adopt():
+            # the old id reached a decision after all: finish it and hand
+            # its outcome to the client rather than re-running the payload
+            Recover.recover(self, old_id, route, txn).begin(adopted)
+
+        def adopted(value, failure):
+            if failure is not None:
+                result.set_failure(failure)
+                return
+            outcome, payload = value
+            if outcome == "invalidated":
+                retry()
+            elif outcome in ("applied", "executed") and payload is not None:
+                result.set_success(payload)
+            else:
+                from ..coordinate.errors import Truncated
+                result.set_failure(Truncated(old_id))
+
+        def failed(failure):
+            if attempt < 3:
+                delay = 500_000 + self.random.next_int(500_000)
+                self.scheduler.once(delay, lambda: self._invalidate_then_retry(
+                    txn, old_id, retries, result, attempt + 1))
+            else:
+                result.set_failure(failure)
+
+        _propose_invalidate(self, old_id, route, ballot, topologies,
+                            on_invalidated=retry, on_redundant=adopt,
+                            on_failed=failed)
+
+    def recover(self, txn_id: TxnId, route: Route) -> async_chain.AsyncResult:
+        """(ref: Node.java:685-713)."""
+        from ..coordinate.recover import Recover
+        existing = self._coordinating.get(txn_id)
+        if existing is not None:
+            return existing
+        result = async_chain.AsyncResult()
+        self._coordinating[txn_id] = result
+        result.begin(lambda _r, _f: self._coordinating.pop(txn_id, None))
+
+        def start():
+            Recover.recover(self, txn_id, route).begin(result.settle)
+
+        self.with_epoch(txn_id.epoch(), start)
+        return result
+
+    def __repr__(self):
+        return f"Node({self.node_id})"

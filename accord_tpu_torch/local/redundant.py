@@ -1,0 +1,435 @@
+"""Watermark maps: MaxConflicts, RedundantBefore, DurableBefore.
+
+Rebuild of ref: accord-core/src/main/java/accord/local/MaxConflicts.java:32,
+RedundantBefore.java:49, DurableBefore.java:39.  All three are range-keyed
+step functions (ReducingRangeMap) — sorted boundary arrays, which is also
+their device format for the deps floor in the PreAccept kernel.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Optional
+
+from ..primitives.keys import Range, Ranges, RoutingKeys, Unseekables
+from ..primitives.timestamp import Timestamp, TxnId, max_timestamp
+from ..utils.interval_map import ReducingRangeMap
+
+
+class MaxConflicts:
+    """range -> max Timestamp witnessed; consulted to propose executeAt
+    (ref: local/MaxConflicts.java)."""
+
+    __slots__ = ("_map",)
+
+    def __init__(self):
+        self._map: ReducingRangeMap = ReducingRangeMap.empty()
+
+    def get_max(self, keys_or_ranges) -> Timestamp:
+        ranges = _as_ranges(keys_or_ranges)
+        out = self._map.fold_over_ranges(ranges, lambda v, acc: max_timestamp(acc, v), None)
+        return out if out is not None else Timestamp.NONE
+
+    def update(self, keys_or_ranges, ts: Timestamp) -> None:
+        ranges = _as_ranges(keys_or_ranges)
+        self._map = self._map.add(ranges, ts, lambda a, b: a if a >= b else b)
+
+
+class RedundantStatus(enum.IntEnum):
+    """(ref: local/RedundantStatus.java)."""
+    NOT_OWNED = 0
+    LIVE = 1
+    PARTIALLY_PRE_BOOTSTRAP_OR_STALE = 2
+    PRE_BOOTSTRAP_OR_STALE = 3
+    PARTIALLY_SHARD_REDUNDANT = 4
+    SHARD_REDUNDANT = 5
+
+
+class RedundantEntry:
+    """(ref: RedundantBefore.Entry).  ``redundant_before`` is the SHARD
+    watermark (shardAppliedOrInvalidatedBefore: applied at every healthy
+    replica — set by SetShardDurable).  The reference's separate
+    locallyAppliedOrInvalidatedBefore watermark is a deliberate omission
+    until a consumer (finer local Cleanup) exists."""
+
+    __slots__ = ("redundant_before", "bootstrapped_at", "stale_until_at_least")
+
+    def __init__(self, redundant_before: TxnId = TxnId.NONE,
+                 bootstrapped_at: TxnId = TxnId.NONE,
+                 stale_until_at_least: Optional[Timestamp] = None):
+        self.redundant_before = redundant_before
+        self.bootstrapped_at = bootstrapped_at
+        self.stale_until_at_least = stale_until_at_least
+
+    def merge(self, other: "RedundantEntry") -> "RedundantEntry":
+        stale = self.stale_until_at_least
+        if other.stale_until_at_least is not None:
+            stale = max_timestamp(stale, other.stale_until_at_least)
+        boot = max(self.bootstrapped_at, other.bootstrapped_at)
+        # a bootstrap fence at/above the stale bound re-covers the data:
+        # staleness clears once the re-bootstrap begins (reads still defer
+        # behind the bootstrap gate until the snapshot lands — ref:
+        # CommandStore.java markShardStale + safeToRead)
+        if stale is not None and boot >= stale:
+            stale = None
+        return RedundantEntry(
+            max(self.redundant_before, other.redundant_before),
+            boot, stale)
+
+    def status_of(self, txn_id: TxnId) -> RedundantStatus:
+        if self.stale_until_at_least is not None or txn_id < self.bootstrapped_at:
+            return RedundantStatus.PRE_BOOTSTRAP_OR_STALE
+        if txn_id < self.redundant_before:
+            return RedundantStatus.SHARD_REDUNDANT
+        return RedundantStatus.LIVE
+
+    def __eq__(self, o):
+        return (isinstance(o, RedundantEntry)
+                and self.redundant_before == o.redundant_before
+                and self.bootstrapped_at == o.bootstrapped_at
+                and self.stale_until_at_least == o.stale_until_at_least)
+
+
+class RedundantBefore:
+    """Range-keyed redundancy watermarks (ref: local/RedundantBefore.java:49).
+
+    ``version`` increments on every watermark mutation: the deps-scan router
+    (local/device_index.py) keys its incremental live-above-floor estimate on
+    it, so detecting "the floor moved" is O(1) per dispatch instead of a
+    re-derivation of the floor map."""
+
+    __slots__ = ("_map", "version", "_packed_floors")
+
+    def __init__(self):
+        self._map: ReducingRangeMap = ReducingRangeMap.empty()
+        self.version = 0
+        self._packed_floors = None   # (version, (bnd, msb, lsb, node))
+
+    def add_redundant(self, ranges: Ranges, redundant_before: TxnId) -> None:
+        """Advance the SHARD-applied watermark (ref: markShardDurable)."""
+        self._merge(ranges, RedundantEntry(redundant_before=redundant_before))
+
+
+    def add_bootstrapped(self, ranges: Ranges, bootstrapped_at: TxnId) -> None:
+        self._merge(ranges, RedundantEntry(bootstrapped_at=bootstrapped_at))
+
+    def add_stale(self, ranges: Ranges, stale_until: Timestamp) -> None:
+        self._merge(ranges, RedundantEntry(stale_until_at_least=stale_until))
+
+    def _merge(self, ranges: Ranges, entry: RedundantEntry) -> None:
+        self._map = self._map.add(ranges, entry, lambda a, b: a.merge(b))
+        self.version += 1
+
+    def shard_redundant_ranges(self, txn_id: TxnId,
+                               within: Ranges) -> Ranges:
+        """The subranges of ``within`` where ``txn_id`` is PROVEN
+        SHARD_REDUNDANT (an ExclusiveSyncPoint at or above it applied at
+        every replica).  This — not raw ownership — is what a truncation
+        claim may advertise as its covering: watermark gaps and
+        majority-only segments prove nothing."""
+        from ..primitives.keys import Range
+        out = []
+
+        def fold(entry, start, end, acc):
+            # test redundant_before DIRECTLY: status_of masks it behind
+            # pre-bootstrap/stale, but those describe THIS store's data
+            # health — the shard-redundancy proof (ESP applied at every
+            # replica) holds regardless, and hiding it would silently
+            # shrink advertised truncation coverings (a straggler could
+            # then never purge)
+            if txn_id < entry.redundant_before:
+                out.append(Range(start, end))
+            return acc
+
+        self._map.fold_with_bounds(fold, None)
+        return Ranges.of(*out).intersecting(within)
+
+    def status(self, txn_id: TxnId, participants) -> RedundantStatus:
+        ranges = _as_ranges(participants)
+        statuses = [e.status_of(txn_id) for e in self._map.values_intersecting(ranges)]
+        if not statuses:
+            return RedundantStatus.LIVE
+        if all(s is RedundantStatus.PRE_BOOTSTRAP_OR_STALE for s in statuses):
+            return RedundantStatus.PRE_BOOTSTRAP_OR_STALE
+        if any(s is RedundantStatus.PRE_BOOTSTRAP_OR_STALE for s in statuses):
+            return RedundantStatus.PARTIALLY_PRE_BOOTSTRAP_OR_STALE
+        if all(s is RedundantStatus.SHARD_REDUNDANT for s in statuses):
+            return RedundantStatus.SHARD_REDUNDANT
+        if any(s is RedundantStatus.SHARD_REDUNDANT for s in statuses):
+            return RedundantStatus.PARTIALLY_SHARD_REDUNDANT
+        return RedundantStatus.LIVE
+
+    def is_redundant(self, txn_id: TxnId, participants) -> bool:
+        return self.status(txn_id, participants) in (
+            RedundantStatus.SHARD_REDUNDANT, RedundantStatus.PRE_BOOTSTRAP_OR_STALE)
+
+    def min_redundant_before(self, token: int) -> TxnId:
+        e = self._map.get(token)
+        return e.redundant_before if e is not None else TxnId.NONE
+
+    def deps_floor(self, token: int) -> TxnId:
+        """The floor below which deps need not be collected for this key
+        (ref: RedundantBefore.collectDeps usage in PreAccept.java:245-264)."""
+        e = self._map.get(token)
+        if e is None:
+            return TxnId.NONE
+        return max(e.redundant_before, e.bootstrapped_at)
+
+    def _segment_ranges(self, pred, within: Ranges) -> Ranges:
+        """Subranges of ``within`` whose map segment satisfies ``pred``
+        (entry may be None for never-touched segments)."""
+        b = self._map.boundaries
+        vals = self._map.values
+        out = []
+        lo_bound = -(1 << 62)
+        hi_bound = 1 << 62
+        for i, v in enumerate(vals):
+            if not pred(v):
+                continue
+            seg_lo = b[i - 1] if i > 0 else lo_bound
+            seg_hi = b[i] if i < len(b) else hi_bound
+            out.append(Range(seg_lo, seg_hi))
+        if not out:
+            return Ranges.empty()
+        return Ranges.of(*out).intersecting(within)
+
+    def stale_ranges(self, within: Ranges) -> Ranges:
+        """Subranges of ``within`` currently marked stale (reads refuse,
+        execution skips) — ref: CommandStore.java safeToRead complement."""
+        return self._segment_ranges(
+            lambda v: v is not None and v.stale_until_at_least is not None,
+            within)
+
+    def live_expect_ranges(self, txn_id: TxnId, within: Ranges) -> Ranges:
+        """Subranges of ``within`` where ``txn_id`` is still LIVE — owned,
+        not pre-bootstrap, not stale, not shard-redundant: the ranges this
+        replica still expects to execute the txn over (ref:
+        RedundantBefore.everExpectToExecute / expectToExecute)."""
+        return self._segment_ranges(
+            lambda v: v is None
+            or v.status_of(txn_id) is RedundantStatus.LIVE, within)
+
+    def min_floor_over(self, lo: int, hi: int) -> TxnId:
+        """Conservative batch-global deps floor: the MIN deps_floor over
+        every map segment overlapping [lo, hi] (TxnId.NONE as soon as any
+        overlapped segment has no floor).  Safe to apply ON DEVICE before
+        the exact per-token host floors: it never exceeds any token's
+        floor inside the window."""
+        import bisect
+        b = self._map.boundaries
+        i0 = bisect.bisect_right(b, lo)
+        i1 = bisect.bisect_right(b, hi)
+        out = None
+        for v in self._map.values[i0:i1 + 1]:
+            f = TxnId.NONE if v is None else max(v.redundant_before,
+                                                 v.bootstrapped_at)
+            if out is None or f < out:
+                out = f
+            if out == TxnId.NONE:
+                break
+        return out if out is not None else TxnId.NONE
+
+    def deps_floor_batch(self, tokens):
+        """Vectorized deps_floor over a token column: packed (msb, lsb,
+        node) int64 arrays aligned with ``tokens``.  One floor is computed
+        per distinct map segment (the map has a handful of segments; the
+        batch has thousands of tokens)."""
+        import numpy as np
+        bnd, fm, fl, fn = self.packed_floor_index()
+        idx = np.searchsorted(bnd, tokens, side="right")
+        return fm[idx], fl[idx], fn[idx]
+
+    def packed_floor_index(self):
+        """The whole floor map as four numpy columns: segment boundaries
+        (int64[F]) plus the per-segment deps_floor triples (int64[F+1] x 2,
+        int32[F+1]; ``searchsorted(bnd, token, side="right")`` selects the
+        segment — exactly deps_floor_batch's rule).  This is the host
+        source of the DEVICE floor index (ops.deps_kernel.AttrIndex): the
+        attributed kernels apply the exact per-token floor in-kernel, so
+        the packed form is cached on ``version`` and shared by every flush
+        until a watermark moves."""
+        import numpy as np
+
+        from ..ops.packing import to_i64
+        hit = self._packed_floors
+        if hit is not None and hit[0] == self.version:
+            return hit[1]
+        m = self._map
+        bnd = np.asarray(m.boundaries, np.int64)
+        fm = np.empty(len(m.values), np.int64)
+        fl = np.empty(len(m.values), np.int64)
+        fn = np.empty(len(m.values), np.int32)
+        for i, v in enumerate(m.values):
+            f = TxnId.NONE if v is None else max(v.redundant_before,
+                                                 v.bootstrapped_at)
+            fm[i], fl[i], fn[i] = to_i64(f.msb), to_i64(f.lsb), f.node
+        packed = (bnd, fm, fl, fn)
+        self._packed_floors = (self.version, packed)
+        return packed
+
+    def boundary_dep(self, token: int) -> Optional[TxnId]:
+        """The bootstrap-fence TxnId flooring this key's deps, if any.  A
+        PreAccept reply that pruned entries below the floor must include the
+        floor itself as a dependency (ref: RedundantBefore.collectDeps):
+        the fence is a real coordinated ExclusiveSyncPoint whose own deps
+        transitively cover everything pruned, so coordinators merging this
+        reply still order after the pruned history."""
+        e = self._map.get(token)
+        if e is None or not (e.bootstrapped_at > TxnId.NONE):
+            return None
+        return e.bootstrapped_at
+
+    def boundary_deps_in(self, ranges: Ranges):
+        """(range, fence TxnId) pairs intersecting ``ranges`` — the range
+        analogue of boundary_dep."""
+        def fold(entry, start, end, acc):
+            if entry.bootstrapped_at > TxnId.NONE:
+                r = Range(start, end)
+                for sel in ranges:
+                    x = r.intersection(sel)
+                    if x is not None:
+                        acc.append((x, entry.bootstrapped_at))
+            return acc
+        return self._map.fold_with_bounds(fold, [])
+
+    def redundant_entries(self):
+        """(start, end, redundant_before) segments with a non-trivial shard
+        watermark — the journal's persisted form (bootstrapped_at is
+        journaled separately at its Bootstrap call sites)."""
+        def fold(e, start, end, acc):
+            if e.redundant_before > TxnId.NONE:
+                acc.append((start, end, e.redundant_before))
+            return acc
+        return self._map.fold_with_bounds(fold, [])
+
+    def locally_settled(self, txn_id: TxnId, participants,
+                        execute_at: Optional[Timestamp] = None) -> bool:
+        """Per-entry clearance: True when EVERY watermark entry intersecting
+        ``participants`` classifies txn_id as done here — shard-redundant
+        (applied at every replica) or pre-bootstrap (the snapshot covers it,
+        provided no known executeAt lands past that entry's fence).  The
+        aggregate status() collapses mixed coverage into PARTIALLY_* and
+        loses exactly this case: a dep redundant on one sub-range and
+        pre-bootstrap on the rest is settled on both, yet neither aggregate
+        branch fires (ref: RedundantBefore folds per Entry; the WaitingOn
+        clearance consumes the per-range answer)."""
+        ranges = _as_ranges(participants)
+        entries = self._map.values_intersecting(ranges)
+        if not entries:
+            return False
+        for e in entries:
+            s = e.status_of(txn_id)
+            if s is RedundantStatus.SHARD_REDUNDANT:
+                continue
+            if s is RedundantStatus.PRE_BOOTSTRAP_OR_STALE:
+                if execute_at is None or e.stale_until_at_least is not None \
+                        or execute_at < e.bootstrapped_at:
+                    continue
+            return False
+        return True
+
+    def bootstrap_covers(self, execute_at: Timestamp, participants) -> bool:
+        """Whether a dep KNOWN to execute at ``execute_at`` is fully covered
+        by the bootstrap snapshot over ``participants``.  Callers must not
+        pass a guessed executeAt: an undecided dep can still slow-path past
+        the fence."""
+        ranges = _as_ranges(participants)
+        entries = self._map.values_intersecting(ranges)
+        if not entries:
+            return False
+        return all(execute_at < e.bootstrapped_at or
+                   e.stale_until_at_least is not None for e in entries)
+
+
+class DurableBefore:
+    """Global durability watermarks per range: {majority, universal}
+    (ref: local/DurableBefore.java:39)."""
+
+    __slots__ = ("_map",)
+
+    class Entry:
+        __slots__ = ("majority_before", "universal_before")
+
+        def __init__(self, majority_before: TxnId = TxnId.NONE,
+                     universal_before: TxnId = TxnId.NONE):
+            self.majority_before = majority_before
+            self.universal_before = universal_before
+
+        def merge(self, other: "DurableBefore.Entry") -> "DurableBefore.Entry":
+            return DurableBefore.Entry(
+                max(self.majority_before, other.majority_before),
+                max(self.universal_before, other.universal_before))
+
+        def __eq__(self, o):
+            return (isinstance(o, DurableBefore.Entry)
+                    and self.majority_before == o.majority_before
+                    and self.universal_before == o.universal_before)
+
+    def __init__(self):
+        self._map: ReducingRangeMap = ReducingRangeMap.empty()
+
+    def add_majority(self, ranges: Ranges, before: TxnId) -> None:
+        self._map = self._map.add(ranges, DurableBefore.Entry(majority_before=before),
+                                  lambda a, b: a.merge(b))
+
+    def add_universal(self, ranges: Ranges, before: TxnId) -> None:
+        self._map = self._map.add(ranges, DurableBefore.Entry(universal_before=before),
+                                  lambda a, b: a.merge(b))
+
+    def is_majority_durable(self, txn_id: TxnId, token: int) -> bool:
+        e = self._map.get(token)
+        return e is not None and txn_id < e.majority_before
+
+    def is_universally_durable(self, txn_id: TxnId, token: int) -> bool:
+        e = self._map.get(token)
+        return e is not None and txn_id < e.universal_before
+
+    def min_majority_before(self, ranges: Ranges) -> TxnId:
+        """Gap-aware min: an uncovered sub-range counts as NONE."""
+        return self._map.fold_over_ranges_with_gaps(
+            ranges,
+            lambda e, acc: min(acc, e.majority_before if e is not None
+                               else TxnId.NONE),
+            TxnId.MAX)
+
+    def min_universal_before(self, ranges: Ranges) -> TxnId:
+        return self._map.fold_over_ranges_with_gaps(
+            ranges,
+            lambda e, acc: min(acc, e.universal_before if e is not None
+                               else TxnId.NONE),
+            TxnId.MAX)
+
+    def entries(self):
+        """(start, end, majority_before, universal_before) segments — the
+        wire form for QueryDurableBefore/SetGloballyDurable gossip."""
+        def fold(e, start, end, acc):
+            acc.append((start, end, e.majority_before, e.universal_before))
+            return acc
+        return self._map.fold_with_bounds(fold, [])
+
+    def merge_entries(self, entries) -> None:
+        """Max-merge gossiped segments (facts only spread forward)."""
+        for start, end, majority, universal in entries:
+            rs = Ranges.of(Range(start, end))
+            self._map = self._map.add(
+                rs, DurableBefore.Entry(majority, universal),
+                lambda a, b: a.merge(b))
+
+
+def participant_slice(owned: Ranges, participants) -> Ranges:
+    """``owned`` ∩ the participants' token coverage — the one definition of
+    'this store's slice of the txn' shared by the truncation replier
+    (CheckStatus) and the purger (Propagate); a drift between the two
+    breaks the proof-containment check."""
+    if participants is None:
+        return owned
+    return owned.intersecting(_as_ranges(participants))
+
+
+def _as_ranges(keys_or_ranges) -> Ranges:
+    if isinstance(keys_or_ranges, Ranges):
+        return keys_or_ranges
+    if hasattr(keys_or_ranges, "to_ranges"):
+        return keys_or_ranges.to_ranges()
+    # Keys
+    return Ranges([Range(k.token(), k.token() + 1) for k in keys_or_ranges])

@@ -1,0 +1,759 @@
+"""Maelstrom node: speaks the Maelstrom/Jepsen JSON body protocol over an
+emit callback (stdout in ``__main__``, an in-process queue in the Runner).
+
+Rebuild of ref: accord-maelstrom/src/main/java/accord/maelstrom/Main.java
+:60-243 (node wiring, StdoutSink w/ timeout sweeper), MaelstromRequest.java
+:60-140 ("txn" body -> coordinate -> "txn_ok" reply), TopologyFactory.java
+(static hash-space topology), SimpleConfigService.java (single epoch).
+
+Inter-node traffic wraps this project's wire codec (accord_tpu.wire — the
+Json.java analogue): requests as ``{"type": "accord_req", "payload": ...}``
+bodies, replies correlated by Maelstrom ``msg_id``/``in_reply_to``.
+
+The workload is Maelstrom's list-append ``txn``: ops ``["r", k, null]`` and
+``["append", k, v]``; keys (ints or strings) hash onto the token ring.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import heapq
+from typing import Callable, Dict, List, Optional, Tuple
+
+from .. import api, wire
+from ..coordinate.errors import Timeout
+from ..local.fastpath import proto_fastpath_enabled, store_group_enabled
+from ..impl.config_service import AbstractConfigurationService
+from ..local.node import Node
+from ..primitives.datum import datum_from_json, datum_to_json
+from ..primitives.keys import IntKey, Keys, Range, Ranges
+from ..primitives.txn import Txn
+from ..primitives.timestamp import TxnKind
+from ..sim.kvstore import KVDataStore, KVQuery, KVRead, KVUpdate
+from ..topology.shard import Shard
+from ..topology.topology import Topology
+from ..utils.random_source import RandomSource
+
+_FASTPATH = proto_fastpath_enabled()
+# r20 store-grouped execution: accord_batch envelopes decode in one pass
+# and deliver their protocol requests through Node.receive_group (one
+# scheduler hop, one SafeCommandStore per (run x store)) instead of N
+# recursive per-op handle calls.  ACCORD_TPU_STORE_GROUP=off restores
+# the r16 unbatch-at-the-door path.
+_STORE_GROUP = store_group_enabled()
+
+TOKEN_SPACE = 1 << 32
+# ref: Main.java uses a 1s sweeper; a cold JAX node stalls for seconds per
+# first-compile of each kernel shape, so the wall-clock bound here is wider
+# (the sim cluster keeps its own simulated-time timeouts); the TCP serving
+# surface (accord_tpu.net.server) passes a much tighter bound
+REQUEST_TIMEOUT_MICROS = 20_000_000
+SWEEP_INTERVAL_MICROS = 200_000
+# small deterministic per-request timeout jitter (same bound as the sim
+# NodeSink's Cluster.timeout_jitter): co-scheduled fan-out requests must
+# not expire at the same instant and fire as a synchronized retry storm
+TIMEOUT_JITTER_MICROS = 4096
+
+
+def node_name_to_id(name: str) -> int:
+    """Maelstrom names are "n1".."nN"; ids must be ints (and nonzero)."""
+    digits = "".join(ch for ch in name if ch.isdigit())
+    if digits:
+        return int(digits) + 1   # "n0" is valid maelstrom; our ids start at 1
+    return (int.from_bytes(hashlib.sha256(name.encode()).digest()[:4], "big")
+            % 1_000_000) + 1
+
+
+def token_of(key) -> int:
+    """Map a Maelstrom key (int or string) onto the token ring."""
+    if isinstance(key, bool) or not isinstance(key, int):
+        digest = hashlib.sha256(repr(key).encode()).digest()
+        return int.from_bytes(digest[:8], "big") % TOKEN_SPACE
+    return key % TOKEN_SPACE
+
+
+def build_maelstrom_topology(node_ids: List[int], shards: int = 16,
+                             rf: Optional[int] = None) -> Topology:
+    """Static single-epoch topology: the hash space split into ``shards``
+    ranges, each replicated rf ways round-robin
+    (ref: maelstrom/TopologyFactory.java; Main.java uses (64, 3))."""
+    from ..sim.topology_factory import build_topology
+    rf = rf if rf is not None else min(3, len(node_ids))
+    return build_topology(1, node_ids, rf, shards,
+                          min_token=0, max_token=TOKEN_SPACE)
+
+
+class _Pending:
+    __slots__ = ("callback", "to", "deadline", "entry")
+
+    def __init__(self, callback, to: int, deadline: int, entry: List):
+        self.callback = callback
+        self.to = to
+        self.deadline = deadline
+        # the pending-timeout heap entry ([deadline, msg_id]); tombstoned
+        # (msg_id -> None) the moment the callback resolves
+        self.entry = entry
+
+
+class MaelstromSink(api.MessageSink):
+    """MessageSink over Maelstrom bodies (ref: Main.StdoutSink).  Replies
+    correlate on msg_id; unanswered callbacks time out via a sweeper over
+    a deadline HEAP whose entries are tombstoned the moment a reply
+    resolves — the r07 NodeSink fixes ported here (sim/cluster.py:128-159):
+    a completed request must not leave a dead callback reachable for the
+    full timeout horizon, and per-request deterministic jitter (dedicated
+    stream, protocol RNG untouched) desynchronizes co-scheduled timeouts
+    so they cannot fire as one retry storm."""
+
+    def __init__(self, process: "MaelstromProcess",
+                 jitter: Optional[RandomSource] = None):
+        self.process = process
+        self._next_msg_id = 0
+        self.pending: Dict[int, _Pending] = {}
+        self._timeouts: List[List] = []   # [deadline, msg_id] min-heap
+        self._tombstones = 0              # resolved entries still heaped
+        self._jitter = jitter
+
+    def _msg_id(self) -> int:
+        self._next_msg_id += 1
+        return self._next_msg_id
+
+    def _emit(self, to: int, body: dict) -> None:
+        self.process.emit_packet(to, body)
+
+    def _is_self(self, to: int) -> bool:
+        node = getattr(self.process, "node", None)
+        return node is not None and to == node.node_id
+
+    def _deliver_local(self, request, msg_id: Optional[int]) -> None:
+        """Self-send fast path (r16): a request to our own node skips the
+        wire codec entirely — the OBJECT is handed to ``node.receive`` at
+        the next scheduler hop (deferred, never reentrant: same policy as
+        ``emit_packet``'s body loop-back this replaces on the hot path).
+        Object sharing across the node boundary is exactly the sim
+        NodeSink's semantics, so the protocol's tolerance of it is already
+        pinned by the whole sim suite; with rf == cluster size a third of
+        all protocol messages were paying encode+decode to reach their own
+        process."""
+        node = self.process.node
+        my_id = node.node_id
+        self.process.scheduler.now(
+            lambda: node.receive(request, my_id, msg_id))
+
+    def _encode_request(self, request):
+        """wire.encode with per-OBJECT doc reuse (r18): coordinators fan
+        ONE PreAccept/Accept/Apply object to every shard replica, and the
+        golden-frame gate pins decode∘encode as the identity, so the doc
+        cached at first encode (or attached at inbound decode) is
+        byte-identical for every later destination."""
+        if not _FASTPATH:
+            return wire.encode(request)
+        doc = getattr(request, "_wire_doc", None)
+        if doc is None:
+            doc = wire.encode(request)
+            try:
+                request._wire_doc = doc
+            except AttributeError:
+                pass   # slotted/exotic request: encode per send
+        return doc
+
+    def send(self, to: int, request) -> None:
+        if self._is_self(to):
+            self._deliver_local(request, self._msg_id())
+            return
+        self._emit(to, {"type": "accord_req", "msg_id": self._msg_id(),
+                        "payload": self._encode_request(request)})
+
+    def send_with_callback(self, to: int, request, callback) -> None:
+        msg_id = self._msg_id()
+        timeout = self.process.request_timeout_micros
+        # barrier reads (commit-fused reads, WaitOnCommit) reply only when
+        # the replica's drain releases them — give them room before declaring
+        # the replica dead (same policy as the sim NodeSink)
+        if getattr(request, "is_slow_read", False):
+            timeout *= 10
+        if self._jitter is not None:
+            timeout += self._jitter.next_int(TIMEOUT_JITTER_MICROS)
+        deadline = self.process.now_micros() + timeout
+        # [deadline, tiebreak, msg_id]: the tiebreak copy stays immutable
+        # so equal-deadline entries never compare a tombstoned None
+        entry = [deadline, msg_id, msg_id]
+        self.pending[msg_id] = _Pending(callback, to, deadline, entry)
+        heapq.heappush(self._timeouts, entry)
+        if self._is_self(to):
+            # the pending-table entry above still owns the timeout: a
+            # self-request wedged behind a stalled store times out exactly
+            # like a remote one
+            self._deliver_local(request, msg_id)
+            return
+        self._emit(to, {"type": "accord_req", "msg_id": msg_id,
+                        "payload": self._encode_request(request)})
+
+    def _resolve(self, msg_id: int) -> Optional[_Pending]:
+        """Pop a pending request and tombstone its heap entry in place
+        (the sweeper skips tombstones; no dead callback is held for the
+        remaining horizon)."""
+        p = self.pending.pop(msg_id, None)
+        if p is not None:
+            p.entry[2] = None
+            self._tombstones += 1
+            # r13 fix: a tombstone still OCCUPIES its heap slot until its
+            # deadline sweeps past — for slow-read requests that is 10x
+            # the base horizon, so a burst of requests resolved against a
+            # node that then restarts leaves dead [deadline, tie, None]
+            # entries heaped long past the horizon.  Once tombstones
+            # outnumber live entries, rebuild the heap from the live set
+            # (the entry lists are shared, so later tombstoning of a
+            # carried-over entry still works in place).
+            if self._tombstones > 64 and self._tombstones > len(self.pending):
+                self._compact_timeouts()
+        return p
+
+    def _compact_timeouts(self) -> None:
+        self._timeouts = [q.entry for q in self.pending.values()]
+        heapq.heapify(self._timeouts)
+        self._tombstones = 0
+
+    def reply(self, to: int, reply_context, reply) -> None:
+        if reply_context is None:
+            return   # local requests (Propagate) have no reply path
+        if self._is_self(to):
+            # self-reply fast path: dispatch the reply OBJECT back into
+            # our own response handler at the next scheduler hop — same
+            # journal gating as the wire path below (a promise to
+            # ourselves is still a promise about durable state)
+            my_id = self.process.node.node_id
+            deliver = lambda: self.process.scheduler.now(  # noqa: E731
+                lambda: self.on_response(my_id, reply_context, reply))
+            journal = self.process.durable_journal()
+            if journal is not None and journal.gate_protocol_replies():
+                journal.commit.after_durable(deliver)
+            else:
+                deliver()
+            return
+        body = {"type": "accord_rsp", "msg_id": self._msg_id(),
+                "in_reply_to": reply_context,
+                "payload": wire.encode(reply)}
+        journal = self.process.durable_journal()
+        if journal is not None and journal.gate_protocol_replies():
+            # strict mode (--journal-sync all): a protocol reply is a
+            # PROMISE about this node's state (a PreAcceptOk promises the
+            # witness, an AcceptReply the ballot) — it leaves only once
+            # the WAL records backing it (journaled at _process entry and
+            # during the store update) are fsynced.  One batch fsync
+            # releases every reply in the window.
+            journal.commit.after_durable(lambda: self._emit(to, body))
+        else:
+            self._emit(to, body)
+
+    def reply_with_unknown_failure(self, to: int, reply_context,
+                                   failure: BaseException) -> None:
+        if reply_context is None:
+            # local requests (Propagate) have no reply path, but the
+            # failure must not vanish: stderr is maelstrom's log channel
+            import sys
+            print(f"local request failed: {failure!r}", file=sys.stderr)
+            return
+        if self._is_self(to):
+            my_id = self.process.node.node_id
+            self.process.scheduler.now(
+                lambda: self.on_failure_response(my_id, reply_context,
+                                                 repr(failure)))
+            return
+        self._emit(to, {"type": "accord_fail", "msg_id": self._msg_id(),
+                        "in_reply_to": reply_context,
+                        "error": repr(failure)})
+
+    def sweep(self) -> None:
+        """Fire every expired pending timeout: pop the deadline heap up to
+        ``now``, skipping tombstoned entries (already resolved) — O(expired
+        + resolved) per sweep instead of O(all pending)."""
+        now = self.process.now_micros()
+        while self._timeouts and self._timeouts[0][0] <= now:
+            _deadline, _tie, msg_id = heapq.heappop(self._timeouts)
+            if msg_id is None:
+                self._tombstones = max(0, self._tombstones - 1)
+                continue   # tombstone: resolved before its deadline
+            p = self.pending.pop(msg_id, None)
+            if p is None:
+                continue
+            p.callback.on_failure(p.to, Timeout(msg=f"timeout to {p.to}"))
+
+    # -- inbound ------------------------------------------------------------
+    def on_response(self, from_id: int, in_reply_to: int, reply) -> None:
+        p = self.pending.get(in_reply_to)
+        if p is None:
+            return   # idempotent: late duplicate / reply racing a timeout
+        # multi-reply exchanges: a fused Stable+Read replies CommitOk
+        # (non-final) then ReadOk — keep the callback until the final reply
+        final = reply.is_final() if hasattr(reply, "is_final") else True
+        if final:
+            self._resolve(in_reply_to)
+        p.callback.on_success(from_id, reply)
+
+    def on_failure_response(self, from_id: int, in_reply_to: int,
+                            error: str) -> None:
+        p = self._resolve(in_reply_to)
+        if p is not None:
+            p.callback.on_failure(from_id, RuntimeError(error))
+
+
+class StaticConfigService(AbstractConfigurationService):
+    """Single static epoch on the shared epoch-ledger base
+    (ref: maelstrom/SimpleConfigService.java over
+    impl/AbstractConfigurationService.java)."""
+
+    def __init__(self, topology: Topology):
+        super().__init__()
+        self.report_topology(topology)
+
+    def acknowledge_epoch(self, epoch_ready, start_sync: bool = True) -> None:
+        pass
+
+
+class MaelstromAgent(api.Agent):
+    """(ref: maelstrom/MaelstromAgent.java)."""
+
+    def __init__(self, process: "MaelstromProcess"):
+        self.process = process
+
+    def on_uncaught_exception(self, failure: BaseException) -> None:
+        self.process.failures.append(failure)
+
+    def on_handled_exception(self, failure: BaseException) -> None:
+        pass
+
+
+class MaelstromProcess:
+    """One Maelstrom node process: pre-init buffering, init handshake, then
+    client txn bodies + inter-node accord bodies
+    (ref: Main.listen :145-243)."""
+
+    def __init__(self, emit: Callable[[str, dict], None],
+                 scheduler: api.Scheduler,
+                 now_micros: Callable[[], int],
+                 num_stores: int = 2,
+                 shards: int = 16,
+                 device_mode: Optional[bool] = None,
+                 durability: bool = True,
+                 obs=None,
+                 request_timeout_micros: Optional[int] = None,
+                 journal=None):
+        self._emit_raw = emit
+        self.scheduler = scheduler
+        self.now_micros = now_micros
+        self.num_stores = num_stores
+        self.shards = shards
+        self.device_mode = device_mode
+        # shared obs.Observability (the in-process runner wires one per
+        # run so bench config rows read phase latencies + fast-path rate)
+        self.obs = obs
+        self.enable_durability = durability
+        # on-disk journal (accord_tpu.journal.DurableJournal) — None means
+        # the r12 behaviour: a kill -9 rejoin is fresh-state
+        self.journal = journal
+        # sink-owned request timeout (the TCP serving surface tightens it;
+        # the Maelstrom default stays wide for cold-compile stalls)
+        self.request_timeout_micros = (request_timeout_micros
+                                       or REQUEST_TIMEOUT_MICROS)
+        # admission gate in front of coordinate (accord_tpu.net.admission;
+        # None = admit everything — the sim runner and Maelstrom harness)
+        self.admission = None
+        # elastic-serving reconfiguration manager (accord_tpu.net.reconfig;
+        # None = the static single-epoch Maelstrom behaviour).  When set,
+        # the node runs on its NetConfigService: epochs propagate over the
+        # wire, membership is dynamic, stores bootstrap via FetchSnapshot.
+        self.reconfig = None
+        # where unknown (non-protocol) bodies go — the TCP server routes
+        # them back into its control plane (batch-envelope riders)
+        self.control_fallback = None
+        self.name: Optional[str] = None
+        self.node: Optional[Node] = None
+        self.sink: Optional[MaelstromSink] = None
+        self.failures: List[BaseException] = []
+        self._names_by_id: Dict[int, str] = {}
+        self._client_msg_id = 0
+        self._sweeper = None
+
+    def durable_journal(self):
+        """The armed on-disk journal, or None (also None once its group
+        commit has degraded: no gating on a promise it can't keep)."""
+        j = self.journal
+        if j is None or getattr(j, "commit", None) is None \
+                or j.commit.failed:
+            return None
+        return j
+
+    def note_peer(self, name: str) -> None:
+        """Register a peer name->id mapping learned AFTER init (a node
+        that joined via reconfiguration): outbound protocol packets to
+        its id route to its name."""
+        self._names_by_id[node_name_to_id(name)] = name
+
+    # -- outbound -----------------------------------------------------------
+    def emit_packet(self, to, body: dict) -> None:
+        dest = self._names_by_id.get(to, to) if isinstance(to, int) else to
+        if dest == self.name:
+            # loop self-sends back locally (deferred, never reentrant) rather
+            # than round-tripping them through the harness network
+            self.scheduler.now(
+                lambda: self.handle({"src": self.name, "dest": dest,
+                                     "body": body}))
+            return
+        self._emit_raw(dest, body)
+
+    def _reply_client(self, dest: str, in_reply_to: int, body: dict) -> None:
+        self._client_msg_id += 1
+        body = dict(body)
+        body["msg_id"] = self._client_msg_id
+        body["in_reply_to"] = in_reply_to
+        journal = self.journal
+        if journal is not None and hasattr(journal, "record_reply") \
+                and body.get("type") == "txn_ok":
+            # at-most-once across death: the reply this node now OWES is a
+            # journal fact (keyed by the client's msg_id; our own msg_id
+            # is re-stamped on any re-send).  Under the "all"/"client"
+            # sync policies it leaves only once the txn's journal records
+            # — and the owed-reply record itself — are fsynced: acked =>
+            # durable.  A restarted incarnation answers a duplicate
+            # request from this table instead of re-coordinating.  On a
+            # DEGRADED journal the table still records in memory (the
+            # dedupe contract outlives durability) but nothing gates.
+            stored = {k: v for k, v in body.items() if k != "msg_id"}
+            journal.record_reply(dest, in_reply_to, stored)
+            if self.durable_journal() is not None \
+                    and journal.gate_client_replies():
+                journal.commit.after_durable(
+                    lambda: self._emit_raw(dest, body))
+                return
+        self._emit_raw(dest, body)
+
+    def _replay_client_reply(self, dest: str, in_reply_to: int,
+                             stored: dict) -> None:
+        """Re-serve an already-journaled reply to a duplicate request."""
+        self._client_msg_id += 1
+        body = dict(stored)
+        body["msg_id"] = self._client_msg_id
+        body["in_reply_to"] = in_reply_to
+        self._emit_raw(dest, body)
+
+    # -- inbound ------------------------------------------------------------
+    def handle(self, packet: dict, _from_envelope: bool = False) -> None:
+        """Process one Maelstrom packet {src, dest, body}."""
+        body = packet.get("body", {})
+        typ = body.get("type")
+        src = packet.get("src", "")
+        if typ == "init":
+            self._handle_init(src, body)
+            return
+        if self.node is None:
+            # Maelstrom guarantees init first; tolerate strays
+            return
+        if typ == "accord_batch":
+            # cross-request fused fan-out (r16): one envelope carries N
+            # ops' bodies from one peer tick.  Under _STORE_GROUP (r20)
+            # the envelope's protocol requests decode in ONE pass and
+            # deliver as a group (store-grouped execution); otherwise
+            # unbatch HERE, at the protocol receiver, into the unchanged
+            # per-op path below (the envelope is transport amortization,
+            # never protocol state: per-op decisions, deps and replies
+            # are byte-identical to N separate frames).  Either way the
+            # sub-bodies run in one scheduler tick, so their store
+            # flushes coalesce into one deps flush (and one fused device
+            # launch under --device-mode) by construction.
+            if _STORE_GROUP:
+                self._handle_batch_grouped(src, packet)
+                return
+            import sys
+            for sub in body.get("msgs") or ():
+                try:
+                    self.handle({"src": src, "dest": packet.get("dest"),
+                                 "body": sub}, _from_envelope=True)
+                except Exception as exc:   # one poisoned sub-body must
+                    # not drop the rest of the batch on the floor
+                    print(f"batch sub-handler error on "
+                          f"{(sub or {}).get('type')}: {exc!r}",
+                          file=sys.stderr)
+        elif typ == "accord_req":
+            request = wire.decode(body["payload"])
+            try:
+                # r16: the inbound doc IS wire.encode(request) (the
+                # golden-frame gate pins decode∘encode as the identity) —
+                # the durable journal reuses it instead of re-encoding
+                # the whole request at record_message time
+                request._wire_doc = body["payload"]
+            except AttributeError:
+                pass   # slotted/exotic request: journal re-encodes
+            self.node.receive(request, node_name_to_id(src), body["msg_id"])
+        elif typ == "accord_rsp":
+            payload = body["payload"]
+            if _from_envelope and self.reconfig is not None \
+                    and isinstance(payload, dict) \
+                    and payload.get("_t") == "FetchSnapshotOk":
+                # bootstrap byte accounting for the one delivery shape
+                # the frame layer cannot weigh: an ENVELOPE rider.  Such
+                # replies are small by construction (large payloads
+                # always leave as direct or chunked frames, counted for
+                # free at the server), so the re-encode here is cheap
+                # and rare.
+                self.reconfig.note_snapshot_reply(body)
+            reply = wire.decode(payload)
+            self.sink.on_response(node_name_to_id(src), body["in_reply_to"],
+                                  reply)
+        elif typ == "accord_fail":
+            self.sink.on_failure_response(node_name_to_id(src),
+                                          body["in_reply_to"], body["error"])
+        elif typ == "txn":
+            self._handle_txn(src, body)
+        elif self.control_fallback is not None:
+            # serving-surface control bodies (topo_new / epoch_sync /
+            # topo_fetch / codec_hello / accord_chunk) that rode a peer
+            # accord_batch envelope: hand them back to the server's
+            # control router — without this, any reconfiguration gossip
+            # sharing a tick with protocol traffic would be silently
+            # dropped at the unbatcher
+            self.control_fallback(packet)
+
+    def _handle_batch_grouped(self, src: str, packet: dict) -> None:
+        """r20 store-grouped envelope intake: decode the envelope's
+        ``accord_req`` sub-bodies in ONE codec dispatch loop (shared
+        ``_wire_doc`` stamping) and hand each consecutive run to
+        :meth:`Node.receive_group`.  Sub-bodies the grouper cannot prove
+        safe to merge — replies (synchronous by contract), control verbs
+        and reconfig gossip (``control_fallback`` riders), client txns —
+        FLUSH the current run and take the unchanged per-op path, so
+        inter-type ordering is exactly the per-op unbatcher's: per-op
+        requests defer via one scheduler hop while everything else
+        handles synchronously, before the deferred run."""
+        import sys
+        from_id = node_name_to_id(src)
+        group: List = []
+
+        def flush():
+            if group:
+                self.node.receive_group(group[:], from_id)
+                del group[:]
+
+        for sub in packet.get("body", {}).get("msgs") or ():
+            styp = (sub or {}).get("type")
+            if styp == "accord_req":
+                try:
+                    request = wire.decode(sub["payload"])
+                    try:
+                        request._wire_doc = sub["payload"]
+                    except AttributeError:
+                        pass   # slotted/exotic request: journal re-encodes
+                    group.append((request, sub["msg_id"]))
+                except Exception as exc:
+                    print(f"batch sub-handler error on accord_req: {exc!r}",
+                          file=sys.stderr)
+                continue
+            flush()
+            if styp not in ("accord_rsp", "accord_fail", "txn"):
+                # control verbs / reconfig gossip riding the envelope:
+                # per-op fallback through control_fallback
+                self.node.n_group_fallbacks += 1
+            try:
+                self.handle({"src": src, "dest": packet.get("dest"),
+                             "body": sub}, _from_envelope=True)
+            except Exception as exc:   # one poisoned sub-body must not
+                # drop the rest of the batch on the floor
+                print(f"batch sub-handler error on {styp}: {exc!r}",
+                      file=sys.stderr)
+        flush()
+
+    def _handle_init(self, src: str, body: dict) -> None:
+        self.name = body["node_id"]
+        names = list(body["node_ids"])
+        ids = []
+        for n in names:
+            nid = node_name_to_id(n)
+            self._names_by_id[nid] = n
+            ids.append(nid)
+        my_id = node_name_to_id(self.name)
+        # self-mapping even when we are NOT an epoch-1 member (a joining
+        # node's init carries the EXISTING cluster as node_ids): loop-back
+        # and self-send detection key on it
+        self._names_by_id[my_id] = self.name
+        topology = build_maelstrom_topology(ids, shards=self.shards)
+        # timeout jitter on a dedicated deterministic stream seeded from
+        # the node id — the protocol RandomSource below is untouched
+        self.sink = MaelstromSink(self, jitter=RandomSource(
+            0x51D ^ (my_id << 12)))
+        if self.journal is not None:
+            # the data store's appends become journal facts too — the
+            # premise 'the data store is durable' that restore() assumes
+            from ..journal import JournaledKVDataStore
+            data_store = JournaledKVDataStore(my_id, self.journal)
+        else:
+            data_store = KVDataStore(my_id)
+        if self.reconfig is not None:
+            # elastic serving: the node runs on the wire-backed epoch
+            # ledger; the initial history is epoch 1 (static member list)
+            # plus every journaled successor — a node killed -9
+            # mid-reconfiguration recovers into the right epoch
+            config_service = self.reconfig.config_service
+            topologies = self.reconfig.bootstrap_topologies(topology)
+        else:
+            config_service = StaticConfigService(topology)
+            topologies = [topology]
+        self.node = Node(
+            node_id=my_id, message_sink=self.sink,
+            config_service=config_service,
+            scheduler=self.scheduler,
+            data_store=data_store,
+            agent=MaelstromAgent(self),
+            random=RandomSource(my_id * 7919),
+            now_micros=self.now_micros,
+            num_stores=self.num_stores,
+            device_mode=self.device_mode,
+            journal=self.journal)
+        self.node.obs = self.obs
+        if self.journal is not None and self.journal.has_restored_state():
+            # kill -9 recovery: re-ingest the epoch history WITHOUT
+            # re-bootstrapping, seed the fresh data store with the
+            # recovered value logs, then rebuild every store's commands
+            # through the SAME restore path the sim's restart tests pin
+            self.node.restore_topologies(topologies)
+            self.journal.install_data(data_store)
+            self.journal.restore(self.node)
+        else:
+            for t in topologies:
+                self.node.on_topology_update(t)
+        if self.reconfig is not None:
+            self.reconfig.attach_node(self.node)
+        self._sweeper = self.scheduler.recurring(SWEEP_INTERVAL_MICROS,
+                                                 self.sink.sweep)
+        # background durability rounds -> watermarks -> truncation
+        # (ref: Main.java wires CoordinateDurabilityScheduling)
+        if self.enable_durability:
+            from ..impl.durability_scheduling import DurabilityScheduling
+            self.durability = DurabilityScheduling(
+                self.node, shard_cycle_micros=5_000_000,
+                global_cycle_micros=15_000_000)
+            self.durability.start()
+        # warm-compile the device deps kernel BEFORE acking init: Maelstrom
+        # sends no work until init_ok, and a cold first compile (seconds)
+        # would otherwise race the 1s callback sweeper into spurious
+        # client-visible timeouts on the first txns
+        from ..primitives.timestamp import Domain, TxnKind
+        for store in self.node.command_stores.stores:
+            dev = getattr(store, "device", None)
+            if dev is None:
+                continue
+            tid = self.node.next_txn_id(TxnKind.Write, Domain.Key)
+            try:
+                dev.deps_query_batch(
+                    [(tid, tid, tid.kind().witnesses(), [0], [])])
+            except Exception:
+                pass   # warmup must never block startup
+        self._reply_client(src, body["msg_id"], {"type": "init_ok"})
+
+    # -- the list-append "txn" workload --------------------------------------
+    def _handle_txn(self, src: str, body: dict) -> None:
+        ops = body["txn"]
+        msg_id = body["msg_id"]
+        journal = self.journal
+        if journal is not None and hasattr(journal, "replied_body"):
+            # the at-most-once table (journaled, restart-durable): a
+            # duplicate of an already-answered request gets the SAME
+            # reply back — never a second coordination, never silence.
+            # Consulted from the IN-MEMORY table even after the group
+            # commit degrades: losing durability must not also lose the
+            # dedupe contract for this incarnation's lifetime.
+            stored = journal.replied_body(src, msg_id)
+            if stored is not None:
+                self._replay_client_reply(src, msg_id, stored)
+                return
+        # admission gate (accord_tpu.net.admission) FIRST: a shed must be
+        # the cheapest possible outcome — no token hashing, no datum
+        # decode, no coordination state — just a fast, explicit Overloaded
+        # wire error (Maelstrom code 11, temporarily-unavailable) the
+        # client sink surfaces for retry-with-backoff
+        gate = self.admission
+        if gate is not None:
+            admitted, reason, retry_ms = gate.try_admit()
+            if not admitted:
+                self._reply_client(src, msg_id, {
+                    "type": "error", "code": 11, "text": "overloaded",
+                    "overloaded": True, "reason": reason,
+                    "retry_after_ms": retry_ms})
+                return
+        t_admit = self.now_micros()
+        released = [False]
+
+        def release_once(ok: bool, record: bool = True) -> None:
+            # at-most-once: on_done may have already released when a
+            # later exception propagates back through _handle_txn.
+            # record=False frees the slot without feeding the AIMD latency
+            # window — the instant error paths would otherwise teach the
+            # controller the node is microsecond-fast under poison traffic
+            if gate is not None and not released[0]:
+                released[0] = True
+                gate.release(self.now_micros() - t_admit if record else None,
+                             ok=ok)
+
+        try:
+            self._coordinate_txn(src, msg_id, ops, release_once)
+        except BaseException:
+            # any synchronous failure between admit and the coordination's
+            # own on_done (malformed op shapes, unhashable keys, a raising
+            # coordinate) must free the admission slot — a leaked slot is
+            # permanent and admit_max of them wedges the node at 100% shed
+            release_once(False, record=False)
+            raise
+
+    def _coordinate_txn(self, src: str, msg_id: int, ops,
+                        release_once) -> None:
+        read_tokens: List[int] = []
+        appends: Dict[int, tuple] = {}
+        for op in ops:
+            f, k = op[0], op[1]
+            t = token_of(k)
+            if f == "r":
+                read_tokens.append(t)
+            elif f == "append":
+                # multi-type datums (ref: maelstrom/Datum.java): string/
+                # long/double are native JSON; {"hash": n} becomes DatumHash
+                appends[t] = appends.get(t, ()) + (datum_from_json(op[2]),)
+            else:
+                release_once(False, record=False)
+                self._reply_client(src, msg_id, {
+                    "type": "error", "code": 10,
+                    "text": f"unsupported op {f}"})
+                return
+        all_tokens = sorted(set(read_tokens) | set(appends))
+        keys = Keys([IntKey(t) for t in all_tokens])
+        kind = TxnKind.Write if appends else TxnKind.Read
+        txn = Txn(kind, keys,
+                  KVRead(Keys([IntKey(t) for t in sorted(set(read_tokens))])),
+                  KVUpdate(appends) if appends else None, KVQuery())
+
+        def on_done(result, failure):
+            # the released duration IS the txn root span (admission ->
+            # client reply) — the admission controller's p99 signal
+            release_once(failure is None)
+            if failure is not None:
+                # retryable per Maelstrom error semantics (the checker treats
+                # it as an indeterminate op, ref: MaelstromReply error paths)
+                self._reply_client(src, msg_id, {
+                    "type": "error", "code": 11, "text": repr(failure)})
+                return
+            out_ops = []
+            appended_so_far: Dict[int, list] = {}
+            for op in ops:
+                f, k = op[0], op[1]
+                t = token_of(k)
+                if f == "r":
+                    pre = [datum_to_json(v)
+                           for v in result.reads.get(t, ())]
+                    # intra-txn visibility: a read after an append in the
+                    # same txn observes it (Elle list-append model)
+                    out_ops.append(["r", k, pre + appended_so_far.get(t, [])])
+                else:
+                    appended_so_far.setdefault(t, []).append(op[2])
+                    out_ops.append(op)
+            self._reply_client(src, msg_id, {"type": "txn_ok",
+                                             "txn": out_ops})
+
+        self.node.coordinate(txn).begin(on_done)

@@ -1,0 +1,308 @@
+"""Metrics registry: named counters, gauges and log-bucketed histograms.
+
+Design constraints (ISSUE r09):
+
+- **Deterministic**: a metric value fed only sim-time/seed-derived inputs
+  snapshots byte-identically across same-seed runs; snapshot order is
+  sorted, never insertion/hash order.
+- **Near-zero cost when unobserved**: a counter is one dict-cached cell
+  holding a plain int — the hot-path cost is an attribute store, the same
+  as the ad-hoc ``self.n_foo += 1`` counters this registry replaces.
+- **Label sets**: (node, store, route, phase, ...) as keyword labels; one
+  time-series per (name, sorted label items).
+- **Legacy compatibility**: :class:`LegacyStats` is a dict-compatible view
+  so ``Cluster.stats`` migrates onto the registry without changing a
+  single key the determinism gates compare.
+"""
+
+from __future__ import annotations
+
+from collections.abc import MutableMapping
+from typing import Dict, Iterator, List, Optional, Tuple
+
+
+class Counter:
+    """Monotonic-by-convention cell (the legacy view may assign)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def inc(self, n: int = 1) -> None:
+        self.value += n
+
+
+class Gauge:
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def set(self, v) -> None:
+        self.value = v
+
+
+class Histogram:
+    """Log2-bucketed histogram: a value lands in bucket ``int(v).bit_length()``
+    (bucket i covers [2^(i-1), 2^i - 1]; 0 lands in bucket 0).  Integer
+    arithmetic only, so same-seed sim-time observations snapshot
+    byte-identically.  Exact min/max ride along to tighten the percentile
+    read-out at the distribution's edges."""
+
+    __slots__ = ("buckets", "count", "total", "vmin", "vmax")
+
+    def __init__(self):
+        self.buckets: Dict[int, int] = {}
+        self.count = 0
+        self.total = 0
+        self.vmin: Optional[int] = None
+        self.vmax: Optional[int] = None
+
+    def observe(self, v) -> None:
+        v = int(v)
+        b = v.bit_length() if v > 0 else 0
+        self.buckets[b] = self.buckets.get(b, 0) + 1
+        self.count += 1
+        self.total += v
+        if self.vmin is None or v < self.vmin:
+            self.vmin = v
+        if self.vmax is None or v > self.vmax:
+            self.vmax = v
+
+    def percentile(self, q: float):
+        """The upper bound of the first bucket whose cumulative count
+        reaches ``q`` of the total, clamped to the exact [min, max] —
+        deterministic, and within 2x of the true value by construction."""
+        if self.count == 0:
+            return None
+        need = max(1, -(-int(q * 1000) * self.count // 1000))  # ceil, int math
+        seen = 0
+        for b in sorted(self.buckets):
+            seen += self.buckets[b]
+            if seen >= need:
+                upper = (1 << b) - 1 if b > 0 else 0
+                return max(self.vmin, min(upper, self.vmax))
+        return self.vmax
+
+    def render(self) -> dict:
+        return {"count": self.count, "sum": self.total,
+                "min": self.vmin, "max": self.vmax,
+                "buckets": {str(b): self.buckets[b]
+                            for b in sorted(self.buckets)}}
+
+
+def _labels_key(labels: dict) -> Tuple[Tuple[str, str], ...]:
+    return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+
+def _render_key(name: str, labels: Tuple[Tuple[str, str], ...]) -> str:
+    if not labels:
+        return name
+    return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}"
+
+
+class MetricsRegistry:
+    """The single named store every ad-hoc counter migrates onto."""
+
+    def __init__(self):
+        self._m: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], object] = {}
+
+    def _get(self, cls, name: str, labels: dict):
+        key = (name, _labels_key(labels))
+        m = self._m.get(key)
+        if m is None:
+            m = self._m[key] = cls()
+        return m
+
+    def counter(self, name: str, **labels) -> Counter:
+        return self._get(Counter, name, labels)
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get(Gauge, name, labels)
+
+    def histogram(self, name: str, **labels) -> Histogram:
+        return self._get(Histogram, name, labels)
+
+    def peek_counter(self, name: str, **labels) -> int:
+        """Counter value WITHOUT creating the series — reads must never
+        grow the registry (snapshots are compared byte-for-byte across
+        same-seed runs)."""
+        m = self._m.get((name, _labels_key(labels)))
+        return m.value if m is not None else 0
+
+    # -- export -------------------------------------------------------------
+    def counter_totals(self, name: str, by: str) -> Dict[str, int]:
+        """Sum every counter named ``name`` grouped by one label's value
+        (sorted iteration: deterministic).  The burn/bench recovery-rate
+        aggregation: counter_totals("recoveries", by="event")."""
+        out: Dict[str, int] = {}
+        for (n, labels) in sorted(self._m):
+            m = self._m[(n, labels)]
+            if n != name or not isinstance(m, Counter):
+                continue
+            key = str(dict(labels).get(by, ""))
+            out[key] = out.get(key, 0) + m.value
+        return out
+
+    def snapshot(self) -> dict:
+        """Flat {rendered_key: value} in SORTED key order (deterministic
+        regardless of registration order).  Histograms render as nested
+        dicts (count/sum/min/max/buckets)."""
+        out = {}
+        for (name, labels) in sorted(self._m):
+            m = self._m[(name, labels)]
+            k = _render_key(name, labels)
+            out[k] = m.render() if isinstance(m, Histogram) else m.value
+        return out
+
+    def diff(self, before: dict) -> dict:
+        """Delta of a later snapshot against ``before`` (bench rows diff a
+        config run's counters this way).  Numeric entries subtract;
+        histogram entries report the count/sum delta."""
+        after = self.snapshot()
+        out = {}
+        for k, v in after.items():
+            prev = before.get(k)
+            if isinstance(v, dict):
+                pc = prev.get("count", 0) if isinstance(prev, dict) else 0
+                ps = prev.get("sum", 0) if isinstance(prev, dict) else 0
+                if v["count"] != pc:
+                    out[k] = {"count": v["count"] - pc, "sum": v["sum"] - ps}
+            else:
+                d = v - (prev if isinstance(prev, (int, float)) else 0)
+                if d:
+                    out[k] = d
+        return out
+
+    def phase_percentiles(self, name: str = "phase_micros",
+                          qs=(0.5, 0.99)) -> Dict[str, Dict[str, int]]:
+        """{phase: {"p50": micros, "p99": micros, "n": count}} over the
+        histograms registered under ``name`` with a ``phase`` label — the
+        bench config rows' per-phase latency read-out."""
+        out: Dict[str, Dict[str, int]] = {}
+        for (n, labels) in sorted(self._m):
+            if n != name:
+                continue
+            h = self._m[(n, labels)]
+            if not isinstance(h, Histogram) or h.count == 0:
+                continue
+            phase = dict(labels).get("phase", _render_key(n, labels))
+            row = {"n": h.count}
+            for q in qs:
+                row[f"p{int(q * 100)}"] = h.percentile(q)
+            out[phase] = row
+        return out
+
+
+class LegacyStats(MutableMapping):
+    """Dict-compatible stats view backed by registry counters — the
+    ``Cluster.stats`` migration.  Every key this mapping has ever SET is a
+    registry counter named by the legacy key (no labels), so the
+    determinism gates' ``dict(cluster.stats)`` comparisons and the burn's
+    quiet-window diffs see exactly the bytes they always did, while the
+    same cells ride every registry snapshot.  Reads of absent keys do NOT
+    create cells (``stats.get(k, 0)`` must not grow the dict)."""
+
+    __slots__ = ("_reg", "_cells")
+
+    def __init__(self, registry: MetricsRegistry):
+        self._reg = registry
+        self._cells: Dict[str, Counter] = {}
+
+    def __getitem__(self, k: str) -> int:
+        c = self._cells.get(k)
+        if c is None:
+            raise KeyError(k)
+        return c.value
+
+    def __setitem__(self, k: str, v: int) -> None:
+        c = self._cells.get(k)
+        if c is None:
+            c = self._cells[k] = self._reg.counter(k)
+        c.value = v
+
+    def __delitem__(self, k: str) -> None:
+        del self._cells[k]
+        self._reg._m.pop((k, ()), None)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._cells)
+
+    def __len__(self) -> int:
+        return len(self._cells)
+
+    def __repr__(self):
+        return repr(dict(self))
+
+
+# ---------------------------------------------------------------------------
+# DeviceState counter collection: the bench "# index:" line and the burn's
+# device_* stats render from ONE key list here, so the byte-compatible
+# legacy names live in a single place instead of three format strings.
+# ---------------------------------------------------------------------------
+
+# (legacy key, DeviceState attribute) in the exact # index: line order
+INDEX_COUNTERS: List[Tuple[str, str]] = [
+    ("host_queries", "n_host_queries"),
+    ("bucketed_queries", "n_bucketed_queries"),
+    ("dense_queries", "n_dense_queries"),
+    ("mesh_queries", "n_mesh_queries"),
+    ("mesh_bucketed_queries", "n_mesh_bucketed_queries"),
+    ("dispatches", "n_dispatches"),
+    ("fused_flushes", "n_fused_flushes"),
+    ("fused_queries", "n_fused_queries"),
+    ("fused_ticks", "n_fused_ticks"),
+    ("device_faults", "n_device_faults"),
+    ("quarantines", "n_quarantines"),
+    ("fallback_queries", "n_fallback_queries"),
+    ("shadow_mismatches", "n_shadow_mismatches"),
+    ("compactions", "n_compactions"),
+    # r10 two-stage compacted downloads: bytes actually transferred
+    # (headers + live entry prefixes) vs the full pow2-padded buffers the
+    # pre-r10 collect downloaded — the compaction ratio in every artifact
+    ("download_bytes", "download_bytes"),
+    ("download_bytes_padded", "download_bytes_padded"),
+    # r15 device-resident attribution: rows the attribution stage elided
+    # (transitively-known vs decided-below-pivot — the eknown/emsb legs)
+    # and the bytes of pre-attributed block downloads.  All routes count
+    # (the kernels report via their headers, the host route from its own
+    # filter), so a routing flip shows up as counter movement, not a gap
+    ("elided_transitive", "n_elided_transitive"),
+    ("elided_decided", "n_elided_decided"),
+    ("attr_download_bytes", "attr_download_bytes"),
+    # r21 store-sharded tables: flushes answered by the sliced-residency
+    # route, per-slice quarantine/restore churn, bytes merged across the
+    # shard boundary, and host-pin recoveries (the un-terminal ladder)
+    ("store_sharded_flushes", "n_store_sharded_flushes"),
+    ("slice_quarantines", "n_slice_quarantines"),
+    ("slice_restores", "n_slice_restores"),
+    ("shard_merge_bytes", "n_shard_merge_bytes"),
+    ("oom_recovered", "n_oom_recovered"),
+]
+
+
+def index_counters(dev) -> Dict[str, int]:
+    """The legacy ``# index:`` counters of one DeviceState, keyed exactly
+    as prior BENCH artifacts spell them (plus the two structural sizes and
+    the oom flag the line always carried)."""
+    out = {k: getattr(dev, attr) for k, attr in INDEX_COUNTERS[:9]}
+    out["wide_entries"] = len(dev.deps.wide_entries)
+    out["buckets"] = len(dev.deps.bucket_entries)
+    for k, attr in INDEX_COUNTERS[9:]:
+        out[k] = getattr(dev, attr)
+    out["oom_degraded"] = int(dev.host_pinned)
+    return out
+
+
+def collect_device_state(registry: MetricsRegistry, dev,
+                         **labels) -> None:
+    """Fold one DeviceState's attribute counters into the registry as
+    labeled gauges (``device_<key>{node=,store=}``) — the sensors stay
+    plain ints on the hot path; the registry is the aggregation layer
+    every exporter reads."""
+    for k, attr in INDEX_COUNTERS:
+        registry.gauge("device_" + k, **labels).set(getattr(dev, attr))
+    registry.gauge("device_queries", **labels).set(dev.n_queries)
+    registry.gauge("device_kernel_deps", **labels).set(dev.n_kernel_deps)
+    registry.gauge("device_oom_degraded", **labels).set(int(dev.host_pinned))

@@ -1,0 +1,128 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) for ``sm_90a`` into an object file, and the objects are
+linked into one shared library with a plain C interface,
+``build/accord_tpu_torch/libaccord_kernels.so`` under the repository root.
+The library is loaded with ``ctypes``.  The build runs at first use and is
+keyed on a hash of the sources and flags, so an unchanged checkout reuses
+the library and an edited source rebuilds it.  A failed build raises with
+nvcc's output; nothing falls back to the plain PyTorch versions.
+
+The build log kept in ``build_log()`` carries ptxas's report (registers,
+shared memory and spills per kernel).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "accord_tpu_torch"
+LIB_NAME = "libaccord_kernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
+                "accord_attr_post", "accord_scatter_rows",
+                "accord_frontier_ell", "accord_frontier_dense")
+
+_LOCK = threading.Lock()
+_LIB = None
+_LOG = {"seconds": None, "stderr": "", "cached": None}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
+    for f in sorted(CSRC.glob("*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(nvcc: str, out_dir: Path) -> Path:
+    """nvcc per source in parallel, then one link; returns the library."""
+    flags = ARCH + FLAGS
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / (src.stem + ".o")
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *flags, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, obj, p in procs:
+        out, _ = p.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs))
+    lib = out_dir / LIB_NAME
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", *[str(o) for _s, o, _p in procs], "-o",
+         str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    logs.append(f"== link\n{link.stdout}")
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+    _LOG["stderr"] = "\n".join(logs)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        want = source_hash()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib_path = BUILD_DIR / LIB_NAME
+        stamp = BUILD_DIR / "source.hash"
+        t0 = time.perf_counter()
+        cached = (lib_path.exists() and stamp.exists()
+                  and stamp.read_text().strip() == want)
+        if not cached:
+            nvcc = _nvcc()
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                built = _compile(nvcc, Path(tmp))
+                os.replace(built, lib_path)
+            stamp.write_text(want + "\n")
+        _LOG["seconds"] = time.perf_counter() - t0
+        _LOG["cached"] = cached
+        lib = ctypes.CDLL(str(lib_path))
+        for name in ENTRY_POINTS:
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.accord_error_string.argtypes = [ctypes.c_int]
+        lib.accord_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+        return lib
+
+
+def build_log() -> dict:
+    """{"seconds", "cached", "stderr"} of the build (or load) that ran."""
+    return dict(_LOG)

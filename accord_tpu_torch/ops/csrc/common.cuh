@@ -1,0 +1,147 @@
+// Shared device helpers for the accord_tpu_torch kernels (sm_90a).
+//
+// Every entry point has the same plain C signature,
+//     int fn(void* const* ptrs, const int64_t* vals, void* stream)
+// so the Python side binds all of them with one ctypes argtypes list:
+// ``ptrs`` holds the tensor data pointers and ``vals`` the integer
+// parameters, both in the order each entry point documents.  The entry
+// point enqueues its kernels on ``stream``, never synchronises, allocates
+// nothing, and returns cudaGetLastError() so a refused launch surfaces in
+// the wrapper.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define ACCORD_EXPORT extern "C" __attribute__((visibility("default")))
+
+constexpr int SLOT_FREE = -1;
+constexpr int SLOT_TRANSITIVE = 0;
+constexpr int SLOT_COMMITTED = 3;
+constexpr int SLOT_STABLE = 4;
+constexpr int SLOT_APPLIED = 5;
+constexpr int SLOT_INVALIDATED = 6;
+
+// 128-bit timestamp order: msb and lsb compared unsigned, then the node id
+// signed (the reference flips the sign bit of int64 words; comparing the
+// words as unsigned long long is the same order)
+__device__ __forceinline__ bool ts_lt(int64_t am, int64_t al, int32_t an,
+                                      int64_t bm, int64_t bl, int32_t bn) {
+  const unsigned long long uam = (unsigned long long)am;
+  const unsigned long long ubm = (unsigned long long)bm;
+  const unsigned long long ual = (unsigned long long)al;
+  const unsigned long long ubl = (unsigned long long)bl;
+  return uam < ubm || (uam == ubm && (ual < ubl || (ual == ubl && an < bn)));
+}
+
+__device__ __forceinline__ bool ts_eq(int64_t am, int64_t al, int32_t an,
+                                      int64_t bm, int64_t bl, int32_t bn) {
+  return am == bm && al == bl && an == bn;
+}
+
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+__host__ __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
+  return a > b ? a : b;
+}
+__host__ __device__ __forceinline__ int mini(int a, int b) {
+  return a < b ? a : b;
+}
+__host__ __device__ __forceinline__ int maxi(int a, int b) {
+  return a > b ? a : b;
+}
+
+// Python-style floor division / modulo (the reference's ``//`` and ``%``)
+__device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
+  int64_t q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
+  return q;
+}
+
+__device__ __forceinline__ int64_t floormod(int64_t a, int64_t b) {
+  return a - floordiv(a, b) * b;
+}
+
+// searchsorted(side="left"): first index with x[i] >= v
+__device__ __forceinline__ int64_t lower_bound(const int64_t* x, int64_t n,
+                                               int64_t v) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (x[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// searchsorted(side="right"): first index with x[i] > v
+template <typename X>
+__device__ __forceinline__ int64_t upper_bound(const X* x, int64_t n,
+                                               int64_t v) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if ((int64_t)x[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Block-wide exclusive prefix sum of one value per thread; every thread of
+// the block must call it.  ``*total`` receives the block sum.
+template <int NT, typename V>
+__device__ V block_exclusive_scan(V v, V* total) {
+  static_assert(NT % 32 == 0 && NT <= 1024, "block size");
+  __shared__ V warp_sums[NT / 32];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  V x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const V y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[wid] = x;
+  __syncthreads();
+  if (wid == 0) {
+    V w = lane < NT / 32 ? warp_sums[lane] : V(0);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const V y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < NT / 32) warp_sums[lane] = w;
+  }
+  __syncthreads();
+  const V prefix = wid ? warp_sums[wid - 1] : V(0);
+  *total = warp_sums[NT / 32 - 1];
+  __syncthreads();   // warp_sums is reused by the next call
+  return prefix + x - v;
+}
+
+// In-place ascending bitonic sort of buf[0:n), n a power of two, by one
+// block (buf in shared or global memory).
+template <int NT, typename T>
+__device__ void block_bitonic_sort(T* buf, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < (n >> 1); i += NT) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool asc = (lo & size) == 0;
+        const T a = buf[lo];
+        const T b = buf[hi];
+        if ((a > b) == asc) {
+          buf[lo] = b;
+          buf[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__host__ __device__ inline int next_pow2(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}

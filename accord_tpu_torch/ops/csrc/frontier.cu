@@ -1,0 +1,105 @@
+// K4: one sweep of the execution-drain frontier.
+//
+// Replaces (JAX reference, accord_tpu/ops/drain_kernel.py):
+//   frontier_ell    <- ready_frontier_ell (:173) with _ell_blocking (:157)
+//   frontier_dense  <- ready_frontier (:133) with blocking_matrix (:74)
+// ready[i] = status[i] == Stable and no dep j of row i that gates it
+// (undecided, executing before i, or i awaits all deps; neither
+// invalidated nor free) is still unapplied.
+//
+// Bound on this card: bytes — the ELL sweep reads N*D dep indices and
+// gathers the deps' status/executeAt columns; the dense sweep reads the
+// N*N adjacency bytes once.  Design: one thread per waiter row for ELL;
+// one warp per row for dense, lanes striding the row so reads coalesce,
+// with a warp vote for "some gating dep is unapplied".
+#include "common.cuh"
+
+namespace {
+
+struct DrainArgs {
+  const int32_t* status;
+  const int64_t *emsb, *elsb;
+  const int32_t* enode;
+  const uint8_t* awaits;
+  int64_t N;
+};
+
+__device__ __forceinline__ bool blocks(const DrainArgs& a, int64_t i,
+                                       int64_t j) {
+  const int32_t sj = a.status[j];
+  if (sj == SLOT_INVALIDATED || sj == SLOT_FREE || sj == SLOT_APPLIED)
+    return false;
+  const bool undecided = sj >= 0 && sj < SLOT_COMMITTED;
+  return undecided || a.awaits[i] ||
+         ts_lt(a.emsb[j], a.elsb[j], a.enode[j], a.emsb[i], a.elsb[i],
+               a.enode[i]);
+}
+
+__global__ void __launch_bounds__(256)
+frontier_ell(DrainArgs a, const int32_t* adj, int64_t D, uint8_t* out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.N) return;
+  bool ready = a.status[i] == SLOT_STABLE;
+  for (int64_t d = 0; ready && d < D; ++d) {
+    const int32_t j = adj[i * D + d];
+    if (j >= 0 && blocks(a, i, j)) ready = false;
+  }
+  out[i] = ready;
+}
+
+__global__ void __launch_bounds__(256)
+frontier_dense(DrainArgs a, const uint8_t* adj, uint8_t* out) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= a.N) return;   // whole warps exit together
+  const bool stable = a.status[i] == SLOT_STABLE;
+  bool waiting = false;
+  if (stable) {
+    const uint8_t* row = adj + i * a.N;
+    for (int64_t j0 = 0; j0 < a.N && !waiting; j0 += 32) {
+      const int64_t j = j0 + lane;
+      const bool w = j < a.N && row[j] && blocks(a, i, j);
+      waiting = __any_sync(0xffffffffu, w);
+    }
+  }
+  if (lane == 0) out[i] = stable && !waiting;
+}
+
+DrainArgs args(void* const* p, const int64_t* v) {
+  DrainArgs a;
+  a.status = (const int32_t*)p[1];
+  a.emsb = (const int64_t*)p[2];
+  a.elsb = (const int64_t*)p[3];
+  a.enode = (const int32_t*)p[4];
+  a.awaits = (const uint8_t*)p[5];
+  a.N = v[0];
+  return a;
+}
+
+}  // namespace
+
+// ptrs: adj_idx int32[N*D], status, exec_msb, exec_lsb, exec_node,
+//       awaits_all, out bool[N]
+// vals: N, D
+ACCORD_EXPORT int accord_frontier_ell(void* const* p, const int64_t* v,
+                                      void* stream) {
+  const DrainArgs a = args(p, v);
+  if (a.N > 0)
+    frontier_ell<<<(unsigned)((a.N + 255) / 256), 256, 0,
+                   (cudaStream_t)stream>>>(a, (const int32_t*)p[0], v[1],
+                                           (uint8_t*)p[6]);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: adj bool[N*N], status, exec_msb, exec_lsb, exec_node, awaits_all,
+//       out bool[N]
+// vals: N
+ACCORD_EXPORT int accord_frontier_dense(void* const* p, const int64_t* v,
+                                        void* stream) {
+  const DrainArgs a = args(p, v);
+  if (a.N > 0)
+    frontier_dense<<<(unsigned)((a.N * 32 + 255) / 256), 256, 0,
+                     (cudaStream_t)stream>>>(a, (const uint8_t*)p[0],
+                                             (uint8_t*)p[6]);
+  return (int)cudaGetLastError();
+}

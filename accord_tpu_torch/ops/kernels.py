@@ -1,0 +1,276 @@
+"""The one place that sends each kernel call to the CUDA kernel or to its
+plain PyTorch version.
+
+The choice is made by the device of the tensors the caller hands in: a CPU
+tensor takes the plain version (the CPU tests and ``--device cpu`` runs); a
+CUDA tensor launches the hand-written kernel from ``ops/csrc`` (built by
+``ops._build``) or raises.  There is no fallback from a failed build or
+launch to the plain version.
+
+Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
+and nowhere else, so a run can show that its path went through the
+kernels.  The wrappers allocate every output and scratch buffer with
+``torch.empty``; the kernels run on PyTorch's current stream.
+
+| name           | replaces (accord_tpu/...)                               |
+|----------------|---------------------------------------------------------|
+| deps_bucketed  | ops/deps_kernel.py:448 bucketed_flat (+ _compact_rows)  |
+| deps_dense     | ops/deps_kernel.py:351 flat_csr_local (+ _compact_rows) |
+| attr_post      | ops/deps_kernel.py:921 _attr_post                       |
+| scatter_rows   | ops/deps_kernel.py:156, :839; local/device_index.py:226, :1084 |
+| frontier_ell   | ops/drain_kernel.py:173 ready_frontier_ell              |
+| frontier_dense | ops/drain_kernel.py:133 ready_frontier                  |
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from . import deps_kernel as dk
+from . import drain_kernel as drk
+
+KERNELS = ("deps_bucketed", "deps_dense", "attr_post", "scatter_rows",
+           "frontier_ell", "frontier_dense")
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+# codes per row that deps_bucketed sorts in shared memory (32 KiB of
+# int64); a row with more sorts in the global scratch passed with it
+SMEM_CODES = 4096
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU tensor; anything else raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _ptr(t) -> int:
+    if t is None:
+        return 0
+    if not t.is_cuda:
+        raise ValueError("kernel argument is not on a CUDA device")
+    if not t.is_contiguous():
+        raise ValueError("kernel argument is not contiguous")
+    return t.data_ptr()
+
+
+def _check(t: torch.Tensor, dtype: torch.dtype, what: str) -> torch.Tensor:
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    return t
+
+
+_I64, _I32, _B = torch.int64, torch.int32, torch.bool
+# the column dtypes each kernel reads through a raw pointer
+_DTYPES = {
+    dk.DepsTable: (_I64, _I64, _I32, _I32, _I32, _I64, _I64),
+    dk.BucketTable: (_I64, _I64, _I32, _I32, _I64, _I64, _I32, _I32) * 2,
+    dk.AttrCols: (_I32, _I32, _I64, _I64, _I32, _I64, _I64, _I32, _B),
+    dk.AttrIndex: (_I64, _I64, _I64, _I32, _I64, _I32, _I64, _I64, _I64,
+                   _I32, _I64),
+    drk.DrainState: (_B, _I32, _I64, _I64, _I32, _B),
+    drk.EllDrainState: (_I32, _I32, _I64, _I64, _I32, _B),
+}
+
+
+def _check_cols(nt) -> None:
+    """Every column of a kernel input has the dtype the kernel reads."""
+    for name, col, dtype in zip(nt._fields, nt, _DTYPES[type(nt)]):
+        _check(col, dtype, f"{type(nt).__name__}.{name}")
+
+
+def _launch(name: str, device: torch.device, ptrs, vals) -> None:
+    from . import _build
+    lib = _build.library()
+    p = (ctypes.c_void_p * len(ptrs))(*[_ptr(t) for t in ptrs])
+    v = (ctypes.c_int64 * len(vals))(*[int(x) for x in vals])
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, "accord_" + name)(p, v, ctypes.c_void_p(stream))
+    if rc != 0:
+        msg = lib.accord_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"error {rc} ({msg})")
+    LAUNCHES[name] += 1
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _prune_vals(prune):
+    if prune is None:
+        return 0, 0, 0
+    return int(prune[0]), int(prune[1]), int(prune[2])
+
+
+# -- K1: the deps scan --------------------------------------------------------
+
+def deps_bucketed(m_t: int, buckets: dk.BucketTable, qmat: torch.Tensor,
+                  m: int, span: int, s: int, k: int, prune=None,
+                  keff: int = None, wide: bool = False):
+    """Bucketed exact CSR (header int32[2+B], entries[s])."""
+    if not on_cuda(qmat):
+        return dk.bucketed_flat_plain(m_t, buckets, qmat, m, span, s, k,
+                                      prune, keff, wide)
+    dev = qmat.device
+    _check(qmat, torch.int64, "qmat")
+    _check_cols(buckets)
+    b, qcols = qmat.shape
+    if qcols != 7 + 2 * m + m * span:
+        raise ValueError(f"qmat has {qcols} columns, expected "
+                         f"{7 + 2 * m + m * span}")
+    kb = buckets.blo.shape[1]
+    keff = kb if keff is None else min(keff, kb)
+    w = buckets.wlo.shape[0]
+    c = m * span * keff + m * w
+    kk = min(k, c)
+    dt = dk.code_dtype(wide)
+    counts = torch.empty(b, dtype=torch.int32, device=dev)
+    starts = torch.empty(b, dtype=torch.int64, device=dev)
+    rowbuf = torch.empty(max(b * kk, 1), dtype=dt, device=dev)
+    scratch = (torch.empty(b * _next_pow2(c), dtype=dt, device=dev)
+               if c > SMEM_CODES else None)
+    hdr = torch.empty(2 + b, dtype=torch.int32, device=dev)
+    ent = torch.empty(s, dtype=dt, device=dev)
+    pm, pl, pn = _prune_vals(prune)
+    _launch("deps_bucketed", dev,
+            [qmat, *buckets, counts, starts, rowbuf, scratch, hdr, ent],
+            [b, qcols, m, span, kb, keff, w, pm, pl, pn, m_t, int(wide), s,
+             k])
+    return hdr, ent
+
+
+def deps_dense(table: dk.DepsTable, qmat: torch.Tensor, m: int, s: int,
+               k: int, prune=None, wide: bool = False):
+    """Dense exact CSR (header int32[2+B], entries[s])."""
+    if not on_cuda(qmat):
+        return dk.flat_csr_plain(table, qmat, m, s, k, prune, wide)
+    dev = qmat.device
+    _check(qmat, torch.int64, "qmat")
+    _check_cols(table)
+    b = qmat.shape[0]
+    if qmat.shape[1] != 7 + 2 * m:
+        raise ValueError(f"qmat has {qmat.shape[1]} columns, expected "
+                         f"{7 + 2 * m}")
+    n, m_t = table.lo.shape
+    kp = min(k, n)
+    dt = dk.code_dtype(wide)
+    counts = torch.empty(b, dtype=torch.int32, device=dev)
+    pair_counts = torch.empty(b, dtype=torch.int32, device=dev)
+    sel = torch.empty(max(b * kp, 1), dtype=torch.int32, device=dev)
+    starts = torch.empty(b, dtype=torch.int64, device=dev)
+    hdr = torch.empty(2 + b, dtype=torch.int32, device=dev)
+    ent = torch.empty(s, dtype=dt, device=dev)
+    pm, pl, pn = _prune_vals(prune)
+    _launch("deps_dense", dev,
+            [qmat, *table, counts, pair_counts, sel, starts, hdr, ent],
+            [b, qmat.shape[1], m, n, m_t, pm, pl, pn, int(wide), s, k])
+    return hdr, ent
+
+
+# -- K2: post-compaction attribution -----------------------------------------
+
+def attr_post(tlo: torch.Tensor, attr: dk.AttrCols, aidx: dk.AttrIndex,
+              rankb: torch.Tensor, hdr_raw: torch.Tensor, ent: torch.Tensor,
+              m_t: int, m: int, floors: bool = True, elide: bool = True):
+    """Attributed CSR (header int32[5+B], entries[s]) from the raw one."""
+    if not on_cuda(ent):
+        return dk.attr_post_plain(tlo, attr, aidx, rankb, hdr_raw, ent, m_t,
+                                  m, floors, elide)
+    dev = ent.device
+    _check_cols(attr)
+    _check_cols(aidx)
+    _check(rankb, torch.int64, "rankb")
+    _check(hdr_raw, torch.int32, "hdr_raw")
+    _check(tlo, torch.int64, "tlo")
+    s = ent.shape[0]
+    b = hdr_raw.shape[0] - 2
+    if rankb.shape[0] != b or tlo.shape != (attr.dom.shape[0], m_t):
+        raise ValueError("attr_post: rankb / tlo shapes do not fit the "
+                         "header and the attribution columns")
+    nb = -(-s // 256)
+    keep = torch.empty(max(s, 1), dtype=torch.int32, device=dev)
+    local = torch.empty(max(s, 1), dtype=torch.int32, device=dev)
+    bsum = torch.empty(max(nb, 1), dtype=torch.int64, device=dev)
+    drops = torch.empty(b, dtype=torch.int64, device=dev)
+    tallies = torch.empty(2, dtype=torch.int64, device=dev)
+    hdr = torch.empty(5 + b, dtype=torch.int32, device=dev)
+    out = torch.empty(s, dtype=ent.dtype, device=dev)
+    _launch("attr_post", dev,
+            [tlo, *attr, *aidx, rankb, hdr_raw, ent, keep, local, bsum,
+             drops, tallies, hdr, out],
+            [s, b, m_t, m, int(floors), int(elide), aidx.fbnd.shape[0],
+             aidx.etok.shape[0], aidx.erank.shape[0],
+             int(ent.dtype == torch.int64)])
+    return hdr, out
+
+
+# -- K3: dirty-row scatter ----------------------------------------------------
+
+def scatter_rows(cols: Sequence[torch.Tensor], idx,
+                 rows: Sequence) -> None:
+    """In place: ``cols[c][idx] = rows[c]`` for every column.  ``idx`` and
+    ``rows`` may be numpy arrays (uploaded here) or tensors."""
+    dev = cols[0].device
+    idx_t = torch.as_tensor(np.asarray(idx) if not torch.is_tensor(idx)
+                            else idx).to(device=dev, dtype=torch.int64)
+    rows_t = [torch.as_tensor(np.ascontiguousarray(r)
+                              if not torch.is_tensor(r) else r)
+              .to(device=dev, dtype=c.dtype).contiguous()
+              for c, r in zip(cols, rows)]
+    if not on_cuda(cols[0]):
+        dk.scatter_rows_plain(cols, idx_t, rows_t)
+        return
+    p = len(idx_t)
+    ptrs = [idx_t]
+    vals = [len(cols), p]
+    for c, r in zip(cols, rows_t):
+        if r.shape[0] != p or r.shape[1:] != c.shape[1:]:
+            raise ValueError(f"scatter row shape {tuple(r.shape)} does not "
+                             f"fit column {tuple(c.shape)}")
+        ptrs += [c, r]
+        vals.append(c[0].numel() * c.element_size() if c.dim() > 1
+                    else c.element_size())
+    _launch("scatter_rows", dev, ptrs, vals)
+
+
+# -- K4: drain frontier -------------------------------------------------------
+
+def frontier_ell(state: drk.EllDrainState) -> torch.Tensor:
+    if not on_cuda(state.status):
+        return drk.ready_frontier_ell_plain(state)
+    dev = state.status.device
+    _check_cols(state)
+    n, d = state.adj_idx.shape
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    _launch("frontier_ell", dev, [*state, out], [n, d])
+    return out
+
+
+def frontier_dense(state: drk.DrainState) -> torch.Tensor:
+    if not on_cuda(state.status):
+        return drk.ready_frontier_plain(state)
+    dev = state.status.device
+    _check_cols(state)
+    n = state.status.shape[0]
+    if state.adj.shape != (n, n):
+        raise ValueError(f"adjacency {tuple(state.adj.shape)} is not "
+                         f"[{n}, {n}]")
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    _launch("frontier_dense", dev, [*state, out], [n])
+    return out

@@ -1,0 +1,208 @@
+"""Simple versioned KV workload implementing the data-plane SPI.
+
+Modelled on the reference's list-append test store
+(ref: accord-core/src/test/java/accord/impl/list/ListStore.java,
+ListRead/ListUpdate/ListQuery, and maelstrom/MaelstromRead etc.): values are
+append-lists so the strict-serializability verifier can reconstruct order.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+from .. import api
+from ..primitives.keys import IntKey, Keys, Ranges
+from ..primitives.timestamp import Timestamp, TxnId, TxnKind, Domain
+from ..primitives.txn import Txn
+from ..utils import async_chain
+
+
+class KVDataStore(api.DataStore):
+    """Versioned list-append store: token -> ordered append log of
+    (values, executeAt, TxnId) — the reference's Timestamped ListStore
+    (accord-core test impl/list/ListStore.java).  Versioning lets a read
+    that arrives AFTER its txn (or later txns) applied locally still serve
+    the exact pre-state at its executeAt, and makes duplicate detection
+    exact (dedup by TxnId, not value membership)."""
+
+    def __init__(self, node_id: int):
+        self.node_id = node_id
+        # per key: append log sorted by executeAt
+        self.log: Dict[int, List[Tuple[tuple, Timestamp, TxnId]]] = {}
+
+    def tokens(self):
+        return self.log.keys()
+
+    def get(self, token: int) -> tuple:
+        entries = self.log.get(token, ())
+        return tuple(v for vals, _at, _tid in entries for v in vals)
+
+    def read_at(self, token: int, execute_at: Timestamp) -> tuple:
+        """The key's value just below ``execute_at`` — what a txn executing
+        there must observe."""
+        return tuple(v for vals, at, _tid in self.log.get(token, ())
+                     if at < execute_at for v in vals)
+
+    def snapshot(self, ranges: Ranges) -> Dict[int, list]:
+        return {t: list(entries) for t, entries in self.log.items()
+                if ranges.contains_token(t)}
+
+    def install_snapshot(self, snapshot: Dict[int, list]) -> None:
+        for token, entries in snapshot.items():
+            mine = self.log.setdefault(token, [])
+            have = {tid for _v, _at, tid in mine}
+            merged = mine + [e for e in entries if e[2] not in have]
+            merged.sort(key=lambda e: e[1])
+            self.log[token] = merged
+
+    def apply_append(self, token: int, values: tuple, execute_at: Timestamp,
+                     txn_id: TxnId) -> None:
+        """Insert at the executeAt-sorted position, deduplicating by TxnId.
+        The log is a monotone union: a bootstrap snapshot and the direct
+        Apply fan-out can each deliver any subset, in any order, and the
+        union converges.  An entry landing below the high-water mark is
+        legitimate exactly when a snapshot raced ahead of a deferred apply;
+        serving a WRONG read remains impossible because reads gate on their
+        deps having applied locally first (read_on_store)."""
+        entries = self.log.setdefault(token, [])
+        if any(tid == txn_id for _v, _at, tid in entries):
+            return   # re-apply of the same txn: idempotent
+        import bisect
+        i = bisect.bisect_left([e[1] for e in entries], execute_at)
+        entries.insert(i, (values, execute_at, txn_id))
+
+
+class KVData(api.Data):
+    """token -> list snapshot (ref: maelstrom/Data + list/ListData)."""
+
+    def __init__(self, values: Optional[Dict[int, tuple]] = None):
+        self.values: Dict[int, tuple] = dict(values or {})
+
+    def merge(self, other: "KVData") -> "KVData":
+        out = dict(self.values)
+        out.update(other.values)
+        return KVData(out)
+
+    def __repr__(self):
+        return f"KVData({self.values})"
+
+
+class KVRead(api.Read):
+    def __init__(self, keys: Keys):
+        self._keys = keys
+
+    def keys(self) -> Keys:
+        return self._keys
+
+    def read(self, key, safe_store, execute_at, store: KVDataStore):
+        return async_chain.success(
+            KVData({key.token(): store.read_at(key.token(), execute_at)}))
+
+    def slice(self, ranges: Ranges) -> "KVRead":
+        return KVRead(self._keys.slice(ranges))
+
+    def merge(self, other: Optional["KVRead"]) -> "KVRead":
+        if other is None:
+            return self
+        return KVRead(self._keys.with_(other._keys))
+
+
+class KVRangeRead(api.Read):
+    """Range-domain read: scans every key the store holds within the ranges
+    (ref: the reference burn's range reads through list/ListRead)."""
+
+    def __init__(self, ranges: Ranges):
+        self._ranges = ranges
+
+    def keys(self) -> Ranges:
+        return self._ranges
+
+    def read(self, rng, safe_store, execute_at, store: KVDataStore):
+        vals = {}
+        for token in list(store.tokens()):
+            if rng.start <= token < rng.end:
+                vals[token] = store.read_at(token, execute_at)
+        return async_chain.success(KVData(vals))
+
+    def slice(self, ranges: Ranges) -> "KVRangeRead":
+        return KVRangeRead(self._ranges.intersecting(ranges))
+
+    def merge(self, other: Optional["KVRangeRead"]) -> "KVRangeRead":
+        if other is None:
+            return self
+        return KVRangeRead(self._ranges.with_(other._ranges))
+
+
+class KVWrite(api.Write):
+    def __init__(self, appends: Dict[int, tuple]):
+        self.appends = appends
+
+    def apply(self, key, txn_id: TxnId, execute_at, store: KVDataStore):
+        vals = self.appends.get(key.token())
+        if vals:
+            store.apply_append(key.token(), vals, execute_at, txn_id)
+        return async_chain.success(None)
+
+
+class KVUpdate(api.Update):
+    """Blind append update (list-append workload)."""
+
+    def __init__(self, appends: Dict[int, tuple]):
+        self.appends = dict(appends)
+
+    def keys(self) -> Keys:
+        return Keys([IntKey(t) for t in self.appends])
+
+    def apply(self, execute_at, data) -> KVWrite:
+        return KVWrite(self.appends)
+
+    def slice(self, ranges: Ranges) -> "KVUpdate":
+        return KVUpdate({t: v for t, v in self.appends.items()
+                         if ranges.contains_token(t)})
+
+    def merge(self, other: Optional["KVUpdate"]) -> "KVUpdate":
+        if other is None:
+            return self
+        out = dict(self.appends)
+        out.update(other.appends)
+        return KVUpdate(out)
+
+
+class KVResult(api.Result):
+    def __init__(self, txn_id: TxnId, reads: Dict[int, tuple],
+                 appends: Dict[int, tuple]):
+        self.txn_id = txn_id
+        self.reads = reads
+        self.appends = appends
+
+    def __repr__(self):
+        return f"KVResult(reads={self.reads}, appends={self.appends})"
+
+
+class KVQuery(api.Query):
+    def compute(self, txn_id, execute_at, keys, data, read, update) -> KVResult:
+        reads = dict(data.values) if data is not None else {}
+        appends = update.appends if update is not None else {}
+        return KVResult(txn_id, reads, appends)
+
+
+def kv_txn(read_tokens: List[int], appends: Dict[int, tuple]) -> Txn:
+    """Build a read/append transaction over IntKeys."""
+    all_tokens = sorted(set(read_tokens) | set(appends))
+    keys = Keys([IntKey(t) for t in all_tokens])
+    kind = TxnKind.Write if appends else TxnKind.Read
+    read = KVRead(Keys([IntKey(t) for t in sorted(set(read_tokens))]))
+    update = KVUpdate(appends) if appends else None
+    return Txn(kind, keys, read, update, KVQuery())
+
+
+def kv_ephemeral_read(read_tokens: List[int]) -> Txn:
+    """A non-durable per-key-linearizable read
+    (ref: coordinate/CoordinateEphemeralRead.java)."""
+    keys = Keys([IntKey(t) for t in sorted(set(read_tokens))])
+    return Txn(TxnKind.EphemeralRead, keys, KVRead(keys), None, KVQuery())
+
+
+def kv_range_read(ranges: Ranges) -> Txn:
+    """A range-domain read transaction."""
+    return Txn(TxnKind.Read, ranges, KVRangeRead(ranges), None, KVQuery())

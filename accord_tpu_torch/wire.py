@@ -1,0 +1,380 @@
+"""Wire serde: every message verb and primitive to/from JSON-safe dicts.
+
+Rebuild of ref: accord-maelstrom/src/main/java/accord/maelstrom/Json.java —
+the reference's only serialization spec (gson adapters for TxnId, Deps, Txn,
+every request/reply) — generalised into a project-wide codec so the same
+registry serves the Maelstrom adapter's inter-node bodies AND the journal's
+message-sourced command reconstruction (ref: local/SerializerSupport.java:96).
+
+Encoding: every non-scalar value is a dict tagged ``{"_t": <tag>, ...}``.
+Scalars (None/bool/int/str/float) pass through; lists stay lists.  Python
+ints are arbitrary-precision so 64-bit timestamp words survive JSON
+round-trips (the Maelstrom/jepsen side parses them as bigints).
+
+Two registration forms:
+ - ``register_fields(cls, fields)``: constructor-kwargs == attribute names
+   (``(attr, kwarg)`` pairs where they differ);
+ - ``register(cls, enc, dec)``: custom encode/decode for compact primitive
+   layouts (timestamps as 3-word lists, deps as CSR).
+"""
+
+from __future__ import annotations
+
+import enum as _enum
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from .primitives.datum import DatumHash
+from .primitives.deps import Deps, KeyDeps, PartialDeps, RangeDeps
+from .primitives.keys import (IntKey, Key, Keys, Range, Ranges, Route,
+                              RoutingKeys)
+from .primitives.timestamp import (Ballot, Domain, Timestamp, TxnId, TxnKind)
+from .primitives.txn import PartialTxn, Txn
+from .primitives.writes import Writes
+
+_ENCODERS: Dict[type, Tuple[str, Callable[[Any], dict]]] = {}
+_DECODERS: Dict[str, Callable[[dict], Any]] = {}
+
+
+def register(cls: type, tag: str, enc: Callable[[Any], dict],
+             dec: Callable[[dict], Any]) -> None:
+    if tag in _DECODERS:
+        raise ValueError(f"duplicate wire tag {tag}")
+    _ENCODERS[cls] = (tag, enc)
+    _DECODERS[tag] = dec
+
+
+def register_fields(cls: type, fields: Sequence, tag: Optional[str] = None) -> None:
+    """Register a plain data-holder: ``fields`` entries are attribute names,
+    or ``(attr, kwarg)`` pairs when the constructor argument is named
+    differently."""
+    tag = tag or cls.__name__
+    pairs = [(f, f) if isinstance(f, str) else f for f in fields]
+
+    def enc(obj) -> dict:
+        return {kw: encode(getattr(obj, attr)) for attr, kw in pairs}
+
+    def dec(doc: dict):
+        return cls(**{kw: decode(doc[kw]) for _, kw in pairs})
+
+    register(cls, tag, enc, dec)
+
+
+def register_enum(enum_cls: type, tag: Optional[str] = None) -> None:
+    tag = tag or enum_cls.__name__
+    register(enum_cls, tag,
+             lambda e: {"n": e.name},
+             lambda d: enum_cls[d["n"]])
+
+
+# exact-type fast sets for the hot dispatch below: encode/decode run for
+# every value of every protocol message on the serving path, so the
+# common cases (scalars, lists, registered classes) dispatch on
+# ``type(obj)`` in one set/dict probe; anything exotic (enum without its
+# exact class registered, scalar/list SUBCLASSES like np.float64,
+# frozenset) falls through to the original isinstance chain
+_SCALARS = frozenset((str, int, float, bool, type(None)))
+
+
+def encode(obj: Any) -> Any:
+    t = obj.__class__
+    if t in _SCALARS:
+        return obj
+    if t is list:
+        return [encode(v) for v in obj]
+    ent = _ENCODERS.get(t)
+    if ent is not None:   # registered classes AND registered enums (an
+        #                   enum member's __class__ IS its enum class)
+        tag, enc = ent
+        doc = enc(obj)
+        doc["_t"] = tag
+        return doc
+    if t is tuple:
+        return {"_t": "tup", "v": [encode(v) for v in obj]}
+    if t is dict:
+        return {"_t": "map", "v": [[encode(k), encode(v)]
+                                   for k, v in obj.items()]}
+    return _encode_slow(obj)
+
+
+def _encode_slow(obj: Any) -> Any:
+    if isinstance(obj, _enum.Enum):   # before scalars: IntEnum is an int
+        ent = _ENCODERS.get(type(obj))
+        if ent is None:
+            raise TypeError(f"no wire codec for enum {type(obj).__name__}")
+        tag, enc = ent
+        doc = enc(obj)
+        doc["_t"] = tag
+        return doc
+    if obj is None or isinstance(obj, (bool, int, str, float)):
+        return obj
+    if isinstance(obj, list):
+        return [encode(v) for v in obj]
+    if isinstance(obj, tuple):
+        return {"_t": "tup", "v": [encode(v) for v in obj]}
+    if isinstance(obj, frozenset):
+        return {"_t": "fset", "v": sorted((encode(v) for v in obj),
+                                          key=lambda d: str(d))}
+    if isinstance(obj, dict):
+        return {"_t": "map", "v": [[encode(k), encode(v)]
+                                   for k, v in obj.items()]}
+    ent = _ENCODERS.get(type(obj))
+    if ent is None:
+        raise TypeError(f"no wire codec for {type(obj).__name__}")
+    tag, enc = ent
+    doc = enc(obj)
+    doc["_t"] = tag
+    return doc
+
+
+def decode(doc: Any) -> Any:
+    t = doc.__class__
+    if t is dict:
+        tag = doc.get("_t")
+        dec = _DECODERS.get(tag)
+        if dec is None:
+            raise TypeError(f"no wire codec for tag {tag!r}")
+        return dec(doc)
+    if t is list:
+        return [decode(v) for v in doc]
+    if t in _SCALARS:
+        return doc
+    if isinstance(doc, (bool, int, str, float)) or doc is None:
+        return doc   # scalar subclasses
+    if isinstance(doc, list):
+        return [decode(v) for v in doc]
+    if isinstance(doc, dict):
+        tag = doc.get("_t")
+        dec = _DECODERS.get(tag)
+        if dec is not None:
+            return dec(doc)
+        raise TypeError(f"no wire codec for tag {tag!r}")
+    raise TypeError(f"cannot decode {type(doc).__name__}")
+
+
+# the structural tags ride the same decoder registry as classes (one dict
+# probe decodes everything)
+_DECODERS["tup"] = lambda d: tuple(decode(v) for v in d["v"])
+_DECODERS["fset"] = lambda d: frozenset(decode(v) for v in d["v"])
+_DECODERS["map"] = lambda d: {decode(k): decode(v) for k, v in d["v"]}
+
+
+# ---------------------------------------------------------------------------
+# primitives (compact layouts, ref: Json.java TxnId/Timestamp adapters)
+# ---------------------------------------------------------------------------
+
+register(Timestamp, "TS",
+         lambda t: {"v": [t.msb, t.lsb, t.node]},
+         lambda d: Timestamp(d["v"][0], d["v"][1], d["v"][2]))
+register(TxnId, "TID",
+         lambda t: {"v": [t.msb, t.lsb, t.node]},
+         lambda d: TxnId(d["v"][0], d["v"][1], d["v"][2]))
+register(Ballot, "BAL",
+         lambda t: {"v": [t.msb, t.lsb, t.node]},
+         lambda d: Ballot(d["v"][0], d["v"][1], d["v"][2]))
+
+register_enum(TxnKind)
+register_enum(Domain)
+
+register(Range, "Rng", lambda r: {"v": [r.start, r.end]},
+         lambda d: Range(d["v"][0], d["v"][1]))
+register(Ranges, "Rngs",
+         lambda rs: {"v": [[r.start, r.end] for r in rs]},
+         lambda d: Ranges([Range(a, b) for a, b in d["v"]]))
+register(IntKey, "IK", lambda k: {"v": k.value},
+         lambda d: IntKey(d["v"]))
+register(Keys, "Keys",
+         lambda ks: {"v": [encode(k) for k in ks]},
+         lambda d: Keys([decode(k) for k in d["v"]]))
+register(RoutingKeys, "RKeys",
+         lambda ks: {"v": list(ks.tokens())},
+         lambda d: RoutingKeys(d["v"]))
+register_fields(Route, ["home_key", "participants", "is_full", "covering"])
+
+
+def _enc_key_deps(kd: KeyDeps) -> dict:
+    return {"k": list(kd.keys.tokens()),
+            "i": [encode(t) for t in kd.txn_ids],
+            "p": [list(row) for row in kd._ranges_per_key]}
+
+
+def _dec_key_deps(d: dict) -> KeyDeps:
+    return KeyDeps(RoutingKeys(d["k"]),
+                   [decode(t) for t in d["i"]],
+                   [list(row) for row in d["p"]])
+
+
+register(KeyDeps, "KD", _enc_key_deps, _dec_key_deps)
+
+
+def _enc_range_deps(rd: RangeDeps) -> dict:
+    return {"r": [[r.start, r.end] for r in rd.ranges],
+            "i": [encode(t) for t in rd.txn_ids],
+            "p": [list(row) for row in rd._per_range]}
+
+
+def _dec_range_deps(d: dict) -> RangeDeps:
+    return RangeDeps([Range(a, b) for a, b in d["r"]],
+                     [decode(t) for t in d["i"]],
+                     [list(row) for row in d["p"]])
+
+
+register(RangeDeps, "RD", _enc_range_deps, _dec_range_deps)
+register_fields(Deps, ["key_deps", "range_deps"])
+register_fields(PartialDeps, ["covering", "key_deps", "range_deps"])
+
+def _register_latest_deps() -> None:
+    from .primitives.latest_deps import LatestDeps, LatestEntry
+    from .utils.interval_map import ReducingRangeMap
+    register(LatestEntry, "LDE",
+             lambda e: {"k": e.known, "b": encode(e.ballot),
+                        "c": encode(e.coordinated), "l": encode(e.local)},
+             lambda d: LatestEntry(d["k"], decode(d["b"]), decode(d["c"]),
+                                   decode(d["l"])))
+    register(LatestDeps, "LD",
+             lambda ld: {"b": list(ld.map.boundaries),
+                         "v": [encode(v) for v in ld.map.values]},
+             lambda d: LatestDeps(ReducingRangeMap(
+                 d["b"], [decode(v) for v in d["v"]])))
+
+
+_register_latest_deps()
+
+# the HASH datum kind (string/long/double ride as native JSON scalars;
+# ref: maelstrom/Datum.java Kind {STRING, LONG, DOUBLE, HASH})
+register(DatumHash, "DHash",
+         lambda h: {"v": h.value},
+         lambda d: DatumHash(d["v"]))
+
+register_fields(Txn, ["kind", "keys", "read", "update", "query"])
+register_fields(PartialTxn,
+                ["covering", "kind", "keys", "read", "update", "query"])
+register_fields(Writes, ["txn_id", "execute_at", "keys", "write"])
+
+
+# ---------------------------------------------------------------------------
+# local-state enums that appear in replies
+# ---------------------------------------------------------------------------
+
+def _register_status_types() -> None:
+    from .local.status import Durability, SaveStatus, Status
+    register_enum(Status)
+    register_enum(SaveStatus)
+    register_enum(Durability)
+
+
+# ---------------------------------------------------------------------------
+# message verbs (ref: Json.java request/reply adapters + MessageType registry)
+# ---------------------------------------------------------------------------
+
+def _register_messages() -> None:
+    from .messages import accept, apply, begin_recovery, check_status, \
+        commit, fetch_snapshot, inform, preaccept, read_data
+
+    register_fields(preaccept.PreAccept,
+                    ["txn_id", "txn", "route", "max_epoch", "min_epoch"])
+    register_fields(preaccept.PreAcceptOk, ["txn_id", "witnessed_at", "deps"])
+    register_fields(preaccept.PreAcceptNack,
+                    ["reason", "reject_floor"])
+
+    register_fields(accept.Accept,
+                    ["txn_id", "txn", "route", "ballot", "execute_at",
+                     "deps", "min_epoch", "max_epoch"])
+    register_fields(accept.AcceptInvalidate, ["txn_id", "route", "ballot"])
+    register_fields(accept.AcceptReply,
+                    ["superseded_by", "deps", "redundant", "rejected",
+                     "reject_floor"])
+
+    register_enum(commit.CommitKind)
+    register_fields(commit.Commit,
+                    ["kind", "txn_id", "txn", "route", "execute_at", "deps",
+                     "read", "min_epoch", "ballot"])
+    register_fields(commit.CommitInvalidate, ["txn_id", "route"])
+    register_fields(commit.CommitOk, [("_final", "final")])
+    register_fields(commit.CommitNack, ["reason"])
+
+    register_enum(apply.ApplyReplyKind)
+    register_fields(apply.Apply,
+                    ["kind", "txn_id", "route", "execute_at", "deps",
+                     "writes", "result", "txn"])
+    register_fields(apply.ApplyReply, ["kind"])
+
+    register_fields(read_data.ReadTxnData,
+                    ["txn_id", "route", "execute_at_epoch"])
+    register_fields(read_data.ReadOk, ["data", "unavailable"])
+    register_fields(read_data.ReadNack, ["reason"])
+
+    register_fields(begin_recovery.BeginRecovery,
+                    ["txn_id", "txn", "route", "ballot"])
+    register_fields(begin_recovery.RecoverOk,
+                    ["txn_id", "status", "accepted", "execute_at",
+                     "latest_deps", "earlier_committed_witness",
+                     "earlier_accepted_no_witness", "rejects_fast_path",
+                     "writes", "result"])
+    register_fields(begin_recovery.RecoverNack, ["superseded_by"])
+    register_fields(begin_recovery.WaitOnCommit, ["txn_id", "participants"])
+    register_fields(begin_recovery.WaitOnCommitOk, [])
+
+    register_enum(check_status.IncludeInfo)
+    register_fields(check_status.CheckStatus,
+                    ["txn_id", "query", "epoch", "include_info"])
+    register_fields(check_status.CheckStatusOk,
+                    ["save_status", "promised", "accepted", "execute_at",
+                     "durability", "route", "home_key", "partial_txn",
+                     "partial_deps", "writes", "result",
+                     "truncated_covering"])
+    register_fields(check_status.CheckStatusNack, [])
+
+    register_fields(inform.InformDurable, ["txn_id", "route", "durability"])
+    register_fields(inform.InformHomeDurable,
+                    ["txn_id", "route", "execute_at", "durability"])
+    register_fields(inform.InformOfTxnId, ["txn_id", "route"])
+
+    from .messages import get_deps as gd
+    register_fields(gd.GetDeps, ["txn_id", "route", "keys", "execute_at"])
+    register_fields(gd.GetDepsOk, ["deps"])
+    register_fields(gd.GetMaxConflict, ["participants", "execution_epoch"])
+    register_fields(gd.GetMaxConflictOk, ["max_conflict", "latest_epoch"])
+
+    from .messages import durability as dur
+    register_fields(dur.WaitUntilApplied, [("txn_id", "txn_id"),
+                                           "participants"])
+    register_fields(dur.WaitUntilAppliedOk, [])
+    register_fields(dur.ApplyThenWaitUntilApplied,
+                    ["txn_id", "route", "execute_at", "deps"])
+    register_fields(dur.SetShardDurable, [("txn_id", "sync_id"), "ranges"])
+    register_fields(dur.QueryDurableBefore, ["epoch"])
+    register_fields(dur.DurableBeforeReply, ["entries"])
+    register_fields(dur.SetGloballyDurable, ["epoch", "entries"])
+
+    register_fields(fetch_snapshot.FetchSnapshot,
+                    ["ranges", "epoch", "fence_txn_id"])
+    register_fields(fetch_snapshot.FetchSnapshotOk, ["snapshot", "covered"])
+    register_fields(fetch_snapshot.FetchSnapshotNack, [])
+
+    from .messages import ephemeral as eph
+    register_fields(eph.GetEphemeralReadDeps,
+                    ["txn_id", "route", "keys", "execution_epoch"])
+    register_fields(eph.GetEphemeralReadDepsOk, ["deps", "latest_epoch"])
+    register_fields(eph.ReadEphemeralTxnData,
+                    ["txn_id", "read", "keys", "deps", "execution_epoch"])
+
+
+def _register_kv_workload() -> None:
+    from .sim import kvstore
+    register(kvstore.KVRead, "KVRead",
+             lambda r: {"v": encode(r._keys)},
+             lambda d: kvstore.KVRead(decode(d["v"])))
+    register(kvstore.KVRangeRead, "KVRangeRead",
+             lambda r: {"v": encode(r._ranges)},
+             lambda d: kvstore.KVRangeRead(decode(d["v"])))
+    register_fields(kvstore.KVWrite, ["appends"])
+    register_fields(kvstore.KVUpdate, ["appends"])
+    register_fields(kvstore.KVData, ["values"])
+    register_fields(kvstore.KVResult, ["txn_id", "reads", "appends"])
+    register(kvstore.KVQuery, "KVQuery",
+             lambda q: {}, lambda d: kvstore.KVQuery())
+
+
+_register_status_types()
+_register_messages()
+_register_kv_workload()

@@ -1,0 +1,1119 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``accord_tpu_torch``) on one NVIDIA
+card.
+
+    python3 chip_smoke.py                 # the card run (needs one CUDA card)
+    python3 chip_smoke.py --cpu-rehearsal # control flow only, tiny, on the CPU
+
+Phases:
+  1. environment: torch / CUDA / nvcc versions, the card's name and power
+     limit (nvidia-smi);
+  2. build: every ``accord_tpu_torch/ops/csrc/*.cu`` with nvcc for sm_90a;
+  3. kernel checks: each kernel against its plain PyTorch version on the
+     card, byte-equal, on seeded inputs at a small size and on the inputs
+     the main path below gives it (the dense frontier's after phase 6,
+     from the burn); median ms of kernel, plain version, library call
+     (where one exists) and the least time the card could take (bound,
+     from the bytes and operations this input needs);
+  4. the main path, a PreAccept deps store at real size: 100,000 in-flight
+     txns over a 1,000,000-key space, up to 8 intervals each, with
+     RedundantBefore floors and CommandsForKey state; 12,288 queries in
+     batches of 2,048 through deps_query_batch_begin / end_attributed on
+     the device route, plus live maintenance (registrations between
+     batches); two batches' built Deps must equal the host route's;
+  5. the main path's drain half at real size: a store with 100,000 live
+     drain rows (degree <= 8), its Stable txns armed through
+     DeviceState.arm; two drain ticks (ELL frontier on the card), the
+     second after 2,000 applied dependencies, each proposing exactly the
+     plain version's frontier;
+  6. the protocol: ``run_burn(seed=1, n_ops=150)`` on the card with every
+     store on the device route; the strict-serializability verifier
+     passes, kernel flushes and device drain ticks happen, no host tick and
+     no fault; a second run of the seed gives the same digest.
+Then a torch.profiler trace of two phase-4 batches gives the device's busy
+share and its time by kernel name.
+
+Every kernel launch count is set to 0 just before phases 4-6 and read just
+after them: each kernel of the path must have launched.  The second-to-last
+lines carry the kernel table (JSON) and the card's name and power limit;
+the last line is the result object.  Any failure exits non-zero without the
+result line.  Long output (build log, profiler table, summary) goes to
+``build/chip_smoke/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "chip_smoke"
+
+KMETA = {
+    "deps_bucketed": ("accord_tpu_torch/ops/csrc/deps_scan.cu",
+                      "accord_tpu/ops/deps_kernel.py:448"),
+    "deps_dense": ("accord_tpu_torch/ops/csrc/deps_scan.cu",
+                   "accord_tpu/ops/deps_kernel.py:351"),
+    "attr_post": ("accord_tpu_torch/ops/csrc/attr_post.cu",
+                  "accord_tpu/ops/deps_kernel.py:921"),
+    "scatter_rows": ("accord_tpu_torch/ops/csrc/scatter_rows.cu",
+                     "accord_tpu/ops/deps_kernel.py:156"),
+    "frontier_ell": ("accord_tpu_torch/ops/csrc/frontier.cu",
+                     "accord_tpu/ops/drain_kernel.py:173"),
+    "frontier_dense": ("accord_tpu_torch/ops/csrc/frontier.cu",
+                       "accord_tpu/ops/drain_kernel.py:133"),
+}
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
+# non-tensor-core fp32 rate, used as the peak of the scalar integer
+# compare/select work these kernels do (no tensor-core work here)
+HBM_BPS = 3.35e12
+SCALAR_OPS = 67e12
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- phase 1 -------------------------------------------------------------------
+
+def environment(torch, rehearsal: bool) -> dict:
+    smi = "not measured"
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        if not rehearsal:
+            fail("nvidia-smi did not report the card")
+    nvcc = "not found"
+    try:
+        from accord_tpu_torch.ops import _build
+        out = subprocess.run([_build._nvcc(), "--version"],
+                             capture_output=True, text=True, timeout=60)
+        nvcc = [ln for ln in out.stdout.splitlines() if "release" in ln][0]
+    except (RuntimeError, OSError, IndexError, subprocess.SubprocessError):
+        if not rehearsal:
+            fail("nvcc not found")
+    env = {"python": sys.version.split()[0], "torch": torch.__version__,
+           "cuda": torch.version.cuda,
+           "device": (torch.cuda.get_device_name(0)
+                      if torch.cuda.is_available() else "cpu"),
+           "nvidia_smi": smi, "nvcc": nvcc}
+    try:
+        import triton
+        env["triton"] = triton.__version__
+    except ImportError:
+        env["triton"] = None
+    log("env: " + json.dumps(env))
+    return env
+
+
+# -- seeded small inputs (the CPU tests' shapes) -------------------------------
+
+WORDS = np.array([0, 1, (1 << 16) - 1, (1 << 47), (1 << 48) - 1, (1 << 62),
+                  np.iinfo(np.int64).max, np.iinfo(np.int64).min, -1],
+                 np.int64)
+
+
+def _ids(rng, n):
+    msb = np.where(rng.random(n) < 0.3, rng.choice(WORDS, n),
+                   rng.integers(0, 8, n)).astype(np.int64)
+    lsb = np.where(rng.random(n) < 0.3, rng.choice(WORDS, n),
+                   rng.integers(0, 8, n)).astype(np.int64)
+    return msb, lsb, rng.integers(-1, 4, n).astype(np.int32)
+
+
+def small_inputs(seed, dk, n=256, m_t=4, m=4, b=32, g=32, kb=16, w=16,
+                 space=300):
+    """Seeded table / buckets / queries / attribution index."""
+    from accord_tpu_torch.local.device_index import _AttrIndexHost
+    rng = np.random.default_rng(seed)
+    msb, lsb, node = _ids(rng, n)
+    kind = rng.integers(0, 6, n).astype(np.int32)
+    status = rng.integers(-1, 7, n).astype(np.int32)
+
+    def intervals(rows, cols, fill):
+        lo = np.full((rows, cols), dk.PAD_LO, np.int64)
+        hi = np.full((rows, cols), dk.PAD_HI, np.int64)
+        for i in range(rows):
+            for c in range(int(rng.integers(0 if fill else 1, cols + 1))):
+                a = int(rng.integers(0, space))
+                wd = 0 if rng.random() < 0.6 else int(rng.integers(1, 40))
+                lo[i, c], hi[i, c] = a, a + wd
+        return lo, hi
+
+    lo, hi = intervals(n, m_t, False)
+
+    used = (lo <= hi).sum(axis=1)
+
+    def entries(shape):
+        slot = rng.integers(-1, n, shape).astype(np.int32)
+        s = np.clip(slot, 0, None)
+        col = (rng.random(shape) * used[s]).astype(np.int32)
+        elo, ehi = lo[s, col], hi[s, col]
+        pad = (slot < 0) | (elo > ehi)
+        return (np.where(pad, dk.PAD_LO, elo), np.where(pad, dk.PAD_HI, ehi),
+                np.where(pad, -1, slot).astype(np.int32),
+                np.where(pad, 0, col).astype(np.int32), msb[s], lsb[s],
+                node[s], kind[s])
+
+    buckets = entries((g, kb)) + entries((w,))
+    qmat = np.zeros((b, 7 + 2 * m), np.int64)
+    bm, bl, bn = _ids(rng, b)
+    pick = rng.integers(0, n, b)
+    same = rng.random(b) < 0.4
+    qmat[:, 0] = np.where(same, msb[pick], bm)
+    qmat[:, 1] = np.where(same, lsb[pick], bl)
+    qmat[:, 2] = np.where(same, node[pick], bn)
+    qmat[:, 3] = rng.integers(0, 1 << 6, b)
+    qmat[:, 4], qmat[:, 5], qmat[:, 6] = msb[pick], lsb[pick], node[pick]
+    qlo, qhi = intervals(b, m, True)
+    qmat[:, 7:7 + m], qmat[:, 7 + m:] = qlo, qhi
+    qmat_b = np.concatenate(
+        [qmat, rng.integers(-1, g, (b, m * 4)).astype(np.int64)], axis=1)
+    em, el, en = _ids(rng, n)
+    attr = (rng.integers(0, 2, n).astype(np.int32), status, msb, lsb, node,
+            em, el, en, rng.random(n) < 0.7)
+    fbnd = np.unique(rng.integers(0, space, 5)).astype(np.int64)
+    fm = rng.integers(0, 2, len(fbnd) + 1).astype(np.int64)
+    fl = rng.integers(0, 4, len(fbnd) + 1).astype(np.int64)
+    fn = np.ones(len(fbnd) + 1, np.int32)
+    toks = np.unique(rng.choice(lo[lo != dk.PAD_LO], 48)).astype(np.int64)
+    lens = rng.integers(1, 4, len(toks))
+    eptr = np.zeros(len(toks) + 1, np.int32)
+    np.cumsum(lens, out=eptr[1:])
+    xm, xl, xn = _ids(rng, int(lens.sum()))
+    for t in range(len(toks)):
+        sl = slice(eptr[t], eptr[t + 1])
+        keys = list(zip(xm[sl].astype(np.uint64), xl[sl].astype(np.uint64),
+                        xn[sl]))
+        o = sorted(range(len(keys)), key=lambda i: keys[i])
+        xm[sl], xl[sl], xn[sl] = xm[sl][o], xl[sl][o], xn[sl][o]
+    host = _AttrIndexHost((fbnd, fm, fl, fn), toks, eptr, xm, xl, xn)
+    return dict(table=(msb, lsb, node, kind, status, lo, hi),
+                buckets=buckets, qmat=qmat, qmat_b=qmat_b, attr=attr,
+                aidx=host.pad, rankb=host.rank_bounds(qmat), m=m, m_t=m_t,
+                prune=(int(rng.integers(0, 3)), int(rng.integers(0, 4)), 1))
+
+
+def small_drain(seed, n):
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((n, n), bool)
+    for i in range(1, n):
+        for _ in range(int(rng.integers(0, 4))):
+            adj[i, int(rng.integers(0, i))] = True
+    for _ in range(4):
+        a, c = rng.integers(0, n, 2)
+        if a != c:
+            adj[a, c] = True
+    status = rng.choice(np.array([-1, 0, 1, 2, 3, 4, 4, 4, 5, 5, 6],
+                                 np.int32), n)
+    msb = rng.integers(0, 6, n).astype(np.int64)
+    lsb = np.where(rng.random(n) < 0.2, rng.choice(WORDS, n),
+                   0).astype(np.int64)
+    node = rng.integers(1, 3, n).astype(np.int32)
+    awaits = rng.random(n) < 0.15
+    idx = np.full((n, 8), -1, np.int32)
+    for i in range(n):
+        cols = np.nonzero(adj[i])[0][:8]
+        idx[i, :len(cols)] = cols
+    return (adj, status, msb, lsb, node, awaits), (idx, status, msb, lsb,
+                                                    node, awaits)
+
+
+# -- the kernel checks ---------------------------------------------------------
+
+def _max_abs_err(torch, a, b) -> int:
+    if torch.is_tensor(a):
+        a, b = (a,), (b,)
+    err = 0
+    for x, y in zip(a, b):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return -1
+        if x.numel():
+            err = max(err, int((x.to(torch.int64) - y.to(torch.int64))
+                               .abs().max()))
+    return err
+
+
+def bucket_case(torch, kern, dk, m_t, buckets, qmat, m, span, s, k, prune,
+                keff, wide):
+    b = qmat.shape[0]
+    kb = buckets.blo.shape[1]
+    keff_ = kb if keff is None else min(keff, kb)
+    w = buckets.wlo.shape[0]
+    c = m * span * keff_ + m * w
+    cs = 8 if wide else 4
+    rows = qmat[:, 7 + 2 * m:]
+    touched = int(torch.unique(rows[rows >= 0]).numel())
+    nbytes = (qmat.numel() * 8 + touched * keff_ * 48 + w * 48
+              + (2 + b) * 4 + s * cs)
+    ops = b * c * 12
+    return (lambda: kern.deps_bucketed(m_t, buckets, qmat, m, span, s, k,
+                                       prune, keff, wide),
+            lambda: dk.bucketed_flat_plain(m_t, buckets, qmat, m, span, s, k,
+                                           prune, keff, wide),
+            None, nbytes, ops)
+
+
+def dense_case(torch, kern, dk, table, qmat, m, s, k, prune, wide):
+    b = qmat.shape[0]
+    n, m_t = table.lo.shape
+    cs = 8 if wide else 4
+    nbytes = (n * (28 + 16 * m_t) + qmat.numel() * 8 + (2 + b) * 4
+              + s * cs)
+    ops = b * n * (2 * m * m_t + 12)
+    return (lambda: kern.deps_dense(table, qmat, m, s, k, prune, wide),
+            lambda: dk.flat_csr_plain(table, qmat, m, s, k, prune, wide),
+            None, nbytes, ops)
+
+
+def attr_case(torch, kern, dk, tlo, attr, aidx, rankb, hdr_raw, ent, m_t, m,
+              floors, elide):
+    s = ent.shape[0]
+    cs = ent.element_size()
+    live = min(int(hdr_raw[0]), s)
+    b = hdr_raw.shape[0] - 2
+    aidx_bytes = sum(t.numel() * t.element_size() for t in aidx)
+    nbytes = (2 * s * cs + (2 + b) * 4 + (5 + b) * 4 + live * (49 + 16)
+              + aidx_bytes + b * 8)
+    ops = live * 64
+    return (lambda: kern.attr_post(tlo, attr, aidx, rankb, hdr_raw, ent, m_t,
+                                   m, floors, elide),
+            lambda: dk.attr_post_plain(tlo, attr, aidx, rankb, hdr_raw, ent,
+                                       m_t, m, floors, elide),
+            None, nbytes, ops)
+
+
+def scatter_case(torch, kern, dk, cols, idx, rows):
+    """Kernel and plain version each write into their own copy."""
+    dev = cols[0].device
+    idx_t = torch.as_tensor(np.asarray(idx)).to(dev, torch.int64)
+    rows_t = [torch.as_tensor(np.ascontiguousarray(r)).to(dev, c.dtype)
+              for c, r in zip(cols, rows)]
+    ck = [c.clone() for c in cols]
+    cp = [c.clone() for c in cols]
+    cl = [c.clone() for c in cols]
+    p = len(idx_t)
+    row_bytes = sum((c[0].numel() if c.dim() > 1 else 1) * c.element_size()
+                    for c in cols)
+
+    def run_kernel():
+        kern.scatter_rows(ck, idx_t, rows_t)
+        return tuple(ck)
+
+    def run_plain():
+        dk.scatter_rows_plain(cp, idx_t, rows_t)
+        return tuple(cp)
+
+    def run_library():
+        for c, r in zip(cl, rows_t):
+            c.index_copy_(0, idx_t, r)
+
+    return (run_kernel, run_plain, run_library, 2 * p * row_bytes + p * 8,
+            p * len(cols))
+
+
+def frontier_work(torch, drk, state):
+    """(bytes, operations) one frontier sweep needs on this state: every
+    row's status and its output flag; for each Stable row (no other row can
+    be ready, whatever its adjacency), its own executeAt and awaits flag and
+    its adjacency up to its first unapplied gating dependency (the whole
+    row when it is ready); and the status and executeAt of every dependency
+    those prefixes name.  Pad and free rows read their status only."""
+    n = state.status.shape[0]
+    dev = state.status.device
+    if isinstance(state, drk.EllDrainState):
+        blocking, j = drk._ell_blocking(state)
+        named = state.adj_idx >= 0
+        stops = blocking & (state.status[j] != drk.SLOT_APPLIED)
+        width, entry = state.adj_idx.shape[1], 4
+    else:
+        blocking = drk.blocking_matrix(state)
+        named = state.adj
+        stops = blocking & (state.status != drk.SLOT_APPLIED)[None, :]
+        j = torch.arange(n, device=dev)[None, :].expand(n, n)
+        width, entry = n, 1
+    stable = state.status == drk.SLOT_STABLE
+    pos = torch.arange(width, device=dev)
+    first = torch.where(stops, pos[None, :], width).min(dim=1).values
+    prefix = torch.where(stable, torch.clamp(first + 1, max=width), 0)
+    visited = pos[None, :] < prefix[:, None]
+    read = visited & named
+    exec_rows = stable.clone()
+    exec_rows[j[read]] = True
+    nbytes = (n * 4 + n + int(prefix.sum()) * entry
+              + int(exec_rows.sum()) * 20 + int(stable.sum()))
+    ops = int(visited.sum()) * 10 + n
+    return nbytes, ops
+
+
+def ell_case(torch, kern, drk, state):
+    return (lambda: kern.frontier_ell(state),
+            lambda: drk.ready_frontier_ell_plain(state), None,
+            *frontier_work(torch, drk, state))
+
+
+def dense_frontier_case(torch, kern, drk, state):
+    return (lambda: kern.frontier_dense(state),
+            lambda: drk.ready_frontier_plain(state), None,
+            *frontier_work(torch, drk, state))
+
+
+def time_ms(torch, fn, on_cuda: bool, reps: int = 15, warm: int = 3):
+    """Median ms of ``fn`` after warm-up: CUDA events around each call on
+    the card, the host clock in a CPU rehearsal."""
+    for _ in range(warm):
+        fn()
+    if not on_cuda:
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def run_checks(torch, cases: dict, label: str, on_cuda: bool,
+               timed: bool) -> dict:
+    """Each case: kernel vs plain on the same inputs, byte-equal."""
+    out = {}
+    for name, (kfn, pfn, lfn, nbytes, ops) in cases.items():
+        got = kfn()
+        want = pfn()
+        if on_cuda:
+            torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        check(err == 0, f"{label} {name}: kernel != plain (max_abs_err "
+                        f"{err})")
+        row = {"max_abs_err": err}
+        if timed:
+            row["ms"] = time_ms(torch, kfn, on_cuda)
+            row["plain_ms"] = time_ms(torch, pfn, on_cuda)
+            row["library_ms"] = (time_ms(torch, lfn, on_cuda)
+                                 if lfn is not None else None)
+            t_bytes = nbytes / HBM_BPS * 1e3
+            t_ops = ops / SCALAR_OPS * 1e3
+            row["bound_ms"] = max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["bytes"] = int(nbytes)
+            row["ops"] = int(ops)
+        out[name] = row
+        log(f"check {label} {name}: equal " + json.dumps(row))
+    return out
+
+
+def small_cases(torch, dev, kern, dk, drk, convert):
+    cases = {}
+    for seed, wide in ((1, False), (2, True)):
+        inp = small_inputs(seed, dk)
+        up = convert.tables_from_numpy(
+            {"table": inp["table"], "buckets": inp["buckets"],
+             "attr": inp["attr"], "aidx": inp["aidx"]}, dev)
+        qb = torch.from_numpy(inp["qmat_b"]).to(dev)
+        qd = torch.from_numpy(inp["qmat"]).to(dev)
+        rankb = torch.from_numpy(inp["rankb"]).to(dev)
+        m, m_t = inp["m"], inp["m_t"]
+        for s, k in ((8192, 64), (40, 3)):     # the second overflows
+            tag = f"[seed{seed}{' i64' if wide else ''} s{s}]"
+            cases["deps_bucketed" + tag] = bucket_case(
+                torch, kern, dk, m_t, up["buckets"], qb, m, 4, s, k,
+                inp["prune"], 8, wide)
+            cases["deps_dense" + tag] = dense_case(
+                torch, kern, dk, up["table"], qd, m, s, k, inp["prune"],
+                wide)
+            hdr, ent = dk.bucketed_flat_plain(m_t, up["buckets"], qb, m, 4,
+                                              s, k, inp["prune"], 16, wide)
+            for floors, elide in ((True, True), (False, False)):
+                cases[f"attr_post{tag}[{floors:d}{elide:d}]"] = attr_case(
+                    torch, kern, dk, up["table"].lo, up["attr"], up["aidx"],
+                    rankb, hdr, ent, m_t, m, floors, elide)
+        rows = np.array([3, 17, 40, 40, 40], np.int32)
+        src = small_inputs(seed + 10, dk)["table"]
+        cases[f"scatter_rows[seed{seed}]"] = scatter_case(
+            torch, kern, dk, list(up["table"]), rows, [a[rows] for a in src])
+    # rows with more candidates than shared memory holds (C > 4096) sort
+    # in global scratch: 8 intervals x 4 probes x 128 entries + the wide list
+    for seed, wide in ((6, False), (7, True)):
+        inp = small_inputs(seed, dk, m=8, kb=128)
+        up = convert.tables_from_numpy({"buckets": inp["buckets"]}, dev)
+        qb = torch.from_numpy(inp["qmat_b"]).to(dev)
+        tag = f"[seed{seed}{' i64' if wide else ''} C>{kern.SMEM_CODES}]"
+        cases["deps_bucketed" + tag] = bucket_case(
+            torch, kern, dk, inp["m_t"], up["buckets"], qb, inp["m"], 4,
+            8192, 256, inp["prune"], 128, wide)
+    for seed, n in ((3, 64), (4, 512), (8, 48)):
+        dense, ell = small_drain(seed, n)
+        st = convert.tables_from_numpy({"drain": dense, "ell": ell}, dev)
+        cases[f"frontier_dense[n{n}]"] = dense_frontier_case(
+            torch, kern, drk, st["drain"])
+        cases[f"frontier_ell[n{n}]"] = ell_case(torch, kern, drk, st["ell"])
+    return cases
+
+
+# -- the real-size store (bench.py's headline workload, ported) ----------------
+
+def build_workload(rng, n, keyspace, max_iv, P):
+    hlcs = rng.choice(np.arange(1, 4_000_000), size=n, replace=False)
+    out = []
+    for i in range(n):
+        point = rng.random() < 0.5
+        kind = P.TxnKind.Write if rng.random() < 0.7 else P.TxnKind.Read
+        tid = P.TxnId.create(1, int(hlcs[i]), kind,
+                             P.Domain.Key if point else P.Domain.Range,
+                             int(rng.integers(1, 6)))
+        toks, rngs = [], []
+        for _ in range(int(rng.integers(1, max_iv + 1))):
+            if point:
+                toks.append(int(rng.integers(0, keyspace)))
+            else:
+                s = int(rng.integers(0, keyspace - 64))
+                rngs.append(P.Range(s, s + int(rng.integers(1, 64))))
+        out.append((tid, toks, rngs))
+    return out
+
+
+def make_queries(seed, k, keyspace, max_iv, P, wide_frac=0.0):
+    """bench.make_queries, plus an optional share of wide range queries
+    (spanning more buckets than the index probes: the dense route)."""
+    qrng = np.random.default_rng(seed)
+    qs = []
+    for _ in range(k):
+        bound = P.TxnId.create(1, int(qrng.integers(4_000_000, 5_000_000)),
+                               P.TxnKind.Write, P.Domain.Key, 1)
+        toks, rngs = [], []
+        if qrng.random() < wide_frac:
+            s = int(qrng.integers(0, keyspace - 4096))
+            rngs.append(P.Range(s, s + int(qrng.integers(512, 4096))))
+        else:
+            for _ in range(int(qrng.integers(1, max_iv + 1))):
+                if qrng.random() < 0.5:
+                    toks.append(int(qrng.integers(0, keyspace)))
+                else:
+                    s = int(qrng.integers(0, keyspace - 64))
+                    rngs.append(P.Range(s, s + int(qrng.integers(1, 64))))
+        qs.append((bound, bound, bound.kind().witnesses(), toks, rngs))
+    return qs
+
+
+class P:
+    """The port's primitives, imported once the package is known to load."""
+
+    @classmethod
+    def load(cls):
+        from accord_tpu_torch.local.commands_for_key import (CommandsForKey,
+                                                             InternalStatus)
+        from accord_tpu_torch.local.device_index import DeviceState
+        from accord_tpu_torch.local.redundant import RedundantBefore
+        from accord_tpu_torch.primitives.deps import DepsBuilder
+        from accord_tpu_torch.primitives.keys import (IntKey, Keys, Range,
+                                                      Ranges)
+        from accord_tpu_torch.primitives.timestamp import (Domain, TxnId,
+                                                           TxnKind)
+        for k, v in list(locals().items()):
+            if k != "cls":
+                setattr(cls, k, v)
+
+
+class Store:
+    def __init__(self):
+        self.commands_for_key = {}
+        self.redundant_before = P.RedundantBefore()
+
+    class node:
+        scheduler = None
+
+
+class Safe:
+    def __init__(self, store):
+        self.store = store
+
+    def redundant_before(self):
+        return self.store.redundant_before
+
+
+def build_store(entries, keyspace, device):
+    store = Store()
+    floor_id = P.TxnId.create(1, 500_000, P.TxnKind.ExclusiveSyncPoint,
+                              P.Domain.Range, 1)
+    store.redundant_before.add_redundant(
+        P.Ranges.of(*(P.Range(s, s + 50_000)
+                      for s in range(0, keyspace // 2, 100_000))), floor_id)
+    dev = P.DeviceState(store, device=device)
+    register(dev, store, entries)
+    return store, dev, Safe(store)
+
+
+def register(dev, store, entries):
+    for tid, toks, rngs in entries:
+        keys = (P.Ranges.of(*rngs) if rngs
+                else P.Keys([P.IntKey(t) for t in toks]))
+        dev.register(tid, int(P.InternalStatus.PREACCEPTED), keys)
+        for t in toks:
+            cfk = store.commands_for_key.get(t)
+            if cfk is None:
+                cfk = store.commands_for_key[t] = P.CommandsForKey(t)
+            cfk.update(tid, P.InternalStatus.PREACCEPTED)
+
+
+def deps_digest(builders):
+    out = []
+    for b in builders:
+        d = b.build()
+        out.append(([(k, [(t.msb, t.lsb, t.node)
+                          for t in d.key_deps.txn_ids_for(k)])
+                     for k in d.key_deps.keys.tokens()],
+                    [(r.start, r.end,
+                      [(d.range_deps.txn_ids[j].msb,
+                        d.range_deps.txn_ids[j].lsb,
+                        d.range_deps.txn_ids[j].node) for j in row])
+                     for r, row in zip(d.range_deps.ranges,
+                                       d.range_deps._per_range)]))
+    return out
+
+
+def attributed(dev, safe, batch):
+    builders = [P.DepsBuilder() for _ in batch]
+    dev.deps_query_batch_attributed(safe, batch, builders)
+    return builders
+
+
+def _work(name, a):
+    """Size of one recorded call, to keep the largest the path gives."""
+    if name == "deps_bucketed":
+        return a[2].shape[0]
+    if name == "deps_dense":
+        return a[1].shape[0] * a[0].lo.shape[0]
+    if name == "attr_post":
+        return a[5].shape[0]
+    if name == "scatter_rows":
+        return len(a[1]) * sum(c[0].numel() * c.element_size()
+                               for c in a[0])
+    return a[0].status.shape[0]
+
+
+def _copy(x):
+    if hasattr(x, "clone"):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        items = [_copy(y) for y in x]
+        return (type(x)(*items) if hasattr(x, "_fields")
+                else type(x)(items))
+    return x
+
+
+class Recorder:
+    """Wrap the kernel entry points ``names`` to keep, for each, a copy of
+    the arguments of its largest call (the shapes and data the main path
+    gives the kernel; a copy, since later scatters write in place)."""
+
+    def __init__(self, kern, names=None):
+        self.kern = kern
+        self.calls = {}
+        self.orig = {n: getattr(kern, n) for n in (names or kern.KERNELS)}
+        for name, fn in self.orig.items():
+            setattr(kern, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def wrapped(*a, **kw):
+            w = _work(name, a)
+            if name not in self.calls or w > self.calls[name][2]:
+                self.calls[name] = (_copy(a), kw, w)
+            return fn(*a, **kw)
+        return wrapped
+
+    def restore(self):
+        for name, fn in self.orig.items():
+            setattr(self.kern, name, fn)
+
+
+class DrainRecord:
+    """The fields of a command that DeviceState.arm and the drain tick's
+    host re-check read.  ``save_status`` is None, so the re-check leaves
+    every proposed txn waiting: the protocol's execution is phase 6's."""
+    save_status = None
+
+    def __init__(self, execute_at, deps):
+        self.execute_at = execute_at
+        self.waiting_on = self
+        self.deps = deps
+
+    def waiting_ids(self):
+        return self.deps
+
+
+class DrainStore(Store):
+    """A store whose drain ticks run when the script says: the tick that
+    DeviceState.schedule_tick hands the node's scheduler is kept until
+    ``run_ticks`` and then runs through ``execute``, as the store's task
+    queue runs it.  ``proposed`` collects the txns each tick proposed."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = {}
+        self.proposed = set()
+        self.due = []
+        self.node = self
+        self.scheduler = self
+        self.dispatcher = None
+        self.ticks = []
+
+    def once(self, _delay, fn):
+        self.due.append(fn)
+
+    def execute(self, _ctx, fn):
+        fn(DrainSafe(self))
+
+    def drain_observer(self, _store, mode, n):
+        self.ticks.append((mode, n))
+
+    def run_ticks(self):
+        self.proposed = set()
+        due, self.due = self.due, []
+        for fn in due:
+            fn()
+
+
+class DrainSafe(Safe):
+    def if_present(self, txn_id):
+        self.store.proposed.add(txn_id)   # the tick asks for candidates only
+        return self.store.records.get(txn_id)
+
+
+def drain_store(nd, device, seed=11):
+    """A store with ``nd`` live drain rows shaped like bench.py's config-3
+    ELL drain (512 hot chains with local fan-in, degree <= 8) and mixed
+    statuses, built as the protocol builds it: each Stable txn is armed
+    (DeviceState.arm) with its waiting set; every other txn is a
+    dependency-only row with its status, as arm's dependency lookup
+    allocates it."""
+    rng = np.random.default_rng(seed)
+    chains, d = 512, 8
+    store = DrainStore()
+    ds = P.DeviceState(store, device=device)
+    safe = DrainSafe(store)
+    ids = [P.TxnId.create(1, 10 + i, P.TxnKind.Write, P.Domain.Key, 1)
+           for i in range(nd)]
+    statuses = rng.choice(np.array([4, 4, 4, 4, 5, 5, 3, 1, 6], np.int32), nd)
+    for i, tid in enumerate(ids):
+        st = int(statuses[i])
+        if st != 4:
+            slot = ds.drain.alloc(tid)
+            ds.drain.set_status(slot, st, tid if st in (3, 5) else None)
+            continue
+        deps = []
+        if i >= chains:
+            deps.append(ids[i - chains])
+            lo = max(0, i - 3 * chains)
+            deps += [ids[int(j)] for j in
+                     rng.integers(lo, i - 1, int(rng.integers(1, d)))]
+        store.records[tid] = DrainRecord(tid, list(dict.fromkeys(deps)))
+        ds.arm(safe, tid)
+    return store, ds
+
+
+def burn_once(run_burn, device, n_ops):
+    """run_burn with every store pinned to the device route; returns
+    (result, per-run DeviceState counters)."""
+    made = []
+    orig = P.DeviceState.__init__
+
+    def init(self, *a, **kw):
+        orig(self, *a, **kw)
+        self.route_override = "device"
+        made.append(self)
+
+    P.DeviceState.__init__ = init
+    try:
+        r = run_burn(1, n_ops=n_ops, device=device)
+    finally:
+        P.DeviceState.__init__ = orig
+    tot = {}
+    for k in ("n_bucketed_queries", "n_dense_queries", "n_host_queries",
+              "n_device_ticks", "n_host_ticks", "n_device_faults",
+              "n_fallback_queries", "n_queries"):
+        tot[k] = sum(getattr(d, k) for d in made)
+    digest = hashlib.sha256(json.dumps(
+        [r.ops_ok, r.ops_failed, r.ops_unresolved, r.epochs, r.restarts,
+         r.evictions, r.stats, r.metrics_snapshot, r.span_export],
+        sort_keys=True, default=str).encode()).hexdigest()
+    return r, tot, digest
+
+
+def profile_phase4(torch, ds, safe, batches) -> None:
+    """Trace two pipelined phase-4 batches: the device's busy share of the
+    wall time and the device time by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = [(ds.deps_query_batch_begin(b, prune_floors=True,
+                                              attributed=True), b)
+                   for b in batches]
+        for h, b in handles:
+            ds.deps_query_batch_end_attributed(
+                safe, h, [P.DepsBuilder() for _ in b])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    (OUT / "profile_phase4.txt").write_text(
+        prof.key_averages().table(sort_by="self_cpu_time_total",
+                                  row_limit=40))
+    log("profile: phase-4 x2 batches wall %.3f ms, device busy %.3f ms "
+        "(%.2f%%, idle %.2f%%); top device time %s" % (
+            wall_us / 1e3, busy / 1e3, 100 * busy / wall_us,
+            100 - 100 * busy / wall_us,
+            json.dumps([(k, round(us / 1e3, 3), c)
+                        for us, k, c in rows[:8]])))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="run the control flow on the CPU at a tiny size "
+                         "(plain versions only; never prints a result)")
+    args = ap.parse_args(argv)
+    rehearsal = args.cpu_rehearsal
+    import torch
+    if not rehearsal and not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a CUDA "
+             "card")
+    try:
+        import accord_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the accord_tpu_torch package is not importable here: {e}")
+    from accord_tpu_torch.ops import _build
+    from accord_tpu_torch.ops import convert
+    from accord_tpu_torch.ops import deps_kernel as dk
+    from accord_tpu_torch.ops import drain_kernel as drk
+    from accord_tpu_torch.ops import kernels as kern
+    from accord_tpu_torch.sim.burn import run_burn
+    P.load()
+    global OUT
+    if rehearsal:
+        OUT = OUT.with_name("chip_smoke_rehearsal")
+    OUT.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cpu" if rehearsal else "cuda")
+    on_cuda = dev.type == "cuda"
+    t_start = time.perf_counter()
+
+    # 1. environment
+    env = environment(torch, rehearsal)
+
+    # 2. build
+    if on_cuda:
+        _build.library()
+        blog = _build.build_log()
+        (OUT / "build_log.txt").write_text(blog["stderr"])
+        log(f"build: {blog['seconds']:.2f} s (cached={blog['cached']}) "
+            f"-> {_build.BUILD_DIR / _build.LIB_NAME}")
+
+    # 3a. small-size kernel checks
+    run_checks(torch, small_cases(torch, dev, kern, dk, drk, convert),
+               "small", on_cuda, timed=False)
+
+    # setup for the main path (host side, untimed)
+    N, KEYSPACE, M, B = ((100_000, 1_000_000, 8, 2048) if not rehearsal
+                         else (3_000, 1_000_000, 8, 128))
+    n_batches = 6
+    ND = 100_000 if not rehearsal else 12_000
+    t0 = time.perf_counter()
+    entries = build_workload(np.random.default_rng(42), N, KEYSPACE, M, P)
+    store, ds, safe = build_store(entries, KEYSPACE, dev)
+    ds.route_override = "device"
+    batches = [make_queries(1000 + i, B, KEYSPACE, M, P,
+                            wide_frac=0.1 if i == n_batches - 1 else 0.0)
+               for i in range(n_batches)]
+    extra = build_workload(np.random.default_rng(7), 3 * B, KEYSPACE, M, P)
+    log(f"setup: store of {N} txns (capacity {ds.deps.capacity}, "
+        f"{ds.deps.max_intervals} intervals, {len(ds.deps.bucket_entries)} "
+        f"buckets, keff {ds.deps.bucket_keff()}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dstore, dds = drain_store(ND, dev)
+    log(f"setup: drain store of {ND} rows ({len(dstore.records)} armed) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # warm pass: uploads, learned s/k budgets, and one maintenance step,
+    # recording the kernels' arguments at the main path's shapes
+    rec = Recorder(kern)
+    try:
+        for batch in batches:
+            attributed(ds, safe, batch)
+        register(ds, store, extra[:B])
+        attributed(ds, safe, batches[0])
+        dstate, _live = dds.drain.state()   # what phase 5's first tick sweeps
+    finally:
+        rec.restore()
+    check(set(rec.calls) >= {"deps_bucketed", "deps_dense", "attr_post",
+                             "scatter_rows"},
+          f"warm pass missed kernels: {sorted(rec.calls)}")
+
+    # 3b. real-size kernel checks and timings at the recorded shapes
+    real = {}
+    a, kw, _w = rec.calls["deps_bucketed"]
+    real["deps_bucketed"] = bucket_case(torch, kern, dk, *a, **kw)
+    a, kw, _w = rec.calls["deps_dense"]
+    real["deps_dense"] = dense_case(torch, kern, dk, *a, **kw)
+    a, kw, _w = rec.calls["attr_post"]
+    real["attr_post"] = attr_case(torch, kern, dk, *a, **kw)
+    a, kw, _w = rec.calls["scatter_rows"]
+    real["scatter_rows"] = scatter_case(torch, kern, dk, *a, **kw)
+    real["frontier_ell"] = ell_case(torch, kern, drk, dstate)
+    rows = run_checks(torch, real, "real", on_cuda, timed=True)
+    shapes = {
+        "deps_bucketed": list(rec.calls["deps_bucketed"][0][2].shape),
+        "deps_dense": list(rec.calls["deps_dense"][0][1].shape),
+        "attr_post": [int(rec.calls["attr_post"][0][5].shape[0])],
+        "scatter_rows": [len(rec.calls["scatter_rows"][0][1])],
+        "frontier_ell": list(dstate.adj_idx.shape)}
+
+    # 4-6. the main path, with every launch count set to 0 first
+    kern.reset_launches()
+    phase_launches = {}
+    seen = dict(kern.LAUNCHES)
+
+    def phase_done(tag):
+        phase_launches[tag] = {k: v - seen[k] for k, v in kern.LAUNCHES.items()}
+        seen.update(kern.LAUNCHES)
+
+    # 4. the deps store at real size
+    before = {k: getattr(ds, k) for k in (
+        "n_bucketed_queries", "n_dense_queries", "n_host_queries",
+        "n_device_faults", "n_fallback_queries")}
+    keep = {0: None, n_batches - 1: None}
+    kt0 = {k: tuple(v) for k, v in ds.kernel_times.items()}
+    t0 = time.perf_counter()
+    pending = []
+
+    spent = {"begin": 0.0, "end_attributed": 0.0, "build": 0.0}
+
+    def collect(i, handle, batch):
+        builders = [P.DepsBuilder() for _ in batch]
+        t1 = time.perf_counter()
+        ds.deps_query_batch_end_attributed(safe, handle, builders)
+        t2 = time.perf_counter()
+        for bld in builders:                 # the frozen Deps
+            bld.build()
+        spent["end_attributed"] += t2 - t1
+        spent["build"] += time.perf_counter() - t2
+        if i in keep:
+            keep[i] = builders
+
+    for i, batch in enumerate(batches):
+        t1 = time.perf_counter()
+        handle = ds.deps_query_batch_begin(batch, prune_floors=True,
+                                           attributed=True)
+        spent["begin"] += time.perf_counter() - t1
+        pending.append((i, handle, batch))
+        if len(pending) >= 2:
+            collect(*pending.pop(0))
+    while pending:
+        collect(*pending.pop(0))
+    if on_cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nq = B * n_batches
+    # where the pass's wall time went, by launch boundary (dispatch_* =
+    # host pack + upload + enqueue, wait_* = download joins, host_* =
+    # host passes): [calls, ms]
+    breakdown = {}
+    for k, (c, sec) in sorted(ds.kernel_times.items()):
+        c0, s0 = kt0.get(k, (0, 0.0))
+        breakdown[k] = [c - c0, round((sec - s0) * 1e3, 3)]
+    delta = {k: getattr(ds, k) - v for k, v in before.items()}
+    log(f"phase4: {nq} queries in {dt:.3f} s = {nq / dt:.1f} queries/s "
+        f"(device route, pipelined 2 deep, protocol-complete Deps) "
+        + json.dumps(delta))
+    log("phase4: wall by step [s] " + json.dumps(
+        {k: round(v, 4) for k, v in spent.items()}))
+    keep = {i: deps_digest(b) for i, b in keep.items()}
+    check(delta["n_bucketed_queries"] + delta["n_dense_queries"] == nq,
+          f"bucketed + dense != {nq}: {delta}")
+    check(delta["n_dense_queries"] > 0 and delta["n_bucketed_queries"] > 0,
+          f"both device kernels must serve queries: {delta}")
+    check(delta["n_host_queries"] == 0, f"host queries: {delta}")
+    check(delta["n_device_faults"] == 0 and delta["n_fallback_queries"] == 0,
+          f"device faults: {delta}")
+    # the host route answers two of the batches with the same Deps, on the
+    # same store state (no mutation since the device pass)
+    ds.route_override = "host"
+    for i, want in keep.items():
+        got_h = deps_digest(attributed(ds, safe, batches[i]))
+        check(got_h == want, f"batch {i}: device Deps != host route Deps")
+        check(sum(len(k) + len(r) for k, r in got_h) > 0,
+              f"batch {i}: empty Deps")
+    ds.route_override = "device"
+    log(f"phase4: device Deps == host-route Deps on batches {sorted(keep)}")
+    # live maintenance: registrations between batches (dirty-row scatters)
+    t0 = time.perf_counter()
+    for j in (1, 2):
+        register(ds, store, extra[j * B:(j + 1) * B])
+        attributed(ds, safe, batches[j])
+    log(f"phase4: live maintenance {2 * B} registrations + {2 * B} queries "
+        f"in {time.perf_counter() - t0:.3f} s")
+    check(ds.n_host_queries == before["n_host_queries"] + 2 * B,
+          "maintenance queries took the host route")
+    phase_done("4")
+    log("phase4: host/device time by launch boundary [calls, ms] "
+        + json.dumps(breakdown))
+
+    # 5. the drain at real size, through the store's drain tick: the tick
+    # DeviceState.arm scheduled sweeps the cached device state (ELL above
+    # DENSE_MAX live rows) and proposes the ready txns; then 2,000
+    # dependencies are applied (the drain half of update_status: scalar
+    # deltas, a dirty-row scatter) and a second tick sweeps again.  Each
+    # tick's proposals must equal the plain version's frontier
+    def expect_proposed():
+        st, live = dds.drain.state()          # the state the tick swept
+        ready = drk.ready_frontier_ell_plain(st)[:len(live)].cpu().numpy()
+        return st, {dds.drain.id_of[int(x)]
+                    for x in live[ready & dds.drain.active[live]]}
+
+    t0 = time.perf_counter()
+    ticks0 = (dds.n_device_ticks, dds.n_host_ticks)
+    dstore.run_ticks()
+    st, want = expect_proposed()
+    check(isinstance(st, drk.EllDrainState),
+          "phase5: the drain tick must take the ELL form")
+    check(dstore.ticks == [("ell", len(want))] and dstore.proposed == want,
+          f"phase5: tick 1 proposals != plain ({dstore.ticks})")
+    n_ready = len(want)
+    rng = np.random.default_rng(12)
+    pending = [tid for tid in dds.drain.slot_of
+               if tid not in dstore.records
+               and int(dds.drain.status[dds.drain.slot_of[tid]]) in (1, 3)]
+    for k in rng.choice(len(pending), min(2000, len(pending)),
+                        replace=False):
+        tid = pending[int(k)]
+        dds.drain.set_status(dds.drain.slot_of[tid], 5, tid)
+    dds.schedule_tick()
+    dstore.run_ticks()
+    _st, want = expect_proposed()
+    check(dstore.ticks[-1] == ("ell", len(want)) and dstore.proposed == want,
+          f"phase5: tick 2 proposals != plain ({dstore.ticks})")
+    check((dds.n_device_ticks - ticks0[0], dds.n_host_ticks - ticks0[1])
+          == (2, 0), "phase5: the ticks must run on the device")
+    if on_cuda:
+        torch.cuda.synchronize()
+    log(f"phase5: {ND} x {st.adj_idx.shape[1]} drain, 2 device ticks, "
+        f"{n_ready} -> {len(want)} proposed after "
+        f"{min(2000, len(pending))} applied deps, "
+        f"{time.perf_counter() - t0:.3f} s")
+    phase_done("5")
+    check(rehearsal or phase_launches["5"]["frontier_ell"] == 2,
+          f"phase5: frontier_ell launches {phase_launches['5']}")
+
+    # 6. the protocol
+    n_ops = 150 if not rehearsal else 20
+    t0 = time.perf_counter()
+    rec6 = Recorder(kern, ["frontier_dense"])   # the dense ticks' largest
+    try:
+        r1, c1, d1 = burn_once(run_burn, dev, n_ops)
+    finally:
+        rec6.restore()
+    t1 = time.perf_counter()
+    r2, c2, d2 = burn_once(run_burn, dev, n_ops)
+    t2 = time.perf_counter()
+    log(f"phase6: burn seed 1, {n_ops} ops: {r1} in {t1 - t0:.1f} s and "
+        f"{t2 - t1:.1f} s; " + json.dumps(c1))
+    check(r1.ops_unresolved == 0 and r1.ops_ok > 0, f"burn: {r1}")
+    check(c1["n_bucketed_queries"] + c1["n_dense_queries"] > 0,
+          "burn: no kernel deps flushes")
+    check(c1["n_device_ticks"] > 0, "burn: no device drain ticks")
+    check(c1["n_host_ticks"] == 0, f"burn: host ticks {c1['n_host_ticks']}")
+    check(c1["n_device_faults"] == 0 and c1["n_host_queries"] == 0,
+          f"burn: faults or host queries {c1}")
+    check(not any(k.startswith("DeviceFault.") for k in r1.stats),
+          "burn: fault events in the stats")
+    check(d1 == d2 and c1 == c2, "burn: two runs of seed 1 differ")
+    log(f"phase6: digest {d1[:16]} equal across two runs")
+    launches = dict(kern.LAUNCHES)
+    phase_done("6")
+    log("launches by phase: " + json.dumps(phase_launches))
+    if not rehearsal:
+        missing = [k for k, v in launches.items() if v == 0]
+        check(not missing, f"kernels never launched on the main path: "
+                           f"{missing}")
+
+    # the dense frontier, checked and timed at the largest state the burn
+    # gave it (the burn's in-flight sets stay below DENSE_MAX)
+    check("frontier_dense" in rec6.calls, "burn: no dense frontier sweep")
+    a, kw, _w = rec6.calls["frontier_dense"]
+    rows.update(run_checks(torch, {"frontier_dense": dense_frontier_case(
+        torch, kern, drk, *a, **kw)}, "real", on_cuda, timed=True))
+    shapes["frontier_dense"] = list(a[0].adj.shape)
+
+    if on_cuda:
+        profile_phase4(torch, ds, safe, batches[:2])
+
+    table = []
+    for name, (src, repl) in KMETA.items():
+        row = rows[name]
+        table.append({"name": name, "route": "cuda", "source": src,
+                      "replaces": repl, "launches": launches[name],
+                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                      "plain_ms": row["plain_ms"],
+                      "bound_ms": row["bound_ms"],
+                      "bound_by": row["bound_by"],
+                      "library_ms": row["library_ms"],
+                      "card": env["nvidia_smi"]})
+    detail = {name: {"shape": shapes[name], "bytes": rows[name]["bytes"],
+                     "ops": rows[name]["ops"]} for name in KMETA}
+    summary = {"env": env, "kernels": table, "kernel_shapes": detail,
+               "phase_launches": phase_launches,
+               "phase4_queries_per_s": nq / dt, "phase4_breakdown": breakdown,
+               "phase4_steps_s": spent,
+               "seconds": time.perf_counter() - t_start}
+    (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
+    if rehearsal:
+        log("rehearsal: control flow ok on the CPU (no result line)")
+        return 3
+    log(json.dumps({"kernels": table}))
+    log(env["nvidia_smi"])
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
