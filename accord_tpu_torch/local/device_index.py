@@ -53,9 +53,19 @@ the flush over to the host route, with the same bytes:
 
 Real CUDA runtime errors are not caught here: they propagate.
 
+Fused multi-store launches (driven by ``local.dispatch``'s per-node
+DeviceDispatcher): ``fused_eligible`` / ``fused_commit`` prepare a store's
+pending flush for one store-tagged attributed launch over S stores,
+``fused_harvest`` parses this store's block in its own store task; a
+launched member leases its device table and attribution columns until its
+harvest, so an escalated re-launch reads them as of dispatch.  The drain
+tick serves a dispatcher-fused frontier sweep when handed one, and widens
+its candidate set to the next W executeAt levels (the log-depth level
+pass) while whole candidate sets apply synchronously; ``ACCORD_TPU_DRAIN=
+fixpoint`` keeps W at 1.
+
 Not in this slice (the reference has them; later slices port them): the
-mesh and store-sharded residency, fused multi-store launches, and the
-widened log-depth drain wavefront.  Their counters exist and stay 0.
+mesh and store-sharded residency.  Their counters exist and stay 0.
 """
 
 from __future__ import annotations
@@ -760,7 +770,7 @@ class _DepsMirror:
         return self._hidx
 
     def host_pairs(self, qnp: np.ndarray, q_m: int, floor_id,
-                   entries: bool = False):
+                   snapshot=None, entries: bool = False):
         """The host route's candidate generation: (b_idx, j_idx) pairs
         satisfying the EXACT kernel predicate (liveness + floor structurally
         via the index; witness / earlier / not-self as vectorized compares
@@ -768,11 +778,25 @@ class _DepsMirror:
         exact emit triples (pair row, entry interval column, query interval
         column) the probes discovered — the same set np.nonzero over the
         device routes' overlap matrix yields, so attribution sees identical
-        inputs and results are bit-identical by construction."""
-        s_msb, s_lsb, s_node, s_kind = (self.msb, self.lsb, self.node,
-                                        self.kind)
-        idx = self.host_index(floor_id)
-        cap = self.capacity
+        inputs and results are bit-identical by construction.
+
+        ``snapshot`` = (msb, lsb, node, kind, status, lo, hi) scans a
+        dispatch-time copy of the mirror instead of the live arrays (no
+        caching): a fused member's host failover and shadow verify run in
+        its harvest task, after mutations may have landed, and must answer
+        for what the kernel scanned."""
+        if snapshot is not None:
+            s_msb, s_lsb, s_node, s_kind, s_status, s_lo, s_hi = snapshot
+            fkey = floor_id if floor_id is not None \
+                and floor_id > TxnId.NONE else None
+            idx = _host_index_of(s_status, s_lo, s_hi, s_msb, s_lsb,
+                                 s_node, fkey)
+            cap = len(s_msb)
+        else:
+            s_msb, s_lsb, s_node, s_kind = (self.msb, self.lsb, self.node,
+                                            self.kind)
+            idx = self.host_index(floor_id)
+            cap = self.capacity
         ptok, pslot, pcol, rlo, rhi, rslot, rcol = idx
         lo = qnp[:, 7:7 + q_m]
         hi = qnp[:, 7 + q_m:7 + 2 * q_m]
@@ -1499,10 +1523,9 @@ class DeviceState:
         self.n_mesh_bucketed_queries = 0
         self.n_dispatches = 0       # kernel dispatches: n_queries /
         #                             n_dispatches = mean lived batch size
-        # counters of the features this slice does not port (fused
-        # multi-store launches, the mesh and store-sharded routes, the
-        # widened drain wavefront): kept for the ``# index:`` counter set,
-        # always 0 here
+        # fused cross-store launches this store took part in (flushes /
+        # queries harvested from a fused launch, ticks served by a fused
+        # sweep)
         self.n_fused_flushes = 0
         self.n_fused_queries = 0
         self.n_fused_ticks = 0
@@ -1579,7 +1602,14 @@ class DeviceState:
         self.n_slice_quarantines = 0
         self.n_slice_restores = 0
         self.n_shard_merge_bytes = 0
-        self.n_wavefront_ticks = 0
+        # adaptive drain wavefront: W=1 ticks run the plain frontier sweep;
+        # W doubles only when a tick's ENTIRE candidate set synchronously
+        # reached Applied (the cascade regime, where a serial chain would
+        # otherwise pay one tick per link), letting the level pass harvest
+        # the next W executeAt antichains in one launch.  Any candidate
+        # that does not execute resets W to 1
+        self._drain_wavefront = 1
+        self.n_wavefront_ticks = 0     # ticks swept with W > 1
         # host-pin recovery: ``_pin_recheck`` pinned flushes between
         # compaction-and-re-check attempts (doubling to a cap)
         self.n_oom_recovered = 0
@@ -3262,6 +3292,252 @@ class DeviceState:
 
 
     # ------------------------------------------------------------------
+    # fused cross-store dispatch (driven by local.dispatch's per-node
+    # DeviceDispatcher)
+    # ------------------------------------------------------------------
+    def fused_eligible(self, queries):
+        """Dispatcher phase A (pure: mutates nothing): can this store's
+        pending flush join a fused device launch?  None when the flush
+        must (or would) run the host route; else a hint dict carrying the
+        packed queries and the modeled solo device element count the
+        dispatcher's fused-vs-solo pricing consumes.  A store that ends up
+        not fused runs the classic solo flush, which applies the gate /
+        probe / route bookkeeping itself."""
+        if self.host_pinned or self._dev_quar_flushes > 0 \
+                or self.route_override == "host":
+            return None
+        q_m = _pow2_at_least(max(len(t[3]) + len(t[4]) for t in queries))
+        packed = [(sb, wit, toks, rngs, tid)
+                  for (tid, sb, wit, toks, rngs) in queries]
+        qnp = dk.pack_query_matrix(packed, q_m)
+        floor_id, prune_np = self._batch_floor(qnp, q_m)
+        route = self.route_override
+        if route is None:
+            route = self._choose_route(qnp, q_m, floor_id)
+        if route == "host":
+            return None
+        nq = qnp.shape[0]
+        b_pad = _pow2_at_least(nq, 1)
+        cap = self.deps.capacity
+        solo_elems = b_pad * cap * q_m * self.deps.max_intervals
+        degenerate = not self.BUCKETED or \
+            len(self.deps.wide_entries) > self.deps.WIDE_MAX
+        if route != "dense" and not degenerate:
+            # the adaptive solo dispatch would probe the bucket index for
+            # narrow queries: price solo with the cheaper kernel
+            buck = b_pad * (q_m * self.deps.SPAN * self.deps.bucket_keff()
+                            + q_m * len(self.deps.wide_entries))
+            solo_elems = min(solo_elems, buck)
+        # snapshot cost the fused pricing charges: zero when the cached
+        # copy is still fresh, one full-column memcpy's worth otherwise
+        dm = self.deps
+        snap_stale = dm._snap is None or dm._snap[0] != dm.mut_version
+        snap_elems = cap * (2 * dm.max_intervals + 10) if snap_stale else 0
+        # fused launches run the attributed kernels: build (or reuse) this
+        # store's floor/elision index and the per-query bound ranks now,
+        # while the mirror is the dispatch-time state
+        aidx = self._attr_index()
+        return {"dev": self, "queries": list(queries), "qnp": qnp,
+                "q_m": q_m, "floor_id": floor_id, "prune": prune_np,
+                "nq": nq, "b_pad": b_pad, "cap": cap,
+                "m_iv": self.deps.max_intervals, "solo_elems": solo_elems,
+                "snap_elems": snap_elems, "aidx": aidx,
+                "rankb_np": aidx.rank_bounds(qnp),
+                "floor_skip": aidx.floors_match(qnp, q_m, floor_id)}
+
+    def fused_table(self):
+        """The (cached, device-resident) table the fused launch reads."""
+        return self.deps.device_table()
+
+    def fused_commit(self, hint) -> None:
+        """Dispatcher phase B for a chosen fused member: apply the flush-
+        gate bookkeeping the solo path would have applied (probe
+        accounting), snapshot the mirror columns the deferred harvest
+        needs (mutations may land between dispatch and the harvest task),
+        and surface the routing decision."""
+        probing = False
+        if self._dev_backoff > 0:
+            probing = True
+            self.n_reprobes += 1
+            self._fault_event("reprobe", "route=fused")
+        hint["ids"], hint["ivs"], hint["kind_col"] = \
+            self.deps.snapshot_cols()
+        hint["probing"] = probing
+        if self.on_route is not None:
+            self.on_route("fused", hint["nq"])
+        else:
+            obs = getattr(self.store.node, "route_observer", None)
+            if obs is not None:
+                batch = hint.get("batch") or ()
+                obs(self.store, "fused", hint["nq"],
+                    [q[0] for q, _b, _d in batch])
+
+    def fused_fail_to_host(self, hint, exc) -> None:
+        """A device fault inside the fused launch fails the whole batch
+        over to the host route: quarantine this member and compute its
+        host pairs right now (still inside the dispatcher event, so the
+        live mirror IS the dispatch-time state)."""
+        self._release_fused_lease(hint)
+        self._device_fault(exc, f"fused dispatch: {exc}")
+        self.n_fallback_queries += hint["nq"]
+        hint["probing"] = False
+        hint["host"] = self.deps.host_pairs(hint["qnp"], hint["q_m"],
+                                            hint["floor_id"], entries=True)
+
+    def _release_fused_lease(self, hint) -> None:
+        lease = hint.pop("lease", None)
+        if lease is not None:
+            self.deps.release_device(lease)
+
+    def _hint_attr_entries(self, hint, ent4) -> tuple:
+        """A fused hint's host-route per-entry answer as the attributed
+        entry set: the same floor/elision drops the fused kernel applies,
+        over the hint's dispatch-time snapshot columns."""
+        cb, cj, cm, cq = ent4
+        tb, tj, tm, tq, n_t, n_d = self._attr_filter_entries(
+            cb, cj, cm, cq, hint["ids"], hint["ivs"],
+            hint["aidx"], hint["rankb_np"], hint.get("floor_skip", False))
+        self.n_elided_transitive += n_t
+        self.n_elided_decided += n_d
+        return tb, tj, tm, tq
+
+    def _fused_snapshot(self, hint):
+        return (hint["ids"][0], hint["ids"][1], hint["ids"][2],
+                hint["kind_col"], hint["ids"][4], hint["ivs"][0],
+                hint["ivs"][1])
+
+    def _fused_collect(self, hint, launch):
+        """Download + decode of this store's block of the fused attributed
+        result, with the solo path's full semantics: overflow re-run (solo
+        attributed, escalated s/k from the exact header, over the leased
+        dispatch-time table and attribution columns), the stale-result
+        injection point, paranoia shadow-verify against the attr-filtered
+        snapshot host scan, probe restore, and whole-batch host failover on
+        any device-boundary failure.  Returns attributed entry arrays
+        (tb, tj, tm, tq)."""
+        import time as _time
+        _t0 = _time.perf_counter()
+        nq = hint["nq"]
+        if "host" in hint:           # launch already failed over to host
+            self.n_host_queries += nq
+            self.n_dispatches += 1
+            return self._hint_attr_entries(hint, hint["host"])
+        qnp, q_m = hint["qnp"], hint["q_m"]
+        b_pad = hint["b_pad_c"]
+        mq, qmc = hint["mq"], hint["q_m_c"]
+        try:
+            hdr_all, ent_all = launch.materialize()
+            hdr = hdr_all[hint["row"]].reshape(1, 5 + b_pad)
+            ent = ent_all[hint["row"]].reshape(1, -1)
+            s_, k_ = launch.s, launch.k
+            runs = 0
+            while int(hdr[:, 1].max()) > s_ or int(hdr[:, 2].max()) > k_:
+                # overflow: escalate exactly like the solo path — re-run
+                # this store alone against the same (leased) table and
+                # attribution columns, sized from the exact header
+                cap_k = hint["cap"] * hint["m_iv"] * qmc
+                s_, k_ = self._overflow_resize(
+                    int(hdr[:, 1].max()), int(hdr[:, 2].max()), s_, k_,
+                    b_pad * cap_k, cap_k, runs)
+                dk.launch_check("fused re-run")
+                qmat = _upload(hint["qmat_np"], self.device)
+                rankb = _upload(hint["rankb_pad"], self.device)
+                pnp = hint["prune"]
+                prune = None if pnp is None else tuple(int(x) for x in pnp)
+                wide = hint["wide"]
+                hdr_dev, ent_dev = dk.calculate_deps_flat_attr(
+                    hint["table"], hint["attr"],
+                    hint["aidx"].device(self.device), qmat, rankb, prune,
+                    qmc, s_, k_, wide, not hint.get("floor_skip", False),
+                    hint["aidx"].u > 0)
+                faults.check("transfer", "header download")
+                hdr = _host(hdr_dev).reshape(1, 5 + b_pad)
+                itemsize = 8 if wide else 4
+                self.download_bytes += hdr.nbytes
+                self.download_bytes_padded += hdr.nbytes + s_ * itemsize
+                if int(hdr[:, 1].max()) <= s_ \
+                        and int(hdr[:, 2].max()) <= k_:
+                    faults.check("transfer", "entry download")
+                    ent = _fetch_entry_prefix(ent_dev, 1, s_,
+                                              int(hdr[:, 0].max()))
+                    self.download_bytes += ent.nbytes
+                runs += 1
+            if runs:
+                # the re-run scanned the store's own table solo, so its
+                # codes scale on the store's own interval width
+                mq = hint["m_iv"] * qmc
+        except faults.DEVICE_EXCEPTIONS as e:
+            # whole-batch failover: quarantine every member, serve this
+            # flush from the snapshot host scan (dispatch-time bytes)
+            launch.poison(e)
+            self.n_fallback_queries += nq
+            self.n_host_queries += nq
+            self.n_dispatches += 1
+            return self._hint_attr_entries(
+                hint, self.deps.host_pairs(
+                    qnp, q_m, hint["floor_id"],
+                    snapshot=self._fused_snapshot(hint), entries=True))
+        finally:
+            self._release_fused_lease(hint)
+        self.n_elided_transitive += int(hdr[:, 3].sum())
+        self.n_elided_decided += int(hdr[:, 4].sum())
+        self.attr_download_bytes += hdr.nbytes + ent.nbytes
+        tb, tj, tm, tq = _decode_triples(hdr, ent, b_pad, hint["cap"],
+                                         True, mq, qmc, hoff=5)
+        if self._paranoid() and len(tj) \
+                and faults.should_fire("stale_result"):
+            tj = (tj + np.int64(1)) % np.int64(len(hint["ids"][0]))
+        gmap = hint["gmap"]
+        b_global = gmap[tb]
+        keep = b_global >= 0
+        tb, tj, tm, tq = b_global[keep], tj[keep], tm[keep], tq[keep]
+        if self._paranoid():
+            self.n_shadow_checks += 1
+            hb, hj, hm, hq = self._hint_attr_entries(
+                hint, self.deps.host_pairs(
+                    qnp, q_m, hint["floor_id"],
+                    snapshot=self._fused_snapshot(hint), entries=True))
+            cap = np.int64(len(hint["ids"][0]))
+            if not np.array_equal(np.unique(tb * cap + tj),
+                                  np.unique(hb * cap + hj)):
+                self.n_shadow_mismatches += 1
+                self._device_fault("stale_result", "fused shadow mismatch")
+                self.n_fallback_queries += nq
+                self.n_dispatches += 1
+                return hb, hj, hm, hq
+        if hint.get("probing"):
+            self._restore_device()
+        self.n_dispatches += 1
+        self.n_fused_flushes += 1
+        self.n_fused_queries += nq
+        self.n_dense_queries += nq
+        self._ktime("wait_attr_fused", _t0)
+        return tb, tj, tm, tq
+
+    def fused_harvest(self, safe, hint, launch) -> None:
+        """Store-task leg of a fused flush: parse this store's block of
+        the fused attributed result (the shared download happens at the
+        first member's harvest) and hand the pre-attributed entries to the
+        shared finalize over the dispatch-time snapshot — the same bytes
+        the solo launch would have produced, harvested at the next
+        event-loop boundary in deterministic store order."""
+        batch = hint["batch"]
+        try:
+            tb, tj, tm, tq = self._fused_collect(hint, launch)
+            self.n_queries += hint["nq"]
+            self.n_kernel_deps += len(tj)
+            self._finalize_attr_entries(tb, tj, tm, tq, hint["ids"],
+                                        hint["ivs"], hint["qnp"],
+                                        hint["q_m"],
+                                        [b for _q, b, _d in batch])
+        except BaseException as e:  # noqa: BLE001
+            for _q, _b, done in batch:
+                done(e, None)
+            return
+        for _q, _b, done in batch:
+            done(None, safe)
+
+    # ------------------------------------------------------------------
     # the drain (device replacement of listener fan-out)
     # ------------------------------------------------------------------
     def arm(self, safe, txn_id: TxnId) -> None:
@@ -3334,7 +3610,7 @@ class DeviceState:
         self.store.node.scheduler.once(self.TICK_DELAY_MICROS, run)
 
 
-    def _tick(self, safe) -> None:
+    def _tick(self, safe, fused=None) -> None:
         from . import commands
         self._tick_scheduled = False
         self.n_ticks += 1
@@ -3347,33 +3623,75 @@ class DeviceState:
         # the frontier sweeps on host, and an injected device fault mid-
         # tick quarantines + falls back to the host sweep (same rule, same
         # candidates — the per-candidate WaitingOn re-validation below
-        # makes any residual divergence a no-op, never a wrong execution)
+        # makes any residual divergence a no-op, never a wrong execution).
+        # A fused sweep (dispatcher-launched, shared with sibling stores)
+        # serves the same candidates; a device failure harvesting it
+        # quarantines the whole fused batch, and every member's sweep
+        # fails over to host.
         cand_slots = None
+        used_fused = False
         mode = None
         if not (self.host_pinned or self._dev_quar_flushes > 0):
-            try:
-                import time as _time
-                _t0 = _time.perf_counter()
-                dk.launch_check("drain")
-                state, live = self.drain.state()
-                faults.check("transfer", "drain download")
-                if isinstance(state, drk.EllDrainState):
-                    # large in-flight set: sparse gather sweep (no [N, N])
-                    mode = "ell"
-                    fut = drk.ready_frontier_ell(state)
-                else:
-                    mode = "device"
-                    fut = drk.ready_frontier(state)
-                # drain forensics: split the sweep at the async-dispatch
-                # boundary — upload+enqueue vs the result join
-                _t1 = _time.perf_counter()
-                ready = _host(fut)[: len(live)]
-                self._ktime_span("drain_tick_dispatch", _t0, _t1)
-                self._ktime("drain_tick_wait", _t1)
-                self.n_device_ticks += 1
-                cand_slots = live[ready & self.drain.active[live]]
-            except faults.DEVICE_EXCEPTIONS as e:
-                self._device_fault(e, f"drain tick: {e}")
+            if fused is not None and fused.serves(self):
+                try:
+                    cand_slots = fused.result_for(self)
+                    self.n_fused_ticks += 1
+                    self.n_device_ticks += 1
+                    used_fused = True
+                    mode = "fused"
+                except faults.DEVICE_EXCEPTIONS as e:
+                    fused.poison(e)
+            else:
+                try:
+                    import time as _time
+                    _t0 = _time.perf_counter()
+                    dk.launch_check("drain")
+                    state, live = self.drain.state()
+                    faults.check("transfer", "drain download")
+                    wave = self._drain_wavefront
+                    fut = None
+                    if wave > 1 and drk.drain_logdepth_enabled():
+                        # widened sweep: the level pass proposes the next
+                        # ``wave`` executeAt antichains in one launch.
+                        # Candidates beyond the true frontier are safe —
+                        # the per-candidate host re-validation below makes
+                        # a not-actually-ready candidate a no-op — and any
+                        # that fail to execute reset the wavefront
+                        try:
+                            if isinstance(state, drk.EllDrainState):
+                                mode = "ell-wave"
+                                lv, _r = drk.level_assign_ell(state)
+                            else:
+                                mode = "wave"
+                                lv, _r = drk.level_assign_dense(state)
+                            fut = (lv >= 1) & (lv <= wave)
+                            self.n_wavefront_ticks += 1
+                        except faults.DEVICE_EXCEPTIONS:
+                            # fail the widened launch over to the plain
+                            # frontier route (the W=1 candidate set); the
+                            # outer handler covers the frontier's faults
+                            self._drain_wavefront = wave = 1
+                            mode = None
+                            fut = None
+                    if wave > 1 and fut is not None:
+                        pass
+                    elif isinstance(state, drk.EllDrainState):
+                        # large in-flight set: sparse gather sweep
+                        mode = "ell"
+                        fut = drk.ready_frontier_ell(state)
+                    else:
+                        mode = "device"
+                        fut = drk.ready_frontier(state)
+                    # drain forensics: split the sweep at the dispatch
+                    # boundary — upload+enqueue vs the result join
+                    _t1 = _time.perf_counter()
+                    ready = _host(fut)[: len(live)]
+                    self._ktime_span("drain_tick_dispatch", _t0, _t1)
+                    self._ktime("drain_tick_wait", _t1)
+                    self.n_device_ticks += 1
+                    cand_slots = live[ready & self.drain.active[live]]
+                except faults.DEVICE_EXCEPTIONS as e:
+                    self._device_fault(e, f"drain tick: {e}")
         if cand_slots is None:
             self.n_host_ticks += 1
             cand_slots = self._host_ready_slots()
@@ -3389,8 +3707,28 @@ class DeviceState:
                 key=_exec_order_key(safe))
             for txn_id in cands:
                 commands.refresh_waiting_and_maybe_execute(safe, txn_id)
+        # adaptive wavefront control: widen only in the synchronous-
+        # cascade regime — every candidate this tick reached Applied
+        # before the tick returned (a serial chain drains in O(log depth)
+        # ticks instead of one tick per link).  Anything else (async
+        # execution, host or fused route, empty sweep, escape hatch) pins
+        # W back to 1, so protocol-flow ticks run the plain frontier sweep
+        if mode in ("device", "ell", "wave", "ell-wave") \
+                and len(cand_slots) != 0 and drk.drain_logdepth_enabled() \
+                and all(int(self.drain.status[int(s)]) == dk.SLOT_APPLIED
+                        for s in cand_slots):
+            self._drain_wavefront = min(self._drain_wavefront * 2, 8192)
+        else:
+            self._drain_wavefront = 1
         if sweep_due:
             self.drain.sweep_free()
+        if used_fused and self.drain.version != fused.version_for(self) \
+                and self.drain.active.any():
+            # the fused sweep was computed at dispatch time; mutations that
+            # landed between dispatch and this harvest (earlier tasks in
+            # this store's queue) could otherwise be a lost wakeup —
+            # re-evaluate with a fresh tick
+            self.schedule_tick()
 
 
 def _exec_order_key(safe):

@@ -32,7 +32,10 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
                 "accord_attr_post", "accord_scatter_rows",
-                "accord_frontier_ell", "accord_frontier_dense")
+                "accord_frontier_ell", "accord_frontier_dense",
+                "accord_fused_deps_dense", "accord_fused_attr_post",
+                "accord_fused_frontier_ell", "accord_fused_frontier_dense",
+                "accord_level_ell", "accord_level_dense")
 
 _LOCK = threading.Lock()
 _LIB = None

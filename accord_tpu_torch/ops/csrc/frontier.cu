@@ -1,8 +1,11 @@
-// K4: one sweep of the execution-drain frontier.
+// K4: one sweep of the execution-drain frontier; K6: the same sweep over
+// S stores in one launch.
 //
 // Replaces (JAX reference, accord_tpu/ops/drain_kernel.py):
 //   frontier_ell    <- ready_frontier_ell (:173) with _ell_blocking (:157)
 //   frontier_dense  <- ready_frontier (:133) with blocking_matrix (:74)
+//   fused_frontier_ell   <- fused_ready_frontier_ell (:244)
+//   fused_frontier_dense <- fused_ready_frontier (:214)
 // ready[i] = status[i] == Stable and no dep j of row i that gates it
 // (undecided, executing before i, or i awaits all deps; neither
 // invalidated nor free) is still unapplied.
@@ -11,7 +14,12 @@
 // gathers the deps' status/executeAt columns; the dense sweep reads the
 // N*N adjacency bytes once.  Design: one thread per waiter row for ELL;
 // one warp per row for dense, lanes striding the row so reads coalesce,
-// with a warp vote for "some gating dep is unapplied".
+// with a warp vote for "some gating dep is unapplied".  The fused sweeps
+// keep those mappings and put the store on blockIdx.y; each store is read
+// where it lies through a table of its base pointers and sizes, and the
+// reference's padding is applied by rule: rows at or past a store's n_i
+// are FREE (never ready), ELL edges past its degree d_i read as -1, dense
+// columns past n_i are no edge.  One launch per group.
 #include "common.cuh"
 
 namespace {
@@ -65,6 +73,67 @@ frontier_dense(DrainArgs a, const uint8_t* adj, uint8_t* out) {
   if (lane == 0) out[i] = stable && !waiting;
 }
 
+// one store of a fused group: adj, status, exec_msb, exec_lsb, exec_node,
+// awaits_all base pointers, then its rows n and its adjacency width
+// (degree d for ELL, n for dense) — the wrapper's table row
+struct DrainRef {
+  const void* adj;
+  const int32_t* status;
+  const int64_t *emsb, *elsb;
+  const int32_t* enode;
+  const uint8_t* awaits;
+  int64_t n, width;
+};
+static_assert(sizeof(DrainRef) == 8 * 8, "DrainRef is 8 int64 words");
+
+__device__ __forceinline__ DrainArgs ref_args(const DrainRef& r) {
+  DrainArgs a;
+  a.status = r.status;
+  a.emsb = r.emsb;
+  a.elsb = r.elsb;
+  a.enode = r.enode;
+  a.awaits = r.awaits;
+  a.N = r.n;
+  return a;
+}
+
+__global__ void __launch_bounds__(256)
+fused_frontier_ell(const DrainRef* refs, int64_t n_max, uint8_t* out) {
+  const DrainRef r = refs[blockIdx.y];
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_max) return;
+  bool ready = i < r.n && r.status[i] == SLOT_STABLE;
+  if (ready) {
+    const DrainArgs a = ref_args(r);
+    const int32_t* adj = (const int32_t*)r.adj;
+    for (int64_t d = 0; ready && d < r.width; ++d) {
+      const int32_t j = adj[i * r.width + d];
+      if (j >= 0 && blocks(a, i, j)) ready = false;
+    }
+  }
+  out[blockIdx.y * n_max + i] = ready;
+}
+
+__global__ void __launch_bounds__(256)
+fused_frontier_dense(const DrainRef* refs, int64_t n_max, uint8_t* out) {
+  const DrainRef r = refs[blockIdx.y];
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= n_max) return;   // whole warps exit together
+  const bool stable = i < r.n && r.status[i] == SLOT_STABLE;
+  bool waiting = false;
+  if (stable) {
+    const DrainArgs a = ref_args(r);
+    const uint8_t* row = (const uint8_t*)r.adj + i * r.n;
+    for (int64_t j0 = 0; j0 < r.n && !waiting; j0 += 32) {
+      const int64_t j = j0 + lane;
+      const bool w = j < r.n && row[j] && blocks(a, i, j);
+      waiting = __any_sync(0xffffffffu, w);
+    }
+  }
+  if (lane == 0) out[blockIdx.y * n_max + i] = stable && !waiting;
+}
+
 DrainArgs args(void* const* p, const int64_t* v) {
   DrainArgs a;
   a.status = (const int32_t*)p[1];
@@ -101,5 +170,31 @@ ACCORD_EXPORT int accord_frontier_dense(void* const* p, const int64_t* v,
     frontier_dense<<<(unsigned)((a.N * 32 + 255) / 256), 256, 0,
                      (cudaStream_t)stream>>>(a, (const uint8_t*)p[0],
                                              (uint8_t*)p[6]);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: refs DrainRef[S] (adj = adj_idx int32[n_i*d_i]), out bool[S*n_max]
+// vals: S, n_max
+ACCORD_EXPORT int accord_fused_frontier_ell(void* const* p, const int64_t* v,
+                                            void* stream) {
+  const int64_t S = v[0], n_max = v[1];
+  if (S > 0 && n_max > 0)
+    fused_frontier_ell<<<dim3((unsigned)((n_max + 255) / 256), (unsigned)S),
+                         256, 0, (cudaStream_t)stream>>>(
+        (const DrainRef*)p[0], n_max, (uint8_t*)p[1]);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: refs DrainRef[S] (adj = bool[n_i*n_i]), out bool[S*n_max]
+// vals: S, n_max
+ACCORD_EXPORT int accord_fused_frontier_dense(void* const* p,
+                                              const int64_t* v,
+                                              void* stream) {
+  const int64_t S = v[0], n_max = v[1];
+  if (S > 0 && n_max > 0)
+    fused_frontier_dense<<<dim3((unsigned)((n_max * 32 + 255) / 256),
+                                (unsigned)S),
+                           256, 0, (cudaStream_t)stream>>>(
+        (const DrainRef*)p[0], n_max, (uint8_t*)p[1]);
   return (int)cudaGetLastError();
 }

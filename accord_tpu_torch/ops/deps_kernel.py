@@ -22,6 +22,11 @@ more header words: ``(total, raw total, raw maxc, n_trans, n_dec,
 row_end[B])``.  Overflow reads as ``hdr[1] > s or hdr[2] > k`` (attributed)
 and triggers an escalated re-launch.
 
+The fused forms answer S stores' flushes in one launch: each store's table
+is padded to the group's (n_max, m_max) — FREE slots, PAD intervals — so
+block i of the stacked output is store i's solo answer with codes on
+m_max.
+
 The functions named ``*_plain`` mirror the JAX bodies with ``torch.sort``,
 ``cumsum``, ``searchsorted`` and ``index_put_``; they serve the CPU route
 and are what the CUDA kernels (``ops/csrc``) are held against.  The entry
@@ -443,6 +448,108 @@ def scatter_rows_plain(cols: Sequence[torch.Tensor], idx: torch.Tensor,
         col[ii] = row
 
 
+# -- fused (batched-over-stores) plain versions -------------------------------
+#
+# One launch answers the deps flushes of several CommandStores: each
+# store's table is padded to the group maxima (FREE slots, PAD intervals:
+# structurally out of the mask) and scanned alone, so row i of the stacked
+# output is exactly store i's solo answer, with codes on the group's
+# interval width m_max.  The attribution stage pads the attribution
+# columns and the floor/elision index the same way.
+
+def _pad1(a: torch.Tensor, n: int, fill) -> torch.Tensor:
+    if a.shape[0] >= n:
+        return a
+    return torch.cat([a, a.new_full((n - a.shape[0],) + tuple(a.shape[1:]),
+                                    fill)])
+
+
+def _pad_table_cols(table: DepsTable, n: int, m: int) -> DepsTable:
+    """One store's table padded to (n, m): appended slots are FREE and
+    appended interval columns PAD (lo > hi)."""
+    def pad2(a, fill):
+        out = a.new_full((n, m), fill)
+        out[:a.shape[0], :a.shape[1]] = a
+        return out
+
+    return DepsTable(_pad1(table.msb, n, 0), _pad1(table.lsb, n, 0),
+                     _pad1(table.node, n, 0), _pad1(table.kind, n, 0),
+                     _pad1(table.status, n, SLOT_FREE),
+                     pad2(table.lo, int(PAD_LO)), pad2(table.hi, int(PAD_HI)))
+
+
+def _pad_attr_cols(attr: AttrCols, n: int) -> AttrCols:
+    """One store's attribution columns padded to ``n`` slots (FREE, so
+    never read through the mask)."""
+    fills = (1, SLOT_FREE, 0, 0, 0, 0, 0, 0, False)
+    return AttrCols(*(_pad1(a, n, f) for a, f in zip(attr, fills)))
+
+
+def _pad_attr_index(aidx: AttrIndex, f: int, t: int, l: int) -> AttrIndex:
+    """One store's AttrIndex padded to the group's (F, T, L): floor
+    boundaries, elidable tokens and exec composites pad +INF, their
+    triples 0, and eptr with the store's live length (empty segments)."""
+    inf = int(np.iinfo(np.int64).max)
+    return AttrIndex(
+        _pad1(aidx.fbnd, f, inf), _pad1(aidx.fmsb, f + 1, 0),
+        _pad1(aidx.flsb, f + 1, 0), _pad1(aidx.fnode, f + 1, 0),
+        _pad1(aidx.etok, t, inf), _pad1(aidx.eptr, t + 1, int(aidx.eptr[-1])),
+        _pad1(aidx.erank, l, inf), _pad1(aidx.exm, l, 0),
+        _pad1(aidx.exl, l, 0), _pad1(aidx.exn, l, 0), aidx.estride)
+
+
+def group_shape(tables: Sequence[DepsTable]) -> Tuple[int, int]:
+    """(n_max, m_max) of a fused group."""
+    return (max(t.capacity for t in tables),
+            max(t.lo.shape[1] for t in tables))
+
+
+def attr_group_shape(aidxs: Sequence[AttrIndex]) -> Tuple[int, int, int]:
+    """(F, T, L) of a fused group's attribution indexes."""
+    return (max(a.fbnd.shape[0] for a in aidxs),
+            max(a.etok.shape[0] for a in aidxs),
+            max(a.erank.shape[0] for a in aidxs))
+
+
+def _prune_of(prunes, i: int):
+    return (int(prunes[0][i]), int(prunes[1][i]), int(prunes[2][i]))
+
+
+def fused_flat_csr_plain(tables: Sequence[DepsTable], qmats: torch.Tensor,
+                         prunes, m: int, s: int, k: int, wide: bool = False):
+    """The reference's ``fused_flat_csr``: ``qmats`` int64[S, B, 7+2m],
+    ``prunes`` per-store floor triples (zeros prune nothing).  Returns
+    (header int32[S, 2+B], entries [S, s]); row i is the solo
+    flat_csr_plain answer for store i, padded to the group."""
+    n_max, m_max = group_shape(tables)
+    outs = [flat_csr_plain(_pad_table_cols(t, n_max, m_max), qmats[i], m,
+                           s, k, _prune_of(prunes, i), wide)
+            for i, t in enumerate(tables)]
+    return (torch.stack([h for h, _e in outs]),
+            torch.stack([e for _h, e in outs]))
+
+
+def fused_attr_post_plain(tables: Sequence[DepsTable],
+                          attrs: Sequence[AttrCols],
+                          aidxs: Sequence[AttrIndex], rankbs: torch.Tensor,
+                          hdr_raw: torch.Tensor, ent: torch.Tensor, m: int,
+                          floors: bool = True, elide: bool = True):
+    """Per-store attribution of a fused raw CSR (``hdr_raw`` [S, 2+B],
+    ``ent`` [S, s]) over the padded group: (header int32[S, 5+B],
+    entries [S, s])."""
+    n_max, m_max = group_shape(tables)
+    f, t, l = attr_group_shape(aidxs)
+    outs = []
+    for i, tab in enumerate(tables):
+        tlo = _pad_table_cols(tab, n_max, m_max).lo
+        outs.append(attr_post_plain(
+            tlo, _pad_attr_cols(attrs[i], n_max),
+            _pad_attr_index(aidxs[i], f, t, l), rankbs[i], hdr_raw[i],
+            ent[i], m_max, m, floors, elide))
+    return (torch.stack([h for h, _e in outs]),
+            torch.stack([e for _h, e in outs]))
+
+
 # -- entry points (device-selected in ops.kernels) ---------------------------
 
 def calculate_deps_flat(table: DepsTable, qmat, m: int, s: int, k: int,
@@ -484,6 +591,30 @@ def bucketed_attr(table: DepsTable, attr: AttrCols, aidx: AttrIndex,
                                      prune, keff, wide)
     return kernels.attr_post(table.lo, attr, aidx, rankb, hdr, ent, m_t, m,
                              floors, elide)
+
+
+def fused_flat_csr(tables: Sequence[DepsTable], qmats, prunes, m: int,
+                   s: int, k: int, wide: bool = False):
+    """Fused dense exact CSR for S stores in one launch: (header
+    int32[S, 2+B], entries [S, s]), codes on the group interval width."""
+    from . import kernels
+    return kernels.fused_deps_dense(tables, qmats, prunes, m, s, k, wide)
+
+
+def fused_flat_attr(tables: Sequence[DepsTable], attrs: Sequence[AttrCols],
+                    aidxs: Sequence[AttrIndex], qmats, rankbs, prunes,
+                    m: int, s: int, k: int, wide: bool = False,
+                    floors: bool = True, elide: bool = True):
+    """Fused dense route with the attribution stage, S stores per launch:
+    (header int32[S, 5+B], entries [S, s]).  Each store's table, columns
+    and index are read where they lie (no stacked copy); row i equals
+    store i's solo calculate_deps_flat_attr over its table padded to the
+    group (n_max, m_max)."""
+    from . import kernels
+    hdr, ent = kernels.fused_deps_dense(tables, qmats, prunes, m, s, k,
+                                        wide)
+    return kernels.fused_attr_post(tables, attrs, aidxs, rankbs, hdr, ent,
+                                   m, floors, elide)
 
 
 def scatter_table_rows(table: DepsTable, idx, msb, lsb, node, kind, status,

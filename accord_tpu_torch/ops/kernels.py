@@ -20,6 +20,16 @@ kernels.  The wrappers allocate every output and scratch buffer with
 | scatter_rows   | ops/deps_kernel.py:156, :839; local/device_index.py:226, :1084 |
 | frontier_ell   | ops/drain_kernel.py:173 ready_frontier_ell              |
 | frontier_dense | ops/drain_kernel.py:133 ready_frontier                  |
+| fused_deps_dense | ops/deps_kernel.py:605 fused_flat_csr (raw stage of :1081) |
+| fused_attr_post  | ops/deps_kernel.py:1081 fused_flat_attr (attribution) |
+| fused_frontier_ell   | ops/drain_kernel.py:244 fused_ready_frontier_ell  |
+| fused_frontier_dense | ops/drain_kernel.py:214 fused_ready_frontier      |
+| level_ell      | ops/drain_kernel.py:397 level_assign_ell                |
+| level_dense    | ops/drain_kernel.py:421 level_assign_dense              |
+
+The fused kernels read every member store's tensors where they lie: the
+wrapper uploads one small table of per-store base pointers and sizes
+(``_store_refs``), and the kernel puts the store on a grid dimension.
 """
 
 from __future__ import annotations
@@ -34,7 +44,9 @@ from . import deps_kernel as dk
 from . import drain_kernel as drk
 
 KERNELS = ("deps_bucketed", "deps_dense", "attr_post", "scatter_rows",
-           "frontier_ell", "frontier_dense")
+           "frontier_ell", "frontier_dense", "fused_deps_dense",
+           "fused_attr_post", "fused_frontier_ell", "fused_frontier_dense",
+           "level_ell", "level_dense")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # codes per row that deps_bucketed sorts in shared memory (32 KiB of
@@ -274,3 +286,173 @@ def frontier_dense(state: drk.DrainState) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.bool, device=dev)
     _launch("frontier_dense", dev, [*state, out], [n])
     return out
+
+
+# -- K5: fused multi-store deps scan + attribution ----------------------------
+
+def _store_refs(dev: torch.device, rows) -> torch.Tensor:
+    """Upload the per-store pointer/size table a fused kernel reads."""
+    return torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
+
+
+def _deps_ref(table: dk.DepsTable, attr=None, aidx=None) -> list:
+    """One store's row of the fused deps kernels' table (the StoreRef
+    struct of csrc/fused_scan.cu, 32 int64 words): 7 table columns, 9
+    attribution columns, 11 index arrays (null for the raw stage), then
+    n, m_t, F, T, L."""
+    _check_cols(table)
+    ptrs = [_ptr(c) for c in table]
+    n, m_t = table.lo.shape
+    if attr is None:
+        return ptrs + [0] * 20 + [n, m_t, 0, 0, 0]
+    _check_cols(attr)
+    _check_cols(aidx)
+    if attr.dom.shape[0] != n:
+        raise ValueError("fused attribution columns do not fit the table")
+    return (ptrs + [_ptr(c) for c in attr] + [_ptr(c) for c in aidx]
+            + [n, m_t, aidx.fbnd.shape[0], aidx.etok.shape[0],
+               aidx.erank.shape[0]])
+
+
+def fused_deps_dense(tables: Sequence[dk.DepsTable], qmats: torch.Tensor,
+                     prunes, m: int, s: int, k: int, wide: bool = False):
+    """Dense exact CSR for S stores in one launch: (header
+    int32[S, 2+B], entries [S, s]); codes on the group's m_max."""
+    if not on_cuda(qmats):
+        return dk.fused_flat_csr_plain(tables, qmats, prunes, m, s, k, wide)
+    dev = qmats.device
+    _check(qmats, torch.int64, "qmats")
+    n_s, b, qcols = qmats.shape
+    if n_s != len(tables) or qcols != 7 + 2 * m:
+        raise ValueError(f"qmats {tuple(qmats.shape)} do not fit {len(tables)}"
+                         f" stores and {7 + 2 * m} query columns")
+    n_max, m_max = dk.group_shape(tables)
+    refs = _store_refs(dev, [_deps_ref(t) for t in tables])
+    pr = _store_refs(dev, np.stack([np.asarray(p, np.int64)
+                                    for p in prunes], axis=1))
+    kp = min(k, n_max)
+    dt = dk.code_dtype(wide)
+    counts = torch.empty(n_s * b, dtype=torch.int32, device=dev)
+    pair_counts = torch.empty(n_s * b, dtype=torch.int32, device=dev)
+    sel = torch.empty(max(n_s * b * kp, 1), dtype=torch.int32, device=dev)
+    starts = torch.empty(n_s * b, dtype=torch.int64, device=dev)
+    hdr = torch.empty((n_s, 2 + b), dtype=torch.int32, device=dev)
+    ent = torch.empty((n_s, s), dtype=dt, device=dev)
+    _launch("fused_deps_dense", dev,
+            [refs, qmats, pr, counts, pair_counts, sel, starts, hdr, ent],
+            [n_s, b, qcols, m, n_max, m_max, int(wide), s, k])
+    return hdr, ent
+
+
+def fused_attr_post(tables: Sequence[dk.DepsTable],
+                    attrs: Sequence[dk.AttrCols],
+                    aidxs: Sequence[dk.AttrIndex], rankbs: torch.Tensor,
+                    hdr_raw: torch.Tensor, ent: torch.Tensor, m: int,
+                    floors: bool = True, elide: bool = True):
+    """Attributed CSRs (header int32[S, 5+B], entries [S, s]) of a fused
+    raw CSR, each store over its own (group-padded) columns and index."""
+    if not on_cuda(ent):
+        return dk.fused_attr_post_plain(tables, attrs, aidxs, rankbs,
+                                        hdr_raw, ent, m, floors, elide)
+    dev = ent.device
+    _check(rankbs, torch.int64, "rankbs")
+    _check(hdr_raw, torch.int32, "hdr_raw")
+    n_s, s = ent.shape
+    b = hdr_raw.shape[1] - 2
+    if rankbs.shape != (n_s, b) or hdr_raw.shape[0] != n_s \
+            or len(tables) != n_s:
+        raise ValueError("fused_attr_post: rankbs / header shapes do not "
+                         "fit the group")
+    n_max, m_max = dk.group_shape(tables)
+    f, t, l = dk.attr_group_shape(aidxs)
+    refs = _store_refs(dev, [_deps_ref(*x)
+                             for x in zip(tables, attrs, aidxs)])
+    nb = -(-s // 256)
+    keep = torch.empty(max(n_s * s, 1), dtype=torch.int32, device=dev)
+    local = torch.empty(max(n_s * s, 1), dtype=torch.int32, device=dev)
+    bsum = torch.empty(max(n_s * nb, 1), dtype=torch.int64, device=dev)
+    drops = torch.empty(n_s * b, dtype=torch.int64, device=dev)
+    tallies = torch.empty(2 * n_s, dtype=torch.int64, device=dev)
+    hdr = torch.empty((n_s, 5 + b), dtype=torch.int32, device=dev)
+    out = torch.empty((n_s, s), dtype=ent.dtype, device=dev)
+    _launch("fused_attr_post", dev,
+            [refs, rankbs, hdr_raw, ent, keep, local, bsum, drops, tallies,
+             hdr, out],
+            [n_s, s, b, n_max, m_max, m, int(floors), int(elide), f, t, l,
+             int(ent.dtype == torch.int64)])
+    return hdr, out
+
+
+# -- K6: fused multi-store frontier sweeps -------------------------------------
+
+def _drain_refs(dev, states, adj_col: str) -> torch.Tensor:
+    rows = []
+    for st in states:
+        _check_cols(st)
+        adj = getattr(st, adj_col)
+        rows.append([_ptr(c) for c in st] + [st.status.shape[0],
+                                             adj.shape[1]])
+    return _store_refs(dev, rows)
+
+
+def fused_frontier_ell(states) -> torch.Tensor:
+    """bool[S, n_max]: row i's first n_i flags are states[i]'s frontier;
+    pad rows are never ready, edges past a store's degree read as -1."""
+    if not on_cuda(states[0].status):
+        return drk.fused_ready_frontier_ell_plain(states)
+    dev = states[0].status.device
+    n_max = max(st.adj_idx.shape[0] for st in states)
+    refs = _drain_refs(dev, states, "adj_idx")
+    out = torch.empty((len(states), n_max), dtype=torch.bool, device=dev)
+    _launch("fused_frontier_ell", dev, [refs, out], [len(states), n_max])
+    return out
+
+
+def fused_frontier_dense(states) -> torch.Tensor:
+    """bool[S, n_max], dense adjacency per store (n_i x n_i)."""
+    if not on_cuda(states[0].status):
+        return drk.fused_ready_frontier_plain(states)
+    dev = states[0].status.device
+    for st in states:
+        n = st.status.shape[0]
+        if st.adj.shape != (n, n):
+            raise ValueError(f"adjacency {tuple(st.adj.shape)} is not "
+                             f"[{n}, {n}]")
+    n_max = max(st.status.shape[0] for st in states)
+    refs = _drain_refs(dev, states, "adj")
+    out = torch.empty((len(states), n_max), dtype=torch.bool, device=dev)
+    _launch("fused_frontier_dense", dev, [refs, out], [len(states), n_max])
+    return out
+
+
+# -- K7: log-depth level assignment --------------------------------------------
+
+def _level_launch(name: str, state, width: int):
+    dev = state.status.device
+    _check_cols(state)
+    n = state.status.shape[0]
+    scratch = [torch.empty(n, dtype=torch.int32, device=dev)
+               for _ in range(7)]        # lv x2, mid, ptr x2, off x2
+    flags = torch.empty(3, dtype=torch.int32, device=dev)
+    levels = torch.empty(n, dtype=torch.int32, device=dev)
+    rounds = torch.empty((), dtype=torch.int32, device=dev)
+    _launch(name, dev, [*state, *scratch, flags, rounds, levels], [n, width])
+    return levels, rounds
+
+
+def level_ell(state: drk.EllDrainState):
+    """(levels int32[N], rounds int32[]) by one cooperative launch."""
+    if not on_cuda(state.status):
+        return drk.level_assign_ell_plain(state)
+    return _level_launch("level_ell", state, state.adj_idx.shape[1])
+
+
+def level_dense(state: drk.DrainState):
+    """(levels int32[N], rounds int32[]) by one cooperative launch."""
+    if not on_cuda(state.status):
+        return drk.level_assign_dense_plain(state)
+    n = state.status.shape[0]
+    if state.adj.shape != (n, n):
+        raise ValueError(f"adjacency {tuple(state.adj.shape)} is not "
+                         f"[{n}, {n}]")
+    return _level_launch("level_dense", state, n)

@@ -25,15 +25,32 @@ Phases:
      drain rows (degree <= 8), its Stable txns armed through
      DeviceState.arm; two drain ticks (ELL frontier on the card), the
      second after 2,000 applied dependencies, each proposing exactly the
-     plain version's frontier;
-  6. the protocol: ``run_burn(seed=1, n_ops=150)`` on the card with every
-     store on the device route; the strict-serializability verifier
-     passes, kernel flushes and device drain ticks happen, no host tick and
-     no fault; a second run of the seed gives the same digest.
-Then a torch.profiler trace of two phase-4 batches gives the device's busy
-share and its time by kernel name.
+     plain version's frontier.  Then the adaptive wavefront: a 4,096-deep
+     serial chain (bench config 3's) armed among those rows, and the store
+     applying what it is proposed; W doubles, the level pass (level_ell)
+     harvests W antichains a tick, the chain applies in at most
+     log2(4096) + 4 ticks, and everything applied equals the plain level
+     pass.  The same chain alone takes the dense form (frontier_dense,
+     level_dense);
+  6. the protocol: ``run_burn(seed=1, n_ops=150)`` on the card in the
+     default configuration (fused flushes and ticks as the pricing
+     decides, the adaptive wavefront) with every store on the device
+     route; the strict-serializability verifier passes, kernel flushes and
+     device drain ticks happen, no host tick and no fault; a second run of
+     the seed gives the same digest;
+  7. fused launches: bench config 5's harness at its real shape (16 stores
+     x 2,048 in-flight txns, 4,096 keys, 4-query flushes) on one
+     DeviceDispatcher, fusion off then on over the same queries: per-store
+     Deps equal, txn/s and launches per 1k txns for both, and the kernel
+     launches of a fused flush the same for 16 and 4 stores; then one fused
+     ELL tick over two 100,000-row drain stores and one fused dense tick
+     over two small ones, each store's proposals equal to its plain
+     frontier.
+Then torch.profiler traces of two phase-4 batches and of four phase-7
+rounds, solo and fused, give the device's busy share and its time by
+kernel name.
 
-Every kernel launch count is set to 0 just before phases 4-6 and read just
+Every kernel launch count is set to 0 just before phases 4-7 and read just
 after them: each kernel of the path must have launched.  The second-to-last
 lines carry the kernel table (JSON) and the card's name and power limit;
 the last line is the result object.  Any failure exits non-zero without the
@@ -70,6 +87,18 @@ KMETA = {
                      "accord_tpu/ops/drain_kernel.py:173"),
     "frontier_dense": ("accord_tpu_torch/ops/csrc/frontier.cu",
                        "accord_tpu/ops/drain_kernel.py:133"),
+    "fused_deps_dense": ("accord_tpu_torch/ops/csrc/fused_scan.cu",
+                         "accord_tpu/ops/deps_kernel.py:605"),
+    "fused_attr_post": ("accord_tpu_torch/ops/csrc/fused_scan.cu",
+                        "accord_tpu/ops/deps_kernel.py:1081"),
+    "fused_frontier_ell": ("accord_tpu_torch/ops/csrc/frontier.cu",
+                           "accord_tpu/ops/drain_kernel.py:244"),
+    "fused_frontier_dense": ("accord_tpu_torch/ops/csrc/frontier.cu",
+                             "accord_tpu/ops/drain_kernel.py:214"),
+    "level_ell": ("accord_tpu_torch/ops/csrc/levels.cu",
+                  "accord_tpu/ops/drain_kernel.py:397"),
+    "level_dense": ("accord_tpu_torch/ops/csrc/levels.cu",
+                    "accord_tpu/ops/drain_kernel.py:421"),
 }
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
 # non-tensor-core fp32 rate, used as the peak of the scalar integer
@@ -379,6 +408,89 @@ def dense_frontier_case(torch, kern, drk, state):
             *frontier_work(torch, drk, state))
 
 
+def fused_scan_case(torch, kern, dk, tables, qmats, prunes, m, s, k,
+                    wide=False):
+    """K5 raw stage: each member's dense-scan work over its own table."""
+    n_s, b = qmats.shape[:2]
+    cs = 8 if wide else 4
+    nbytes = (sum(t.lo.shape[0] * (28 + 16 * t.lo.shape[1]) for t in tables)
+              + qmats.numel() * 8 + n_s * ((2 + b) * 4 + s * cs))
+    ops = sum(b * t.lo.shape[0] * (2 * m * t.lo.shape[1] + 12)
+              for t in tables)
+    return (lambda: kern.fused_deps_dense(tables, qmats, prunes, m, s, k,
+                                          wide),
+            lambda: dk.fused_flat_csr_plain(tables, qmats, prunes, m, s, k,
+                                            wide),
+            None, nbytes, ops)
+
+
+def fused_attr_case(torch, kern, dk, tables, attrs, aidxs, rankbs, hdr_raw,
+                    ent, m, floors=True, elide=True):
+    """K5 attribution stage: each member's live entries read once, the
+    attributed blocks written once."""
+    n_s, s = ent.shape
+    b = hdr_raw.shape[1] - 2
+    cs = ent.element_size()
+    live = int(torch.clamp(hdr_raw[:, 0].to(torch.int64), max=s).sum())
+    aidx_bytes = sum(t.numel() * t.element_size() for a in aidxs for t in a)
+    nbytes = (2 * n_s * s * cs + n_s * ((2 + b) * 4 + (5 + b) * 4 + b * 8)
+              + live * (49 + 16) + aidx_bytes)
+    return (lambda: kern.fused_attr_post(tables, attrs, aidxs, rankbs,
+                                         hdr_raw, ent, m, floors, elide),
+            lambda: dk.fused_attr_post_plain(tables, attrs, aidxs, rankbs,
+                                             hdr_raw, ent, m, floors, elide),
+            None, nbytes, live * 64)
+
+
+def fused_frontier_case(torch, kern, drk, states):
+    """K6: the members' own frontier work (pad rows need nothing)."""
+    work = [frontier_work(torch, drk, st) for st in states]
+    ell = isinstance(states[0], drk.EllDrainState)
+    kfn = kern.fused_frontier_ell if ell else kern.fused_frontier_dense
+    pfn = (drk.fused_ready_frontier_ell_plain if ell
+           else drk.fused_ready_frontier_plain)
+    return (lambda: kfn(states), lambda: pfn(states), None,
+            sum(w[0] for w in work), sum(w[1] for w in work))
+
+
+def level_work(torch, drk, state):
+    """(bytes, operations) of one level pass: every row's status and its
+    output level; the adjacency, executeAt and awaits of the Stable rows
+    (only their blocking deps carry levels); one relax over those edges
+    (a topological pass needs no more)."""
+    n = state.status.shape[0]
+    stable = int((state.status == drk.SLOT_STABLE).sum())
+    width = (state.adj_idx.shape[1] if isinstance(state, drk.EllDrainState)
+             else n)
+    entry = 4 if isinstance(state, drk.EllDrainState) else 1
+    return (n * 4 + n * 4 + 4 + stable * (width * entry + 21),
+            stable * width * 10 + n)
+
+
+def level_case(torch, kern, drk, state):
+    ell = isinstance(state, drk.EllDrainState)
+    return ((lambda: kern.level_ell(state)) if ell
+            else (lambda: kern.level_dense(state)),
+            (lambda: drk.level_assign_ell_plain(state)) if ell
+            else (lambda: drk.level_assign_dense_plain(state)),
+            None, *level_work(torch, drk, state))
+
+
+def chain_states(convert, dev, n):
+    """A serial chain of ``n`` Stable rows (head applied), dense and ELL."""
+    idx = np.full((n, 4), -1, np.int32)
+    idx[1:, 0] = np.arange(n - 1)
+    adj = np.zeros((n, n), bool)
+    adj[np.arange(1, n), np.arange(n - 1)] = True
+    st = np.full(n, 4, np.int32)
+    st[0] = 5
+    cols = (st, np.arange(n, dtype=np.int64), np.zeros(n, np.int64),
+            np.ones(n, np.int32), np.zeros(n, bool))
+    out = convert.tables_from_numpy({"drain": (adj,) + cols,
+                                     "ell": (idx,) + cols}, dev)
+    return out["drain"], out["ell"]
+
+
 def time_ms(torch, fn, on_cuda: bool, reps: int = 15, warm: int = 3):
     """Median ms of ``fn`` after warm-up: CUDA events around each call on
     the card, the host clock in a CPU rehearsal."""
@@ -472,12 +584,53 @@ def small_cases(torch, dev, kern, dk, drk, convert):
         cases["deps_bucketed" + tag] = bucket_case(
             torch, kern, dk, inp["m_t"], up["buckets"], qb, inp["m"], 4,
             8192, 256, inp["prune"], 128, wide)
+    drains = []
     for seed, n in ((3, 64), (4, 512), (8, 48)):
         dense, ell = small_drain(seed, n)
         st = convert.tables_from_numpy({"drain": dense, "ell": ell}, dev)
+        drains.append(st)
         cases[f"frontier_dense[n{n}]"] = dense_frontier_case(
             torch, kern, drk, st["drain"])
         cases[f"frontier_ell[n{n}]"] = ell_case(torch, kern, drk, st["ell"])
+        cases[f"level_dense[n{n}]"] = level_case(torch, kern, drk,
+                                                 st["drain"])
+        cases[f"level_ell[n{n}]"] = level_case(torch, kern, drk, st["ell"])
+    # K6 on unequal members: pad rows, pad edges
+    cases["fused_frontier_dense[64,512,48]"] = fused_frontier_case(
+        torch, kern, drk, [st["drain"] for st in drains])
+    cases["fused_frontier_ell[64,512,48]"] = fused_frontier_case(
+        torch, kern, drk, [st["ell"] for st in drains])
+    # K7 on a deep chain: logarithmic rounds, exact levels
+    dchain, echain = chain_states(convert, dev, 1024)
+    cases["level_dense[chain1024]"] = level_case(torch, kern, drk, dchain)
+    cases["level_ell[chain1024]"] = level_case(torch, kern, drk, echain)
+    # K5 on unequal members (capacities and interval widths), int32 and
+    # int64 codes, every leg switch, and budgets that overflow
+    for seed, wide, shapes in ((5, False, ((256, 4), (96, 2), (160, 8))),
+                               (9, True, ((128, 4), (128, 4)))):
+        ins = [small_inputs(seed * 10 + i, dk, n=n, m_t=m_t, b=16)
+               for i, (n, m_t) in enumerate(shapes)]
+        ups = [convert.tables_from_numpy(
+            {"table": x["table"], "attr": x["attr"], "aidx": x["aidx"]}, dev)
+            for x in ins]
+        tables = [u["table"] for u in ups]
+        qmats = torch.from_numpy(np.stack([x["qmat"] for x in ins])).to(dev)
+        rankbs = torch.from_numpy(np.stack([x["rankb"] for x in ins])).to(dev)
+        prunes = tuple(np.array([x["prune"][c] for x in ins], np.int64)
+                       for c in range(3))
+        for s, k in ((8192, 64), (40, 3)):
+            tag = f"[seed{seed}{' i64' if wide else ''} s{s}]"
+            cases["fused_deps_dense" + tag] = fused_scan_case(
+                torch, kern, dk, tables, qmats, prunes, 4, s, k, wide)
+            hdr, ent = dk.fused_flat_csr_plain(tables, qmats, prunes, 4, s,
+                                               k, wide)
+            for floors, elide in ((True, True), (False, True),
+                                  (True, False)):
+                cases[f"fused_attr_post{tag}[{floors:d}{elide:d}]"] = \
+                    fused_attr_case(torch, kern, dk, tables,
+                                    [u["attr"] for u in ups],
+                                    [u["aidx"] for u in ups], rankbs, hdr,
+                                    ent, 4, floors, elide)
     return cases
 
 
@@ -534,6 +687,7 @@ class P:
         from accord_tpu_torch.local.commands_for_key import (CommandsForKey,
                                                              InternalStatus)
         from accord_tpu_torch.local.device_index import DeviceState
+        from accord_tpu_torch.local.dispatch import DeviceDispatcher
         from accord_tpu_torch.local.redundant import RedundantBefore
         from accord_tpu_torch.primitives.deps import DepsBuilder
         from accord_tpu_torch.primitives.keys import (IntKey, Keys, Range,
@@ -619,6 +773,12 @@ def _work(name, a):
     if name == "scatter_rows":
         return len(a[1]) * sum(c[0].numel() * c.element_size()
                                for c in a[0])
+    if name == "fused_deps_dense":
+        return a[1].shape[0] * a[1].shape[1]
+    if name == "fused_attr_post":
+        return a[5].numel()
+    if name.startswith("fused_frontier"):
+        return sum(st.status.shape[0] for st in a[0])
     return a[0].status.shape[0]
 
 
@@ -659,8 +819,10 @@ class Recorder:
 
 class DrainRecord:
     """The fields of a command that DeviceState.arm and the drain tick's
-    host re-check read.  ``save_status`` is None, so the re-check leaves
-    every proposed txn waiting: the protocol's execution is phase 6's."""
+    host re-check read.  ``save_status`` is None, so the protocol's re-check
+    (commands.refresh_waiting_and_maybe_execute) leaves every proposed txn
+    waiting: the protocol's execution is phase 6's.  A DrainStore in apply
+    mode executes proposed txns itself (DrainSafe)."""
     save_status = None
 
     def __init__(self, execute_at, deps):
@@ -676,7 +838,13 @@ class DrainStore(Store):
     """A store whose drain ticks run when the script says: the tick that
     DeviceState.schedule_tick hands the node's scheduler is kept until
     ``run_ticks`` and then runs through ``execute``, as the store's task
-    queue runs it.  ``proposed`` collects the txns each tick proposed."""
+    queue runs it.  ``proposed`` collects the txns each tick proposed.
+
+    With ``apply`` set, the store plays the protocol's execution: a
+    proposed txn whose gating dependencies have all applied (the WaitingOn
+    re-check, over the drain mirror) applies at once — its drain row goes
+    Applied, it stops being driven, and a tick is scheduled, as
+    DeviceState.update_status does for an applied txn."""
 
     def __init__(self):
         super().__init__()
@@ -687,6 +855,39 @@ class DrainStore(Store):
         self.scheduler = self
         self.dispatcher = None
         self.ticks = []
+        self.ds = None
+        self.apply = False
+        self.applied = []
+
+    def try_apply(self, txn_id) -> None:
+        ds = self.ds
+        dr = ds.drain
+        i = dr.slot_of.get(txn_id)
+        if i is None or int(dr.status[i]) != 4 or not dr.active[i]:
+            return
+        m64 = (1 << 64) - 1
+
+        def ex(s):
+            return (int(dr.exec_msb[s]) & m64, int(dr.exec_lsb[s]) & m64,
+                    int(dr.exec_node[s]))
+        for j in dr.deps_of[i]:
+            sj = int(dr.status[j])
+            if sj in (-1, 5, 6):          # free, applied, invalidated
+                continue
+            if sj < 3 or dr.awaits_all[i] or ex(j) < ex(i):
+                return                    # a gating dep has not applied
+        dr.set_status(i, 5, self.records[txn_id].execute_at)
+        ds.on_driven(txn_id)
+        self.applied.append(txn_id)
+        ds.schedule_tick()
+
+    def run_until_idle(self, limit: int) -> int:
+        """Run ticks until none is due; the number of ticks run."""
+        n = 0
+        while self.due and n < limit:
+            n += len(self.due)
+            self.run_ticks()
+        return n
 
     def once(self, _delay, fn):
         self.due.append(fn)
@@ -707,7 +908,150 @@ class DrainStore(Store):
 class DrainSafe(Safe):
     def if_present(self, txn_id):
         self.store.proposed.add(txn_id)   # the tick asks for candidates only
+        if self.store.apply:
+            self.store.try_apply(txn_id)
         return self.store.records.get(txn_id)
+
+
+def add_chain(store, ds, depth, hlc0):
+    """Arm a ``depth``-deep serial chain of Stable txns in ``store`` (each
+    waits on the one before; executeAt ascending); returns its ids."""
+    safe = DrainSafe(store)
+    ids = [P.TxnId.create(1, hlc0 + i, P.TxnKind.Write, P.Domain.Key, 1)
+           for i in range(depth)]
+    for i, tid in enumerate(ids):
+        store.records[tid] = DrainRecord(tid, [ids[i - 1]] if i else [])
+        ds.arm(safe, tid)
+    return ids
+
+
+def chain_store(depth, device):
+    """bench.py config 3's serial chain (NDD deep) alone in a store: its
+    live set fits the dense drain form."""
+    store = DrainStore()
+    ds = P.DeviceState(store, device=device)
+    store.ds = ds
+    return store, ds, add_chain(store, ds, depth, 10)
+
+
+class TickNode:
+    """A node whose DeviceDispatcher coalesces drain stores' ticks: the
+    stores' ticks register with it and run on its event loop."""
+    node_id = 1
+    alive = True
+
+    def __init__(self):
+        self.scheduler = Sched()
+        self.dispatcher = P.DeviceDispatcher(self)
+
+    @staticmethod
+    def drain_observer(store, mode, n):
+        store.ticks.append((mode, n))
+
+
+# -- config 5's harness: many stores, small flushes, one dispatcher -----------
+
+class Sched:
+    """A FIFO event loop: ``now`` and ``once`` enqueue, ``run`` drains."""
+
+    def __init__(self):
+        self.q = []
+
+    def now(self, fn):
+        self.q.append(fn)
+
+    def once(self, _delay, fn):
+        self.q.append(fn)
+
+    def run(self):
+        while self.q:
+            self.q.pop(0)()
+
+
+class LaunchNode:
+    """One node: the event loop and its DeviceDispatcher."""
+    node_id = 1
+    alive = True
+
+    def __init__(self, fusion=None):
+        self.scheduler = Sched()
+        self.dispatcher = P.DeviceDispatcher(self)
+        if fusion is not None:          # None: ACCORD_TPU_FUSION decides
+            self.dispatcher.fusion = fusion
+
+
+class LaunchShim:
+    """The store surface the dispatcher and its harvest tasks touch: the
+    store id that orders members, and ``execute`` onto the node's loop."""
+
+    def __init__(self, inner, node, sid):
+        self.node = node
+        self.store_id = sid
+        self.commands_for_key = inner.commands_for_key
+        self.redundant_before = inner.redundant_before
+
+    def execute(self, _ctx, fn):
+        shim = self
+
+        class _Safe:
+            store = shim
+
+            @staticmethod
+            def redundant_before():
+                return shim.redundant_before
+
+        self.node.scheduler.now(lambda: fn(_Safe()))
+
+
+def launch_harness(stores, nper, keys, fusion, device, seed=21):
+    """bench.py config 5 (``bench_launch_amortized_harness``): ``stores``
+    DeviceStates of ``nper`` in-flight single-key writes over ``keys`` keys
+    on ONE node's DeviceDispatcher, every store on the dense route.
+    Returns (node, devs)."""
+    rng = np.random.default_rng(seed)
+    node = LaunchNode(fusion)
+    devs = []
+    for sid in range(stores):
+        inner = Store()
+        dev = P.DeviceState(inner, device=device)
+        dev.store = LaunchShim(inner, node, sid)
+        dev.route_override = "dense"
+        hlcs = rng.choice(np.arange(1, 1_000_000), size=nper, replace=False)
+        for i in range(nper):
+            tid = P.TxnId.create(1, int(hlcs[i]), P.TxnKind.Write,
+                                 P.Domain.Key, 1 + i % 5)
+            dev.register(tid, int(P.InternalStatus.PREACCEPTED),
+                         P.Keys([P.IntKey(int(rng.integers(0, keys)))]))
+        devs.append(dev)
+    return node, devs
+
+
+def drive_flushes(node, devs, rounds, keys, seed, per=4):
+    """``rounds`` rounds of ``per`` single-key deps queries per store, all
+    runnable in the same event-loop step; returns each store's builders."""
+    rng = np.random.default_rng(seed)
+    out = [[] for _ in devs]
+    failures = []
+
+    def done(failure, _safe):
+        if failure is not None:
+            failures.append(failure)
+
+    for _r in range(rounds):
+        for i, dev in enumerate(devs):
+            for _ in range(per):
+                bound = P.TxnId.create(
+                    1, int(rng.integers(1_000_000, 2_000_000)),
+                    P.TxnKind.Write, P.Domain.Key, 1)
+                b = P.DepsBuilder()
+                out[i].append(b)
+                dev.enqueue_query((bound, bound, bound.kind().witnesses(),
+                                   [int(rng.integers(0, keys))], []), b,
+                                  done)
+        node.scheduler.run()
+    if failures:
+        raise failures[0]
+    return out
 
 
 def drain_store(nd, device, seed=11):
@@ -761,7 +1105,8 @@ def burn_once(run_burn, device, n_ops):
     tot = {}
     for k in ("n_bucketed_queries", "n_dense_queries", "n_host_queries",
               "n_device_ticks", "n_host_ticks", "n_device_faults",
-              "n_fallback_queries", "n_queries"):
+              "n_fallback_queries", "n_queries", "n_fused_flushes",
+              "n_fused_ticks", "n_wavefront_ticks"):
         tot[k] = sum(getattr(d, k) for d in made)
     digest = hashlib.sha256(json.dumps(
         [r.ops_ok, r.ops_failed, r.ops_unresolved, r.epochs, r.restarts,
@@ -770,20 +1115,15 @@ def burn_once(run_burn, device, n_ops):
     return r, tot, digest
 
 
-def profile_phase4(torch, ds, safe, batches) -> None:
-    """Trace two pipelined phase-4 batches: the device's busy share of the
-    wall time and the device time by kernel name."""
+def profile_window(torch, label: str, fn) -> dict:
+    """Trace ``fn``: the device's busy share of the wall time and the
+    device time by kernel name (the full table goes to ``OUT``)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        handles = [(ds.deps_query_batch_begin(b, prune_floors=True,
-                                              attributed=True), b)
-                   for b in batches]
-        for h, b in handles:
-            ds.deps_query_batch_end_attributed(
-                safe, h, [P.DepsBuilder() for _ in b])
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -794,15 +1134,16 @@ def profile_phase4(torch, ds, safe, batches) -> None:
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    (OUT / "profile_phase4.txt").write_text(
+    (OUT / f"profile_{label}.txt").write_text(
         prof.key_averages().table(sort_by="self_cpu_time_total",
                                   row_limit=40))
-    log("profile: phase-4 x2 batches wall %.3f ms, device busy %.3f ms "
-        "(%.2f%%, idle %.2f%%); top device time %s" % (
-            wall_us / 1e3, busy / 1e3, 100 * busy / wall_us,
-            100 - 100 * busy / wall_us,
-            json.dumps([(k, round(us / 1e3, 3), c)
-                        for us, k, c in rows[:8]])))
+    top = [(k, round(us / 1e3, 3), c) for us, k, c in rows[:8]]
+    log("profile: %s wall %.3f ms, device busy %.3f ms (%.2f%%, idle "
+        "%.2f%%); top device time %s" % (
+            label, wall_us / 1e3, busy / 1e3, 100 * busy / wall_us,
+            100 - 100 * busy / wall_us, json.dumps(top)))
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle_pct": 100 - 100 * busy / wall_us, "top": top}
 
 
 def main(argv=None) -> int:
@@ -871,6 +1212,21 @@ def main(argv=None) -> int:
     dstore, dds = drain_store(ND, dev)
     log(f"setup: drain store of {ND} rows ({len(dstore.records)} armed) in "
         f"{time.perf_counter() - t0:.1f} s")
+    # the fused phase's stores: config 5's harness (bench.py:600-714), two
+    # more drain stores like phase 5's (ELL) and two small ones (dense) for
+    # fused ticks; and bench config 3's serial chain (NDD, bench.py:463)
+    S5, NPER5, KEYS5 = (16, 2048, 4096) if not rehearsal else (4, 128, 256)
+    ROUNDS5, WARM5 = (48, 4) if not rehearsal else (4, 2)
+    NDT = 4_000 if not rehearsal else 300
+    NDD = 4096 if not rehearsal else 64
+    t0 = time.perf_counter()
+    fnode, fdevs = launch_harness(S5, NPER5, KEYS5, True, dev)
+    tick_ell = [drain_store(ND, dev, seed=sd) for sd in (13, 17)]
+    tick_dense = [drain_store(NDT, dev, seed=sd) for sd in (19, 23)]
+    cstore, cds, cchain = chain_store(NDD, dev)
+    log(f"setup: {S5} x {NPER5} fused-flush stores, 2 x {ND} + 2 x {NDT} "
+        f"fused-tick drain stores, a {NDD}-deep chain store in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # warm pass: uploads, learned s/k budgets, and one maintenance step,
     # recording the kernels' arguments at the main path's shapes
@@ -883,6 +1239,23 @@ def main(argv=None) -> int:
         dstate, _live = dds.drain.state()   # what phase 5's first tick sweeps
     finally:
         rec.restore()
+    # the fused harness's warm rounds (uploads, learned budgets), recording
+    # the fused kernels' arguments at the fused phase's shapes
+    rec7 = Recorder(kern, ["fused_deps_dense", "fused_attr_post"])
+    try:
+        drive_flushes(fnode, fdevs, WARM5, KEYS5, seed=5)
+    finally:
+        rec7.restore()
+    check(fnode.dispatcher.n_fused_launches > 0,
+          "fused warm pass: the pricing never chose a fused flush "
+          f"({fnode.dispatcher.n_solo_flushes} solo)")
+    ell_pair = [d.drain.state()[0] for _st, d in tick_ell]
+    dense_pair = [d.drain.state()[0] for _st, d in tick_dense]
+    cstate, _live = cds.drain.state()
+    check(isinstance(ell_pair[0], drk.EllDrainState)
+          and isinstance(dense_pair[0], drk.DrainState)
+          and isinstance(cstate, drk.DrainState),
+          "fused-tick / chain stores took the wrong drain form")
     check(set(rec.calls) >= {"deps_bucketed", "deps_dense", "attr_post",
                              "scatter_rows"},
           f"warm pass missed kernels: {sorted(rec.calls)}")
@@ -898,15 +1271,38 @@ def main(argv=None) -> int:
     a, kw, _w = rec.calls["scatter_rows"]
     real["scatter_rows"] = scatter_case(torch, kern, dk, *a, **kw)
     real["frontier_ell"] = ell_case(torch, kern, drk, dstate)
+    a, kw, _w = rec7.calls["fused_deps_dense"]
+    real["fused_deps_dense"] = fused_scan_case(torch, kern, dk, *a, **kw)
+    a, kw, _w = rec7.calls["fused_attr_post"]
+    real["fused_attr_post"] = fused_attr_case(torch, kern, dk, *a, **kw)
+    real["fused_frontier_ell"] = fused_frontier_case(torch, kern, drk,
+                                                     ell_pair)
+    real["fused_frontier_dense"] = fused_frontier_case(torch, kern, drk,
+                                                       dense_pair)
+    real["level_ell"] = level_case(torch, kern, drk, dstate)
+    real["level_dense"] = level_case(torch, kern, drk, cstate)
     rows = run_checks(torch, real, "real", on_cuda, timed=True)
+    level_rounds = {
+        "ell_100k": int(drk.level_assign_ell_plain(dstate)[1]),
+        "dense_chain": int(drk.level_assign_dense_plain(cstate)[1])}
+    log("level pass rounds (plain, the same as the kernels'): "
+        + json.dumps(level_rounds))
     shapes = {
         "deps_bucketed": list(rec.calls["deps_bucketed"][0][2].shape),
         "deps_dense": list(rec.calls["deps_dense"][0][1].shape),
         "attr_post": [int(rec.calls["attr_post"][0][5].shape[0])],
         "scatter_rows": [len(rec.calls["scatter_rows"][0][1])],
-        "frontier_ell": list(dstate.adj_idx.shape)}
+        "frontier_ell": list(dstate.adj_idx.shape),
+        "fused_deps_dense": list(rec7.calls["fused_deps_dense"][0][1].shape)
+        + [max(t.lo.shape[0] for t in rec7.calls["fused_deps_dense"][0][0])],
+        "fused_attr_post": list(rec7.calls["fused_attr_post"][0][5].shape),
+        "fused_frontier_ell": [len(ell_pair)] + list(ell_pair[0].adj_idx.shape),
+        "fused_frontier_dense": [len(dense_pair)]
+        + list(dense_pair[0].adj.shape),
+        "level_ell": list(dstate.adj_idx.shape),
+        "level_dense": list(cstate.adj.shape)}
 
-    # 4-6. the main path, with every launch count set to 0 first
+    # 4-7. the main path, with every launch count set to 0 first
     kern.reset_launches()
     phase_launches = {}
     seen = dict(kern.LAUNCHES)
@@ -1038,9 +1434,68 @@ def main(argv=None) -> int:
         f"{n_ready} -> {len(want)} proposed after "
         f"{min(2000, len(pending))} applied deps, "
         f"{time.perf_counter() - t0:.3f} s")
+    check(rehearsal or kern.LAUNCHES["frontier_ell"] - seen["frontier_ell"]
+          == 2, f"phase5: frontier_ell launches {kern.LAUNCHES}")
+    # the widened wavefront: a bench-config-3-deep serial chain armed
+    # among the 100k rows, and the store executing what it is proposed
+    # (every txn whose gating deps have applied applies at once: the
+    # synchronous-cascade regime).  W doubles each tick, the level pass
+    # (level_ell) proposes the next W antichains, and the chain applies in
+    # O(log depth) ticks; everything applied equals the plain level pass
+    chain_bound = int(np.log2(NDD)) + 4
+    dstore.ds = dds
+    dstore.apply = True
+    chain5 = add_chain(dstore, dds, NDD, 10_000_000)
+    st5, live5 = dds.drain.state()
+    lv5 = drk.level_assign_ell_plain(st5)[0].cpu().numpy()[:len(live5)]
+    want5 = {dds.drain.id_of[int(x)] for x in
+             live5[(lv5 >= 1) & (lv5 < drk.LEVEL_INF)
+                   & dds.drain.active[live5]]}
+
+    def drain_chain(dstore_, ds_, chain_ids, limit=64):
+        """Tick until idle: (ticks until the chain applied, ticks, the
+        largest W reached)."""
+        dstore_.applied = []
+        done_at, ticks, wmax = None, 0, ds_._drain_wavefront
+        while dstore_.due and ticks < limit:
+            dstore_.run_ticks()
+            ticks += 1
+            wmax = max(wmax, ds_._drain_wavefront)
+            if done_at is None and set(chain_ids) <= set(dstore_.applied):
+                done_at = ticks
+        return done_at, ticks, wmax
+
+    t0 = time.perf_counter()
+    w0 = dds.n_wavefront_ticks
+    chain_at, n_ticks5, wmax5 = drain_chain(dstore, dds, chain5)
+    log(f"phase5: {NDD}-deep chain among {len(live5)} live ELL rows "
+        f"applied after {chain_at} ticks ({n_ticks5} ticks to idle, "
+        f"{dds.n_wavefront_ticks - w0} widened, W up to {wmax5}, "
+        f"{len(dstore.applied)} txns applied) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    check(chain_at is not None and chain_at <= chain_bound,
+          f"phase5: the chain took {chain_at} ticks (bound {chain_bound})")
+    check(set(dstore.applied) == want5,
+          f"phase5: applied {len(dstore.applied)} != plain level pass "
+          f"{len(want5)}")
+    check(dds.n_wavefront_ticks > w0 and wmax5 >= 2 ** (chain_at - 1),
+          "phase5: the wavefront did not widen")
+    # the same on bench config 3's chain alone: a dense drain state, so
+    # the dense frontier and the dense level pass
+    cstore.apply = True
+    t0 = time.perf_counter()
+    wc0 = cds.n_wavefront_ticks
+    chain_c, n_ticks_c, wmax_c = drain_chain(cstore, cds, cchain)
+    log(f"phase5: {NDD}-deep chain alone (dense) applied after {chain_c} "
+        f"ticks ({n_ticks_c} to idle, {cds.n_wavefront_ticks - wc0} "
+        f"widened, W up to {wmax_c}) in {time.perf_counter() - t0:.3f} s")
+    check(chain_c is not None and chain_c <= chain_bound
+          and cstore.applied == cchain,
+          f"phase5: the dense chain took {chain_c} ticks")
     phase_done("5")
-    check(rehearsal or phase_launches["5"]["frontier_ell"] == 2,
-          f"phase5: frontier_ell launches {phase_launches['5']}")
+    for k_ in ("frontier_ell", "level_ell", "frontier_dense", "level_dense"):
+        check(rehearsal or phase_launches["5"][k_] > 0,
+              f"phase5: {k_} never launched {phase_launches['5']}")
 
     # 6. the protocol
     n_ops = 150 if not rehearsal else 20
@@ -1065,9 +1520,94 @@ def main(argv=None) -> int:
     check(not any(k.startswith("DeviceFault.") for k in r1.stats),
           "burn: fault events in the stats")
     check(d1 == d2 and c1 == c2, "burn: two runs of seed 1 differ")
-    log(f"phase6: digest {d1[:16]} equal across two runs")
-    launches = dict(kern.LAUNCHES)
+    log(f"phase6: digest {d1[:16]} equal across two runs; default "
+        f"configuration: {r1.stats.get('device_fused_launches')} fused "
+        f"flush launches ({c1['n_fused_flushes']} member flushes), "
+        f"{r1.stats.get('device_fused_tick_launches')} fused tick launches "
+        f"({c1['n_fused_ticks']} member ticks), {c1['n_wavefront_ticks']} "
+        f"widened ticks")
     phase_done("6")
+
+    # 7. fused launches.  Flushes: config 5's harness, fusion off then on,
+    # the same queries; per-store Deps equal, and the launches a fused
+    # flush makes do not grow with the number of stores it serves
+    disp = fnode.dispatcher
+    fused7 = {}
+    for mode, fusion in (("solo", False), ("fused", True)):
+        disp.fusion = fusion
+        l0 = dict(kern.LAUNCHES)
+        f0, s0 = disp.n_fused_launches, disp.n_solo_flushes
+        t0 = time.perf_counter()
+        built = drive_flushes(fnode, fdevs, ROUNDS5, KEYS5, seed=7)
+        if on_cuda:
+            torch.cuda.synchronize()
+        dt7 = time.perf_counter() - t0
+        nq7 = ROUNDS5 * S5 * 4
+        flushes = (disp.n_fused_launches - f0) + (disp.n_solo_flushes - s0)
+        kl = sum(kern.LAUNCHES[k] - l0[k] for k in kern.KERNELS)
+        fused7[mode] = {"txn_per_s": nq7 / dt7, "queries": nq7,
+                        "launches_per_1k_txn": 1e3 * flushes / nq7,
+                        "kernel_launches_per_1k_txn": 1e3 * kl / nq7,
+                        "fused_launches": disp.n_fused_launches - f0,
+                        "digest": [deps_digest(b) for b in built]}
+    check(fused7["solo"]["digest"] == fused7["fused"]["digest"],
+          "phase7: fused per-store Deps != solo Deps")
+    check(sum(len(k) + len(r) for st_ in fused7["solo"]["digest"]
+              for k, r in st_) > 0, "phase7: empty Deps")
+    check(fused7["solo"]["fused_launches"] == 0
+          and fused7["fused"]["fused_launches"] == ROUNDS5,
+          f"phase7: fused launches {fused7['fused']['fused_launches']} "
+          f"for {ROUNDS5} rounds")
+    per_flush = {}
+    for n_st in (S5, max(S5 // 4, 2)):
+        l0 = dict(kern.LAUNCHES)
+        f0 = disp.n_fused_launches
+        drive_flushes(fnode, fdevs[:n_st], 4, KEYS5, seed=9)
+        per_flush[n_st] = (
+            (kern.LAUNCHES["fused_deps_dense"] - l0["fused_deps_dense"]
+             + kern.LAUNCHES["fused_attr_post"] - l0["fused_attr_post"])
+            / max(disp.n_fused_launches - f0, 1))
+    check(rehearsal or len(set(per_flush.values())) == 1,
+          f"phase7: kernel launches per fused flush grow with S: "
+          f"{per_flush}")
+    for mode in ("solo", "fused"):
+        del fused7[mode]["digest"]
+    log(f"phase7: config-5 harness, {S5} stores x {NPER5} txns, 4-query "
+        f"flushes, {ROUNDS5} rounds: " + json.dumps(fused7)
+        + "; kernel launches per fused flush by S " + json.dumps(per_flush))
+    # fused ticks: two drain stores per group on one dispatcher, one fused
+    # sweep each; every store's proposals equal its plain frontier
+    tnode = TickNode()
+    for group, plain, mode_ in ((tick_ell, drk.ready_frontier_ell_plain,
+                                 "ell"),
+                                (tick_dense, drk.ready_frontier_plain,
+                                 "dense")):
+        for sid, (st_, d_) in enumerate(group):
+            st_.node, st_.store_id = tnode, sid
+            st_.due, st_.ticks, st_.proposed = [], [], set()
+            d_._tick_scheduled = False
+        for _st, d_ in group:
+            d_.schedule_tick()
+        f0 = tnode.dispatcher.n_fused_tick_launches
+        tnode.scheduler.run()
+        check(tnode.dispatcher.n_fused_tick_launches == f0 + 1,
+              f"phase7: no fused {mode_} tick (pricing or eligibility)")
+        for st_, d_ in group:
+            s_, live_ = d_.drain.state()
+            ready_ = plain(s_)[:len(live_)].cpu().numpy()
+            want_ = {d_.drain.id_of[int(x)]
+                     for x in live_[ready_ & d_.drain.active[live_]]}
+            check(st_.ticks == [("fused", len(want_))]
+                  and st_.proposed == want_,
+                  f"phase7: fused {mode_} tick proposals != plain "
+                  f"({st_.ticks})")
+        log(f"phase7: one fused {mode_} tick over "
+            f"{[d_.drain.state()[0].status.shape[0] for _s, d_ in group]} "
+            f"rows proposed {[t for st_, _d in group for t in st_.ticks]}")
+    launches = dict(kern.LAUNCHES)
+    phase_done("7")
+    check(rehearsal or phase_launches["7"]["fused_deps_dense"] > 0,
+          "phase7: fused_deps_dense never launched")
     log("launches by phase: " + json.dumps(phase_launches))
     if not rehearsal:
         missing = [k for k, v in launches.items() if v == 0]
@@ -1082,8 +1622,24 @@ def main(argv=None) -> int:
         torch, kern, drk, *a, **kw)}, "real", on_cuda, timed=True))
     shapes["frontier_dense"] = list(a[0].adj.shape)
 
+    profiles = {}
     if on_cuda:
-        profile_phase4(torch, ds, safe, batches[:2])
+        def two_batches():
+            handles = [(ds.deps_query_batch_begin(b, prune_floors=True,
+                                                  attributed=True), b)
+                       for b in batches[:2]]
+            for h, b in handles:
+                ds.deps_query_batch_end_attributed(
+                    safe, h, [P.DepsBuilder() for _ in b])
+
+        profiles["phase4"] = profile_window(torch, "phase4_x2_batches",
+                                            two_batches)
+        # phase 7's cell, four rounds each way: where a round's time goes
+        for mode, fusion in (("solo", False), ("fused", True)):
+            disp.fusion = fusion
+            profiles["phase7_" + mode] = profile_window(
+                torch, f"phase7_{mode}_x4_rounds",
+                lambda: drive_flushes(fnode, fdevs, 4, KEYS5, seed=11))
 
     table = []
     for name, (src, repl) in KMETA.items():
@@ -1102,6 +1658,14 @@ def main(argv=None) -> int:
                "phase_launches": phase_launches,
                "phase4_queries_per_s": nq / dt, "phase4_breakdown": breakdown,
                "phase4_steps_s": spent,
+               "phase5_chain_ticks": {"ell_among_100k": chain_at,
+                                      "dense_alone": chain_c,
+                                      "depth": NDD},
+               "phase6_fused": {k: r1.stats.get(k) for k in (
+                   "device_fused_launches", "device_fused_tick_launches")},
+               "phase6_counters": c1,
+               "phase7": fused7, "phase7_launches_per_fused_flush": per_flush,
+               "level_rounds": level_rounds, "profiles": profiles,
                "seconds": time.perf_counter() - t_start}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     if rehearsal:

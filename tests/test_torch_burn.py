@@ -1,7 +1,8 @@
-"""A small seeded burn in both packages under the slice's configuration
-(``ACCORD_TPU_FUSION=off``, ``ACCORD_TPU_DRAIN=fixpoint``,
-``ACCORD_TPU_STORE_SHARD=off``; the reference on its single-device path):
-3 nodes, chaos, churn and restarts on.  Both pass the strict-
+"""A small seeded burn in both packages: first under the escape-hatch
+configuration (``ACCORD_TPU_FUSION=off``, ``ACCORD_TPU_DRAIN=fixpoint``,
+``ACCORD_TPU_STORE_SHARD=off``; the reference on its single-device path),
+then in the default configuration (fused multi-store flushes and ticks, the
+adaptive drain wavefront): 3 nodes, chaos, churn and restarts on.  Both pass the strict-
 serializability verifier and agree on every client-visible outcome and on
 the committed history (``deps_found``, per-txn outcomes, the sim stats the
 routes cannot move); two port runs of one seed are identical.
@@ -10,11 +11,16 @@ The port's stores are pinned to the device route, so its deps scans run
 through the plain versions of its kernels on this CPU; the reference's
 stores are pinned to the host route, which keeps the test off JAX's
 compile time.  Every route answers with the same bytes, so the histories
-must agree."""
+must agree.  A burn's committed history does not depend on fusion, so the
+default-configuration port run is held against the same host-routed
+reference, with the fused-launch counters left out of the compared
+stats."""
 
 import pytest
 
 ROUTE_STATS = ("DepsRoute.",)
+# cost-model outcomes of the default configuration, on top of the routes
+FUSED_STATS = ROUTE_STATS + ("DeviceDispatch.", "device_fused_")
 
 
 @pytest.fixture(autouse=True)
@@ -53,9 +59,8 @@ def _record_results(monkeypatch, verifier_mod):
     return log
 
 
-def _outcome(r):
-    stats = {k: v for k, v in r.stats.items()
-             if not k.startswith(ROUTE_STATS)}
+def _outcome(r, skip=ROUTE_STATS):
+    stats = {k: v for k, v in r.stats.items() if not k.startswith(skip)}
     return ((r.ops_ok, r.ops_failed, r.ops_unresolved, r.epochs, r.restarts,
              r.evictions), stats)
 
@@ -85,4 +90,37 @@ def test_burn_matches_reference_and_is_deterministic(monkeypatch):
     assert a.metrics_snapshot == b.metrics_snapshot
     assert a.span_export == b.span_export
     assert a.stats.get("DepsRoute.device", 0) > 0
+    assert "DepsRoute.host" not in a.stats
+
+
+def test_burn_default_config_matches_reference(monkeypatch):
+    """Fusion and the log-depth wavefront on (their variables unset), the
+    port's fused-vs-solo pricing forced to pay (a wall-clock calibrated
+    model; this test holds the fused path, not the model): the same client
+    log and committed history as the host-routed reference, and the fused
+    flush and tick paths both ran."""
+    monkeypatch.delenv("ACCORD_TPU_FUSION")
+    monkeypatch.delenv("ACCORD_TPU_DRAIN")
+    from accord_tpu.sim import verifier as ref_verifier
+    from accord_tpu.sim.burn import run_burn as ref_burn
+    from accord_tpu_torch.local.dispatch import (DeviceDispatcher,
+                                                 fusion_enabled)
+    from accord_tpu_torch.ops.drain_kernel import drain_logdepth_enabled
+    from accord_tpu_torch.sim import verifier as port_verifier
+    from accord_tpu_torch.sim.burn import run_burn as port_burn
+    assert fusion_enabled() and drain_logdepth_enabled()
+    monkeypatch.setattr(DeviceDispatcher, "_fused_flush_pays",
+                        lambda self, hints: True)
+    monkeypatch.setattr(DeviceDispatcher, "_fused_tick_pays",
+                        lambda self, *a: True)
+    ref_log = _record_results(monkeypatch, ref_verifier)
+    port_log = _record_results(monkeypatch, port_verifier)
+    ref = _burn(ref_burn)
+    a = _burn(port_burn, device="cpu")
+    assert a.ops_unresolved == 0 and a.ops_ok > 0
+    assert port_log == ref_log and len(ref_log) > a.ops_ok
+    assert _outcome(a, FUSED_STATS) == _outcome(ref, FUSED_STATS)
+    assert a.stats["deps_found"] == ref.stats["deps_found"] > 0
+    assert a.stats["device_fused_launches"] > 0
+    assert a.stats["device_fused_tick_launches"] > 0
     assert "DepsRoute.host" not in a.stats
