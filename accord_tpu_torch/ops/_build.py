@@ -35,7 +35,10 @@ ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
                 "accord_frontier_ell", "accord_frontier_dense",
                 "accord_fused_deps_dense", "accord_fused_attr_post",
                 "accord_fused_frontier_ell", "accord_fused_frontier_dense",
-                "accord_level_ell", "accord_level_dense")
+                "accord_level_ell", "accord_level_dense",
+                "accord_drain_fix_dense", "accord_drain_fix_ell",
+                "accord_level_drain", "accord_logsq_dense",
+                "accord_dense_degree", "accord_dense_to_ell")
 
 _LOCK = threading.Lock()
 _LIB = None

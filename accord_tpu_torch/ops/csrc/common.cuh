@@ -140,6 +140,47 @@ __device__ void block_bitonic_sort(T* buf, int n) {
   }
 }
 
+// does dep j ever gate row i's execution (the static blocking relation of
+// the reference's blocking_matrix / _ell_blocking; applied deps included)
+__device__ __forceinline__ bool drain_gates(const int32_t* status,
+                                            const int64_t* emsb,
+                                            const int64_t* elsb,
+                                            const int32_t* enode,
+                                            const uint8_t* awaits, int64_t i,
+                                            int64_t j) {
+  const int32_t sj = status[j];
+  if (sj == SLOT_INVALIDATED || sj == SLOT_FREE) return false;
+  const bool undecided = sj >= 0 && sj < SLOT_COMMITTED;
+  return undecided || awaits[i] ||
+         ts_lt(emsb[j], elsb[j], enode[j], emsb[i], elsb[i], enode[i]);
+}
+
+// One cooperative launch of ``kernel(args)`` with ``nt`` threads a block:
+// ``want`` blocks, at most as many as fit on the card at once (grid.sync()
+// needs every block resident), at least one.  Returns a cudaError_t.
+template <typename Args>
+inline int launch_cooperative(void (*kernel)(Args), int nt, int64_t want,
+                              Args& args, cudaStream_t st) {
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt, 0);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t cap = (int64_t)sms * per_sm;
+  if (want < 1) want = 1;
+  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  void* argv[] = {&args};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(nt),
+                                  argv, 0, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 __host__ __device__ inline int next_pow2(int n) {
   int p = 1;
   while (p < n) p <<= 1;

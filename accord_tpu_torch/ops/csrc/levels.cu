@@ -50,15 +50,9 @@ struct LevelArgs {
   int64_t N, D;
 };
 
-// does dep j ever gate row i (applied deps included: their level is 0)
 __device__ __forceinline__ bool gates(const LevelArgs& a, int64_t i,
                                       int64_t j) {
-  const int32_t sj = a.status[j];
-  if (sj == SLOT_INVALIDATED || sj == SLOT_FREE) return false;
-  const bool undecided = sj >= 0 && sj < SLOT_COMMITTED;
-  return undecided || a.awaits[i] ||
-         ts_lt(a.emsb[j], a.elsb[j], a.enode[j], a.emsb[i], a.elsb[i],
-               a.enode[i]);
+  return drain_gates(a.status, a.emsb, a.elsb, a.enode, a.awaits, i, j);
 }
 
 __device__ __forceinline__ int32_t base_level(const LevelArgs& a,
@@ -210,27 +204,9 @@ int launch(void* const* p, const int64_t* v, cudaStream_t st) {
   a.N = v[0];
   a.D = v[1];
   if (a.N <= 0) return (int)cudaGetLastError();
-  // the grid must fit on the card at once for grid.sync(): as many blocks
-  // as the rows need, at most the co-resident maximum
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, level_kernel<ELL>, NT, 0);
-  if (e != cudaSuccess) return (int)e;
+  // ELL: a thread per row; dense: a warp per row
   const int64_t want = ELL ? (a.N + NT - 1) / NT : (a.N * 32 + NT - 1) / NT;
-  const int64_t cap = (int64_t)sms * per_sm;
-  const unsigned blocks = (unsigned)(want < cap ? want : cap);
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)level_kernel<ELL>,
-                                  dim3(blocks), dim3(NT), args, 0, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_cooperative(level_kernel<ELL>, NT, want, a, st);
 }
 
 }  // namespace

@@ -26,6 +26,12 @@ kernels.  The wrappers allocate every output and scratch buffer with
 | fused_frontier_dense | ops/drain_kernel.py:214 fused_ready_frontier      |
 | level_ell      | ops/drain_kernel.py:397 level_assign_ell                |
 | level_dense    | ops/drain_kernel.py:421 level_assign_dense              |
+| drain_fix_dense | ops/drain_kernel.py:126 drain_levels (:115 drain; :87)  |
+| drain_fix_ell  | ops/drain_kernel.py:300 drain_ell_levels (:292; :274)   |
+| level_drain    | ops/drain_kernel.py:427 _levels_to_drain (in :434, :451, :465, :479) |
+| logsq_dense    | ops/drain_kernel.py:489 drain_dense_logsq               |
+| dense_degree   | ops/drain_kernel.py:524 _dense_degree                   |
+| dense_to_ell   | ops/drain_kernel.py:539 dense_to_ell (the convert at :554) |
 
 The fused kernels read every member store's tensors where they lie: the
 wrapper uploads one small table of per-store base pointers and sizes
@@ -46,7 +52,8 @@ from . import drain_kernel as drk
 KERNELS = ("deps_bucketed", "deps_dense", "attr_post", "scatter_rows",
            "frontier_ell", "frontier_dense", "fused_deps_dense",
            "fused_attr_post", "fused_frontier_ell", "fused_frontier_dense",
-           "level_ell", "level_dense")
+           "level_ell", "level_dense", "drain_fix_dense", "drain_fix_ell",
+           "level_drain", "logsq_dense", "dense_degree", "dense_to_ell")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # codes per row that deps_bucketed sorts in shared memory (32 KiB of
@@ -456,3 +463,130 @@ def level_dense(state: drk.DrainState):
         raise ValueError(f"adjacency {tuple(state.adj.shape)} is not "
                          f"[{n}, {n}]")
     return _level_launch("level_dense", state, n)
+
+
+# -- K8: the fixpoint drains ---------------------------------------------------
+
+def _flags(dev) -> torch.Tensor:
+    return torch.empty(3, dtype=torch.int32, device=dev)
+
+
+def _square(state: drk.DrainState) -> int:
+    n = state.status.shape[0]
+    if state.adj.shape != (n, n):
+        raise ValueError(f"adjacency {tuple(state.adj.shape)} is not "
+                         f"[{n}, {n}]")
+    return n
+
+
+def _drain_outputs(dev, n: int):
+    return (torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev))
+
+
+def drain_fix_dense(state: drk.DrainState):
+    """(applied, newly, sweeps int32[]) by one cooperative launch."""
+    if not on_cuda(state.status):
+        return drk._drain_fix_plain(state)
+    dev = state.status.device
+    _check_cols(state)
+    n = _square(state)
+    w = -(-n // 32)
+    blk = torch.empty(max(n * w, 1), dtype=torch.int32, device=dev)
+    bits = torch.empty(max(3 * w, 1), dtype=torch.int32, device=dev)
+    out = _drain_outputs(dev, n)
+    _launch("drain_fix_dense", dev, [*state, blk, bits, _flags(dev), *out],
+            [n])
+    return out
+
+
+def drain_fix_ell(state: drk.EllDrainState):
+    """(applied, newly, sweeps int32[]) by one cooperative launch."""
+    if not on_cuda(state.status):
+        return drk._drain_ell_fix_plain(state)
+    dev = state.status.device
+    _check_cols(state)
+    n, d = state.adj_idx.shape
+    bidx = torch.empty(max(n * d, 1), dtype=torch.int32, device=dev)
+    stamp = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+    out = _drain_outputs(dev, n)
+    _launch("drain_fix_ell", dev, [*state, bidx, stamp, _flags(dev), *out],
+            [n, d])
+    return out
+
+
+# -- K9: the level-drain epilogue and log-squaring ---------------------------
+
+def level_drain(status: torch.Tensor, lv: torch.Tensor, watermark=None):
+    """(applied, newly, depth int32[]) from the levels; ``watermark`` (an
+    int or a 0-d tensor) replaces ``lv < INF`` by ``lv <= watermark``."""
+    if not on_cuda(status):
+        return drk.level_drain_plain(status, lv, watermark)
+    dev = status.device
+    _check(status, torch.int32, "status")
+    _check(lv, torch.int32, "levels")
+    n = status.shape[0]
+    if lv.shape != (n,):
+        raise ValueError(f"levels {tuple(lv.shape)} do not fit {n} rows")
+    wptr, wval = None, drk.LEVEL_INF - 1
+    if torch.is_tensor(watermark):
+        if watermark.numel() != 1:
+            raise ValueError("watermark is not a scalar")
+        wptr = watermark.to(device=dev, dtype=torch.int64).reshape(())
+    elif watermark is not None:
+        wval = int(watermark)
+    out = _drain_outputs(dev, n)
+    _launch("level_drain", dev, [status, lv, wptr, *out], [n, wval])
+    return out
+
+
+def logsq_dense(state: drk.DrainState):
+    """(applied, newly, squarings int32[]) by one cooperative launch."""
+    if not on_cuda(state.status):
+        return drk.drain_dense_logsq_plain(state)
+    dev = state.status.device
+    _check_cols(state)
+    n = _square(state)
+    w = -(-n // 32)
+    nr = -(-n // 128) * 128          # rows padded to the column tile
+    packed = [torch.empty(max(nr * w, 1), dtype=torch.int32, device=dev)
+              for _ in range(4)]     # rows x2, columns x2
+    tgt = torch.empty(max(w, 1), dtype=torch.int32, device=dev)
+    hit = torch.empty(max(n, 1), dtype=torch.bool, device=dev)
+    out = _drain_outputs(dev, n)
+    _launch("logsq_dense", dev,
+            [*state, *packed, tgt, hit, _flags(dev), *out], [n])
+    return out
+
+
+# -- K10: dense -> ELL --------------------------------------------------------
+
+def _square_adj(adj: torch.Tensor) -> int:
+    _check(adj, torch.bool, "adj")
+    n = adj.shape[0]
+    if adj.shape != (n, n):
+        raise ValueError(f"adjacency {tuple(adj.shape)} is not square")
+    return n
+
+
+def dense_degree(adj: torch.Tensor) -> torch.Tensor:
+    """int32[]: the largest row degree."""
+    if not on_cuda(adj):
+        return drk._dense_degree_plain(adj)
+    n = _square_adj(adj)
+    out = torch.empty((), dtype=torch.int32, device=adj.device)
+    _launch("dense_degree", adj.device, [adj, out], [n])
+    return out
+
+
+def dense_to_ell(adj: torch.Tensor, d: int) -> torch.Tensor:
+    """int32[N, d]: each row's first d set columns ascending, then -1."""
+    if not on_cuda(adj):
+        return drk.dense_to_ell_plain(adj, d)
+    n = _square_adj(adj)
+    if d < 1:
+        raise ValueError(f"ELL width {d} < 1")
+    out = torch.empty((n, d), dtype=torch.int32, device=adj.device)
+    _launch("dense_to_ell", adj.device, [adj, out], [n, d])
+    return out

@@ -12,7 +12,7 @@ Phases:
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, byte-equal, on seeded inputs at a small size and on the inputs
      the main path below gives it (the dense frontier's after phase 6,
-     from the burn); median ms of kernel, plain version, library call
+     from the burn; the drain kernels' on phase 8's states); median ms of kernel, plain version, library call
      (where one exists) and the least time the card could take (bound,
      from the bytes and operations this input needs);
   4. the main path, a PreAccept deps store at real size: 100,000 in-flight
@@ -45,12 +45,28 @@ Phases:
      launches of a fused flush the same for 16 and 4 stores; then one fused
      ELL tick over two 100,000-row drain stores and one fused dense tick
      over two small ones, each store's proposals equal to its plain
-     frontier.
+     frontier;
+  8. hot keys: bench config 3 (``bench_hot_keys``) at its specified scale.
+     The hot-128 store (100,000 txns over 128 keys, the 90% durable floor,
+     update_status and CommandsForKey state), a learning pass and a timed
+     4 x 256-query scan (prune_floors, attributed, pipelined two deep):
+     deps_found must be 231,203, on the router's routes and again with the
+     device route pinned.  The routed ELL drain over 100,000 Stable
+     txns in 512 hot chains (first call log-depth, then priced by the
+     card's probe; the fixpoint oracle runs 634 sweeps; all drain 100,000),
+     against the host Kahn drain.  The 4,096-deep chain: the dense oracle
+     runs 4,097 sweeps, the routed ELL drain (1 + 3 calls) and the ELL
+     log-depth drain (13 rounds) give its bytes, drain_auto's three dense
+     routes are each forced through set_drain_calibration and give its
+     bytes, and both watermark forms at w in {0, 1, 2, 4096} equal w
+     fixpoint sweeps.  Last, ACCORD_TPU_DRAIN=fixpoint pins both routed
+     drains to the fixpoint and an injected kernel_launch fault fails the
+     log-depth drain over with the same bytes.
 Then torch.profiler traces of two phase-4 batches and of four phase-7
 rounds, solo and fused, give the device's busy share and its time by
 kernel name.
 
-Every kernel launch count is set to 0 just before phases 4-7 and read just
+Every kernel launch count is set to 0 just before phases 4-8 and read just
 after them: each kernel of the path must have launched.  The second-to-last
 lines carry the kernel table (JSON) and the card's name and power limit;
 the last line is the result object.  Any failure exits non-zero without the
@@ -99,6 +115,18 @@ KMETA = {
                   "accord_tpu/ops/drain_kernel.py:397"),
     "level_dense": ("accord_tpu_torch/ops/csrc/levels.cu",
                     "accord_tpu/ops/drain_kernel.py:421"),
+    "drain_fix_dense": ("accord_tpu_torch/ops/csrc/drain_fix.cu",
+                        "accord_tpu/ops/drain_kernel.py:126"),
+    "drain_fix_ell": ("accord_tpu_torch/ops/csrc/drain_fix.cu",
+                      "accord_tpu/ops/drain_kernel.py:300"),
+    "level_drain": ("accord_tpu_torch/ops/csrc/logsq.cu",
+                    "accord_tpu/ops/drain_kernel.py:427"),
+    "logsq_dense": ("accord_tpu_torch/ops/csrc/logsq.cu",
+                    "accord_tpu/ops/drain_kernel.py:489"),
+    "dense_degree": ("accord_tpu_torch/ops/csrc/dense_to_ell.cu",
+                     "accord_tpu/ops/drain_kernel.py:524"),
+    "dense_to_ell": ("accord_tpu_torch/ops/csrc/dense_to_ell.cu",
+                     "accord_tpu/ops/drain_kernel.py:539"),
 }
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
 # non-tensor-core fp32 rate, used as the peak of the scalar integer
@@ -453,17 +481,19 @@ def fused_frontier_case(torch, kern, drk, states):
             sum(w[0] for w in work), sum(w[1] for w in work))
 
 
-def level_work(torch, drk, state):
+def level_work(torch, drk, state, out_bytes=None):
     """(bytes, operations) of one level pass: every row's status and its
-    output level; the adjacency, executeAt and awaits of the Stable rows
-    (only their blocking deps carry levels); one relax over those edges
-    (a topological pass needs no more)."""
+    output (``out_bytes``, the levels by default); the adjacency, executeAt
+    and awaits of the Stable rows (only their blocking deps carry levels);
+    one relax over those edges (a topological pass needs no more).  A drain
+    to fixpoint computes the same function (its sweeps are the levels)."""
     n = state.status.shape[0]
     stable = int((state.status == drk.SLOT_STABLE).sum())
     width = (state.adj_idx.shape[1] if isinstance(state, drk.EllDrainState)
              else n)
     entry = 4 if isinstance(state, drk.EllDrainState) else 1
-    return (n * 4 + n * 4 + 4 + stable * (width * entry + 21),
+    out = n * 4 + 4 if out_bytes is None else out_bytes
+    return (n * 4 + out + stable * (width * entry + 21),
             stable * width * 10 + n)
 
 
@@ -474,6 +504,83 @@ def level_case(torch, kern, drk, state):
             (lambda: drk.level_assign_ell_plain(state)) if ell
             else (lambda: drk.level_assign_dense_plain(state)),
             None, *level_work(torch, drk, state))
+
+
+def fix_case(torch, kern, drk, state):
+    """K8: the fixpoint drain (applied, newly, sweeps)."""
+    n = state.status.shape[0]
+    if isinstance(state, drk.EllDrainState):
+        kfn, pfn = kern.drain_fix_ell, drk._drain_ell_fix_plain
+    else:
+        kfn, pfn = kern.drain_fix_dense, drk._drain_fix_plain
+    return (lambda: kfn(state), lambda: pfn(state), None,
+            *level_work(torch, drk, state, 2 * n + 4))
+
+
+def level_drain_case(torch, kern, drk, status, lv, watermark=None):
+    """K9 epilogue: status and levels read, two flags and the depth
+    written."""
+    n = status.shape[0]
+    return (lambda: kern.level_drain(status, lv, watermark),
+            lambda: drk.level_drain_plain(status, lv, watermark), None,
+            n * 10 + 4, n * 4)
+
+
+def logsq_case(torch, kern, drk, state):
+    """K9 log-squaring.  Bytes: one drain's (the adjacency of the Stable
+    rows, read once); operations: the squarings this input takes, each
+    N^2 x ceil(N/32) 32-bit AND/OR pairs, and the final mat-vec.  The
+    library call squares the fp16 0/1 step matrix with torch.matmul (> 0.5)
+    as many times as the kernel does."""
+    n = state.status.shape[0]
+    w = -(-n // 32)
+    sq = int(drk.drain_dense_logsq_plain(state)[2])
+    stable = state.status == drk.SLOT_STABLE
+    step = (drk.blocking_matrix(state) & stable[None, :]).to(torch.float16)
+
+    def run_library():
+        s = step
+        for _ in range(sq):
+            s = ((torch.matmul(s, s) > 0.5) | (s > 0.5)).to(torch.float16)
+        return s
+
+    nbytes, _ops = level_work(torch, drk, state, 2 * n + 4)
+    return (lambda: kern.logsq_dense(state),
+            lambda: drk.drain_dense_logsq_plain(state), run_library,
+            nbytes, sq * n * n * w * 2 + n * w * 2)
+
+
+def degree_case(torch, kern, drk, adj):
+    """K10: the adjacency read once."""
+    n = adj.shape[0]
+    return (lambda: kern.dense_degree(adj),
+            lambda: drk._dense_degree_plain(adj), None, n * n + 4, n * n)
+
+
+def to_ell_case(torch, kern, drk, adj, d):
+    """K10: the adjacency read once, the ELL rows written."""
+    n = adj.shape[0]
+    return (lambda: kern.dense_to_ell(adj, d),
+            lambda: drk.dense_to_ell_plain(adj, d), None, n * n + n * d * 4,
+            n * n)
+
+
+def drain_cases(torch, kern, drk, tag, dense, ell):
+    """Every K8-K10 kernel on one dense state and its ELL twin."""
+    lv = drk.level_assign_ell_plain(ell)[0]
+    return {
+        f"drain_fix_dense[{tag}]": fix_case(torch, kern, drk, dense),
+        f"drain_fix_ell[{tag}]": fix_case(torch, kern, drk, ell),
+        f"logsq_dense[{tag}]": logsq_case(torch, kern, drk, dense),
+        f"level_drain[{tag}]": level_drain_case(torch, kern, drk,
+                                                ell.status, lv),
+        f"level_drain[{tag} w=2]": level_drain_case(torch, kern, drk,
+                                                    ell.status, lv, 2),
+        f"dense_degree[{tag}]": degree_case(torch, kern, drk, dense.adj),
+        f"dense_to_ell[{tag} d=4]": to_ell_case(torch, kern, drk, dense.adj,
+                                                4),
+        f"dense_to_ell[{tag} d=8]": to_ell_case(torch, kern, drk, dense.adj,
+                                                8)}
 
 
 def chain_states(convert, dev, n):
@@ -522,16 +629,20 @@ def run_checks(torch, cases: dict, label: str, on_cuda: bool,
     out = {}
     for name, (kfn, pfn, lfn, nbytes, ops) in cases.items():
         got = kfn()
+        t0 = time.perf_counter()
         want = pfn()
         if on_cuda:
             torch.cuda.synchronize()
+        # a plain version that loops on the host (a fixpoint's thousands
+        # of sweeps) is timed with fewer repetitions
+        reps, warm = (15, 3) if time.perf_counter() - t0 < 0.2 else (3, 1)
         err = _max_abs_err(torch, got, want)
         check(err == 0, f"{label} {name}: kernel != plain (max_abs_err "
                         f"{err})")
         row = {"max_abs_err": err}
         if timed:
             row["ms"] = time_ms(torch, kfn, on_cuda)
-            row["plain_ms"] = time_ms(torch, pfn, on_cuda)
+            row["plain_ms"] = time_ms(torch, pfn, on_cuda, reps, warm)
             row["library_ms"] = (time_ms(torch, lfn, on_cuda)
                                  if lfn is not None else None)
             t_bytes = nbytes / HBM_BPS * 1e3
@@ -595,6 +706,8 @@ def small_cases(torch, dev, kern, dk, drk, convert):
         cases[f"level_dense[n{n}]"] = level_case(torch, kern, drk,
                                                  st["drain"])
         cases[f"level_ell[n{n}]"] = level_case(torch, kern, drk, st["ell"])
+        cases.update(drain_cases(torch, kern, drk, f"n{n}", st["drain"],
+                                 st["ell"]))
     # K6 on unequal members: pad rows, pad edges
     cases["fused_frontier_dense[64,512,48]"] = fused_frontier_case(
         torch, kern, drk, [st["drain"] for st in drains])
@@ -604,6 +717,7 @@ def small_cases(torch, dev, kern, dk, drk, convert):
     dchain, echain = chain_states(convert, dev, 1024)
     cases["level_dense[chain1024]"] = level_case(torch, kern, drk, dchain)
     cases["level_ell[chain1024]"] = level_case(torch, kern, drk, echain)
+    cases.update(drain_cases(torch, kern, drk, "chain1024", dchain, echain))
     # K5 on unequal members (capacities and interval widths), int32 and
     # int64 codes, every leg switch, and budgets that overflow
     for seed, wide, shapes in ((5, False, ((256, 4), (96, 2), (160, 8))),
@@ -689,6 +803,7 @@ class P:
         from accord_tpu_torch.local.device_index import DeviceState
         from accord_tpu_torch.local.dispatch import DeviceDispatcher
         from accord_tpu_torch.local.redundant import RedundantBefore
+        from accord_tpu_torch.ops.packing import pack_timestamps
         from accord_tpu_torch.primitives.deps import DepsBuilder
         from accord_tpu_torch.primitives.keys import (IntKey, Keys, Range,
                                                       Ranges)
@@ -1086,6 +1201,144 @@ def drain_store(nd, device, seed=11):
     return store, ds
 
 
+# -- bench config 3 (hot keys), ported: bench.py:183-238, :427-502, :567 -------
+
+def build_hot128_store(device, n3=100_000, b3=256, hot=128):
+    """bench.build_hot128_store on the port's DeviceState: ``n3`` txns over
+    ``hot`` keys, the 90% below the durable floor Applied, the rest
+    Committed (30%) or PreAccepted, registered with update_status and
+    CommandsForKey state, the floor over the hot keys, and ``4 * b3``
+    single-key-set queries — all drawn from ``default_rng(9)`` in the
+    reference's order.  Returns (store, dev, safe, queries, build_rate,
+    rng), ``rng`` the stream's continuation for the drain legs."""
+    IS = P.InternalStatus
+    rng = np.random.default_rng(9)
+    store = Store()
+    dev = P.DeviceState(store, device=device)
+    safe = Safe(store)
+    hlcs = np.sort(rng.choice(np.arange(1, 2_000_000), size=n3,
+                              replace=False))
+    floor_hlc = int(hlcs[int(n3 * 0.9)])
+    floor_id = P.TxnId.create(1, floor_hlc, P.TxnKind.ExclusiveSyncPoint,
+                              P.Domain.Range, 1)
+    entries = []
+    for i in range(n3):
+        hlc = int(hlcs[i])
+        if hlc < floor_hlc:
+            status = IS.APPLIED
+        else:
+            status = (IS.COMMITTED if rng.random() < 0.3
+                      else IS.PREACCEPTED)
+        kind = P.TxnKind.Write if rng.random() < 0.7 else P.TxnKind.Read
+        tid = P.TxnId.create(1, hlc, kind, P.Domain.Key, 1 + i % 5)
+        toks = [int(t) for t in rng.integers(0, hot, rng.integers(1, 4))]
+        entries.append((tid, status, toks))
+    t0 = time.perf_counter()
+    for tid, status, toks in entries:
+        dev.register(tid, int(status), P.Keys([P.IntKey(t) for t in toks]))
+        if status >= IS.COMMITTED:
+            dev.update_status(tid, int(status), execute_at=tid)
+        for t in toks:
+            cfk = store.commands_for_key.get(t)
+            if cfk is None:
+                cfk = store.commands_for_key[t] = P.CommandsForKey(t)
+            cfk.update(tid, status,
+                       execute_at=tid if status >= IS.COMMITTED else None)
+    build_rate = n3 / (time.perf_counter() - t0)
+    store.redundant_before.add_redundant(P.Ranges.of(P.Range(0, hot)),
+                                         floor_id)
+    queries = []
+    for _ in range(b3 * 4):
+        bound = P.TxnId.create(1, int(rng.integers(2_000_000, 3_000_000)),
+                               P.TxnKind.Write, P.Domain.Key, 1)
+        toks = [int(t) for t in rng.integers(0, hot, rng.integers(1, 4))]
+        queries.append((bound, bound, bound.kind().witnesses(), toks, []))
+    return store, dev, safe, queries, build_rate, rng
+
+
+def hot_drain_legs(rng, convert, device, nd=100_000, chains=512, ndd=4096):
+    """bench.py's config-3 drain legs from the rng continuation: ``nd``
+    Stable txns in ``chains`` hot chains with local fan-in (ELL, degree <=
+    8), and the ``ndd``-deep chain with up to 7 more deps a row (dense, and
+    its ELL form at the next power-of-two width).  executeAt = TxnId(1, 10 +
+    i).  Returns (ell, dense, dense_ell, ell_rows, deep_edges)."""
+    d = 8
+    ids = [P.TxnId.create(1, 10 + i, P.TxnKind.Write, P.Domain.Key, 1)
+           for i in range(nd)]
+    em, el, en = (np.asarray(x) for x in P.pack_timestamps(ids))
+    adj_idx = np.full((nd, d), -1, np.int32)
+    for i in range(chains, nd):
+        adj_idx[i, 0] = i - chains              # chain predecessor
+        extra = rng.integers(1, d, 1)[0]
+        lo = max(0, i - 3 * chains)
+        if lo < i - 1:
+            adj_idx[i, 1:1 + extra] = rng.integers(lo, i - 1, extra)
+    adj = np.zeros((ndd, ndd), bool)
+    for i in range(1, ndd):
+        adj[i, i - 1] = True
+        for j in range(max(0, i - 8), i - 1):
+            adj[i, j] = rng.random() < 0.5
+    deep_edges = [np.nonzero(adj[i])[0].tolist() for i in range(ndd)]
+    deg = max(1, max(len(e) for e in deep_edges))
+    dd = 4
+    while dd < deg:
+        dd *= 2
+    adj_idx_d = np.full((ndd, dd), -1, np.int32)
+    for i, e in enumerate(deep_edges):
+        adj_idx_d[i, :len(e)] = e
+
+    def cols(n):
+        return (np.full(n, 4, np.int32), em[:n], el[:n], en[:n],
+                np.zeros(n, bool))
+    ell = convert.tables_from_numpy({"ell": (adj_idx,) + cols(nd)},
+                                    device)["ell"]
+    st = convert.tables_from_numpy({"drain": (adj,) + cols(ndd),
+                                    "ell": (adj_idx_d,) + cols(ndd)}, device)
+    rows = [[int(j) for j in row if j >= 0] for row in adj_idx]
+    return ell, st["drain"], st["ell"], rows, deep_edges
+
+
+def host_kahn_drain_rate(deps_lists):
+    """bench.host_kahn_drain_rate: a queue-based Kahn drain over the gating
+    edges on the host (every row Stable, every edge to an earlier id, so
+    every edge gates); indegrees precomputed, the drain loop timed.
+    Returns (txn/s, drained)."""
+    from collections import deque
+    n = len(deps_lists)
+    rdeps = [[] for _ in range(n)]
+    indeg = np.zeros(n, np.int64)
+    for i, deps in enumerate(deps_lists):
+        indeg[i] = len(deps)
+        for j in deps:
+            rdeps[j].append(i)
+    t0 = time.perf_counter()
+    q = deque(int(i) for i in np.nonzero(indeg == 0)[0])
+    drained = 0
+    while q:
+        j = q.popleft()
+        drained += 1
+        for i in rdeps[j]:
+            indeg[i] -= 1
+            if indeg[i] == 0:
+                q.append(i)
+    return drained / (time.perf_counter() - t0), drained
+
+
+def fixpoint_prefixes(torch, drk, state, ws):
+    """{w: the applied set after w plain fixpoint sweeps} for the ELL
+    ``state`` (w = 0 is the applied set it starts from)."""
+    blocking, j = drk._ell_blocking(state)
+    stable = state.status == drk.SLOT_STABLE
+    applied = state.status == drk.SLOT_APPLIED
+    out = {}
+    for w in range(max(ws) + 1):
+        if w in ws:
+            out[w] = applied.clone()
+        ready = stable & ~applied & ~(blocking & ~applied[j]).any(dim=1)
+        applied = applied | ready
+    return out
+
+
 def burn_once(run_burn, device, n_ops):
     """run_burn with every store pinned to the device route; returns
     (result, per-run DeviceState counters)."""
@@ -1144,6 +1397,206 @@ def profile_window(torch, label: str, fn) -> dict:
             100 - 100 * busy / wall_us, json.dumps(top)))
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
             "idle_pct": 100 - 100 * busy / wall_us, "top": top}
+
+
+def hot_keys_phase(torch, drk, store, dev3, safe, queries, b3, ell, dense,
+                   dense_ell, rows, deep_edges, device, rehearsal) -> dict:
+    """Phase 8: bench config 3 (``bench_hot_keys``, bench.py:350-566) on the
+    port: the floors-pruned scan through the live hot store, the routed
+    100k ELL drain, the 4,096-deep chain's dense oracle and routed drains,
+    every dense route, the watermark prefixes, the fixpoint hatch and a
+    failover.  The reference's counts (the same on every platform) are
+    checked at full size."""
+    import os
+    from accord_tpu_torch.utils import faults
+    from accord_tpu_torch.utils.random_source import RandomSource
+    full = not rehearsal
+    on_cuda = device.type == "cuda"
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize()
+
+    # 1. the scan: an untimed learning pass, then the timed pass pipelined
+    # two deep (prune_floors, attributed); the router picks the routes
+    batches = [queries[i * b3:(i + 1) * b3] for i in range(4)]
+    for batch in batches:
+        dev3.deps_query_batch_attributed(safe, batch,
+                                         [P.DepsBuilder() for _ in batch])
+    counters = ("n_host_queries", "n_bucketed_queries", "n_dense_queries",
+                "n_device_faults", "n_fallback_queries")
+
+    def collect(handle, batch):
+        builders = [P.DepsBuilder() for _ in batch]
+        dev3.deps_query_batch_end_attributed(safe, handle, builders)
+        return sum(b.build().key_deps.relation_count() for b in builders)
+
+    def timed_scan():
+        """(deps_found, txn/s, route counts) of one timed pass."""
+        c0 = {k: getattr(dev3, k) for k in counters}
+        t0 = time.perf_counter()
+        n_deps, pending = 0, []
+        for batch in batches:
+            pending.append((dev3.deps_query_batch_begin(
+                batch, prune_floors=True, attributed=True), batch))
+            if len(pending) >= 2:
+                n_deps += collect(*pending.pop(0))
+        while pending:
+            n_deps += collect(*pending.pop(0))
+        sync()
+        return (n_deps, 4 * b3 / (time.perf_counter() - t0),
+                {k: getattr(dev3, k) - v for k, v in c0.items()})
+
+    n_deps, scan_rate, routes = timed_scan()
+    # the same pass with the device route pinned: the scan kernels at this
+    # shape, and the count may not move
+    dev3.route_override = "device"
+    n_deps_dev, scan_rate_dev, routes_dev = timed_scan()
+    dev3.route_override = None
+    log(f"phase8: hot-128 scan, {4 * b3} queries: deps_found {n_deps}, "
+        f"{scan_rate:.1f} txn/s, routes {json.dumps(routes)}; device route "
+        f"pinned: deps_found {n_deps_dev}, {scan_rate_dev:.1f} txn/s, "
+        f"routes {json.dumps(routes_dev)}")
+    check(not full or n_deps == 231_203,
+          f"phase8: deps_found {n_deps} != 231203")
+    check(n_deps_dev == n_deps, f"phase8: the device route found "
+                                f"{n_deps_dev} deps, the routed pass {n_deps}")
+    check(routes_dev["n_host_queries"] == 0, f"phase8: {routes_dev}")
+    for r_ in (routes, routes_dev):
+        check(r_["n_device_faults"] == 0 and r_["n_fallback_queries"] == 0,
+              f"phase8: scan faults {r_}")
+
+    # 2. the 100k ELL drain: an unseen shape runs the log-depth pass, the
+    # card's probe prices the timed call; the fixpoint oracle directly
+    nd = ell.status.shape[0]
+    a1, n1, r1, route1 = drk.drain_ell_auto(ell)
+    check(route1 == "ell-logdepth", f"phase8: unseen shape took {route1}")
+    cal = drk.drain_calibration(device)
+    sync()
+    t0 = time.perf_counter()
+    a2, n2, r2, route2 = drk.drain_ell_auto(ell)
+    drained = int(n2.sum())
+    ell_rate = drained / (time.perf_counter() - t0)
+    fa, fn_, fsw = drk.drain_ell_levels(ell)
+    fsw = int(fsw)
+    kahn_ell, _ = host_kahn_drain_rate(rows)
+    check(drained == nd and int(n1.sum()) == nd and int(fn_.sum()) == nd,
+          f"phase8: drained {drained} of {nd}")
+    check(all(torch.equal(x, fa) for x in (a1, a2))
+          and all(torch.equal(x, fn_) for x in (n1, n2)),
+          "phase8: the 100k routed drains disagree with the fixpoint")
+    check(not full or fsw == 634, f"phase8: 100k fixpoint sweeps {fsw}")
+    log(f"phase8: {nd}-txn ELL drain: first call {route1} ({r1} rounds); "
+        f"the card's prices choose {route2} ({r2}), {ell_rate:.1f} txn/s "
+        f"against host Kahn {kahn_ell:.1f} txn/s; fixpoint {fsw} sweeps; "
+        "calibration " + json.dumps(cal))
+
+    # 3. the deep chain: the dense oracle, the routed ELL drain 1 + 3 times
+    ndd = dense.status.shape[0]
+    oa, on_, osw = drk.drain_levels(dense)
+    osw = int(osw)
+    check(osw == ndd + 1, f"phase8: dense oracle sweeps {osw}")
+
+    def same(res, what):
+        check(torch.equal(res[0], oa) and torch.equal(res[1], on_),
+              f"phase8: {what} != the dense oracle")
+
+    same(drk.drain_ell_auto(dense_ell), "routed ELL drain (first)")
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        res = drk.drain_ell_auto(dense_ell)
+        deep_drained = int(res[1].sum())
+    deep_rate = deep_drained * 3 / (time.perf_counter() - t0)
+    same(res, "routed ELL drain")
+    deep_route, deep_count = res[3], res[2]
+    lres = drk.drain_ell_logdepth(dense_ell)
+    same(lres, "ELL log-depth drain")
+    rounds = int(lres[2])
+    check(not full or rounds == 13, f"phase8: chain rounds {rounds}")
+    kahn_deep, _ = host_kahn_drain_rate(deep_edges)
+    # drain_auto's three dense routes, each made the cheapest in turn after
+    # the unseen shape's first (dense -> ELL log-depth) call
+    drk._ROUTE_STATS.pop(("dense", ndd), None)
+    res = drk.drain_auto(dense)
+    check(res[3] == "dense-to-ell-logdepth", f"phase8: unseen {res[3]}")
+    same(res, "dense-to-ell-logdepth (unseen)")
+    forced = {}
+    for route, c in (("dense-fixpoint", (1, 1, 1e-15, 1, 1)),
+                     ("dense-logsq", (1, 1, 1, 1e-15, 1)),
+                     ("dense-to-ell-logdepth", (1e-15, 1e-15, 1, 1, 1e-15))):
+        drk.set_drain_calibration(*c)
+        res = drk.drain_auto(dense)
+        check(res[3] == route, f"phase8: forced {route}, got {res[3]}")
+        same(res, route)
+        forced[route] = res[2]
+    drk.set_drain_calibration(**cal)
+    res = drk.drain_auto(dense)
+    same(res, "drain_auto at the card's prices")
+    dense_route = res[3]
+    # the watermark prefixes: w plain fixpoint sweeps
+    ws = (0, 1, 2, ndd)
+    want = fixpoint_prefixes(torch, drk, dense_ell, ws)
+    applied0 = dense.status == drk.SLOT_APPLIED
+    for w in ws:
+        for form, res in (
+                ("ell", drk.drain_ell_watermark(dense_ell, w)),
+                ("dense", drk.drain_dense_watermark(
+                    dense, torch.tensor(w, device=device)))):
+            check(torch.equal(res[0], want[w])
+                  and torch.equal(res[1], want[w] & ~applied0),
+                  f"phase8: {form} watermark {w} != {w} fixpoint sweeps")
+    log(f"phase8: {ndd}-deep chain: dense oracle {osw} sweeps; routed ELL "
+        f"drain {deep_route} ({deep_count}), {deep_rate:.1f} txn/s against "
+        f"host Kahn {kahn_deep:.1f} txn/s; ELL log-depth {rounds} rounds; "
+        f"forced dense routes equal the oracle {json.dumps(forced)}; "
+        f"drain_auto at the card's prices: {dense_route}; watermarks "
+        f"{list(ws)} exact")
+
+    # 4. the escape hatch, and one injected launch fault
+    prior = os.environ.get(drk.DRAIN_ENV)
+    os.environ[drk.DRAIN_ENV] = "fixpoint"
+    try:
+        hatch = (drk.drain_ell_auto(dense_ell), drk.drain_auto(dense))
+    finally:
+        if prior is None:
+            os.environ.pop(drk.DRAIN_ENV)
+        else:
+            os.environ[drk.DRAIN_ENV] = prior
+    check(hatch[0][3] == "ell-fixpoint" and hatch[1][3] == "dense-fixpoint",
+          f"phase8: the hatch gave {hatch[0][3]}, {hatch[1][3]}")
+    same(hatch[0], "ell-fixpoint (hatch)")
+    same(hatch[1], "dense-fixpoint (hatch)")
+    drk._ROUTE_STATS.pop(("ell",) + tuple(dense_ell.adj_idx.shape), None)
+    f0 = drk.drain_counters()["drain_logdepth_failovers"]
+    with faults.device_fault("kernel_launch", 1.0, RandomSource(3)):
+        res = drk.drain_ell_auto(dense_ell)
+    check(res[3] == "ell-fixpoint-failover"
+          and drk.drain_counters()["drain_logdepth_failovers"] == f0 + 1,
+          f"phase8: failover {res[3]} {drk.drain_counters()}")
+    same(res, "ell-fixpoint-failover")
+    log("phase8: ACCORD_TPU_DRAIN=fixpoint pins ell-fixpoint / "
+        "dense-fixpoint; an injected kernel_launch fault gives "
+        "ell-fixpoint-failover with the oracle's bytes; counters "
+        + json.dumps(drk.drain_counters()))
+    return {"deps_found": n_deps, "scan_txn_per_s": scan_rate,
+            "scan_routes": routes,
+            "device_route_scan": {"deps_found": n_deps_dev,
+                                  "txn_per_s": scan_rate_dev,
+                                  "routes": routes_dev},
+            "ell_100k": {"first_route": route1, "first_rounds": r1,
+                         "route": route2, "count": r2,
+                         "txn_per_s": ell_rate, "fixpoint_sweeps": fsw,
+                         "drained": drained,
+                         "host_kahn_txn_per_s": kahn_ell},
+            "chain": {"depth": ndd, "dense_oracle_sweeps": osw,
+                      "route": deep_route, "count": deep_count,
+                      "txn_per_s": deep_rate, "logdepth_rounds": rounds,
+                      "host_kahn_txn_per_s": kahn_deep,
+                      "forced_dense_routes": forced,
+                      "squarings": forced["dense-logsq"],
+                      "drain_auto_route": dense_route},
+            "calibration": cal, "counters": drk.drain_counters()}
 
 
 def main(argv=None) -> int:
@@ -1259,6 +1712,21 @@ def main(argv=None) -> int:
     check(set(rec.calls) >= {"deps_bucketed", "deps_dense", "attr_post",
                              "scatter_rows"},
           f"warm pass missed kernels: {sorted(rec.calls)}")
+    # phase 8's inputs: bench config 3 at its specified scale, the hot store
+    # and then the drain legs from the same seeded stream
+    N3, B3, HOT3 = (100_000, 256, 128) if not rehearsal else (2_000, 16, 16)
+    ND3, CH3, NDD3 = ((100_000, 512, 4096) if not rehearsal
+                      else (2_000, 32, 256))
+    t0 = time.perf_counter()
+    hstore, hdev, hsafe, hqueries, hbuild_rate, hrng = build_hot128_store(
+        dev, N3, B3, HOT3)
+    ell3, dense3, dense3_ell, rows3, deep_edges3 = hot_drain_legs(
+        hrng, convert, dev, ND3, CH3, NDD3)
+    log(f"setup: config-3 hot store of {N3} txns over {HOT3} keys "
+        f"(registration {hbuild_rate:.0f} txn/s), drain legs {ND3} x "
+        f"{ell3.adj_idx.shape[1]} and a {NDD3}-deep chain "
+        f"({dense3_ell.adj_idx.shape[1]} wide as ELL) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 3b. real-size kernel checks and timings at the recorded shapes
     real = {}
@@ -1281,6 +1749,15 @@ def main(argv=None) -> int:
                                                        dense_pair)
     real["level_ell"] = level_case(torch, kern, drk, dstate)
     real["level_dense"] = level_case(torch, kern, drk, cstate)
+    # K8-K10 at phase 8's shapes: the 100k ELL drain, the 4,096-deep chain
+    real["drain_fix_ell"] = fix_case(torch, kern, drk, ell3)
+    real["drain_fix_dense"] = fix_case(torch, kern, drk, dense3)
+    real["logsq_dense"] = logsq_case(torch, kern, drk, dense3)
+    real["level_drain"] = level_drain_case(
+        torch, kern, drk, ell3.status, drk.level_assign_ell_plain(ell3)[0])
+    real["dense_degree"] = degree_case(torch, kern, drk, dense3.adj)
+    real["dense_to_ell"] = to_ell_case(torch, kern, drk, dense3.adj,
+                                       dense3_ell.adj_idx.shape[1])
     rows = run_checks(torch, real, "real", on_cuda, timed=True)
     level_rounds = {
         "ell_100k": int(drk.level_assign_ell_plain(dstate)[1]),
@@ -1300,9 +1777,15 @@ def main(argv=None) -> int:
         "fused_frontier_dense": [len(dense_pair)]
         + list(dense_pair[0].adj.shape),
         "level_ell": list(dstate.adj_idx.shape),
-        "level_dense": list(cstate.adj.shape)}
+        "level_dense": list(cstate.adj.shape),
+        "drain_fix_ell": list(ell3.adj_idx.shape),
+        "drain_fix_dense": list(dense3.adj.shape),
+        "logsq_dense": list(dense3.adj.shape),
+        "level_drain": [ND3],
+        "dense_degree": list(dense3.adj.shape),
+        "dense_to_ell": list(dense3_ell.adj_idx.shape)}
 
-    # 4-7. the main path, with every launch count set to 0 first
+    # 4-8. the main path, with every launch count set to 0 first
     kern.reset_launches()
     phase_launches = {}
     seen = dict(kern.LAUNCHES)
@@ -1604,10 +2087,20 @@ def main(argv=None) -> int:
         log(f"phase7: one fused {mode_} tick over "
             f"{[d_.drain.state()[0].status.shape[0] for _s, d_ in group]} "
             f"rows proposed {[t for st_, _d in group for t in st_.ticks]}")
-    launches = dict(kern.LAUNCHES)
     phase_done("7")
     check(rehearsal or phase_launches["7"]["fused_deps_dense"] > 0,
           "phase7: fused_deps_dense never launched")
+
+    phase8 = hot_keys_phase(torch, drk, hstore, hdev, hsafe, hqueries, B3,
+                            ell3, dense3, dense3_ell, rows3, deep_edges3,
+                            dev, rehearsal)
+    phase8["registration_txn_per_s"] = hbuild_rate
+    launches = dict(kern.LAUNCHES)
+    phase_done("8")
+    for k_ in ("drain_fix_dense", "drain_fix_ell", "level_drain",
+               "logsq_dense", "dense_degree", "dense_to_ell"):
+        check(rehearsal or phase_launches["8"][k_] > 0,
+              f"phase8: {k_} never launched {phase_launches['8']}")
     log("launches by phase: " + json.dumps(phase_launches))
     if not rehearsal:
         missing = [k for k, v in launches.items() if v == 0]
@@ -1666,6 +2159,7 @@ def main(argv=None) -> int:
                "phase6_counters": c1,
                "phase7": fused7, "phase7_launches_per_fused_flush": per_flush,
                "level_rounds": level_rounds, "profiles": profiles,
+               "phase8": phase8,
                "seconds": time.perf_counter() - t_start}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     if rehearsal:

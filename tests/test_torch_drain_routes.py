@@ -1,0 +1,388 @@
+"""The port's routed drains and their kernels (the fixpoint oracles, the
+log-depth and watermark drains, log-squaring, dense -> ELL) against the JAX
+package's, byte for byte, counts included.
+
+Inputs are made with numpy from seeds and handed to both packages: the
+``tests/test_drain_logdepth.py`` generator's drain graphs (undecided deps,
+invalidated and free slots, executeAt ties, awaits_all cycles), and bench
+config 3's hot-key store and drain legs scaled down (``bench.py:183-238``,
+``:427-502``).  The router is held to the reference by injecting one
+calibration into both packages.  The reference runs on its single-device
+path (``ACCORD_TPU_STORE_SHARD=off``, ``dev.mesh = None``).  CPU only: the
+port takes its plain versions here; tolerance zero (bools and integers)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import accord_tpu
+import accord_tpu_torch
+from accord_tpu.ops import drain_kernel as rdrk
+from accord_tpu.utils import faults as rfaults
+from accord_tpu.utils.random_source import RandomSource as RRandom
+from accord_tpu_torch.ops import convert
+from accord_tpu_torch.ops import drain_kernel as pdrk
+from accord_tpu_torch.utils import faults as pfaults
+from accord_tpu_torch.utils.random_source import RandomSource as PRandom
+from tests.test_torch_level_assign import (D_PAD, N_PAD, STABLE, _arrays,
+                                           chain_case, make_case)
+
+
+@pytest.fixture(autouse=True)
+def _routing(monkeypatch):
+    """Both routers start from no learned stats and are left with their
+    calibration as found."""
+    monkeypatch.delenv("ACCORD_TPU_DRAIN", raising=False)
+    monkeypatch.setenv("ACCORD_TPU_STORE_SHARD", "off")
+    saved = (rdrk._DRAIN_CALIB, pdrk._DRAIN_CALIB)
+    rdrk.reset_drain_routing()
+    pdrk.reset_drain_routing()
+    yield
+    rdrk._DRAIN_CALIB, pdrk._DRAIN_CALIB = saved
+    rdrk.reset_drain_routing()
+    pdrk.reset_drain_routing()
+
+
+def _states(dense, ell):
+    ref = (rdrk.DrainState(*map(jnp.asarray, dense)),
+           rdrk.EllDrainState(*map(jnp.asarray, ell)))
+    st = convert.tables_from_numpy({"drain": dense, "ell": ell}, "cpu")
+    return ref, (st["drain"], st["ell"])
+
+
+def _eq(ref, port):
+    """Tuples of arrays / tensors / ints equal, dtypes of arrays too."""
+    assert len(ref) == len(port)
+    for r, p in zip(ref, port):
+        if isinstance(p, (int, str)):
+            assert (int(r) if isinstance(p, int) else r) == p
+            continue
+        r = np.asarray(r)
+        p = p.numpy()
+        assert r.dtype == p.dtype and r.shape == p.shape
+        np.testing.assert_array_equal(r, p)
+
+
+def _check_case(ref, port, n):
+    (rd, re), (pd, pe) = ref, port
+    _eq(rdrk.drain_levels(rd), pdrk.drain_levels(pd))
+    _eq(rdrk.drain_ell_levels(re), pdrk.drain_ell_levels(pe))
+    _eq(rdrk.drain(rd), pdrk.drain(pd))
+    _eq(rdrk.drain_ell(re), pdrk.drain_ell(pe))
+    _eq(rdrk._drain_ell_logdepth_full(re), pdrk._drain_ell_logdepth_full(pe))
+    _eq(rdrk._drain_dense_logdepth_full(rd),
+        pdrk._drain_dense_logdepth_full(pd))
+    _eq(rdrk.drain_ell_logdepth(re), pdrk.drain_ell_logdepth(pe))
+    _eq(rdrk.drain_logdepth(rd), pdrk.drain_logdepth(pd))
+    for w in (0, 1, 2, n):
+        _eq(rdrk.drain_ell_watermark(re, w), pdrk.drain_ell_watermark(pe, w))
+        _eq(rdrk.drain_dense_watermark(rd, w),
+            pdrk.drain_dense_watermark(pd, torch.tensor(w)))
+    _eq(rdrk.drain_dense_logsq(rd), pdrk.drain_dense_logsq(pd))
+    # the reference's degree is int64 under JAX's x64 mode: compare values
+    assert int(rdrk._dense_degree(rd.adj)) == int(pdrk._dense_degree(pd.adj))
+    for md in (None, 1):
+        _eq((rdrk.dense_to_ell(rd, md).adj_idx,),
+            (pdrk.dense_to_ell(pd, md).adj_idx,))
+    # every route agrees with the oracle
+    applied, newly, _ = pdrk.drain_levels(pd)
+    for got in (pdrk.drain_ell_levels(pe), pdrk.drain_ell_logdepth(pe),
+                pdrk.drain_logdepth(pd), pdrk.drain_dense_logsq(pd)):
+        assert torch.equal(got[0], applied) and torch.equal(got[1], newly)
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_drains_equal_reference(seed):
+    """Three seeded cases a seed, each padded to one shape (pad rows FREE,
+    pad edges -1), so each package runs every function at one shape."""
+    rng = np.random.default_rng(9100 + seed)
+    for _ in range(3):
+        case = make_case(rng)
+        ref, port = _states(*_arrays(case, N_PAD, D_PAD))
+        _check_case(ref, port, case["n"])
+
+
+def test_drains_equal_reference_unpadded():
+    """One case at its own shape, ELL width from ``dense_to_ell``."""
+    case = make_case(np.random.default_rng(9200))
+    n = case["n"]
+    dense, _ell = _arrays(case, n, D_PAD)
+    ell = (np.asarray(rdrk.dense_to_ell(
+        rdrk.DrainState(*map(jnp.asarray, dense))).adj_idx),) + dense[1:]
+    ref, port = _states(dense, ell)
+    _check_case(ref, port, n)
+
+
+def test_chain_counts():
+    """A 64-row chain behind an applied head: 64 fixpoint sweeps (63
+    antichains and the empty one), logarithmic rounds, and the reference's
+    squarings."""
+    ref, port = _states(*_arrays(chain_case(64), 64, 4))
+    _check_case(ref, port, 64)
+    assert int(pdrk.drain_levels(port[0])[2]) == 64
+    assert int(pdrk.drain_ell_logdepth(port[1])[2]) <= 2 * 6 + 4
+
+
+# -- the routed drains ----------------------------------------------------------
+
+CAL = (1e-9, 2e-9, 3e-9, 4e-12, 5e-9)
+
+
+def _calibrate(*c):
+    rdrk.set_drain_calibration(*c)
+    pdrk.set_drain_calibration(*c)
+
+
+def _routed(ref, port, fn="drain_auto"):
+    r = getattr(rdrk, fn)(ref)
+    p = getattr(pdrk, fn)(port)
+    _eq(r, p)
+    return p[3]
+
+
+def _same_routing_state():
+    assert rdrk._ROUTE_STATS == pdrk._ROUTE_STATS
+    assert rdrk.drain_counters() == pdrk.drain_counters()
+
+
+def test_routes_stats_and_counters_equal():
+    """A sequence of routed calls over three shapes and two calibrations:
+    every route, result, learned stat and counter equals the reference's."""
+    rng = np.random.default_rng(9300)
+    cases = [_states(*_arrays(make_case(rng), N_PAD, D_PAD)),
+             _states(*_arrays(chain_case(64), 64, 4))]
+    routes = []
+    for cal in (CAL, (5e-9, 1e-10, 1e-12, 1e-9, 1e-12)):
+        _calibrate(*cal)
+        for (rd, re), (pd, pe) in cases:
+            for _ in range(2):
+                routes.append(_routed(re, pe, "drain_ell_auto"))
+                routes.append(_routed(rd, pd))
+                routes.append(_routed(re, pe))
+                _same_routing_state()
+    assert {"ell-logdepth", "ell-fixpoint", "dense-to-ell-logdepth"} \
+        <= set(routes)
+
+
+@pytest.mark.parametrize("route,cal", [
+    ("dense-fixpoint", (1, 1, 1e-15, 1, 1)),
+    ("dense-logsq", (1, 1, 1, 1e-15, 1)),
+    ("dense-to-ell-logdepth", (1e-15, 1e-15, 1, 1, 1e-15))])
+def test_dense_routes_forced(route, cal):
+    """Each of drain_auto's three dense routes, made the cheapest in turn,
+    after the unseen shape's first (log-depth) call."""
+    _calibrate(*cal)
+    (rd, _re), (pd, _pe) = _states(*_arrays(chain_case(64), 64, 4))
+    assert _routed(rd, pd) == "dense-to-ell-logdepth"
+    assert _routed(rd, pd) == route
+    _same_routing_state()
+
+
+def test_fixpoint_hatch(monkeypatch):
+    """ACCORD_TPU_DRAIN=fixpoint pins the oracle in both routed drains; unset,
+    an unseen shape runs the log-depth pass."""
+    _calibrate(*CAL)
+    (rd, re), (pd, pe) = _states(*_arrays(chain_case(64), 64, 4))
+    monkeypatch.setenv("ACCORD_TPU_DRAIN", "fixpoint")
+    assert _routed(re, pe, "drain_ell_auto") == "ell-fixpoint"
+    assert _routed(rd, pd) == "dense-fixpoint"
+    _same_routing_state()
+    monkeypatch.delenv("ACCORD_TPU_DRAIN")
+    pdrk.reset_drain_routing()
+    rdrk.reset_drain_routing()
+    assert _routed(re, pe, "drain_ell_auto") == "ell-logdepth"
+    assert _routed(rd, pd) == "dense-to-ell-logdepth"
+    _same_routing_state()
+
+
+@pytest.mark.parametrize("kind,cal", [
+    ("kernel_launch", CAL), ("transfer", CAL),
+    ("kernel_launch", (1, 1, 1, 1e-15, 1))])
+def test_failover_same_bytes(kind, cal):
+    """An injected device fault inside a log-depth launch fails the call
+    over to the fixpoint: the same bytes, the same route name and one
+    failover tick in both packages (ELL, dense-to-ELL and, with the third
+    calibration, log-squaring)."""
+    _calibrate(*cal)
+    (rd, re), (pd, pe) = _states(*_arrays(chain_case(64), 64, 4))
+    if cal[3] < 1:                      # learn the shape, then log-squaring
+        _routed(rd, pd)
+    with rfaults.device_fault(kind, 1.0, RRandom(5)), \
+            pfaults.device_fault(kind, 1.0, PRandom(5)):
+        assert _routed(re, pe, "drain_ell_auto") == "ell-fixpoint-failover"
+        assert _routed(rd, pd) == "dense-fixpoint-failover"
+    _same_routing_state()
+    assert pdrk.drain_counters()["drain_logdepth_failovers"] == 2
+
+
+# -- bench config 3, scaled down -------------------------------------------------
+
+class _Store:
+    def __init__(self, pkg):
+        from importlib import import_module
+        rb = import_module(pkg.__name__ + ".local.redundant")
+        self.commands_for_key = {}
+        self.redundant_before = rb.RedundantBefore()
+
+    class node:
+        scheduler = None
+
+
+class _Safe:
+    def __init__(self, store):
+        self.store = store
+
+    def redundant_before(self):
+        return self.store.redundant_before
+
+
+def _hot_store(pkg, n3=2000, hot=16, nq=64):
+    """bench.build_hot128_store at a smaller N, key count and query count,
+    drawing from ``default_rng(9)`` in the same order; returns (dev, safe,
+    queries, rng continuation)."""
+    from importlib import import_module
+    di = import_module(pkg.__name__ + ".local.device_index")
+    cfk_m = import_module(pkg.__name__ + ".local.commands_for_key")
+    keys = import_module(pkg.__name__ + ".primitives.keys")
+    ts = import_module(pkg.__name__ + ".primitives.timestamp")
+    IS, CFK = cfk_m.InternalStatus, cfk_m.CommandsForKey
+    TxnId, TxnKind, Domain = ts.TxnId, ts.TxnKind, ts.Domain
+    rng = np.random.default_rng(9)
+    store = _Store(pkg)
+    if pkg is accord_tpu:
+        dev = di.DeviceState(store)
+        dev.mesh = None
+    else:
+        dev = di.DeviceState(store, device="cpu")
+    hlcs = np.sort(rng.choice(np.arange(1, 2_000_000), size=n3,
+                              replace=False))
+    floor_hlc = int(hlcs[int(n3 * 0.9)])
+    floor_id = TxnId.create(1, floor_hlc, TxnKind.ExclusiveSyncPoint,
+                            Domain.Range, 1)
+    entries = []
+    for i in range(n3):
+        hlc = int(hlcs[i])
+        if hlc < floor_hlc:
+            status = IS.APPLIED
+        else:
+            status = (IS.COMMITTED if rng.random() < 0.3
+                      else IS.PREACCEPTED)
+        kind = TxnKind.Write if rng.random() < 0.7 else TxnKind.Read
+        tid = TxnId.create(1, hlc, kind, Domain.Key, 1 + i % 5)
+        toks = [int(t) for t in rng.integers(0, hot, rng.integers(1, 4))]
+        entries.append((tid, status, toks))
+    for tid, status, toks in entries:
+        dev.register(tid, int(status),
+                     keys.Keys([keys.IntKey(t) for t in toks]))
+        if status >= IS.COMMITTED:
+            dev.update_status(tid, int(status), execute_at=tid)
+        for t in toks:
+            cfk = store.commands_for_key.get(t)
+            if cfk is None:
+                cfk = store.commands_for_key[t] = CFK(t)
+            cfk.update(tid, status,
+                       execute_at=tid if status >= IS.COMMITTED else None)
+    store.redundant_before.add_redundant(
+        keys.Ranges.of(keys.Range(0, hot)), floor_id)
+    queries = []
+    for _ in range(nq):
+        bound = TxnId.create(1, int(rng.integers(2_000_000, 3_000_000)),
+                             TxnKind.Write, Domain.Key, 1)
+        toks = [int(t) for t in rng.integers(0, hot, rng.integers(1, 4))]
+        queries.append((bound, bound, bound.kind().witnesses(), toks, []))
+    return dev, _Safe(store), queries, rng
+
+
+def _deps(pkg, dev, safe, queries):
+    """The bench's timed form: begin(prune_floors, attributed), end."""
+    from importlib import import_module
+    DepsBuilder = import_module(pkg.__name__ + ".primitives.deps").DepsBuilder
+    dev.deps_query_batch_attributed(safe, queries,
+                                    [DepsBuilder() for _ in queries])
+    handle = dev.deps_query_batch_begin(queries, prune_floors=True,
+                                        attributed=True)
+    builders = [DepsBuilder() for _ in queries]
+    dev.deps_query_batch_end_attributed(safe, handle, builders)
+    out = []
+    for b in builders:
+        d = b.build()
+        out.append((d.key_deps.relation_count(),
+                    [(k, [(t.msb, t.lsb, t.node)
+                          for t in d.key_deps.txn_ids_for(k)])
+                     for k in d.key_deps.keys.tokens()]))
+    return out
+
+
+def _drain_legs(pkg, rng, nd=2000, chains=32, ndd=256, d=8):
+    """bench.py's config-3 drain legs from the rng continuation: the ELL
+    drain of ``nd`` Stable txns in ``chains`` hot chains, and an
+    ``ndd``-deep chain with local fan-in (dense and its ELL form)."""
+    adj_idx = np.full((nd, d), -1, np.int32)
+    for i in range(chains, nd):
+        adj_idx[i, 0] = i - chains
+        extra = rng.integers(1, d, 1)[0]
+        lo = max(0, i - 3 * chains)
+        if lo < i - 1:
+            adj_idx[i, 1:1 + extra] = rng.integers(lo, i - 1, extra)
+    adj = np.zeros((ndd, ndd), bool)
+    for i in range(1, ndd):
+        adj[i, i - 1] = True
+        for j in range(max(0, i - 8), i - 1):
+            adj[i, j] = rng.random() < 0.5
+    deg = max(1, int(adj.sum(axis=1).max()))
+    dd = 4
+    while dd < deg:
+        dd *= 2
+    adj_idx_d = np.full((ndd, dd), -1, np.int32)
+    for i in range(ndd):
+        e = np.nonzero(adj[i])[0]
+        adj_idx_d[i, :len(e)] = e
+
+    from importlib import import_module
+    ts = import_module(pkg.__name__ + ".primitives.timestamp")
+    pack = import_module(pkg.__name__ + ".ops.packing").pack_timestamps
+    ids = [ts.TxnId.create(1, 10 + i, ts.TxnKind.Write, ts.Domain.Key, 1)
+           for i in range(nd)]
+
+    def cols(n):        # executeAt = the ids; every row Stable
+        em, el, en = (np.asarray(x) for x in pack(ids[:n]))
+        return (np.full(n, STABLE, np.int32), em, el, en,
+                np.zeros(n, bool))
+    return ((adj_idx,) + cols(nd), (adj,) + cols(ndd),
+            (adj_idx_d,) + cols(ndd))
+
+
+def test_hot_keys_config_scaled():
+    """Bench config 3 at N=2,000 over 16 hot keys: one 64-query batch's
+    Deps, then the drain legs drawn from the same rng continuation — the
+    routed ELL drain over 2,000 txns in 32 chains and a 256-deep chain's
+    oracle, routed drain and log-depth rounds — equal the reference's."""
+    got = {}
+    for pkg in (accord_tpu, accord_tpu_torch):
+        dev, safe, queries, rng = _hot_store(pkg)
+        got[pkg] = (_deps(pkg, dev, safe, queries), _drain_legs(pkg, rng))
+    assert got[accord_tpu][0] == got[accord_tpu_torch][0]
+    assert sum(c for c, _ in got[accord_tpu_torch][0]) > 0
+    for a, b in zip(got[accord_tpu][1], got[accord_tpu_torch][1]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    ell, dense, ell_d = got[accord_tpu_torch][1]
+    _calibrate(*CAL)
+    r_ell = rdrk.EllDrainState(*map(jnp.asarray, ell))
+    p_ell = convert.tables_from_numpy({"ell": ell}, "cpu")["ell"]
+    for _ in range(2):
+        assert _routed(r_ell, p_ell, "drain_ell_auto") in (
+            "ell-logdepth", "ell-fixpoint")
+    _eq(rdrk.drain_ell_levels(r_ell), pdrk.drain_ell_levels(p_ell))
+    assert int(pdrk.drain_ell_levels(p_ell)[1].sum()) == 2000
+    (rd, re), (pd, pe) = _states(dense, ell_d)
+    oracle = pdrk.drain_levels(pd)
+    _eq(rdrk.drain_levels(rd), oracle)
+    assert int(oracle[2]) == 257
+    for _ in range(2):
+        _routed(re, pe, "drain_ell_auto")
+    _eq(rdrk.drain_ell_logdepth(re), pdrk.drain_ell_logdepth(pe))
+    assert torch.equal(pdrk.drain_ell_logdepth(pe)[1], oracle[1])
+    _same_routing_state()
