@@ -215,7 +215,8 @@ class CommandStore:
         if getattr(node, "device_mode", False):
             from .device_index import DeviceState
             self.device: Optional["DeviceState"] = DeviceState(
-                self, device=node.device)
+                self, device=node.device,
+                mesh=getattr(node, "mesh", "auto"))
         else:
             self.device = None
 

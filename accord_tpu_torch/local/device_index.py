@@ -64,8 +64,16 @@ its candidate set to the next W executeAt levels (the log-depth level
 pass) while whole candidate sets apply synchronously; ``ACCORD_TPU_DRAIN=
 fixpoint`` keeps W at 1.
 
-Not in this slice (the reference has them; later slices port them): the
-mesh and store-sharded residency.  Their counters exist and stay 0.
+Under a mesh (``parallel.sharded.Mesh``: the largest power of two of the
+visible CUDA devices, or one pinned by the ``mesh`` argument, e.g. d
+slices of one card) the slot table is sharded by slot and the bucket
+index by row: the ``sharded`` and ``sharded_bucketed`` kinds run each
+slice's kernels and merge the attributed blocks on device (K12), and a
+store whose table outgrows the per-device budget spills to the
+store-sharded residency (``parallel.store_shard``) with a per-slice
+quarantine ladder whose ``host_slice`` twin answers for a sick slice's
+slots.  The drain tick row-shards its frontier sweep when the mesh is
+priced cheaper (mode ``mesh``).
 """
 
 from __future__ import annotations
@@ -132,6 +140,15 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
 
 
+def _upload_sharded(a: np.ndarray, mesh) -> tuple:
+    """One host column as a sharded array: its row slices, slice i
+    uploaded to mesh device i."""
+    d = mesh.size
+    n = a.shape[0] // d
+    return tuple(_upload(a[i * n:(i + 1) * n], dev)
+                 for i, dev in enumerate(mesh.devices))
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     """Download one device tensor (synchronises with its stream)."""
     return t.cpu().numpy()
@@ -144,7 +161,9 @@ def _fetch_entry_prefix(ent_dev, d: int, s: int, maxtot: int) -> np.ndarray:
     length = _prefix_len(maxtot, s)
     if length == 0:
         return np.zeros((d, 0), _host(ent_dev[:0]).dtype)
-    return _host(ent_dev[:length]).reshape(1, length)
+    if d == 1:
+        return _host(ent_dev[:length]).reshape(1, length)
+    return _host(ent_dev.reshape(d, s)[:, :length])
 
 
 def _decode_triples(hdr: np.ndarray, ent: np.ndarray, nq: int,
@@ -264,6 +283,21 @@ class _DepsMirror:
         # dirty-row scatter into a held set copies it first, so the
         # launched query keeps the table as of begin
         self._leases: Dict[int, int] = {}
+        # store-shard residency (parallel.store_shard.StoreShards, set by
+        # the owner's spill rung): while active, the sharded table / attr
+        # uploads route through per-slice resident buffers with their OWN
+        # dirty sets — device_table() consumes and clears ``_dirty``, so
+        # the sliced consumer must not share it
+        self.shards = None
+        self._dirty_sh: Set[int] = set()
+        self._attr_dirty_sh: Set[int] = set()
+        # the mesh-sharded slot-table copy, cached SEPARATELY from the
+        # single-device one (the router may alternate the single-device
+        # and mesh routes between flushes) and keyed on the mutation
+        # version: the dep mask reads only liveness from the status
+        # column, and every mutation it can observe bumps ``version``
+        self._device_sh: Optional[dk.DepsTable] = None
+        self._device_sh_key = None
         # -- bucket index (host truth); entries are (lo, hi, slot, col)
         # where col is the interval's column in its slot row — the third
         # leg of the exact overlap triple the kernels emit --
@@ -285,6 +319,8 @@ class _DepsMirror:
         # different width; this slice has the single-device one only)
         self._whost_cache: Dict[int, tuple] = {}  # w -> (wide_version, arrs)
         self._wdev = None                         # (wlo, whi, wslot...)
+        self._bsh = None                          # mesh-sharded BucketTable
+        self._bsh_key = None
         self._wdev_key = None
         self._sorted_bids = np.zeros(0, np.int64)
         self._row_of_sorted = np.zeros(0, np.int32)
@@ -318,6 +354,10 @@ class _DepsMirror:
         self.attr_version = 0
         self._attr_dirty: Set[int] = set()
         self._attr_dev = None                     # dk.AttrCols
+        self._attr_repl = None                    # replicated under a mesh
+        self._attr_repl_key = None
+        self._attr_sh = None                      # slot-sharded under a mesh
+        self._attr_sh_key = None
 
     # -- bucket index maintenance -------------------------------------------
     def bucket_keff(self) -> int:
@@ -530,6 +570,25 @@ class _DepsMirror:
             self._wdev_key = wkey
         return dk.BucketTable(*self._bdev, *self._wdev)
 
+    def bucket_device_sharded(self, mesh) -> "dk.BucketTable":
+        """Mesh placement of the bucket index: bucket ROWS and the wide
+        list row-sharded across the mesh (the per-slice tables feed
+        parallel.sharded.sharded_bucketed_*).  Any mutation re-uploads
+        every slice, keyed on the bucket/wide version counters, as
+        device_table_sharded does."""
+        self._sync_bucket_host()
+        d = mesh.size
+        whost = self._sync_wide_host(max(16, d))
+        key = (self.bucket_version, self.wide_version, self._g_cap,
+               whost[0].shape[0], mesh.key())
+        if self._bsh is not None and self._bsh_key == key:
+            return self._bsh
+        faults.check("transfer", "shard_bucket_table upload")
+        self._bsh = dk.BucketTable(*(_upload_sharded(a, mesh)
+                                     for a in (*self._bhost, *whost)))
+        self._bsh_key = key
+        return self._bsh
+
     def alloc(self, txn_id: TxnId) -> int:
         slot = self.slot_of.get(txn_id)
         if slot is not None:
@@ -550,6 +609,8 @@ class _DepsMirror:
         self.lo[slot] = dk.PAD_LO
         self.hi[slot] = dk.PAD_HI
         self._dirty.add(slot)
+        if self.shards is not None:
+            self._dirty_sh.add(slot)
         self._mark_attr(slot)
         self.version += 1
         self.mut_version += 1
@@ -571,6 +632,8 @@ class _DepsMirror:
         self.hi[slot] = dk.PAD_HI
         self.free_slots.append(slot)
         self._dirty.add(slot)
+        if self.shards is not None:
+            self._dirty_sh.add(slot)
         self._mark_attr(slot)
         self.version += 1
         self.mut_version += 1
@@ -600,7 +663,10 @@ class _DepsMirror:
         self.mut_version += 1
         self._snap = None
         self._device = None  # shape changed: full re-upload
+        self._device_sh = None
         self._attr_dev = None
+        self._attr_repl = None
+        self._attr_sh = None
         self.attr_version += 1
 
     def _grow_intervals(self) -> None:
@@ -614,6 +680,7 @@ class _DepsMirror:
         self.mut_version += 1
         self._snap = None
         self._device = None
+        self._device_sh = None
 
     def add_intervals(self, slot: int, tokens: Sequence[int],
                       ranges: Sequence[Range]) -> None:
@@ -639,6 +706,8 @@ class _DepsMirror:
             row_lo[used] = lo_v
             row_hi[used] = hi_v
             self._dirty.add(slot)
+            if self.shards is not None:
+                self._dirty_sh.add(slot)
             self.version += 1
             self.mut_version += 1
             self._bucket_add(slot, lo_v, hi_v, used)
@@ -658,12 +727,16 @@ class _DepsMirror:
                 self.version += 1
             self.status[slot] = status
             self._dirty.add(slot)
+            if self.shards is not None:
+                self._dirty_sh.add(slot)
             self._mark_attr(slot)
             self.mut_version += 1
 
     # -- device attribution columns (r15) -----------------------------------
     def _mark_attr(self, slot: int) -> None:
         self._attr_dirty.add(slot)
+        if self.shards is not None:
+            self._attr_dirty_sh.add(slot)
         self.attr_version += 1
 
     def mark_exec(self, slot: int) -> None:
@@ -671,6 +744,8 @@ class _DepsMirror:
         by DeviceState._advance_status): the device attribution columns
         must see it before the next attributed launch."""
         self._attr_dirty.add(slot)
+        if self.shards is not None:
+            self._attr_dirty_sh.add(slot)
         self.attr_version += 1
         self.mut_version += 1   # snapshot columns changed too
 
@@ -678,6 +753,37 @@ class _DepsMirror:
         return (self.domain.astype(np.int32), self.status,
                 self.msb, self.lsb, self.node,
                 self.emsb, self.elsb, self.enode, self.eknown)
+
+    def device_attr_cols_replicated(self, mesh) -> "dk.AttrCols":
+        """Replicated attribution columns for the mesh-sharded BUCKETED
+        kernels (entries carry global slot ids, so every slice grades
+        every slot): one copy on mesh device 0, which each slice's launch
+        reads on its own device (a no-op copy on a shared card).  Keyed on
+        attr_version: any status/executeAt write re-uploads."""
+        key = (self.attr_version, self.capacity, mesh.key())
+        if self._attr_repl is not None and self._attr_repl_key == key:
+            return self._attr_repl
+        faults.check("transfer", "attr replicated upload")
+        self._attr_repl = dk.AttrCols(
+            *(_upload(a, mesh.dev0) for a in self._attr_host_cols()))
+        self._attr_repl_key = key
+        return self._attr_repl
+
+    def device_attr_cols_sharded(self, mesh) -> "dk.AttrCols":
+        """Slot-sharded attribution columns for the mesh-sharded DENSE
+        kernels (each slice grades only its own slots), keyed on
+        attr_version (elision observes live->live status moves and
+        executeAt writes the dep mask never reads)."""
+        if self.shards is not None and self.shards.active:
+            return self.shards.attr_cols()
+        key = (self.attr_version, self.capacity, mesh.key())
+        if self._attr_sh is not None and self._attr_sh_key == key:
+            return self._attr_sh
+        faults.check("transfer", "attr sharded upload")
+        self._attr_sh = dk.AttrCols(
+            *(_upload_sharded(a, mesh) for a in self._attr_host_cols()))
+        self._attr_sh_key = key
+        return self._attr_sh
 
     def device_attr_cols(self) -> "dk.AttrCols":
         """Device attribution columns, dirty-row scatter-updated in
@@ -919,6 +1025,29 @@ class _DepsMirror:
                  self.hi[rows]])
             self._dirty.clear()
         return self._device
+
+    def device_table_sharded(self, mesh) -> dk.DepsTable:
+        """Mesh placement: the slot dimension sharded across the mesh (a
+        DepsTable of per-slice tuples), cached SEPARATELY from the
+        single-device copy and keyed on the mutation version; any version
+        drift re-uploads every slice.  Live->live status moves don't bump
+        the version: the dep mask reads only liveness from the status
+        column.  While the store-shard residency is active, its per-slice
+        scatter sync and zero-copy assembly (with quarantined slices'
+        status masked) serve instead."""
+        if self.shards is not None and self.shards.active:
+            return self.shards.table()
+        key = (self.version, self.capacity, self.max_intervals, mesh.key())
+        if self._device_sh is not None and self._device_sh_key == key:
+            return self._device_sh
+        faults.check("transfer", "sharded slot upload")
+        self._device_sh = dk.DepsTable(
+            *(_upload_sharded(a, mesh) for a in
+              (self.msb, self.lsb, self.node, self.kind, self.status,
+               self.lo, self.hi)))
+        self._device_sh_key = key
+        return self._device_sh
+
 
 class _DrainMirror:
     """Host mirror of the execution drain graph: SPARSE adjacency over the
@@ -1356,7 +1485,7 @@ class _AttrIndexHost:
 
     __slots__ = ("fbnd", "fmsb", "flsb", "fnode", "etok", "eptr",
                  "erank", "exm", "exl", "exn", "uqkeys", "u",
-                 "pad", "_dev", "seq")
+                 "pad", "_dev", "_repl", "seq")
 
     _SEQ = [0]
 
@@ -1404,6 +1533,7 @@ class _AttrIndexHost:
             tail(exn, lp, 0, np.int32),
             np.int64(self.u + 1))
         self._dev = None
+        self._repl = None
 
     def rank_bounds(self, qnp: np.ndarray) -> np.ndarray:
         """Per-query rank of the started-before bound among the index's
@@ -1421,6 +1551,15 @@ class _AttrIndexHost:
             self._dev = (device, dk.AttrIndex(
                 *(_upload(np.asarray(a), device) for a in self.pad)))
         return self._dev[1]
+
+    def device_replicated(self, mesh) -> "dk.AttrIndex":
+        """The index replicated for a mesh: one copy on mesh device 0,
+        which each slice's launch reads on its own device."""
+        if self._repl is None or self._repl[0] != mesh.key():
+            faults.check("transfer", "attr index upload")
+            self._repl = (mesh.key(), dk.AttrIndex(
+                *(_upload(np.asarray(a), mesh.dev0) for a in self.pad)))
+        return self._repl[1]
 
     def keep_floor(self, tok, dmsb, dlsb, dnode) -> np.ndarray:
         """Per-entry exact-floor keep mask: dep >= deps_floor(token), the
@@ -1491,7 +1630,7 @@ class DeviceState:
     """Per-CommandStore device wiring: the deps index + drain graph, kept in
     sync by the Commands transition functions."""
 
-    def __init__(self, store, device=None):
+    def __init__(self, store, device=None, mesh="auto"):
         self.store = store
         if device is None:
             device = getattr(getattr(store, "node", None), "device",
@@ -1504,9 +1643,25 @@ class DeviceState:
         self.deps.owner = self
         self.drain = _DrainMirror(device=self.device)
         self._tick_scheduled = False
-        # no mesh in this slice (module docstring): the mesh and store-
-        # sharded routes are not ported yet
+        # mesh mode: with more than one visible CUDA device the deps
+        # table's slot dimension is sharded across the largest power of
+        # two of them, and every scan runs its slices' kernels and merges
+        # on device (ref: the CommandStores scatter-gather,
+        # CommandStores.java:575-643; cross-shard Deps.merge,
+        # Deps.java:256).  ``mesh`` pins one (a parallel.sharded.Mesh, or
+        # None for the single-device path)
         self.mesh = None
+        if mesh == "auto":
+            n_dev = (torch.cuda.device_count()
+                     if self.device.type == "cuda" else 0)
+            if n_dev > 1:
+                d = 1
+                while d * 2 <= n_dev:
+                    d *= 2
+                from ..parallel.sharded import make_mesh
+                self.mesh = make_mesh(d)
+        else:
+            self.mesh = mesh
         # learned compaction width for batched queries (sticky across
         # batches; see deps_query_batch)
         self._batch_k = 64
@@ -1598,6 +1753,10 @@ class DeviceState:
         self.n_oom_degraded = 0
         self.n_host_ticks = 0          # drain ticks swept on host fallback
         self.n_device_ticks = 0        # drain ticks swept by a kernel
+        # store-sharded residency (parallel.store_shard): the spill rung's
+        # StoreShards instance (None until the ladder activates it), the
+        # flush/byte counters and the per-slice quarantine tallies
+        self.store_shards = None
         self.n_store_sharded_flushes = 0
         self.n_slice_quarantines = 0
         self.n_slice_restores = 0
@@ -1708,14 +1867,26 @@ class DeviceState:
         if obs is not None:
             obs(self.store, event, detail)
 
-    def _device_fault(self, exc_or_kind, detail: str = "") -> None:
+    def _device_fault(self, exc_or_kind, detail: str = "",
+                      sliced: bool = False) -> None:
         """Record one device-boundary failure and quarantine the device
         routes: exponential backoff in FLUSHES (deterministic per-store
-        jitter so co-faulted stores don't re-probe in lockstep)."""
+        jitter so co-faulted stores don't re-probe in lockstep).
+
+        ``sliced=True`` (the flush dispatch/collect call sites) composes
+        the ladder per slice when the store-sharded residency is active:
+        the failure quarantines the SLICE it touched — its slots answer
+        from the host twin while healthy slices stay on device — instead
+        of the whole node.  Drain-tick faults keep the whole-device
+        quarantine (the drain state is not sliced)."""
         kind = exc_or_kind if isinstance(exc_or_kind, str) \
             else faults.kind_of(exc_or_kind)
         self.n_device_faults += 1
         self._fault_event("fault." + kind, detail)
+        sh = self.store_shards
+        if sliced and sh is not None and sh.active:
+            sh.slice_fault(kind, detail)
+            return
         self.n_quarantines += 1
         self._dev_backoff = min(self._dev_backoff + 1, 8)
         base = min(self._BACKOFF_BASE << (self._dev_backoff - 1),
@@ -1763,13 +1934,22 @@ class DeviceState:
         """Device-memory capacity backpressure: called by
         _DepsMirror._grow_capacity before doubling.  True = grow as usual;
         False = compaction made room under the budget (free_slots is
-        non-empty), don't grow.  When compaction cannot make room the store
-        degrades PINNED-TO-HOST (loud one-shot event) and the HOST arrays
-        still grow — the protocol stays live, the device stops receiving
-        uploads."""
+        non-empty), don't grow.
+
+        The ladder: breach -> compact -> SPILL TO SHARDED (when a mesh is
+        available and the grown table fits d x the per-device budget — one
+        store's slots split across d slices) -> host-pinned.  When every
+        rung fails the store degrades PINNED-TO-HOST (loud one-shot event)
+        and the HOST arrays still grow — the protocol stays live, the
+        device stops receiving uploads."""
         new = mirror.capacity * 2
         budget = self.device_budget_slots
-        breach = budget is not None and new > budget
+        sh = self.store_shards
+        sharded = sh is not None and sh.active
+        # while sharded, the effective budget is the MESH's: d slices
+        eff = None if budget is None else (budget * sh.d if sharded
+                                           else budget)
+        breach = eff is not None and new > eff
         if not breach and faults.should_fire("hbm_oom"):
             self.n_device_faults += 1
             self._fault_event("fault.hbm_oom", f"grow to {new}")
@@ -1783,6 +1963,14 @@ class DeviceState:
                           f"freed={freed} capacity={mirror.capacity}")
         if mirror.free_slots:
             return False
+        if not self.host_pinned and not sharded and self.mesh is not None:
+            from ..parallel.store_shard import store_shard_enabled
+            d = self.mesh.size
+            if store_shard_enabled() and (budget is None
+                                          or new <= budget * d):
+                self._activate_store_shards(f"capacity={mirror.capacity}"
+                                            f" -> {new}")
+                return True
         if not self.host_pinned:
             # the one-shot loud degrade: host route only from here on
             self.host_pinned = True
@@ -1791,10 +1979,20 @@ class DeviceState:
                               f"capacity={mirror.capacity} -> {new}")
         return True
 
+    def _activate_store_shards(self, detail: str = "") -> None:
+        """Turn on the sliced residency for this store (the spill rung and
+        the sharded leg of OOM recovery): from here the sharded table and
+        attr uploads route through per-slice resident buffers."""
+        if self.store_shards is None:
+            from ..parallel.store_shard import StoreShards
+            self.store_shards = StoreShards(self, self.deps, self.mesh)
+        self.store_shards.activate()
+        self._fault_event("oom.spill", detail)
+
     def _try_oom_recover(self) -> bool:
         """Un-terminal the OOM degrade: compact, then re-check the budget —
-        a raised budget lets a host-pinned store re-probe the device
-        route.  Loud
+        a raised budget (or a mesh whose d slices now cover the table) lets
+        a host-pinned store re-probe the device route.  Loud
         one-shot recovery, counted in ``oom_recovered``; mirrors the
         quarantine -> probe -> restore cycle of the device ladder."""
         mirror = self.deps
@@ -1807,7 +2005,12 @@ class DeviceState:
         budget = self.device_budget_slots
         cap = mirror.capacity
         if budget is not None and cap > budget:
-            return False
+            from ..parallel.store_shard import store_shard_enabled
+            sh_ok = (self.mesh is not None and store_shard_enabled())
+            d = self.mesh.size if sh_ok else 1
+            if not sh_ok or cap > budget * d:
+                return False
+            self._activate_store_shards(f"recover capacity={cap}")
         self.host_pinned = False
         self.n_oom_recovered += 1
         self._fault_event("oom.recover",
@@ -2199,10 +2402,14 @@ class DeviceState:
 
     @classmethod
     def set_route_calibration(cls, rtt: float, c_host: float,
-                              c_dev: float, c_xfer: float = 0.0,
-                              c_attr: float = 0.0) -> None:
+                              c_dev: float,
+                              rtt_mesh: Optional[float] = None,
+                              c_xfer: float = 0.0, c_attr: float = 0.0,
+                              c_shard: float = 0.0) -> None:
         cls._CALIB = {"rtt": rtt, "c_host": c_host, "c_dev": c_dev,
-                      "c_xfer": c_xfer, "c_attr": c_attr}
+                      "rtt_mesh": rtt_mesh if rtt_mesh is not None else rtt,
+                      "c_xfer": c_xfer, "c_attr": c_attr,
+                      "c_shard": c_shard}
 
     @staticmethod
     def _measure_route_calibration(device):
@@ -2319,10 +2526,76 @@ class DeviceState:
                 "c_copy": c_copy, "c_xfer": c_xfer, "c_attr": c_attr}
 
 
+    @staticmethod
+    def _sync_mesh(mesh) -> None:
+        for dev in set(mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    @staticmethod
+    def _measure_mesh_rtt(mesh) -> float:
+        """Round-trip cost of ONE tiny mesh program — the mesh analogue of
+        the single-device rtt probe: the port's sharded calculate_deps
+        (its per-device K11 launch and the cross-slice K11 reduce) over a
+        table of 8 slots a slice, and the download of its result."""
+        import statistics as _st
+        import time as _time
+        from ..parallel.sharded import shard_table, sharded_calculate_deps
+        d = mesh.size
+        table = dk.empty_table(8 * d, 1, mesh.dev0)
+        q = dk.query_from_qmat(torch.zeros((1, 9), dtype=torch.int64,
+                                           device=mesh.dev0), 1)
+        fn = sharded_calculate_deps(mesh)
+        st = shard_table(mesh, table)
+        _host(fn(st, q)[1][0])                   # warm (and build)
+        rtts = []
+        for _ in range(3):
+            t0 = _time.perf_counter()
+            _host(fn(st, q)[1][0])
+            rtts.append(_time.perf_counter() - t0)
+        return _st.median(rtts)
+
+    @staticmethod
+    def _measure_shard_coeff(mesh) -> float:
+        """Per-element cost of the cross-slice merge the sharded routes add
+        (the K12 merge over d gathered blocks): an A/B slope over two
+        block sizes, so the fixed launch overhead cancels and what remains
+        is the merge's marginal cost.  A COEFFICIENT, never a device-count
+        threshold — the router prices the sharded route with it like every
+        other term."""
+        import statistics as _st
+        import time as _time
+        d = mesh.size
+        dev = mesh.dev0
+
+        def timed(n):
+            hdr = torch.tensor([n, n, n, 0, 0, n], dtype=torch.int32,
+                               device=dev)
+            ent = torch.arange(n, dtype=torch.int32, device=dev)
+            blocks = [[(hdr, ent, i * n) for i in range(d)]]
+            kernels.merge_blocks(blocks, 1, n, d * n)
+            DeviceState._sync_mesh(mesh)
+            runs = []
+            for _ in range(3):
+                t0 = _time.perf_counter()
+                kernels.merge_blocks(blocks, 1, n, d * n)
+                DeviceState._sync_mesh(mesh)
+                runs.append(_time.perf_counter() - t0)
+            return _st.median(runs)
+
+        n1, n2 = 1024, 8192
+        t1, t2 = timed(n1), timed(n2)
+        return max(t2 - t1, 0.0) / ((n2 - n1) * d) + 1e-12
+
     def _calibration(self):
         if DeviceState._CALIB is None:
             DeviceState._CALIB = self._measure_route_calibration(self.device)
-        return DeviceState._CALIB
+        calib = DeviceState._CALIB
+        if self.mesh is not None and "rtt_mesh" not in calib:
+            calib["rtt_mesh"] = self._measure_mesh_rtt(self.mesh)
+        if self.mesh is not None and "c_shard" not in calib:
+            calib["c_shard"] = self._measure_shard_coeff(self.mesh)
+        return calib
 
     def _choose_route(self, qnp: np.ndarray, q_m: int, floor_id) -> str:
         """Pick "host" or "device" for this flush by comparing the modeled
@@ -2356,16 +2629,26 @@ class DeviceState:
             # index rebuild: one vectorized pass over the live tail
             host_cost += calib["c_host"] * 4.0 * (st["n_above"]
                                                   + st["n_pt"] + st["n_rng"])
-        # device model: the cheaper kernel's element count
+        # device model: the cheaper kernel's PER-SLICE element count (the
+        # wall clock of a parallel launch is the per-slice work).  The slot
+        # table row-shards, so dense work divides by d; the bucket probe
+        # matrix does NOT — every slice evaluates all nq x (q_m*span*K)
+        # bucket candidates against its row slice, only the wide list
+        # splits
         rtt = calib["rtt"]
-        dense_elems = nq * self.deps.capacity * q_m * self.deps.max_intervals
+        d = 1
+        if self.mesh is not None:
+            d = self.mesh.size
+            rtt = calib.get("rtt_mesh", rtt)
+        dense_elems = nq * self.deps.capacity * q_m \
+            * self.deps.max_intervals // d
         if self.BUCKETED and \
                 len(self.deps.wide_entries) <= self.deps.WIDE_MAX:
             # the candidate matrix is sliced to the live bucket-occupancy
             # high-water and the wide list crosses every query interval
             buck_elems = nq * (q_m * self.deps.SPAN
                                * self.deps.bucket_keff()
-                               + q_m * len(self.deps.wide_entries))
+                               + q_m * len(self.deps.wide_entries) // d)
             dev_elems = min(dense_elems, buck_elems)
         else:
             dev_elems = dense_elems
@@ -2374,6 +2657,11 @@ class DeviceState:
         s_attr = min(self._batch_flat, dev_elems)
         dev_cost = 2.0 * rtt + calib["c_dev"] * dev_elems \
             + calib.get("c_attr", 0.0) * s_attr
+        if d > 1:
+            # the mesh routes pay the cross-slice merge over the (up to)
+            # d x s merged entry block — priced from its own A/B probe
+            # slope, never a device-count threshold
+            dev_cost += calib.get("c_shard", 0.0) * d * s_attr
         return "host" if host_cost < dev_cost else "device"
 
     def _batch_floor(self, qnp: np.ndarray, q_m: int):
@@ -2583,6 +2871,22 @@ class DeviceState:
                 self.n_dispatches += 1
                 self._ktime("dispatch_host", _t0)
                 return
+            if kind == "host_slice":
+                # hybrid twin part: while slices are quarantined the
+                # assembled sharded table masks their slots to SLOT_FREE,
+                # and this part answers for EXACTLY those slots from the
+                # host mirror — disjoint from the device part's slot set
+                # by construction, so the concatenated entries finalize
+                # byte-identically to an all-device answer
+                cb, cj, cm, cq = self.deps.host_pairs(qnp, q_m, floor_id,
+                                                      entries=True)
+                keep = self.store_shards.quarantined_slot_mask(cj)
+                parts.append({"kind": "host_slice",
+                              "ent": (cb[keep], cj[keep], cm[keep],
+                                      cq[keep])})
+                self.n_dispatches += 1
+                self._ktime("dispatch_host_slice", _t0)
+                return
             dk.launch_check(kind)
             b_pad = _pow2_at_least(len(rows), 1)
             rows_p = np.concatenate(
@@ -2595,17 +2899,116 @@ class DeviceState:
                                        "mq": m_t * q_m, "hoff": 2,
                                        "d": 1, "d_ent": 1,
                                        "immediate": immediate}
-            rankb = _upload(rankb_np[rows_p], dev) if attributed else None
-            table = self.deps.device_table()
-            if kind == "dense":
+            mesh = self.mesh
+            udev = mesh.dev0 if kind.startswith("sharded") else dev
+            rankb = _upload(rankb_np[rows_p], udev) if attributed else None
+            if kind == "sharded":
+                from ..parallel.sharded import slice_of
+                table = self.deps.device_table_sharded(mesh)
+                d = mesh.size
+                n = self.deps.capacity
+                s = min(self._batch_flat, b_pad * (n // d) * m_t * q_m)
+                k = min(self._batch_k, (n // d) * m_t * q_m)
+                qmat = _upload(qnp[rows_p], udev)
+                held = tuple(slice_of(table, i) for i in range(d))
+                if attributed:
+                    # merged block with GLOBAL slot codes: the cross-slice
+                    # Deps.merge happens on device
+                    wide = dk.wide_codes(n, m_t, q_m)
+                    from ..parallel.sharded import sharded_flat_attr
+                    acols = self.deps.device_attr_cols_sharded(mesh)
+                    ai = aidx.device_replicated(mesh)
+                    pz = prune or (0, 0, 0)
+                    held += tuple(slice_of(acols, i) for i in range(d))
+
+                    def relaunch(s2, k2, _m=mesh, _t=table, _q=qmat,
+                                 _a=acols, _i=ai, _r=rankb, _p=pz):
+                        return sharded_flat_attr(
+                            _m, q_m, s2, k2, wide, k_floors,
+                            k_elide)(_t, _a, _i, _q, _r, *_p)
+
+                    part.update(d=1, d_ent=d, shard_n=n, s=s, k=k,
+                                wide=wide, hoff=5, global_ids=True,
+                                s_cap=b_pad * (n // d) * m_t * q_m,
+                                k_cap=(n // d) * m_t * q_m)
+                else:
+                    wide = dk.wide_codes(n // d, m_t, q_m)
+                    from ..parallel.sharded import (
+                        sharded_calculate_deps_flat,
+                        sharded_calculate_deps_flat_pruned)
+
+                    def relaunch(s2, k2, _m=mesh, _t=table, _q=qmat,
+                                 _p=prune):
+                        if _p is not None:
+                            return sharded_calculate_deps_flat_pruned(
+                                _m, q_m, s2, k2, wide)(_t, _q, *_p)
+                        return sharded_calculate_deps_flat(
+                            _m, q_m, s2, k2, wide)(_t, _q)
+
+                    part.update(d=d, shard_n=n // d, s=s, k=k, wide=wide,
+                                s_cap=b_pad * (n // d) * m_t * q_m,
+                                k_cap=(n // d) * m_t * q_m)
+                self.n_mesh_queries += len(rows)
+            elif kind == "sharded_bucketed":
+                from ..parallel.sharded import slice_of
+                btable = self.deps.bucket_device_sharded(mesh)
+                d = mesh.size
+                span = self.deps.SPAN
+                keff = self.deps.bucket_keff()
+                wide = dk.wide_codes(self.deps.capacity, m_t, q_m)
+                # per-slice candidate ceiling: every touched bucket's live
+                # entry slice plus this slice's part of the wide list
+                # crossed with the query intervals (exact triples)
+                c = (q_m * span * keff
+                     + q_m * (sum(w.shape[0] for w in btable.wlo) // d))
+                s = min(self._batch_flat, b_pad * c)
+                k = min(self._batch_k, c)
+                qb = qcols[rows_p].reshape(b_pad, q_m * span)
+                qmat = _upload(np.concatenate([qnp[rows_p], qb], axis=1),
+                               udev)
+                pz = prune or (0, 0, 0)
+                if attributed:
+                    from ..parallel.sharded import sharded_bucketed_attr
+                    acols = self.deps.device_attr_cols_replicated(mesh)
+                    ai = aidx.device_replicated(mesh)
+                    tsh = self.deps.device_table_sharded(mesh)
+                    held = tuple(slice_of(tsh, i) for i in range(d))
+
+                    def relaunch(s2, k2, _m=mesh, _b=btable, _t=tsh,
+                                 _q=qmat, _a=acols, _i=ai, _r=rankb,
+                                 _p=pz):
+                        return sharded_bucketed_attr(
+                            _m, q_m, span, s2, k2, m_t, keff, wide,
+                            k_floors, k_elide)(_b, _t, _a, _i, _q, _r,
+                                               *_p)
+
+                    part.update(d=1, d_ent=d, shard_n=c, s=s, k=k, c=c,
+                                wide=wide, hoff=5, global_ids=True,
+                                s_cap=b_pad * c, k_cap=c)
+                else:
+                    from ..parallel.sharded import sharded_bucketed_flat
+                    held = ()
+
+                    def relaunch(s2, k2, _m=mesh, _b=btable, _q=qmat,
+                                 _p=pz):
+                        return sharded_bucketed_flat(
+                            _m, q_m, span, s2, k2, m_t, keff,
+                            wide)(_b, _q, *_p)
+
+                    part.update(d=d, shard_n=c, s=s, k=k, c=c, wide=wide,
+                                global_ids=True, s_cap=b_pad * c, k_cap=c)
+                self.n_mesh_queries += len(rows)
+                self.n_mesh_bucketed_queries += len(rows)
+            elif kind == "dense":
+                table = self.deps.device_table()
                 n = table.capacity
                 wide = dk.wide_codes(n, m_t, q_m)
                 s = min(self._batch_flat, b_pad * n * m_t * q_m)
                 k = min(self._batch_k, n * m_t * q_m)
-                qmat = _upload(qnp[rows_p], dev)
+                qmat = _upload(qnp[rows_p], udev)
                 if attributed:
                     acols = self.deps.device_attr_cols()
-                    ai = aidx.device(dev)
+                    ai = aidx.device(udev)
 
                     def relaunch(s2, k2, _t=table, _q=qmat, _a=acols,
                                  _i=ai, _r=rankb, _p=prune):
@@ -2625,6 +3028,7 @@ class DeviceState:
                             s_cap=b_pad * n * m_t * q_m,
                             k_cap=n * m_t * q_m)
             else:   # bucketed
+                table = self.deps.device_table()
                 btable = self.deps.bucket_device()
                 span = self.deps.SPAN
                 keff = self.deps.bucket_keff()
@@ -2634,10 +3038,10 @@ class DeviceState:
                 k = min(self._batch_k, c)
                 qb = qcols[rows_p].reshape(b_pad, q_m * span)
                 qmat = _upload(np.concatenate([qnp[rows_p], qb], axis=1),
-                               dev)
+                               udev)
                 if attributed:
                     acols = self.deps.device_attr_cols()
-                    ai = aidx.device(dev)
+                    ai = aidx.device(udev)
 
                     def relaunch(s2, k2, _t=table, _b=btable, _q=qmat,
                                  _a=acols, _i=ai, _r=rankb, _p=prune):
@@ -2678,13 +3082,14 @@ class DeviceState:
                 # batch i+1 computes and downloads.  No faults.check here:
                 # injection draws stay on the deterministic store-task
                 # thread (_collect_part re-checks before each stage)
-                nq_, s_, k_, hoff_ = b_pad, s, k, part["hoff"]
+                d_, nq_, s_, k_ = part["d"], b_pad, s, k
+                hoff_, de_ = part["hoff"], part["d_ent"]
 
                 def _fetch():
                     import time as _time
                     try:
                         t0 = _time.perf_counter()
-                        hdr = _host(hdr_dev).reshape(1, hoff_ + nq_)
+                        hdr = _host(hdr_dev).reshape(d_, hoff_ + nq_)
                         box["hdr_np"] = hdr
                         box["t_hdr"] = (t0, _time.perf_counter())
                         ovf_s = int(hdr[:, 1 if hoff_ == 5 else 0].max())
@@ -2693,7 +3098,7 @@ class DeviceState:
                             return    # overflowed: collector re-runs
                         t1 = _time.perf_counter()
                         box["ent_np"] = _fetch_entry_prefix(
-                            ent_dev, 1, s_, int(hdr[:, 0].max()))
+                            ent_dev, d_, de_ * s_, int(hdr[:, 0].max()))
                         box["t_ent"] = (t1, _time.perf_counter())
                     except BaseException as e:     # surfaced after join
                         box["err"] = e
@@ -2721,6 +3126,26 @@ class DeviceState:
                 probing = True
                 self.n_reprobes += 1
                 self._fault_event("reprobe", f"route={route}")
+        # -- store-sharded residency gating --
+        sh = self.store_shards
+        hybrid = False
+        if (sh is not None and sh.active and self.mesh is not None
+                and forced is None and route != "host"):
+            sh.tick_flush()
+            if sh.any_quarantined():
+                if attributed:
+                    # hybrid: healthy slices answer on device, the sick
+                    # slices' slots from the host twin (a host_slice part)
+                    hybrid = True
+                else:
+                    # the raw-CSR path consumes whole per-part CSRs (no
+                    # per-entry merge point for a twin to join at): serve
+                    # the whole flush from host while any slice is sick
+                    route = "host"
+                    self.n_fallback_queries += nq
+                    probing = False
+            if route != "host":
+                self.n_store_sharded_flushes += 1
         observed = forced or route
         if self.on_route is not None:
             self.on_route(observed, nq)
@@ -2733,6 +3158,24 @@ class DeviceState:
         try:
             if route == "host":
                 dispatch("host", all_rows)
+            elif self.mesh is not None:
+                if hybrid:
+                    # quarantined slices pin the flush to the DENSE
+                    # sharded kind: the bucketed kernels read entries
+                    # structurally (no status column), so only the dense
+                    # mask can exclude a masked slice
+                    dispatch("sharded", all_rows)
+                    dispatch("host_slice", all_rows)
+                elif route == "dense" or degenerate:
+                    dispatch("sharded", all_rows)
+                else:
+                    qcols, wide_q = self._bucket_query_cols(qnp, q_m)
+                    narrow = np.nonzero(~wide_q)[0].astype(np.int64)
+                    wide = np.nonzero(wide_q)[0].astype(np.int64)
+                    if len(narrow):
+                        dispatch("sharded_bucketed", narrow, qcols)
+                    if len(wide):
+                        dispatch("sharded", wide)
             elif route == "dense" or degenerate:
                 dispatch("dense", all_rows)
             else:
@@ -2745,10 +3188,11 @@ class DeviceState:
                     dispatch("dense", wide)
         except faults.DEVICE_EXCEPTIONS as e:
             # an injected device-boundary failure at dispatch: quarantine
+            # (the slice it touched, under store-shards; else the device)
             # and fail the WHOLE flush over to the always-correct host route
             self._release_leases(parts)
             parts.clear()
-            self._device_fault(e, f"dispatch: {e}")
+            self._device_fault(e, f"dispatch: {e}", sliced=True)
             self.n_fallback_queries += nq
             probing = False
             dispatch("host", all_rows)
@@ -2964,6 +3408,11 @@ class DeviceState:
         self._ktime_span("wait_entries_" + part["kind"],
                          *(t_e or (_t1, _time.perf_counter())))
         self.download_bytes += ent.nbytes
+        if self.store_shards is not None and self.store_shards.active \
+                and "sharded" in part["kind"]:
+            # bytes the sharded-store merge shipped home (header + merged
+            # entry block) — the ``shard_merge_bytes`` index counter
+            self.n_shard_merge_bytes += hdr.nbytes + ent.nbytes
         if attr:
             # the attributed header carries the in-kernel elision tallies
             # (eknown-graded transitive rows vs decided-below-pivot rows)
@@ -3019,7 +3468,7 @@ class DeviceState:
         try:
             outs = [self._collect_part(p) for p in parts]
         except faults.DEVICE_EXCEPTIONS as e:
-            self._device_fault(e, f"collect: {e}")
+            self._device_fault(e, f"collect: {e}", sliced=True)
             return self._host_fallback_collect(handle)
         finally:
             self._release_leases(parts)
@@ -3037,7 +3486,8 @@ class DeviceState:
         # matches the per-part CSR order, so results are byte-identical
         # with or without this pass; single-part exact kernels skip it
         # (slot-sharded and single-device CSRs are unique by construction)
-        if len(tj) and (self.FORCE_TRIPLE_DEDUPE or len(parts) > 1):
+        if len(tj) and (self.FORCE_TRIPLE_DEDUPE or len(parts) > 1
+                        or parts[0]["kind"] == "sharded_bucketed"):
             order, first = _group_dedupe((tq, tm, tj, tb))
             order = order[first]
             tb, tj, tm, tq = tb[order], tj[order], tm[order], tq[order]
@@ -3054,11 +3504,15 @@ class DeviceState:
             if not np.array_equal(np.unique(b_idx * cap + j_idx),
                                   np.unique(b_h * cap + j_h)):
                 self.n_shadow_mismatches += 1
-                self._device_fault("stale_result", "shadow mismatch")
+                self._device_fault("stale_result", "shadow mismatch",
+                                   sliced=True)
                 self.n_fallback_queries += nq
                 self.n_queries += nq
                 self.n_kernel_deps += len(j_h)
                 return b_h, j_h, pmq_h, ids, ivs, qnp, queries
+        sh = self.store_shards
+        if sh is not None and sh.active:
+            sh.note_success()   # probing suspect slices are healthy again
         if fmeta["probing"]:
             self._restore_device()   # the probe flush succeeded end-to-end
         self.n_queries += nq
@@ -3160,9 +3614,14 @@ class DeviceState:
             self._ktime("host_attr_filter", _th)
             return tb, tj, tm, tq, ids, ivs, qnp, q_m, queries
         try:
-            outs = [self._collect_part(p) for p in parts]
+            # host_slice twin parts (the hybrid) answer from the host
+            # mirror through the same attr filter the host route uses;
+            # device parts download as usual
+            outs = [self._host_attr_triples(handle, part=p)
+                    if p["kind"] == "host_slice" else self._collect_part(p)
+                    for p in parts]
         except faults.DEVICE_EXCEPTIONS as e:
-            self._device_fault(e, f"collect: {e}")
+            self._device_fault(e, f"collect: {e}", sliced=True)
             self.n_host_queries += nq
             self.n_fallback_queries += nq
             self.n_dispatches += 1
@@ -3190,11 +3649,15 @@ class DeviceState:
             if not np.array_equal(np.unique(tb * cap + tj),
                                   np.unique(hb * cap + hj)):
                 self.n_shadow_mismatches += 1
-                self._device_fault("stale_result", "attr shadow mismatch")
+                self._device_fault("stale_result", "attr shadow mismatch",
+                                   sliced=True)
                 self.n_fallback_queries += nq
                 self.n_queries += nq
                 self.n_kernel_deps += len(hj)
                 return hb, hj, hm, hq, ids, ivs, qnp, q_m, queries
+        sh = self.store_shards
+        if sh is not None and sh.active:
+            sh.note_success()   # probing suspect slices are healthy again
         if fmeta["probing"]:
             self._restore_device()   # the probe flush succeeded end-to-end
         self.n_queries += nq
@@ -3306,6 +3769,11 @@ class DeviceState:
         if self.host_pinned or self._dev_quar_flushes > 0 \
                 or self.route_override == "host":
             return None
+        sh = self.store_shards
+        if sh is not None and sh.active and sh.any_quarantined():
+            # hybrid (device + host-twin) flushes run solo: a fused
+            # member's block is all-device, with no twin part to graft
+            return None
         q_m = _pow2_at_least(max(len(t[3]) + len(t[4]) for t in queries))
         packed = [(sb, wit, toks, rngs, tid)
                   for (tid, sb, wit, toks, rngs) in queries]
@@ -3319,14 +3787,15 @@ class DeviceState:
         nq = qnp.shape[0]
         b_pad = _pow2_at_least(nq, 1)
         cap = self.deps.capacity
-        solo_elems = b_pad * cap * q_m * self.deps.max_intervals
+        d = 1 if self.mesh is None else self.mesh.size
+        solo_elems = b_pad * cap * q_m * self.deps.max_intervals // d
         degenerate = not self.BUCKETED or \
             len(self.deps.wide_entries) > self.deps.WIDE_MAX
         if route != "dense" and not degenerate:
             # the adaptive solo dispatch would probe the bucket index for
             # narrow queries: price solo with the cheaper kernel
             buck = b_pad * (q_m * self.deps.SPAN * self.deps.bucket_keff()
-                            + q_m * len(self.deps.wide_entries))
+                            + q_m * len(self.deps.wide_entries) // d)
             solo_elems = min(solo_elems, buck)
         # snapshot cost the fused pricing charges: zero when the cached
         # copy is still fresh, one full-column memcpy's worth otherwise
@@ -3346,7 +3815,10 @@ class DeviceState:
                 "floor_skip": aidx.floors_match(qnp, q_m, floor_id)}
 
     def fused_table(self):
-        """The (cached, device-resident) table the fused launch reads."""
+        """The (cached, device-resident) table the fused launch reads —
+        mesh-sharded under a mesh, single-device otherwise."""
+        if self.mesh is not None:
+            return self.deps.device_table_sharded(self.mesh)
         return self.deps.device_table()
 
     def fused_commit(self, hint) -> None:
@@ -3378,7 +3850,7 @@ class DeviceState:
         host pairs right now (still inside the dispatcher event, so the
         live mirror IS the dispatch-time state)."""
         self._release_fused_lease(hint)
-        self._device_fault(exc, f"fused dispatch: {exc}")
+        self._device_fault(exc, f"fused dispatch: {exc}", sliced=True)
         self.n_fallback_queries += hint["nq"]
         hint["probing"] = False
         hint["host"] = self.deps.host_pairs(hint["qnp"], hint["q_m"],
@@ -3425,6 +3897,7 @@ class DeviceState:
         qnp, q_m = hint["qnp"], hint["q_m"]
         b_pad = hint["b_pad_c"]
         mq, qmc = hint["mq"], hint["q_m_c"]
+        pad_stride = hint.get("pad_shard_n")   # mesh: padded slice stride
         try:
             hdr_all, ent_all = launch.materialize()
             hdr = hdr_all[hint["row"]].reshape(1, 5 + b_pad)
@@ -3435,37 +3908,53 @@ class DeviceState:
                 # overflow: escalate exactly like the solo path — re-run
                 # this store alone against the same (leased) table and
                 # attribution columns, sized from the exact header
-                cap_k = hint["cap"] * hint["m_iv"] * qmc
+                cap_k = hint["shard_n"] * hint["m_iv"] * qmc
                 s_, k_ = self._overflow_resize(
                     int(hdr[:, 1].max()), int(hdr[:, 2].max()), s_, k_,
                     b_pad * cap_k, cap_k, runs)
                 dk.launch_check("fused re-run")
-                qmat = _upload(hint["qmat_np"], self.device)
-                rankb = _upload(hint["rankb_pad"], self.device)
+                mesh = self.mesh
+                udev = self.device if mesh is None else mesh.dev0
+                qmat = _upload(hint["qmat_np"], udev)
+                rankb = _upload(hint["rankb_pad"], udev)
                 pnp = hint["prune"]
                 prune = None if pnp is None else tuple(int(x) for x in pnp)
                 wide = hint["wide"]
-                hdr_dev, ent_dev = dk.calculate_deps_flat_attr(
-                    hint["table"], hint["attr"],
-                    hint["aidx"].device(self.device), qmat, rankb, prune,
-                    qmc, s_, k_, wide, not hint.get("floor_skip", False),
-                    hint["aidx"].u > 0)
+                fl_, el_ = (not hint.get("floor_skip", False),
+                            hint["aidx"].u > 0)
+                if mesh is not None:
+                    from ..parallel.sharded import sharded_flat_attr
+                    hdr_dev, ent_dev = sharded_flat_attr(
+                        mesh, qmc, s_, k_, wide, fl_, el_)(
+                        hint["table"], hint["attr"],
+                        hint["aidx"].device_replicated(mesh), qmat, rankb,
+                        *(prune or (0, 0, 0)))
+                    d_ent = mesh.size
+                else:
+                    hdr_dev, ent_dev = dk.calculate_deps_flat_attr(
+                        hint["table"], hint["attr"],
+                        hint["aidx"].device(self.device), qmat, rankb,
+                        prune, qmc, s_, k_, wide, fl_, el_)
+                    d_ent = 1
                 faults.check("transfer", "header download")
                 hdr = _host(hdr_dev).reshape(1, 5 + b_pad)
                 itemsize = 8 if wide else 4
                 self.download_bytes += hdr.nbytes
-                self.download_bytes_padded += hdr.nbytes + s_ * itemsize
+                self.download_bytes_padded += hdr.nbytes \
+                    + d_ent * s_ * itemsize
                 if int(hdr[:, 1].max()) <= s_ \
                         and int(hdr[:, 2].max()) <= k_:
                     faults.check("transfer", "entry download")
-                    ent = _fetch_entry_prefix(ent_dev, 1, s_,
+                    ent = _fetch_entry_prefix(ent_dev, 1, d_ent * s_,
                                               int(hdr[:, 0].max()))
                     self.download_bytes += ent.nbytes
                 runs += 1
             if runs:
                 # the re-run scanned the store's own table solo, so its
-                # codes scale on the store's own interval width
+                # codes scale on the store's own interval width and its
+                # slot ids are contiguous-global (no fused pad stride)
                 mq = hint["m_iv"] * qmc
+                pad_stride = None
         except faults.DEVICE_EXCEPTIONS as e:
             # whole-batch failover: quarantine every member, serve this
             # flush from the snapshot host scan (dispatch-time bytes)
@@ -3484,6 +3973,13 @@ class DeviceState:
         self.attr_download_bytes += hdr.nbytes + ent.nbytes
         tb, tj, tm, tq = _decode_triples(hdr, ent, b_pad, hint["cap"],
                                          True, mq, qmc, hoff=5)
+        if pad_stride is not None:
+            # mesh fused codes number slots on the PADDED per-slice stride
+            # (every member padded to the group's largest slice): fold
+            # back onto this store's contiguous slot ids
+            tj = (tj // pad_stride) * np.int64(hint["cap"]
+                                               // hint["d_mesh"]) \
+                + tj % pad_stride
         if self._paranoid() and len(tj) \
                 and faults.should_fire("stale_result"):
             tj = (tj + np.int64(1)) % np.int64(len(hint["ids"][0]))
@@ -3505,12 +4001,18 @@ class DeviceState:
                 self.n_fallback_queries += nq
                 self.n_dispatches += 1
                 return hb, hj, hm, hq
+        sh = self.store_shards
+        if sh is not None and sh.active:
+            sh.note_success()
         if hint.get("probing"):
             self._restore_device()
         self.n_dispatches += 1
         self.n_fused_flushes += 1
         self.n_fused_queries += nq
-        self.n_dense_queries += nq
+        if self.mesh is not None:
+            self.n_mesh_queries += nq
+        else:
+            self.n_dense_queries += nq
         self._ktime("wait_attr_fused", _t0)
         return tb, tj, tm, tq
 
@@ -3585,6 +4087,18 @@ class DeviceState:
             self.drain.active[slot] = False
             self.drain.clear_deps(slot)
 
+
+    def _mesh_tick_pays(self, n: int) -> bool:
+        """Regime-adaptive drain tick: row-shard the frontier sweep only
+        when the modeled per-slice matvec saving (n^2 work split d ways)
+        beats the extra mesh launch cost — the same calibration the deps
+        router uses."""
+        calib = self._calibration()
+        d = self.mesh.size
+        single = 2.0 * calib["rtt"] + calib["c_dev"] * float(n) * n
+        mesh = 2.0 * calib.get("rtt_mesh", calib["rtt"]) \
+            + calib["c_dev"] * float(n) * n / d
+        return mesh < single
 
     # Coalescing quantum for drain ticks (simulated/real micros): many dep
     # transitions land per tick, so the per-tick adjacency upload + kernel
@@ -3679,6 +4193,15 @@ class DeviceState:
                         # large in-flight set: sparse gather sweep
                         mode = "ell"
                         fut = drk.ready_frontier_ell(state)
+                    elif self.mesh is not None and \
+                            state.status.shape[0] % self.mesh.size == 0 \
+                            and self._mesh_tick_pays(state.status.shape[0]):
+                        # live mesh path: the frontier sweep row-shards
+                        # across the slices (fixpoint analogue:
+                        # parallel.sharded.sharded_drain)
+                        from ..parallel.sharded import sharded_ready_frontier
+                        mode = "mesh"
+                        fut = sharded_ready_frontier(self.mesh)(state)
                     else:
                         mode = "device"
                         fut = drk.ready_frontier(state)

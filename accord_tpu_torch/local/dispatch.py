@@ -1,7 +1,8 @@
 """Per-node device dispatch scheduler: cross-store launch coalescing.
 
-The port of ``accord_tpu/local/dispatch.py`` on one CUDA card (the
-reference's mesh branches are not ported).  Every CommandStore of a node
+The port of ``accord_tpu/local/dispatch.py``; under a mesh the fused
+flush is ``parallel.sharded.sharded_fused_attr`` (per slice one K5 launch
+over the members' slices, the blocks merged on device).  Every CommandStore of a node
 would otherwise pay its own launch sequence and round trip per flush and
 per drain tick; on a node with many stores that launch tax dominates the
 per-element work the kernels already amortize.  The dispatcher lifts the
@@ -91,12 +92,13 @@ class FusedFlushLaunch:
     batch: every member quarantines and serves its flush from the snapshot
     host scan."""
 
-    def __init__(self, dev_out, hints, s: int, k: int, b_pad: int,
-                 wide: bool):
+    def __init__(self, dev_out, hints, s: int, k: int, d_ent: int,
+                 b_pad: int, wide: bool):
         self.hdr_dev, self.ent_dev = dev_out
         self.hints = hints
         self.s = s
         self.k = k
+        self.d_ent = d_ent        # merged shard blocks per store (mesh)
         self.b_pad = b_pad
         self.wide = wide
         self._out = None
@@ -114,8 +116,9 @@ class FusedFlushLaunch:
                 "fused_flush_harvest_header", dev0,
                 n_s, lambda: _host(self.hdr_dev))
             hdr = hdr.reshape(n_s, 5 + self.b_pad)
-            maxtot = min(int(hdr[:, 0].max()), self.s)
-            length = _prefix_len(maxtot, self.s)
+            s_eff = self.d_ent * self.s
+            maxtot = min(int(hdr[:, 0].max()), s_eff)
+            length = _prefix_len(maxtot, s_eff)
             faults.check("transfer", "fused entry download")
             ent = _profiled_harvest(
                 "fused_flush_harvest_entries", dev0,
@@ -124,7 +127,7 @@ class FusedFlushLaunch:
             # harvest order is store-id order)
             dev0.download_bytes += hdr.nbytes + ent.nbytes
             dev0.download_bytes_padded += \
-                hdr.nbytes + n_s * self.s * itemsize
+                hdr.nbytes + n_s * s_eff * itemsize
             dev0.attr_download_bytes += hdr.nbytes + ent.nbytes
             self._out = (hdr, ent)
         return self._out
@@ -133,7 +136,8 @@ class FusedFlushLaunch:
         if self.failed is None:
             self.failed = exc
             for h in self.hints:
-                h["dev"]._device_fault(exc, f"fused collect: {exc}")
+                h["dev"]._device_fault(exc, f"fused collect: {exc}",
+                                       sliced=True)
                 h["probing"] = False
 
 
@@ -274,14 +278,19 @@ class DeviceDispatcher:
         """Price ONE fused launch against the members' solo launches with
         the port's probe calibration: fusing saves (S-1) round trips and
         pays the padding waste of stacking unequal tables / batches."""
-        calib = hints[0]["dev"]._calibration()
+        dev0 = hints[0]["dev"]
+        calib = dev0._calibration()
         rtt, c_dev = calib["rtt"], calib["c_dev"]
+        d = 1
+        if dev0.mesh is not None:
+            d = dev0.mesh.size
+            rtt = calib.get("rtt_mesh", rtt)
         solo = sum(2.0 * rtt + c_dev * h["solo_elems"] for h in hints)
         b_pad = _pow2_at_least(max(h["b_pad"] for h in hints), 1)
         q_m = max(h["q_m"] for h in hints)
         n_max = max(h["cap"] for h in hints)
         m_max = max(h["m_iv"] for h in hints)
-        fused_elems = len(hints) * b_pad * n_max * q_m * m_max
+        fused_elems = len(hints) * b_pad * (n_max // d) * q_m * m_max
         # the deferred harvest needs dispatch-time mirror snapshots the
         # solo immediate path never takes — charge the stale members'
         # copies at the measured memcpy rate (version-cached, so an
@@ -294,11 +303,14 @@ class DeviceDispatcher:
         prof = devprof.PROFILER
         _t0 = time.perf_counter() if prof is not None else 0.0
         devs = [h["dev"] for h in hints]
+        mesh = devs[0].mesh            # one node -> one mesh for all stores
+        d = 1 if mesh is None else mesh.size
         q_m = max(h["q_m"] for h in hints)
         b_pad = _pow2_at_least(max(h["b_pad"] for h in hints), 1)
-        s = max(min(dev._batch_flat, b_pad * h["cap"] * h["m_iv"] * q_m)
+        s = max(min(dev._batch_flat, b_pad * (h["cap"] // d)
+                    * h["m_iv"] * q_m)
                 for dev, h in zip(devs, hints))
-        k = max(min(dev._batch_k, h["cap"] * h["m_iv"] * q_m)
+        k = max(min(dev._batch_k, (h["cap"] // d) * h["m_iv"] * q_m)
                 for dev, h in zip(devs, hints))
         qmats = np.empty((len(hints), b_pad, 7 + 2 * q_m), np.int64)
         pm = np.zeros(len(hints), np.int64)
@@ -307,9 +319,15 @@ class DeviceDispatcher:
         m_max = max(h["m_iv"] for h in hints)
         # the fused scan pads every table to the group's interval width,
         # so codes scale on m_max; the entry dtype must hold the widest
-        # member's codes
+        # member's codes — under a mesh the merged entries carry GLOBAL
+        # slot ids on the padded slice stride, so the crossover is the
+        # whole padded slot space
         rankbs = np.zeros((len(hints), b_pad), np.int64)
-        wide = any(dk.wide_codes(h["cap"], m_max, q_m) for h in hints)
+        pad_shard_n = max(h["cap"] // d for h in hints)
+        if mesh is not None:
+            wide = dk.wide_codes(d * pad_shard_n, m_max, q_m)
+        else:
+            wide = any(dk.wide_codes(h["cap"], m_max, q_m) for h in hints)
         for i, h in enumerate(hints):
             qnp, qmi, nq = h["qnp"], h["q_m"], h["nq"]
             rows_p = np.minimum(np.arange(b_pad), nq - 1)
@@ -324,6 +342,9 @@ class DeviceDispatcher:
             h["gmap"] = np.where(np.arange(b_pad) < nq,
                                  np.arange(b_pad), -1)
             h["row"] = i
+            h["d_mesh"] = d
+            h["shard_n"] = h["cap"] // d
+            h["pad_shard_n"] = pad_shard_n if mesh is not None else None
             h["b_pad_c"] = b_pad
             h["q_m_c"] = q_m
             h["mq"] = m_max * q_m
@@ -340,21 +361,39 @@ class DeviceDispatcher:
             for h in hints:
                 dev = h["dev"]
                 h["table"] = dev.fused_table()
-                h["attr"] = dev.deps.device_attr_cols()
+                if mesh is None:
+                    h["attr"] = dev.deps.device_attr_cols()
+                    held = (h["table"], h["attr"])
+                else:
+                    from ..parallel.sharded import slice_of
+                    h["attr"] = dev.deps.device_attr_cols_sharded(mesh)
+                    held = tuple(slice_of(c, i) for c in (h["table"],
+                                                          h["attr"])
+                                 for i in range(d))
                 # held until this member's harvest: a re-launch reads the
                 # table and columns as of dispatch (copy on write)
-                h["lease"] = dev.deps.share_device((h["table"], h["attr"]))
+                h["lease"] = dev.deps.share_device(held)
             # static leg switches, OR'd over the group: a member with a
             # trivial floor map / empty elision index just computes
             # nothing in the shared legs
             fl_ = any(not h.get("floor_skip", False) for h in hints)
             el_ = any(h["aidx"].u > 0 for h in hints)
-            device = devs[0].device
-            out = dk.fused_flat_attr(
-                [h["table"] for h in hints], [h["attr"] for h in hints],
-                [h["aidx"].device(device) for h in hints],
-                _upload(qmats, device), _upload(rankbs, device),
-                (pm, pl, pn), q_m, s, k, wide, fl_, el_)
+            if mesh is not None:
+                from ..parallel.sharded import sharded_fused_attr
+                out = sharded_fused_attr(mesh, len(hints), q_m, s, k,
+                                         wide, fl_, el_)(
+                    *[h["table"] for h in hints],
+                    *[h["attr"] for h in hints],
+                    *[h["aidx"].device_replicated(mesh) for h in hints],
+                    _upload(qmats, mesh.dev0), _upload(rankbs, mesh.dev0),
+                    pm, pl, pn)
+            else:
+                device = devs[0].device
+                out = dk.fused_flat_attr(
+                    [h["table"] for h in hints], [h["attr"] for h in hints],
+                    [h["aidx"].device(device) for h in hints],
+                    _upload(qmats, device), _upload(rankbs, device),
+                    (pm, pl, pn), q_m, s, k, wide, fl_, el_)
         except faults.DEVICE_EXCEPTIONS as e:
             # a device fault inside the fused launch fails the WHOLE batch
             # over to the host route, then quarantines per store as solo
@@ -375,7 +414,7 @@ class DeviceDispatcher:
         if self.on_fused is not None:
             self.on_fused("flush", len(hints),
                           sum(h["nq"] for h in hints))
-        return FusedFlushLaunch(out, hints, s, k, b_pad, wide)
+        return FusedFlushLaunch(out, hints, s, k, d, b_pad, wide)
 
     # -- tick side ----------------------------------------------------------
     def register_tick(self, dev) -> None:
@@ -431,8 +470,14 @@ class DeviceDispatcher:
             return {}
         dense, ell = [], []
         for dev, state, live in built:
-            (ell if isinstance(state, drk.EllDrainState) else dense).append(
-                (dev, state, live))
+            if isinstance(state, drk.EllDrainState):
+                ell.append((dev, state, live))
+            else:
+                n = state.status.shape[0]
+                if dev.mesh is not None and n % dev.mesh.size == 0 \
+                        and dev._mesh_tick_pays(n):
+                    continue       # the solo mesh sweep is the modeled winner
+                dense.append((dev, state, live))
         out: Dict[int, FusedTick] = {}
         calib = devs[0]._calibration()
         for group, kernel, kind in (

@@ -53,7 +53,8 @@ class Node:
                  device_mode: Optional[bool] = None,
                  journal=None,
                  device="cuda",
-                 paged_limit: Optional[int] = None):
+                 paged_limit: Optional[int] = None,
+                 mesh="auto"):
         self.node_id = node_id
         # journal-backed command paging threshold (None = keep everything)
         self.paged_limit = paged_limit
@@ -69,6 +70,9 @@ class Node:
         # the torch device every CommandStore's DeviceState runs on: "cuda"
         # unless the caller asks for the CPU
         self.device = device
+        # the mesh of every DeviceState: "auto" takes the visible CUDA
+        # devices' (DeviceState), None runs without one, a Mesh pins it
+        self.mesh = mesh
         if progress_log_factory is None:
             from ..impl.progress_log import SimpleProgressLog
             progress_log_factory = SimpleProgressLog

@@ -2,7 +2,10 @@
 //
 // Replaces (JAX reference, accord_tpu/ops/deps_kernel.py): _attr_post (:921)
 // with _attr_key_masks (:875), as composed by calculate_deps_flat_attr
-// (:998) and bucketed_attr (:1015, jitted :1034).
+// (:998) and bucketed_attr (:1015, jitted :1034); with ``tok=`` as the
+// mesh-bucketed attribution runs it (accord_tpu/parallel/sharded.py:578),
+// and attr_tok, that caller's per-entry token (:566-576, the psum's
+// contributions of the slices on one device).
 // Input: the raw CSR of K1 (header int32[2+B], entries[s]).  Output,
 // byte-equal to the reference: header int32[5+B] = (total, raw total,
 // raw maxc, n_trans, n_dec, row_end[B]) and the kept entries recompacted
@@ -34,6 +37,7 @@ struct AttrArgs {
       *erank, *exm, *exl, *estride, *rankb;
   const uint8_t* eknown;
   const int32_t* hdr_raw;
+  const int64_t* tok;   // per-entry token (mesh bucketed), or null: tlo
   int64_t s, F, T_len, L;
   int B, m_t, m, floors, elide;
 };
@@ -67,7 +71,7 @@ attr_keep(AttrArgs a, const T* ent, int32_t* keep,
                           (int64_t)a.B - 1);
   const bool key_dep = a.dom[slot] == 0;
   const int32_t st = a.status[slot];
-  const int64_t tok = a.tlo[slot * a.m_t + col];
+  const int64_t tok = a.tok ? a.tok[pos] : a.tlo[slot * a.m_t + col];
   const int64_t dm = a.dmsb[slot], dl = a.dlsb[slot];
   const int32_t dn = a.dnode[slot];
   bool keep_floor = true;
@@ -193,6 +197,7 @@ int launch(void* const* p, const int64_t* v, cudaStream_t st) {
   unsigned long long* tallies = (unsigned long long*)p[28];
   int32_t* hdr = (int32_t*)p[29];
   T* out = (T*)p[30];
+  a.tok = (const int64_t*)p[31];
   a.s = v[0];
   a.B = (int)v[1];
   a.m_t = (int)v[2];
@@ -222,10 +227,57 @@ int launch(void* const* p, const int64_t* v, cudaStream_t st) {
 // ptrs: tlo, dom, status, dmsb, dlsb, dnode, emsb, elsb, enode, eknown,
 //       fbnd, fmsb, flsb, fnode, etok, eptr, erank, exm, exl, exn, estride,
 //       rankb, hdr_raw, ent, keep[s], local[s], bsum[nb], drops[B],
-//       tallies[2], hdr[5+B], out[s]
+//       tallies[2], hdr[5+B], out[s], tok[s] (null: gather lo[slot, col])
 // vals: s, B, m_t, m, floors, elide, F, T, L, wide
 ACCORD_EXPORT int accord_attr_post(void* const* p, const int64_t* v,
                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return v[9] ? launch<int64_t>(p, v, st) : launch<int32_t>(p, v, st);
+}
+
+namespace {
+
+// tok[i*s + p]: the token lo[slot, col] of shard i's entry p, read from the
+// slice that owns the slot when that slice is on this device (lo_refs[o]
+// non-null), else 0 — one device's contribution to the cross-slice sum
+template <typename T>
+__global__ void __launch_bounds__(NT)
+attr_tok(const uint64_t* ent_refs, const uint64_t* lo_refs, int64_t d,
+         int64_t s, int64_t sn, int m_t, int m, int64_t* tok) {
+  const int64_t p = (int64_t)blockIdx.x * NT + threadIdx.x;
+  const int64_t i = blockIdx.y;
+  if (p >= s) return;
+  const int64_t code = (int64_t)((const T*)ent_refs[i])[p];
+  const int64_t mq = (int64_t)m_t * m;
+  const int64_t slot = max64(floordiv(code, mq), 0);
+  const int64_t col = min64(max64(floordiv(floormod(code, mq), m), 0),
+                            m_t - 1);
+  const int64_t owner = slot / sn;
+  int64_t t = 0;
+  if (code >= 0 && owner < d && lo_refs[owner])
+    t = ((const int64_t*)lo_refs[owner])[(slot - owner * sn) * m_t + col];
+  tok[i * s + p] = t;
+}
+
+}  // namespace
+
+// ptrs: ent_refs uint64[d] (shard i's entries[s]), lo_refs uint64[d] (slice
+//       o's lo[sn*m_t] on this device, or 0), tok int64[d*s]
+// vals: d, s, sn, m_t, m, wide
+ACCORD_EXPORT int accord_attr_tok(void* const* p, const int64_t* v,
+                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t d = v[0], s = v[1];
+  if (d > 0 && s > 0) {
+    const dim3 grid((unsigned)((s + NT - 1) / NT), (unsigned)d);
+    if (v[5])
+      attr_tok<int64_t><<<grid, NT, 0, st>>>(
+          (const uint64_t*)p[0], (const uint64_t*)p[1], d, s, v[2],
+          (int)v[3], (int)v[4], (int64_t*)p[2]);
+    else
+      attr_tok<int32_t><<<grid, NT, 0, st>>>(
+          (const uint64_t*)p[0], (const uint64_t*)p[1], d, s, v[2],
+          (int)v[3], (int)v[4], (int64_t*)p[2]);
+  }
+  return (int)cudaGetLastError();
 }

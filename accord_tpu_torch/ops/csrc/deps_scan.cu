@@ -2,7 +2,9 @@
 // predicate and one row compaction.
 //
 // Replaces (JAX reference, accord_tpu/ops/deps_kernel.py):
-//   deps_bucketed  <- bucketed_flat (:448, jitted :548) with _compact_rows (:287)
+//   deps_bucketed  <- bucketed_flat (:448, jitted :548) with _compact_rows (:287),
+//                     and its row_offset form (:466) for a row-sharded slice
+//                     (accord_tpu/parallel/sharded.py:287, :519)
 //   deps_dense     <- flat_csr_local (:351) = _dep_mask_and_conflict (:174)
 //                     + _compact_topk (:238) + _triple_codes (:343)
 //                     + _compact_rows (:287)
@@ -76,6 +78,9 @@ struct BucketArgs {
   int64_t pm, pl;
   int32_t pn;
   int C, kk, Cp;
+  // row-sharded slice: global bucket rows translate to [0, G) by - roff,
+  // rows outside the slice read as no bucket (has_roff == 0: unsharded)
+  int has_roff, roff, G;
 };
 
 // candidate c of row b: (valid, code).  Candidates [0, m*span*keff) are the
@@ -92,7 +97,11 @@ __device__ __forceinline__ bool bucket_candidate(const BucketArgs& a,
     const int p = c / a.keff;
     const int e = c - p * a.keff;
     const int qi = p / a.span;
-    const int32_t g = (int32_t)row[7 + 2 * a.m + p];
+    int32_t g = (int32_t)row[7 + 2 * a.m + p];
+    if (a.has_roff) {
+      const int32_t l = g - a.roff;
+      g = (g >= 0 && l >= 0 && l < a.G) ? l : -1;
+    }
     if (g < 0) return false;
     const int64_t idx = (int64_t)g * a.K + e;
     const int32_t slot = a.bslot[idx];
@@ -352,6 +361,9 @@ int launch_bucketed(void* const* p, const int64_t* v, cudaStream_t st) {
   a.m_t = (int)v[10];
   const int64_t s = v[12];
   const int k = (int)v[13];
+  a.has_roff = (int)v[14];
+  a.roff = (int)v[15];
+  a.G = (int)v[16];
   a.C = a.m * a.span * a.keff + a.m * a.W;
   a.kk = mini(k, a.C);
   a.Cp = next_pow2(a.C);
@@ -406,7 +418,8 @@ int launch_dense(void* const* p, const int64_t* v, cudaStream_t st) {
 //       wslot, wcol, wmsb, wlsb, wnode, wkind, counts[B], starts[B],
 //       rowbuf[B*kk], scratch[B*Cp] (null: sort in shared memory),
 //       hdr[2+B], ent[s]
-// vals: B, qcols, m, span, K, keff, W, pm, pl, pn, m_t, wide, s, k
+// vals: B, qcols, m, span, K, keff, W, pm, pl, pn, m_t, wide, s, k,
+//       has_row_offset, row_offset, G (bucket rows of this slice)
 ACCORD_EXPORT int accord_deps_bucketed(void* const* p, const int64_t* v,
                                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

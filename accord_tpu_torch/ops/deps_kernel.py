@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..primitives.timestamp import TxnId
-from .packing import to_i64, ts_eq, ts_lt, unpack_txn_id
+from .packing import masked_ts_max, to_i64, ts_eq, ts_lt, unpack_txn_id
 
 
 def launch_check(what: str = "") -> None:
@@ -223,6 +223,37 @@ def _header(row_end: torch.Tensor, maxc) -> torch.Tensor:
 
 def dep_mask_plain(table: DepsTable, query: DepsQuery, prune=None):
     """The exact [B, N] dep mask of the dense route."""
+    return _dep_mask_and_conflict(table, query, prune)[0]
+
+
+def calculate_deps_plain(table: DepsTable, query: DepsQuery, prune=None):
+    """(dep_mask bool[B, N], max_conflict (msb, lsb, node)[B]): the
+    reference's ``calculate_deps``.  max_conflict covers every live
+    overlapping slot whatever its TxnId order or kind (the executeAt
+    floor, not the dep set)."""
+    mask, conflict = _dep_mask_and_conflict(table, query, prune)
+    return mask, masked_ts_max(table.msb[None, :], table.lsb[None, :],
+                               table.node[None, :], conflict)
+
+
+def calc_deps_plain(tables: Sequence[DepsTable], query: DepsQuery,
+                    prune=None):
+    """The plain version of ``ops.kernels.calc_deps``: each slice's mask
+    and its max-conflict candidates stacked [S, B]."""
+    outs = [calculate_deps_plain(t, query, prune) for t in tables]
+    return ([o[0] for o in outs],
+            tuple(torch.stack([o[1][f] for o in outs]) for f in range(3)))
+
+
+def ts_max_plain(msb, lsb, node):
+    """The plain version of ``ops.kernels.ts_max``: the lexicographic max
+    over the first axis of [C, R] candidates, a candidate counting when any
+    field is non-zero (the cross-shard max of sharded calculate_deps)."""
+    nz = (msb != 0) | (lsb != 0) | (node != 0)
+    return masked_ts_max(msb.T, lsb.T, node.T, nz.T)
+
+
+def _dep_mask_and_conflict(table: DepsTable, query: DepsQuery, prune=None):
     pm, pl, pn = _prune_tensors(prune, table.msb.device)
     live = table.status >= SLOT_TRANSITIVE
     not_invalidated = table.status != SLOT_INVALIDATED
@@ -239,7 +270,8 @@ def dep_mask_plain(table: DepsTable, query: DepsQuery, prune=None):
                       table.node[None, :], query.self_msb[:, None],
                       query.self_lsb[:, None], query.self_node[:, None])
     above_floor = ~ts_lt(table.msb, table.lsb, table.node, pm, pl, pn)
-    return conflict & witnessed & earlier & not_self & above_floor[None, :]
+    return (conflict & witnessed & earlier & not_self & above_floor[None, :],
+            conflict)
 
 
 def _compact_topk_plain(mask: torch.Tensor, k: int):
@@ -301,12 +333,15 @@ def _entry_pred(query: DepsQuery, ov, slot, emsb, elsb, enode, ekind):
 
 def bucketed_flat_plain(m_t: int, buckets: BucketTable, qmat: torch.Tensor,
                         m: int, span: int, s: int, k: int, prune=None,
-                        keff: int = None, wide: bool = False):
+                        keff: int = None, wide: bool = False,
+                        row_offset: int = None):
     """Bucketed route (the reference's ``bucketed_flat``): candidates are the
     ``keff`` entries of each touched bucket plus the wide list crossed with
     every query interval; the exact predicate, a per-row sort with adjacent
     dedupe, then the row compaction.  ``qmat`` carries the m*span bucket-row
-    columns after the standard 7+2m query columns."""
+    columns after the standard 7+2m query columns.  ``row_offset``
+    translates global bucket rows to the rows of a row-sharded slice: rows
+    outside the slice become -1 (no bucket here)."""
     query = query_from_qmat(qmat, m)
     b = qmat.shape[0]
     dev = qmat.device
@@ -320,6 +355,11 @@ def bucketed_flat_plain(m_t: int, buckets: BucketTable, qmat: torch.Tensor,
     bmsb, blsb = buckets.bmsb[:, :keff], buckets.blsb[:, :keff]
     bnode, bkind = buckets.bnode[:, :keff], buckets.bkind[:, :keff]
     qbuck = qmat[:, 7 + 2 * m:].to(torch.int32)              # [B, m*span]
+    if row_offset is not None:
+        local = qbuck - int(row_offset)
+        qbuck = torch.where((qbuck >= 0) & (local >= 0)
+                            & (local < blo.shape[0]), local,
+                            torch.full_like(local, -1))
     g = torch.clamp(qbuck, min=0).to(torch.int64)
     has = qbuck >= 0
     elo, ehi = blo[g], bhi[g]                                # [B, m*span, K]
@@ -391,12 +431,14 @@ def _attr_key_masks(tok, dmsb, dlsb, dnode, status, emsb, elsb, enode,
 def attr_post_plain(tlo: torch.Tensor, attr: AttrCols, aidx: AttrIndex,
                     rankb: torch.Tensor, hdr_raw: torch.Tensor,
                     ent: torch.Tensor, m_t: int, m: int, floors: bool = True,
-                    elide: bool = True):
+                    elide: bool = True, tok: torch.Tensor = None):
     """Post-compaction attribution (the reference's ``_attr_post``) over the
     compacted entry buffer: per-token RedundantBefore floors, elision of
     TRANSITIVE and decided-below-pivot key entries, the key-domain
-    (row, slot, col) dedupe, and a cumsum-scatter recompaction.  Returns
-    the attributed (header int32[5+B], entries[s])."""
+    (row, slot, col) dedupe, and a cumsum-scatter recompaction.  ``tok``
+    (int64[s]) replaces the token gather from ``tlo``: a mesh-bucketed
+    caller assembles it across the slices.  Returns the attributed
+    (header int32[5+B], entries[s])."""
     s = ent.shape[0]
     dev = ent.device
     total = hdr_raw[0].to(torch.int64)
@@ -413,7 +455,8 @@ def attr_post_plain(tlo: torch.Tensor, attr: AttrCols, aidx: AttrIndex,
                          max=b - 1)
     key_dep = attr.dom[slot] == 0
     status = attr.status[slot]
-    tok = tlo[slot, col]
+    if tok is None:
+        tok = tlo[slot, col]
     keep_floor, el_trans, el_dec = _attr_key_masks(
         tok, attr.dmsb[slot], attr.dlsb[slot], attr.dnode[slot], status,
         attr.emsb[slot], attr.elsb[slot], attr.enode[slot],
@@ -552,6 +595,14 @@ def fused_attr_post_plain(tables: Sequence[DepsTable],
 
 # -- entry points (device-selected in ops.kernels) ---------------------------
 
+def calculate_deps(table: DepsTable, query: DepsQuery, prune=None):
+    """(dep_mask bool[B, N], max_conflict (msb, lsb, node)[B]); ``prune``
+    is the RedundantBefore floor triple (None prunes nothing)."""
+    from . import kernels
+    mask, (mm, ml, mn) = kernels.calc_deps([table], query, prune)
+    return mask[0], (mm[0], ml[0], mn[0])
+
+
 def calculate_deps_flat(table: DepsTable, qmat, m: int, s: int, k: int,
                         wide: bool = False, prune=None):
     """Dense exact CSR: (header int32[2+B], entries[s])."""
@@ -572,11 +623,16 @@ def calculate_deps_flat_attr(table: DepsTable, attr: AttrCols,
 
 def bucketed_flat(table: DepsTable, buckets: BucketTable, qmat, m: int,
                   span: int, s: int, k: int, prune=None, keff: int = None,
-                  wide: bool = False):
-    """Bucketed exact CSR: (header int32[2+B], entries[s])."""
+                  wide: bool = False, row_offset: int = None,
+                  m_t: int = None):
+    """Bucketed exact CSR: (header int32[2+B], entries[s]).  ``table`` is
+    read only for its interval width; a mesh slice passes ``m_t`` (and
+    ``table=None``) and its ``row_offset``."""
     from . import kernels
-    return kernels.deps_bucketed(table.lo.shape[1], buckets, qmat, m, span,
-                                 s, k, prune, keff, wide)
+    if m_t is None:
+        m_t = table.lo.shape[1]
+    return kernels.deps_bucketed(m_t, buckets, qmat, m, span, s, k, prune,
+                                 keff, wide, row_offset)
 
 
 def bucketed_attr(table: DepsTable, attr: AttrCols, aidx: AttrIndex,

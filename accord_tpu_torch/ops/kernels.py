@@ -32,10 +32,18 @@ kernels.  The wrappers allocate every output and scratch buffer with
 | logsq_dense    | ops/drain_kernel.py:489 drain_dense_logsq               |
 | dense_degree   | ops/drain_kernel.py:524 _dense_degree                   |
 | dense_to_ell   | ops/drain_kernel.py:539 dense_to_ell (the convert at :554) |
+| calc_deps      | ops/deps_kernel.py:217 calculate_deps (+ packing.py:84)  |
+| ts_max         | ops/packing.py:84 masked_ts_max (parallel/sharded.py:98-106) |
+| merge_blocks   | parallel/sharded.py:425 _merge_shard_blocks              |
+| sharded_frontier | parallel/sharded.py:174 sharded_ready_frontier         |
+| sharded_drain  | parallel/sharded.py:124 sharded_drain (one launch a sweep) |
+| attr_tok       | parallel/sharded.py:566-576 (the token psum's terms)     |
 
 The fused kernels read every member store's tensors where they lie: the
 wrapper uploads one small table of per-store base pointers and sizes
-(``_store_refs``), and the kernel puts the store on a grid dimension.
+(``_store_refs``), and the kernel puts the store on a grid dimension.  The
+mesh kernels read the slices of one device the same way: their wrappers
+take the slices that lie on one device and launch once for them.
 """
 
 from __future__ import annotations
@@ -53,7 +61,9 @@ KERNELS = ("deps_bucketed", "deps_dense", "attr_post", "scatter_rows",
            "frontier_ell", "frontier_dense", "fused_deps_dense",
            "fused_attr_post", "fused_frontier_ell", "fused_frontier_dense",
            "level_ell", "level_dense", "drain_fix_dense", "drain_fix_ell",
-           "level_drain", "logsq_dense", "dense_degree", "dense_to_ell")
+           "level_drain", "logsq_dense", "dense_degree", "dense_to_ell",
+           "calc_deps", "ts_max", "merge_blocks", "sharded_frontier",
+           "sharded_drain", "attr_tok")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # codes per row that deps_bucketed sorts in shared memory (32 KiB of
@@ -110,13 +120,16 @@ def _check_cols(nt) -> None:
         _check(col, dtype, f"{type(nt).__name__}.{name}")
 
 
-def _launch(name: str, device: torch.device, ptrs, vals) -> None:
+def _launch(name: str, device: torch.device, ptrs, vals,
+            entry: str = None) -> None:
     from . import _build
     lib = _build.library()
     p = (ctypes.c_void_p * len(ptrs))(*[_ptr(t) for t in ptrs])
     v = (ctypes.c_int64 * len(vals))(*[int(x) for x in vals])
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, "accord_" + name)(p, v, ctypes.c_void_p(stream))
+    with torch.cuda.device(device):
+        rc = getattr(lib, "accord_" + (entry or name))(
+            p, v, ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.accord_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
@@ -141,11 +154,13 @@ def _prune_vals(prune):
 
 def deps_bucketed(m_t: int, buckets: dk.BucketTable, qmat: torch.Tensor,
                   m: int, span: int, s: int, k: int, prune=None,
-                  keff: int = None, wide: bool = False):
-    """Bucketed exact CSR (header int32[2+B], entries[s])."""
+                  keff: int = None, wide: bool = False,
+                  row_offset: int = None):
+    """Bucketed exact CSR (header int32[2+B], entries[s]); ``row_offset``
+    for a row-sharded slice of the bucket table."""
     if not on_cuda(qmat):
         return dk.bucketed_flat_plain(m_t, buckets, qmat, m, span, s, k,
-                                      prune, keff, wide)
+                                      prune, keff, wide, row_offset)
     dev = qmat.device
     _check(qmat, torch.int64, "qmat")
     _check_cols(buckets)
@@ -170,7 +185,8 @@ def deps_bucketed(m_t: int, buckets: dk.BucketTable, qmat: torch.Tensor,
     _launch("deps_bucketed", dev,
             [qmat, *buckets, counts, starts, rowbuf, scratch, hdr, ent],
             [b, qcols, m, span, kb, keff, w, pm, pl, pn, m_t, int(wide), s,
-             k])
+             k, int(row_offset is not None), int(row_offset or 0),
+             buckets.blo.shape[0]])
     return hdr, ent
 
 
@@ -206,22 +222,33 @@ def deps_dense(table: dk.DepsTable, qmat: torch.Tensor, m: int, s: int,
 
 def attr_post(tlo: torch.Tensor, attr: dk.AttrCols, aidx: dk.AttrIndex,
               rankb: torch.Tensor, hdr_raw: torch.Tensor, ent: torch.Tensor,
-              m_t: int, m: int, floors: bool = True, elide: bool = True):
-    """Attributed CSR (header int32[5+B], entries[s]) from the raw one."""
+              m_t: int, m: int, floors: bool = True, elide: bool = True,
+              tok: torch.Tensor = None):
+    """Attributed CSR (header int32[5+B], entries[s]) from the raw one;
+    ``tok`` (int64[s]) replaces the token gather from ``tlo``."""
     if not on_cuda(ent):
         return dk.attr_post_plain(tlo, attr, aidx, rankb, hdr_raw, ent, m_t,
-                                  m, floors, elide)
+                                  m, floors, elide, tok)
     dev = ent.device
     _check_cols(attr)
     _check_cols(aidx)
     _check(rankb, torch.int64, "rankb")
     _check(hdr_raw, torch.int32, "hdr_raw")
-    _check(tlo, torch.int64, "tlo")
     s = ent.shape[0]
     b = hdr_raw.shape[0] - 2
-    if rankb.shape[0] != b or tlo.shape != (attr.dom.shape[0], m_t):
-        raise ValueError("attr_post: rankb / tlo shapes do not fit the "
-                         "header and the attribution columns")
+    if tok is None:
+        _check(tlo, torch.int64, "tlo")
+        if tlo.shape != (attr.dom.shape[0], m_t):
+            raise ValueError("attr_post: tlo does not fit the attribution "
+                             "columns")
+        tlo_p = tlo
+    else:
+        _check(tok, torch.int64, "tok")
+        if tok.shape != (s,):
+            raise ValueError("attr_post: tok does not fit the entries")
+        tlo_p = None
+    if rankb.shape[0] != b:
+        raise ValueError("attr_post: rankb does not fit the header")
     nb = -(-s // 256)
     keep = torch.empty(max(s, 1), dtype=torch.int32, device=dev)
     local = torch.empty(max(s, 1), dtype=torch.int32, device=dev)
@@ -231,8 +258,8 @@ def attr_post(tlo: torch.Tensor, attr: dk.AttrCols, aidx: dk.AttrIndex,
     hdr = torch.empty(5 + b, dtype=torch.int32, device=dev)
     out = torch.empty(s, dtype=ent.dtype, device=dev)
     _launch("attr_post", dev,
-            [tlo, *attr, *aidx, rankb, hdr_raw, ent, keep, local, bsum,
-             drops, tallies, hdr, out],
+            [tlo_p, *attr, *aidx, rankb, hdr_raw, ent, keep, local, bsum,
+             drops, tallies, hdr, out, tok],
             [s, b, m_t, m, int(floors), int(elide), aidx.fbnd.shape[0],
              aidx.etok.shape[0], aidx.erank.shape[0],
              int(ent.dtype == torch.int64)])
@@ -590,3 +617,182 @@ def dense_to_ell(adj: torch.Tensor, d: int) -> torch.Tensor:
     out = torch.empty((n, d), dtype=torch.int32, device=adj.device)
     _launch("dense_to_ell", adj.device, [adj, out], [n, d])
     return out
+
+
+# -- K11: calculate_deps and the lexicographic max ----------------------------
+
+def _query_matrix(query: dk.DepsQuery) -> torch.Tensor:
+    """A DepsQuery as the int64 [B, 7+2m] matrix the kernels read."""
+    i64 = torch.int64
+    head = torch.stack([query.msb, query.lsb, query.node.to(i64),
+                        query.witness_mask.to(i64), query.self_msb,
+                        query.self_lsb, query.self_node.to(i64)], dim=1)
+    return torch.cat([head, query.lo, query.hi], dim=1).contiguous()
+
+
+def calc_deps(tables: Sequence[dk.DepsTable], query: dk.DepsQuery,
+              prune=None):
+    """The dense dep mask and max-conflict of every slot slice in
+    ``tables`` (all on one device), in one launch: (masks [bool[B, n_i]],
+    (msb, lsb, node) [S, B])."""
+    dev = query.msb.device
+    if not on_cuda(query.msb):
+        return dk.calc_deps_plain(tables, query, prune)
+    qmat = _query_matrix(query)
+    b, m = query.lo.shape
+    m_t = tables[0].lo.shape[1]
+    n_max = max(t.capacity for t in tables)
+    masks, rows = [], []
+    for t in tables:
+        _check_cols(t)
+        if t.lo.shape[1] != m_t or t.msb.device != dev:
+            raise ValueError("calc_deps: slices differ in interval width "
+                             "or device")
+        mask = torch.empty((b, t.capacity), dtype=torch.bool, device=dev)
+        masks.append(mask)
+        rows.append([_ptr(c) for c in t] + [_ptr(mask), t.capacity])
+    refs = _store_refs(dev, rows)
+    n_s = len(tables)
+    nblk = -(-n_max // 256)
+    part = [torch.empty(max(n_s * b * nblk, 1), dtype=dt, device=dev)
+            for dt in (torch.int64, torch.int64, torch.int32, torch.uint8)]
+    out = (torch.empty((n_s, b), dtype=torch.int64, device=dev),
+           torch.empty((n_s, b), dtype=torch.int64, device=dev),
+           torch.empty((n_s, b), dtype=torch.int32, device=dev))
+    pm, pl, pn = _prune_vals(prune)
+    _launch("calc_deps", dev, [refs, qmat, *part, *out],
+            [n_s, b, qmat.shape[1], m, m_t, n_max, pm, pl, pn])
+    return masks, out
+
+
+def ts_max(msb: torch.Tensor, lsb: torch.Tensor, node: torch.Tensor):
+    """Lexicographic max over the first axis of [C, R] candidates, a
+    candidate counting when any of its fields is non-zero: (msb, lsb,
+    node) [R]."""
+    if not on_cuda(msb):
+        return dk.ts_max_plain(msb, lsb, node)
+    dev = msb.device
+    c, r = msb.shape
+    msb, lsb = _check(msb, torch.int64, "msb"), _check(lsb, torch.int64, "lsb")
+    node = _check(node, torch.int32, "node")
+    out = (torch.empty(r, dtype=torch.int64, device=dev),
+           torch.empty(r, dtype=torch.int64, device=dev),
+           torch.empty(r, dtype=torch.int32, device=dev))
+    _launch("ts_max", dev, [msb.contiguous(), lsb.contiguous(),
+                            node.contiguous(), *out], [r, c, 1, r])
+    return out
+
+
+# -- K12: the cross-shard merge ------------------------------------------------
+
+def merge_blocks(blocks, b: int, s: int, codespace: int,
+                 dedupe_key_m: int = 0, dom: torch.Tensor = None,
+                 mq: int = None):
+    """Merge each store's d attributed shard blocks into one: ``blocks``
+    is [store][shard] of (header int32[5+B], entries[s], code offset), all
+    on one device.  Returns (header int32[S, 5+B], entries [S, d*s])."""
+    hdr0, ent0, _off = blocks[0][0]
+    if not on_cuda(ent0):
+        from ..parallel.sharded import merge_blocks_plain
+        return merge_blocks_plain(blocks, b, s, codespace, dedupe_key_m,
+                                  dom, mq)
+    dev = ent0.device
+    n_s, d = len(blocks), len(blocks[0])
+    rows = []
+    for blk in blocks:
+        if len(blk) != d:
+            raise ValueError("merge_blocks: stores differ in shard count")
+        for h, e, off in blk:
+            _check(h, torch.int32, "header")
+            if h.shape != (5 + b,) or e.shape != (s,) \
+                    or e.dtype != ent0.dtype:
+                raise ValueError("merge_blocks: a block does not fit "
+                                 f"[5+{b}] / [{s}] {ent0.dtype}")
+            rows.append([_ptr(h), _ptr(e), int(off)])
+    refs = _store_refs(dev, rows)
+    n = d * s
+    nb = -(-n // 256)
+    sorted_ = torch.empty(max(n_s * n, 1), dtype=torch.int64, device=dev)
+    keep = torch.empty(max(n_s * n, 1), dtype=torch.int32, device=dev)
+    local = torch.empty(max(n_s * n, 1), dtype=torch.int32, device=dev)
+    bsum = torch.empty(max(n_s * nb, 1), dtype=torch.int64, device=dev)
+    counts = torch.empty(n_s * b, dtype=torch.int64, device=dev)
+    hdr = torch.empty((n_s, 5 + b), dtype=torch.int32, device=dev)
+    out = torch.empty((n_s, n), dtype=ent0.dtype, device=dev)
+    if dedupe_key_m:
+        _check(dom, torch.int32, "dom")
+    _launch("merge_blocks", dev,
+            [refs, dom if dedupe_key_m else None, sorted_, keep, local, bsum,
+             counts, hdr, out],
+            [n_s, d, s, b, codespace, dedupe_key_m, mq or 1,
+             dom.shape[0] if dedupe_key_m else 1,
+             int(ent0.dtype == torch.int64)])
+    return hdr, out
+
+
+# -- K13: the row-sharded frontier and fixpoint sweep --------------------------
+
+def _sweep(name: str, rows, cols, n_l: int, n: int, drain: bool):
+    dev = rows[0][1].device
+    rrefs, crefs = [], []
+    for adj, status, em, el, en, aw, applied, out, idx in rows:
+        _check(adj, torch.bool, "adj")
+        if adj.shape != (n_l, n):
+            raise ValueError(f"slice adjacency {tuple(adj.shape)} is not "
+                             f"[{n_l}, {n}]")
+        rrefs.append([_ptr(adj), _ptr(status), _ptr(em), _ptr(el),
+                      _ptr(en), _ptr(aw), _ptr(applied), _ptr(out), idx])
+    for status, em, el, en, applied in cols:
+        _check(status, torch.int32, "status")
+        crefs.append([_ptr(status), _ptr(em), _ptr(el), _ptr(en),
+                      _ptr(applied)])
+    changed = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch(name, dev, [_store_refs(dev, rrefs), _store_refs(dev, crefs),
+                        changed], [len(rows), n_l, n, int(drain)],
+            entry="sharded_sweep")
+    return changed
+
+
+def sharded_frontier(rows, cols, n_l: int, n: int) -> None:
+    """One frontier sweep over the row slices ``rows`` of one device:
+    each row is (adj, status, emsb, elsb, enode, awaits, None, out,
+    slice index); ``cols`` holds every slice's (status, emsb, elsb, enode,
+    None) on this device.  Writes each slice's ready flags to its out."""
+    if not on_cuda(rows[0][1]):
+        from ..parallel.sharded import sweep_plain
+        sweep_plain(rows, cols, n_l, drain=False)
+        return
+    _sweep("sharded_frontier", rows, cols, n_l, n, drain=False)
+
+
+def sharded_drain(rows, cols, n_l: int, n: int) -> torch.Tensor:
+    """One fixpoint sweep: as sharded_frontier, with each row's and
+    column's applied flags (the previous sweep's) in the applied slots;
+    writes applied | ready to each out.  Returns int32[1], non-zero when a
+    row became ready."""
+    if not on_cuda(rows[0][1]):
+        from ..parallel.sharded import sweep_plain
+        return sweep_plain(rows, cols, n_l, drain=True)
+    return _sweep("sharded_drain", rows, cols, n_l, n, drain=True)
+
+
+# -- K2 extension: the mesh-bucketed entry tokens ------------------------------
+
+def attr_tok(ents: Sequence[torch.Tensor], los, sn: int, m_t: int, m: int):
+    """int64[d, s]: the token lo[slot, col] of every shard's entry, from
+    the slices in ``los`` (a slice's lo on this device, or None when it
+    lies elsewhere: its terms are 0 here and come from its own device)."""
+    if not on_cuda(ents[0]):
+        from ..parallel.sharded import attr_tok_plain
+        return attr_tok_plain(ents, los, sn, m_t, m)
+    dev = ents[0].device
+    d, s = len(ents), ents[0].shape[0]
+    for lo in los:
+        if lo is not None:
+            _check(lo, torch.int64, "lo")
+    tok = torch.empty((d, s), dtype=torch.int64, device=dev)
+    _launch("attr_tok", dev,
+            [_store_refs(dev, [[_ptr(e)] for e in ents]),
+             _store_refs(dev, [[_ptr(lo)] for lo in los]), tok],
+            [d, s, sn, m_t, m, int(ents[0].dtype == torch.int64)])
+    return tok

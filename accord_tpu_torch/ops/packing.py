@@ -57,6 +57,27 @@ def ts_eq(a_msb, a_lsb, a_node, b_msb, b_lsb, b_node) -> torch.Tensor:
     return (a_msb == b_msb) & (a_lsb == b_lsb) & (a_node == b_node)
 
 
+def masked_ts_max(msb, lsb, node, mask):
+    """Lexicographic max of the timestamps selected by ``mask`` along the
+    last axis; Timestamp.NONE's bits (zeros) where the mask is empty.
+    Three passes: max msb, then max lsb among msb ties, then node."""
+    msb, lsb, node, mask = torch.broadcast_tensors(msb, lsb, node, mask)
+    neg = torch.tensor(I64_SIGN, dtype=torch.int64, device=msb.device)
+    fm = torch.where(mask, _flip(msb), neg)
+    m1 = fm.max(dim=-1, keepdim=True).values
+    tie1 = mask & (fm == m1)
+    fl = torch.where(tie1, _flip(lsb), neg)
+    m2 = fl.max(dim=-1, keepdim=True).values
+    tie2 = tie1 & (fl == m2)
+    nn = torch.where(tie2, node, torch.full_like(node, -1))
+    m3 = nn.max(dim=-1).values
+    any_ = mask.any(dim=-1)
+    zero = torch.zeros((), dtype=torch.int64, device=msb.device)
+    return (torch.where(any_, _flip(m1[..., 0]), zero),
+            torch.where(any_, _flip(m2[..., 0]), zero),
+            torch.where(any_, m3, torch.zeros_like(m3)))
+
+
 # -- host-side packing --------------------------------------------------------
 
 def pack_timestamps(ts_list) -> tuple:

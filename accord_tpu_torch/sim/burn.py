@@ -96,7 +96,7 @@ def run_burn(seed: int, n_ops: int = 100, n_keys: int = 20,
              device_fault_p: float = 0.05,
              recovery_nemesis: bool = False,
              reconfig_churn: bool = False,
-             device="cuda") -> BurnResult:
+             device="cuda", mesh="auto") -> BurnResult:
     if device_faults is not None:
         # DEVICE-FAULT NEMESIS: arm the accelerator-boundary fault
         # registry (utils.faults) for the whole run — one fault class, or
@@ -123,7 +123,8 @@ def run_burn(seed: int, n_ops: int = 100, n_keys: int = 20,
                             probe_micros=probe_micros,
                             boundary_churn_only=boundary_churn_only,
                             recovery_nemesis=recovery_nemesis,
-                            reconfig_churn=reconfig_churn, device=device)
+                            reconfig_churn=reconfig_churn, device=device,
+                            mesh=mesh)
         finally:
             faults.PARANOIA = prior_paranoia
             for k in kinds:
@@ -135,8 +136,9 @@ def run_burn(seed: int, n_ops: int = 100, n_keys: int = 20,
                       # journal-backed paging: terminal commands beyond this
                       # per-store count page out and reload on demand
                       paged_limit=150,
-                      # torch device of every store's device plane
-                      device=device)
+                      # torch device (and mesh) of every store's device
+                      # plane
+                      device=device, mesh=mesh)
     # composite verification (ref: verify/CompositeVerifier.java): the
     # real-time-anchored checker AND the independent Elle-style dependency-
     # cycle checker both pass, or the run fails with the dissenting

@@ -269,11 +269,12 @@ class Cluster:
                  device_mode: Optional[bool] = None,
                  paged_limit: Optional[int] = None,
                  journal_factory: Optional[Callable[[int], object]] = None,
-                 device="cuda"):
+                 device="cuda", mesh="auto"):
         node_ids = list(node_ids if node_ids is not None else topology.nodes())
         self._device_mode = device_mode
         # torch device of every node's device plane ("cuda" unless asked)
         self._device = device
+        self._mesh = mesh
         self._paged_limit = paged_limit
         # per-node journal constructor override (default: the in-memory
         # Journal; tests pass accord_tpu.journal.DurableJournal to run the
@@ -370,7 +371,7 @@ class Cluster:
                 progress_log_factory=progress_log_factory,
                 num_stores=num_stores, device_mode=device_mode,
                 journal=self.journals[nid], paged_limit=paged_limit,
-                device=device)
+                device=device, mesh=mesh)
             self.nodes[nid] = node
             from ..impl.durability_scheduling import DurabilityScheduling
             self.durability[nid] = DurabilityScheduling(node)
@@ -601,7 +602,7 @@ class Cluster:
                     device_mode=self._device_mode,
                     journal=self.journals[nid],
                     paged_limit=self._paged_limit,
-                    device=self._device)
+                    device=self._device, mesh=self._mesh)
         self.nodes[nid] = node
         from ..impl.durability_scheduling import DurabilityScheduling
         self.durability[nid] = DurabilityScheduling(node)
@@ -645,7 +646,7 @@ class Cluster:
                     device_mode=self._device_mode,
                     journal=self.journals[nid],
                     paged_limit=self._paged_limit,       # durable
-                    device=self._device)
+                    device=self._device, mesh=self._mesh)
         self.nodes[nid] = node
         from ..impl.durability_scheduling import DurabilityScheduling
         self.durability[nid] = DurabilityScheduling(node)

@@ -10,9 +10,12 @@ Phases:
      limit (nvidia-smi);
   2. build: every ``accord_tpu_torch/ops/csrc/*.cu`` with nvcc for sm_90a;
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card, byte-equal, on seeded inputs at a small size and on the inputs
-     the main path below gives it (the dense frontier's after phase 6,
-     from the burn; the drain kernels' on phase 8's states); median ms of kernel, plain version, library call
+     card, byte-equal, on seeded inputs at a small size (the mesh kernels
+     K11-K13, the token gather and the K1a / K2 extensions over an
+     8-slice mesh of the card) and on the inputs the main path below
+     gives it (the dense frontier's after phase 6, from the burn; the
+     drain kernels' on phase 8's states; the mesh kernels' the largest
+     of phases 9-11); median ms of kernel, plain version, library call
      (where one exists) and the least time the card could take (bound,
      from the bytes and operations this input needs);
   4. the main path, a PreAccept deps store at real size: 100,000 in-flight
@@ -61,13 +64,31 @@ Phases:
      bytes, and both watermark forms at w in {0, 1, 2, 4096} equal w
      fixpoint sweeps.  Last, ACCORD_TPU_DRAIN=fixpoint pins both routed
      drains to the fixpoint and an injected kernel_launch fault fails the
-     log-depth drain over with the same bytes.
+     log-depth drain over with the same bytes;
+  9. the mesh, bench config 4 (``config4_child``) at its specified scale
+     on 8 slices of the card (the mesh is forced, whatever the machine
+     shows): 20,000 txns over 64 shards of 4,096 keys, 512 attributed
+     queries through the mesh-bucketed, mesh-dense, host and routed
+     paths; every route builds the same Deps, the mesh bucketed kernels
+     run; txn/s of each and the routes the router picks;
+ 10. store-sharded residency, bench config 5b (``bench_store_sharded``):
+     one store walked up the budget ladder to 2^20 slots against a
+     2^17-slot budget spills to 8 slices, not to the host; 128 pruned
+     queries on the pinned dense route give the host oracle's CSR byte
+     for byte; K11 over the resident slices at bool[128, 2^20] equals
+     its plain version; a fault in slice 3 quarantines that slice only,
+     and the hybrid flush gives the host route's Deps;
+ 11. the graft entries (``entry()`` on the card equals its plain run,
+     ``dryrun_multichip(8)``), the row-sharded frontier and fixpoint
+     drain on config 3's 4,096-deep chain against K4b and K8, and a store
+     with the mesh on ticking until a mesh tick served.
 Then torch.profiler traces of two phase-4 batches and of four phase-7
 rounds, solo and fused, give the device's busy share and its time by
 kernel name.
 
-Every kernel launch count is set to 0 just before phases 4-8 and read just
-after them: each kernel of the path must have launched.  The second-to-last
+Every kernel launch count is set to 0 just before phases 4-11 and read
+after each; each phase's seconds are printed: each kernel of the path must
+have launched.  The second-to-last
 lines carry the kernel table (JSON) and the card's name and power limit;
 the last line is the result object.  Any failure exits non-zero without the
 result line.  Long output (build log, profiler table, summary) goes to
@@ -127,7 +148,21 @@ KMETA = {
                      "accord_tpu/ops/drain_kernel.py:524"),
     "dense_to_ell": ("accord_tpu_torch/ops/csrc/dense_to_ell.cu",
                      "accord_tpu/ops/drain_kernel.py:539"),
+    "calc_deps": ("accord_tpu_torch/ops/csrc/calc_deps.cu",
+                  "accord_tpu/ops/deps_kernel.py:217"),
+    "ts_max": ("accord_tpu_torch/ops/csrc/calc_deps.cu",
+               "accord_tpu/ops/packing.py:84"),
+    "merge_blocks": ("accord_tpu_torch/ops/csrc/merge.cu",
+                     "accord_tpu/parallel/sharded.py:425"),
+    "sharded_frontier": ("accord_tpu_torch/ops/csrc/sharded_frontier.cu",
+                         "accord_tpu/parallel/sharded.py:174"),
+    "sharded_drain": ("accord_tpu_torch/ops/csrc/sharded_frontier.cu",
+                      "accord_tpu/parallel/sharded.py:124"),
+    "attr_tok": ("accord_tpu_torch/ops/csrc/attr_post.cu",
+                 "accord_tpu/parallel/sharded.py:566"),
 }
+MESH_KERNELS = ("calc_deps", "ts_max", "merge_blocks", "sharded_frontier",
+                "sharded_drain", "attr_tok")
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
 # non-tensor-core fp32 rate, used as the peak of the scalar integer
 # compare/select work these kernels do (no tensor-core work here)
@@ -894,6 +929,16 @@ def _work(name, a):
         return a[5].numel()
     if name.startswith("fused_frontier"):
         return sum(st.status.shape[0] for st in a[0])
+    if name == "calc_deps":
+        return sum(t.capacity for t in a[0]) * a[1].msb.shape[0]
+    if name == "ts_max":
+        return a[0].numel()
+    if name == "merge_blocks":
+        return len(a[0]) * len(a[0][0]) * a[2]
+    if name in ("sharded_frontier", "sharded_drain"):
+        return len(a[0]) * a[2] * a[3]
+    if name == "attr_tok":
+        return len(a[0]) * a[0][0].shape[0]
     return a[0].status.shape[0]
 
 
@@ -1040,11 +1085,11 @@ def add_chain(store, ds, depth, hlc0):
     return ids
 
 
-def chain_store(depth, device):
+def chain_store(depth, device, mesh=None):
     """bench.py config 3's serial chain (NDD deep) alone in a store: its
     live set fits the dense drain form."""
     store = DrainStore()
-    ds = P.DeviceState(store, device=device)
+    ds = P.DeviceState(store, device=device, mesh=mesh)
     store.ds = ds
     return store, ds, add_chain(store, ds, depth, 10)
 
@@ -1599,6 +1644,508 @@ def hot_keys_phase(torch, drk, store, dev3, safe, queries, b3, ell, dense,
             "calibration": cal, "counters": drk.drain_counters()}
 
 
+# -- the mesh kernels (K11-K13) and the mesh phases ---------------------------
+
+def calc_case(torch, kern, dk, tables, query, prune=None):
+    """K11: the dep mask and max-conflict candidates of the slices of one
+    device: each table read once, the [B, N] mask written once."""
+    b, m = query.lo.shape
+    n = sum(t.capacity for t in tables)
+    m_t = tables[0].lo.shape[1]
+    nbytes = (n * (28 + 16 * m_t) + b * n + b * (7 + 2 * m) * 8
+              + len(tables) * b * 20)
+
+    def flat(out):
+        return tuple(out[0]) + tuple(out[1])
+
+    return (lambda: flat(kern.calc_deps(tables, query, prune)),
+            lambda: flat(dk.calc_deps_plain(tables, query, prune)), None,
+            nbytes, b * n * (2 * m * m_t + 12))
+
+
+def ts_max_case(torch, kern, dk, msb, lsb, node):
+    """K11's cross-shard reduce over [d, B] candidates."""
+    c, r = msb.shape
+    return (lambda: kern.ts_max(msb, lsb, node),
+            lambda: dk.ts_max_plain(msb, lsb, node), None,
+            c * r * 20 + r * 20, c * r * 4)
+
+
+def _composites(torch, blocks, s, codespace):
+    """The reference merge's flat sort input: every block's live (row,
+    code) composites, int64 max elsewhere — what torch.sort would sort."""
+    out = []
+    for blk in blocks:
+        for h, e, off in blk:
+            row_end = h[5:].to(torch.int64)
+            pos = torch.arange(s, device=e.device)
+            row = torch.searchsorted(row_end, pos, right=True)
+            code = e.to(torch.int64)
+            code = torch.where(code >= 0, code + off, code)
+            live = pos < h[0].to(torch.int64)
+            out.append(torch.where(live, row * codespace + code,
+                                   torch.full_like(code, 2 ** 63 - 1)))
+    return torch.stack(out).reshape(len(blocks), -1)
+
+
+def merge_case(torch, kern, psh, blocks, b, s, codespace, dedupe_key_m=0,
+               dom=None, mq=None):
+    """K12: each shard block's live entries read once, the merged block
+    (d*s entries) written once; a d-way merge's comparisons."""
+    d = len(blocks[0])
+    cs = blocks[0][0][1].element_size()
+    live = sum(min(max(int(h[0]), 0), s) for blk in blocks
+               for h, _e, _o in blk)
+    nbytes = (live * cs + len(blocks) * (d + 1) * (5 + b) * 4
+              + len(blocks) * d * s * cs
+              + (dom.numel() * 4 if dedupe_key_m else 0))
+    ops = live * 4 * max(1, int(np.ceil(np.log2(d))))
+    comp = _composites(torch, blocks, s, codespace)
+    return (lambda: kern.merge_blocks(blocks, b, s, codespace, dedupe_key_m,
+                                      dom, mq),
+            lambda: psh.merge_blocks_plain(blocks, b, s, codespace,
+                                           dedupe_key_m, dom, mq),
+            lambda: torch.sort(comp, dim=1), nbytes, ops)
+
+
+def sweep_args(torch, psh, mesh, state, drain):
+    """K13's arguments for one sweep of ``state`` row-sharded over
+    ``mesh`` (all slices on mesh device 0): (rows, cols, n_l, n)."""
+    slices = psh._sharded_rows(mesh, state)
+    n_l = slices[0].status.shape[0]
+    applied = [s.status == 5 for s in slices] if drain else None
+    cols = [(s.status, s.exec_msb, s.exec_lsb, s.exec_node,
+             applied[j] if drain else None) for j, s in enumerate(slices)]
+    rows = [(*slices[i], applied[i] if drain else None,
+             torch.empty(n_l, dtype=torch.bool, device=mesh.dev0), i)
+            for i in range(mesh.size)]
+    return rows, cols, n_l, n_l * mesh.size
+
+
+def sweep_case(torch, kern, drk, psh, rows, cols, n_l, n):
+    """K13: one frontier sweep (applied slot None) or one fixpoint sweep;
+    the bound is the frontier's work on the gathered state; the library
+    call is torch.any of the precomputed blocking against the unapplied
+    columns."""
+    drain = rows[0][6] is not None
+    full = drk.DrainState(
+        torch.cat([r[0] for r in rows]), torch.cat([c[0] for c in cols]),
+        torch.cat([c[1] for c in cols]), torch.cat([c[2] for c in cols]),
+        torch.cat([c[3] for c in cols]), torch.cat([r[5] for r in rows]))
+    blk = drk.blocking_matrix(full)
+    unapplied = ~(torch.cat([c[4] for c in cols]) if drain
+                  else full.status == 5)
+
+    def own(rs):
+        return [r[:7] + (torch.empty_like(r[7]),) + r[8:] for r in rs]
+
+    rk, rp = own(rows), own(rows)
+    name = "sharded_drain" if drain else "sharded_frontier"
+
+    def run_kernel():
+        flag = getattr(kern, name)(rk, cols, n_l, n)
+        return tuple(r[7] for r in rk) + ((flag,) if drain else ())
+
+    def run_plain():
+        flag = psh.sweep_plain(rp, cols, n_l, drain)
+        return tuple(r[7] for r in rp) + ((flag,) if drain else ())
+
+    return (run_kernel, run_plain,
+            lambda: torch.any(blk & unapplied[None, :], dim=1),
+            *frontier_work(torch, drk, full))
+
+
+def tok_case(torch, kern, psh, ents, los, sn, m_t, m):
+    """The K2 extension's token gather: the codes read once, one lo word
+    gathered per live entry, the [d, s] tokens written once."""
+    d, s = len(ents), ents[0].shape[0]
+    live = sum(int((e >= 0).sum()) for e in ents)
+    return (lambda: kern.attr_tok(ents, los, sn, m_t, m),
+            lambda: psh.attr_tok_plain(ents, los, sn, m_t, m), None,
+            d * s * (ents[0].element_size() + 8) + live * 8, d * s * 8)
+
+
+def merge_blocks_small(seed, torch, dev, d=8, b=6, s=24, codespace=4096,
+                       dup=False, wide=False):
+    """d ascending shard blocks (some rows empty, repeats across shards in
+    the bucketed form) as a one-store K12 argument list."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, codespace, 12)
+    blk = []
+    for i in range(d):
+        counts = rng.integers(0, 5, b)
+        while counts.sum() > s:
+            counts[np.argmax(counts)] -= 1
+        ent = np.full(s, -1, np.int64 if wide else np.int32)
+        pos = 0
+        for r in range(b):
+            src = pool if dup else np.arange(codespace)
+            codes = np.sort(rng.choice(src, min(counts[r], len(src)),
+                                       replace=False))
+            ent[pos:pos + len(codes)] = codes
+            pos += len(codes)
+            counts[r] = len(codes)
+        row_end = np.cumsum(counts)
+        hdr = np.concatenate([[row_end[-1], row_end[-1], counts.max(),
+                               rng.integers(0, 4), rng.integers(0, 4)],
+                              row_end]).astype(np.int32)
+        off = 0 if dup else i * codespace
+        blk.append((torch.from_numpy(hdr).to(dev),
+                    torch.from_numpy(ent).to(dev), off))
+    return [blk]
+
+
+def mesh_small_cases(torch, dev, kern, dk, drk, psh, convert, mesh):
+    """K11-K13, the token gather and the K1a / K2 extensions at small
+    shapes over an 8-slice mesh on ``dev``."""
+    cases = {}
+    for seed, pruned in ((1, False), (2, True)):
+        inp = small_inputs(seed, dk)
+        up = convert.tables_from_numpy(
+            {"table": inp["table"], "buckets": inp["buckets"],
+             "attr": inp["attr"], "aidx": inp["aidx"]}, dev)
+        q = dk.query_from_qmat(torch.from_numpy(inp["qmat"]).to(dev),
+                               inp["m"])
+        sh = psh.shard_table(mesh, up["table"])
+        tabs = [psh.slice_of(sh, i) for i in range(mesh.size)]
+        prune = inp["prune"] if pruned else None
+        cases[f"calc_deps[seed{seed}]"] = calc_case(torch, kern, dk, tabs, q,
+                                                    prune)
+        _m, (cm, cl, cn) = dk.calc_deps_plain(tabs, q, prune)
+        cases[f"ts_max[seed{seed}]"] = ts_max_case(torch, kern, dk, cm, cl,
+                                                   cn)
+        # the K1a row-sharded slice and the K2 token input
+        m, m_t = inp["m"], inp["m_t"]
+        qb = torch.from_numpy(inp["qmat_b"]).to(dev)
+        bsh = psh.shard_bucket_table(mesh, up["buckets"])
+        for i in (0, 3):
+            bt = psh.slice_of(bsh, i)
+            roff = i * bt.blo.shape[0]
+            cases[f"deps_bucketed[seed{seed} row_offset {roff}]"] = (
+                lambda bt=bt, roff=roff: kern.deps_bucketed(
+                    m_t, bt, qb, m, 4, 2048, 64, inp["prune"], None, False,
+                    roff),
+                lambda bt=bt, roff=roff: dk.bucketed_flat_plain(
+                    m_t, bt, qb, m, 4, 2048, 64, inp["prune"], None, False,
+                    roff), None, 0, 0)
+        raw = [dk.bucketed_flat_plain(m_t, psh.slice_of(bsh, i), qb, m, 4,
+                                      2048, 64, inp["prune"], None, False,
+                                      i * bsh.blo[0].shape[0])
+               for i in range(mesh.size)]
+        ents = [e for _h, e in raw]
+        sn = sh.lo[0].shape[0]
+        cases[f"attr_tok[seed{seed}]"] = tok_case(
+            torch, kern, psh, ents, list(sh.lo), sn, m_t, m)
+        tok = psh.attr_tok_plain(ents, list(sh.lo), sn, m_t, m)
+        rankb = torch.from_numpy(inp["rankb"]).to(dev)
+        cases[f"attr_post[tok seed{seed}]"] = (
+            lambda: kern.attr_post(None, up["attr"], up["aidx"], rankb,
+                                   raw[1][0], raw[1][1], m_t, m, True, True,
+                                   tok=tok[1].contiguous()),
+            lambda: dk.attr_post_plain(None, up["attr"], up["aidx"], rankb,
+                                       raw[1][0], raw[1][1], m_t, m, True,
+                                       True, tok=tok[1]), None, 0, 0)
+    for seed, dup, wide in ((3, False, False), (4, True, False),
+                            (5, False, True), (6, True, True)):
+        blocks = merge_blocks_small(seed, torch, dev, dup=dup, wide=wide)
+        n_dom = 4096 // 8
+        dom = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, 2, n_dom).astype(np.int32)).to(dev)
+        tag = f"[seed{seed}{' dedupe' if dup else ''}{' i64' if wide else ''}]"
+        cs = 4096 if dup else 8 * 4096
+        cases["merge_blocks" + tag] = merge_case(
+            torch, kern, psh, blocks, 6, 24, cs, 4 if dup else 0,
+            dom if dup else None, 8)
+    for seed, n in ((3, 64), (4, 512)):
+        dense, _ell = small_drain(seed, n)
+        st = convert.tables_from_numpy({"drain": dense}, dev)["drain"]
+        for drain in (False, True):
+            args = sweep_args(torch, psh, mesh, st, drain)
+            name = "sharded_drain" if drain else "sharded_frontier"
+            cases[f"{name}[n{n}]"] = sweep_case(torch, kern, drk, psh, *args)
+    return cases
+
+
+def config4_phase(torch, dev, mesh, rehearsal):
+    """Phase 9: bench config 4 (``config4_child``, bench.py:859-932) on
+    the 8-slice mesh: 20,000 txns over 64 shards of 4,096 keys, 512
+    attributed queries through the mesh-bucketed, mesh-dense, host and
+    routed paths; every route builds the same Deps."""
+    SHARDS, WIDTH = 64, 4096
+    N4, B4 = (20_000, 512) if not rehearsal else (20_000, 64)
+    rng = np.random.default_rng(11)
+    store = Store()
+    ds = P.DeviceState(store, device=dev, mesh=mesh)
+    safe = Safe(store)
+    hlcs = rng.choice(np.arange(1, 2_000_000), size=N4, replace=False)
+    t0 = time.perf_counter()
+    for i in range(N4):
+        base = int(rng.integers(0, SHARDS)) * WIDTH
+        tid = P.TxnId.create(1, int(hlcs[i]), P.TxnKind.Write, P.Domain.Key,
+                             1 + i % 5)
+        toks = [base + int(t) for t in rng.integers(0, WIDTH,
+                                                    rng.integers(1, 3))]
+        ds.register(tid, int(P.InternalStatus.PREACCEPTED),
+                    P.Keys([P.IntKey(t) for t in toks]))
+    replay_rate = N4 / (time.perf_counter() - t0)
+    queries = []
+    for _b in range(B4):
+        bound = P.TxnId.create(1, int(rng.integers(2_000_000, 3_000_000)),
+                               P.TxnKind.Write, P.Domain.Key, 1)
+        base = int(rng.integers(0, SHARDS)) * WIDTH
+        toks = [base + int(t) for t in rng.integers(0, WIDTH, 2)]
+        queries.append((bound, bound, bound.kind().witnesses(), toks, []))
+
+    def timed(route, reps=4):
+        """(txn/s over ``reps`` passes after a warm-up, the warm-up's
+        Deps)."""
+        ds.route_override = route
+        first = deps_digest(attributed(ds, safe, queries))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _i in range(reps):
+            attributed(ds, safe, queries)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return B4 * reps / (time.perf_counter() - t1), first
+
+    rates, digests = {}, {}
+    rates["mesh_bucketed"], digests["mesh_bucketed"] = timed("device")
+    check(ds.n_mesh_bucketed_queries > 0,
+          "phase9: the mesh bucketed kernels never ran")
+    rates["mesh_dense"], digests["mesh_dense"] = timed("dense")
+    rates["host"], digests["host"] = timed("host")
+    routes = []
+    ds.on_route = lambda route, nq: routes.append(route)
+    rates["routed"], digests["routed"] = timed(None)
+    ds.on_route = None
+    found = sum(len(t) for k, r in digests["host"] for _k, t in k)
+    check(found > 0, "phase9: empty Deps")
+    for name in ("mesh_bucketed", "mesh_dense", "routed"):
+        check(digests[name] == digests["host"],
+              f"phase9: the {name} route built other Deps than the host's")
+    out = {"txn_per_s": rates, "routed": sorted(set(routes)),
+           "register_txn_per_s": replay_rate, "deps_found": found,
+           "counters": {k: getattr(ds, k) for k in (
+               "n_mesh_queries", "n_mesh_bucketed_queries",
+               "n_host_queries", "n_device_faults")}}
+    log("phase9: config 4, " + json.dumps(out))
+    return out
+
+
+def _csr_equal(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_csr_equal(x, y)
+                                        for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def config5b_phase(torch, dk, psh, dev, mesh, rehearsal):
+    """Phase 10: bench config 5b (``bench_store_sharded``, bench.py:
+    743-858): one store walked up the budget ladder to 2^20 slots against
+    a 2^17-slot budget spills to 8 slices; 128 pruned queries on the pinned
+    dense route give the host oracle's CSR byte for byte.  Then K11 over
+    the sliced table at full width against its plain version, and a fault
+    in slice 3: the hybrid flush gives the same Deps."""
+    from accord_tpu_torch.ops.packing import unpack_txn_id
+    N, BUDGET, B5, KEYS5 = ((1 << 20, 1 << 17, 128, 1 << 22)
+                            if not rehearsal else
+                            (1 << 14, 1 << 11, 32, 1 << 16))
+    store = Store()
+    ds = P.DeviceState(store, device=dev, mesh=mesh)
+    safe = Safe(store)
+    ds.device_budget_slots = BUDGET
+    ds.route_override = "dense"
+    m = ds.deps
+    t0 = time.perf_counter()
+    while m.capacity < N:
+        m.free_slots.clear()      # force the grow (no compacted slack)
+        m._grow_capacity()
+    grow_s = time.perf_counter() - t0
+    sh = ds.store_shards
+    check(sh is not None and sh.active and sh.d == 8,
+          "phase10: the ladder never spilled to 8 slices")
+    check(not ds.host_pinned, "phase10: the store was pinned to the host")
+    rng = np.random.default_rng(13)
+    hlc = rng.choice(np.arange(1, 4 * N, dtype=np.int64), size=N,
+                     replace=False)
+    flags = np.int64((int(P.TxnKind.Write) << 1) | int(P.Domain.Key))
+    m.msb[:] = np.int64(1) << 16
+    m.lsb[:] = (hlc << 16) | flags
+    m.node[:] = (np.arange(N) % 5 + 1).astype(np.int32)
+    m.kind[:] = int(P.TxnKind.Write)
+    m.domain[:] = int(P.Domain.Key)
+    m.status[:] = dk.SLOT_TRANSITIVE
+    toks = rng.integers(0, KEYS5, size=N).astype(np.int64)
+    m.lo[:, 0] = toks
+    m.hi[:, 0] = toks
+    m.free_slots = []
+    m.n_live = N
+    m.version += 1
+    m.mut_version += 1
+    m._snap = None
+    m._device = None
+    m._device_sh = None
+    m._dirty.clear()
+    m._dirty_sh.clear()
+    m._attr_dirty_sh.clear()
+    queries = []
+    for _ in range(B5):
+        bound = P.TxnId.create(1, int(rng.integers(5 * N, 6 * N)),
+                               P.TxnKind.Write, P.Domain.Key, 1)
+        queries.append((bound, bound, bound.kind().witnesses(),
+                        [int(rng.integers(0, KEYS5))], []))
+
+    def run_csr():
+        h = ds.deps_query_batch_begin(queries, immediate=True,
+                                      prune_floors=True)
+        return ds.deps_query_batch_end(h)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    ds.route_override = "host"
+    t0 = time.perf_counter()
+    host_csr = run_csr()
+    host_s = time.perf_counter() - t0
+    ds.route_override = "dense"
+    t0 = time.perf_counter()
+    shard_csr = run_csr()                     # the slices' first upload
+    first_s = time.perf_counter() - t0
+    check(_csr_equal(host_csr[:3], shard_csr[:3]),
+          "phase10: the sharded CSR != the host oracle's")
+    check(len(shard_csr[1]) > 0, "phase10: no deps found")
+    check(ds.n_store_sharded_flushes >= 1,
+          "phase10: the flush did not route sharded")
+    reps = 2
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        again = run_csr()
+    sync()
+    dt = time.perf_counter() - t0
+    check(_csr_equal(again[:3], host_csr[:3]), "phase10: a re-run differs")
+    # K11 at full width over the resident slices: bool[128, 2^20]
+    q_m = 1
+    packed = [(sb, wit, tk, rg, tid) for (tid, sb, wit, tk, rg) in queries]
+    query = dk.query_from_qmat(torch.from_numpy(
+        dk.pack_query_matrix(packed, q_m)).to(dev), q_m)
+    table = ds.deps.device_table_sharded(mesh)
+    fn = psh.sharded_calculate_deps(mesh)
+    fn(table, query)
+    sync()
+    t0 = time.perf_counter()
+    masks, mc = fn(table, query)
+    sync()
+    k11_s = time.perf_counter() - t0
+    tabs = [psh.slice_of(table, i) for i in range(mesh.size)]
+    pm_, (cm, cl, cn) = dk.calc_deps_plain(tabs, query)
+    want_mc = dk.ts_max_plain(cm, cl, cn)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(masks, pm_))
+          and all(bool(torch.equal(a, b)) for a, b in zip(mc, want_mc)),
+          "phase10: sharded calculate_deps != its plain version")
+    mask_deps = int(sum(int(x.sum()) for x in masks))
+    table_bytes = sum(t.numel() * t.element_size() for c in table for t in c)
+    # a fault in slice 3: the attributed flushes go hybrid (slices 0-2,
+    # 4-7 on the card, slice 3's slots from the host twin) with the same
+    # Deps; the raw CSR path serves from the host meanwhile.  The slots
+    # become PreAccepted first (the attribution elides TRANSITIVE key
+    # deps, so the bench's fill would attribute to empty Deps), which the
+    # slices take as a full re-upload
+    m.obj[:] = [unpack_txn_id(a, b, c) for a, b, c in
+                zip(m.msb.tolist(), m.lsb.tolist(), m.node.tolist())]
+    m.status[:] = dk.SLOT_PREACCEPTED
+    m.version += 1
+    m.mut_version += 1
+    m.attr_version += 1
+    m._snap = None
+    sh._shape = sh._attr_cap = None
+    ds.route_override = "host"
+    want = deps_digest(attributed(ds, safe, queries))
+    ds.route_override = "dense"
+    clean = deps_digest(attributed(ds, safe, queries))
+    check(clean == want, "phase10: sharded attributed Deps != host")
+    sh.last_slice_touched = 3
+    ds._device_fault("transfer", "injected: slice 3 upload", sliced=True)
+    check(sh.quarantined_slices() == [3],
+          f"phase10: quarantined {sh.quarantined_slices()}")
+    hs0 = ds.kernel_times.get("dispatch_host_slice", (0, 0.0))[0]
+    hybrid = deps_digest(attributed(ds, safe, queries))
+    check(ds.kernel_times.get("dispatch_host_slice", (0, 0.0))[0] == hs0 + 1,
+          "phase10: the faulted flush was not hybrid")
+    check(hybrid == want, "phase10: the hybrid flush's Deps != host")
+    check(_csr_equal(run_csr()[:3], host_csr[:3]),
+          "phase10: the raw CSR under the fault != host")
+    found = sum(len(t) for k, r in want for _k, t in k)
+    check(found > 0, "phase10: the attributed Deps are empty")
+    out = {"slots": N, "budget": BUDGET, "slices": sh.d,
+           "txn_per_s": B5 * reps / dt, "host_oracle_txn_per_s": B5 / host_s,
+           "first_flush_s": first_s, "ladder_grow_s": grow_s,
+           "k11_full_width_ms": k11_s * 1e3, "k11_mask_deps": mask_deps,
+           "table_bytes": table_bytes, "mask_bytes": B5 * N,
+           "deps_found": found,
+           "counters": {k: getattr(ds, k) for k in (
+               "n_store_sharded_flushes", "n_slice_quarantines",
+               "n_shard_merge_bytes", "n_mesh_queries", "n_oom_degraded")}}
+    log("phase10: config 5b, " + json.dumps(out))
+    return out
+
+
+def graft_phase(torch, kern, drk, psh, dev, mesh, dense3, ndd, rehearsal):
+    """Phase 11: the graft entries on the card, the row-sharded frontier
+    and fixpoint drain on config 3's 4,096-deep chain against K4b / K8,
+    and a store with the mesh on ticking until a mesh tick served."""
+    from accord_tpu_torch import graft_entry
+    out = {}
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry(dev)
+    got = fn(*args)
+    fnc, argsc = graft_entry.entry("cpu")
+    graft_entry._eq(got, fnc(*argsc), "entry() on the card vs its plain run")
+    out["entry_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(8, dev)
+    out["dryrun_multichip_s"] = time.perf_counter() - t0
+    fr = psh.sharded_ready_frontier(mesh)(dense3)
+    check(bool(torch.equal(fr, kern.frontier_dense(dense3))),
+          "phase11: sharded_ready_frontier != frontier_dense")
+    want = drk.drain(dense3)
+    sd = psh.sharded_drain(mesh)
+    sd(dense3)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    applied, newly = sd(dense3)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["sharded_drain_ms"] = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.equal(applied, want[0]))
+          and bool(torch.equal(newly, want[1])),
+          "phase11: sharded_drain != drain (K8)")
+    out["sharded_drain_applied"] = int(applied.sum())
+    # the mesh tick: config 3's chain alone in a store with the mesh on
+    mstore, mds, _ids = chain_store(ndd, dev, mesh=mesh)
+    st, _live = mds.drain.state()
+    n = st.status.shape[0]
+    out["mesh_tick_priced"] = bool(mds._mesh_tick_pays(n))
+    if not out["mesh_tick_priced"]:
+        # the pricing (this card's probes) keeps the tick single-device at
+        # this size; pin it to hold the mesh tick's path
+        mds._mesh_tick_pays = lambda _n: True
+    ready = drk.ready_frontier_plain(st)[:len(_live)].cpu().numpy()
+    want_p = {mds.drain.id_of[int(x)]
+              for x in _live[ready & mds.drain.active[_live]]}
+    mstore.run_ticks()
+    check(mstore.ticks[:1] == [("mesh", len(want_p))]
+          and mstore.proposed == want_p,
+          f"phase11: the mesh tick proposed {mstore.ticks}")
+    out["mesh_tick"] = mstore.ticks[:1]
+    log("phase11: " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1619,6 +2166,7 @@ def main(argv=None) -> int:
     from accord_tpu_torch.ops import deps_kernel as dk
     from accord_tpu_torch.ops import drain_kernel as drk
     from accord_tpu_torch.ops import kernels as kern
+    from accord_tpu_torch.parallel import sharded as psh
     from accord_tpu_torch.sim.burn import run_burn
     P.load()
     global OUT
@@ -1640,9 +2188,16 @@ def main(argv=None) -> int:
         log(f"build: {blog['seconds']:.2f} s (cached={blog['cached']}) "
             f"-> {_build.BUILD_DIR / _build.LIB_NAME}")
 
-    # 3a. small-size kernel checks
+    # 3a. small-size kernel checks; the mesh kernels over 8 slices of one
+    # card (phases 9-11 use the same mesh, whatever the machine shows)
+    mesh = psh.make_mesh(8, dev)
     run_checks(torch, small_cases(torch, dev, kern, dk, drk, convert),
                "small", on_cuda, timed=False)
+    run_checks(torch, mesh_small_cases(torch, dev, kern, dk, drk, psh,
+                                       convert, mesh),
+               "small", on_cuda, timed=False)
+    log(f"phase3a: small checks done at {time.perf_counter() - t_start:.1f}"
+        " s")
 
     # setup for the main path (host side, untimed)
     N, KEYSPACE, M, B = ((100_000, 1_000_000, 8, 2048) if not rehearsal
@@ -1785,14 +2340,20 @@ def main(argv=None) -> int:
         "dense_degree": list(dense3.adj.shape),
         "dense_to_ell": list(dense3_ell.adj_idx.shape)}
 
-    # 4-8. the main path, with every launch count set to 0 first
+    # 4-11. the main path, with every launch count set to 0 first
     kern.reset_launches()
     phase_launches = {}
+    phase_seconds = {}
     seen = dict(kern.LAUNCHES)
+    t_phase = [time.perf_counter()]
 
     def phase_done(tag):
         phase_launches[tag] = {k: v - seen[k] for k, v in kern.LAUNCHES.items()}
         seen.update(kern.LAUNCHES)
+        now = time.perf_counter()
+        phase_seconds[tag] = now - t_phase[0]
+        t_phase[0] = now
+        log(f"phase{tag}: {phase_seconds[tag]:.1f} s")
 
     # 4. the deps store at real size
     before = {k: getattr(ds, k) for k in (
@@ -2095,12 +2656,35 @@ def main(argv=None) -> int:
                             ell3, dense3, dense3_ell, rows3, deep_edges3,
                             dev, rehearsal)
     phase8["registration_txn_per_s"] = hbuild_rate
-    launches = dict(kern.LAUNCHES)
     phase_done("8")
     for k_ in ("drain_fix_dense", "drain_fix_ell", "level_drain",
                "logsq_dense", "dense_degree", "dense_to_ell"):
         check(rehearsal or phase_launches["8"][k_] > 0,
               f"phase8: {k_} never launched {phase_launches['8']}")
+
+    # 9-11. the mesh path (8 slices of this card), recording the mesh
+    # kernels' arguments at these phases' shapes
+    rec9 = Recorder(kern, list(MESH_KERNELS))
+    try:
+        phase9 = config4_phase(torch, dev, mesh, rehearsal)
+        phase_done("9")
+        phase10 = config5b_phase(torch, dk, psh, dev, mesh, rehearsal)
+        phase_done("10")
+        phase11 = graft_phase(torch, kern, drk, psh, dev, mesh, dense3,
+                              NDD3, rehearsal)
+        phase_done("11")
+    finally:
+        rec9.restore()
+    for tag, names in (("9", ("merge_blocks", "attr_tok", "deps_bucketed",
+                              "attr_post", "deps_dense")),
+                       ("10", ("calc_deps", "ts_max", "deps_dense")),
+                       ("11", ("calc_deps", "ts_max", "sharded_frontier",
+                               "sharded_drain"))):
+        for k_ in names:
+            check(rehearsal or phase_launches[tag][k_] > 0,
+                  f"phase{tag}: {k_} never launched {phase_launches[tag]}")
+    launches = {k: sum(p[k] for p in phase_launches.values())
+                for k in kern.KERNELS}
     log("launches by phase: " + json.dumps(phase_launches))
     if not rehearsal:
         missing = [k for k, v in launches.items() if v == 0]
@@ -2114,6 +2698,25 @@ def main(argv=None) -> int:
     rows.update(run_checks(torch, {"frontier_dense": dense_frontier_case(
         torch, kern, drk, *a, **kw)}, "real", on_cuda, timed=True))
     shapes["frontier_dense"] = list(a[0].adj.shape)
+    # the mesh kernels at the largest shapes phases 9-11 gave them
+    mesh_real = {}
+    a, kw, _w = rec9.calls["calc_deps"]
+    mesh_real["calc_deps"] = calc_case(torch, kern, dk, *a, **kw)
+    shapes["calc_deps"] = [len(a[0]), a[1].msb.shape[0], a[0][0].capacity]
+    a, kw, _w = rec9.calls["ts_max"]
+    mesh_real["ts_max"] = ts_max_case(torch, kern, dk, *a, **kw)
+    shapes["ts_max"] = list(a[0].shape)
+    a, kw, _w = rec9.calls["merge_blocks"]
+    mesh_real["merge_blocks"] = merge_case(torch, kern, psh, *a, **kw)
+    shapes["merge_blocks"] = [len(a[0]), len(a[0][0]), a[2]]
+    for name in ("sharded_frontier", "sharded_drain"):
+        a, kw, _w = rec9.calls[name]
+        mesh_real[name] = sweep_case(torch, kern, drk, psh, *a, **kw)
+        shapes[name] = [len(a[0]), a[2], a[3]]
+    a, kw, _w = rec9.calls["attr_tok"]
+    mesh_real["attr_tok"] = tok_case(torch, kern, psh, *a, **kw)
+    shapes["attr_tok"] = [len(a[0]), a[0][0].shape[0]]
+    rows.update(run_checks(torch, mesh_real, "real", on_cuda, timed=True))
 
     profiles = {}
     if on_cuda:
@@ -2159,7 +2762,8 @@ def main(argv=None) -> int:
                "phase6_counters": c1,
                "phase7": fused7, "phase7_launches_per_fused_flush": per_flush,
                "level_rounds": level_rounds, "profiles": profiles,
-               "phase8": phase8,
+               "phase8": phase8, "phase9": phase9, "phase10": phase10,
+               "phase11": phase11, "phase_seconds": phase_seconds,
                "seconds": time.perf_counter() - t_start}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     if rehearsal:

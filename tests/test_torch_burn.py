@@ -124,3 +124,52 @@ def test_burn_default_config_matches_reference(monkeypatch):
     assert a.stats["device_fused_launches"] > 0
     assert a.stats["device_fused_tick_launches"] > 0
     assert "DepsRoute.host" not in a.stats
+
+
+@pytest.mark.parametrize("default_config", [False, True])
+def test_burn_on_mesh_matches_reference(monkeypatch, default_config):
+    """The port's stores on an 8-slice CPU mesh (every device-route scan
+    a sharded one, the drain tick row-sharded where priced so), against
+    the reference's burn with its conftest mesh in place: the same client
+    log and committed history.  Under the escape hatches, then in the
+    default configuration with the fused pricing forced to pay (the
+    fused flush under a mesh: per slice one K5 launch over the members,
+    the blocks merged on device)."""
+    import accord_tpu.parallel.sharded as rsh
+    from accord_tpu.sim import verifier as ref_verifier
+    from accord_tpu.sim.burn import run_burn as ref_burn
+    from accord_tpu_torch.local.dispatch import DeviceDispatcher
+    from accord_tpu_torch.parallel import make_mesh
+    from accord_tpu_torch.sim import verifier as port_verifier
+    from accord_tpu_torch.sim.burn import run_burn as port_burn
+    monkeypatch.undo()
+    if not default_config:
+        monkeypatch.setenv("ACCORD_TPU_FUSION", "off")
+        monkeypatch.setenv("ACCORD_TPU_DRAIN", "fixpoint")
+    else:
+        monkeypatch.delenv("ACCORD_TPU_FUSION", raising=False)
+        monkeypatch.delenv("ACCORD_TPU_DRAIN", raising=False)
+        monkeypatch.setattr(DeviceDispatcher, "_fused_flush_pays",
+                            lambda self, hints: True)
+    from accord_tpu.local import device_index as rdi
+    from accord_tpu_torch.local import device_index as pdi
+    monkeypatch.setattr(rdi.DeviceState, "_choose_route",
+                        lambda self, *a: "host")
+    monkeypatch.setattr(pdi.DeviceState, "_choose_route",
+                        lambda self, *a: "device")
+    assert rsh.make_mesh(8) is not None
+    ref_log = _record_results(monkeypatch, ref_verifier)
+    port_log = _record_results(monkeypatch, port_verifier)
+    ref = _burn(ref_burn)
+    a = _burn(port_burn, device="cpu", mesh=make_mesh(8, "cpu"))
+    skip = FUSED_STATS if default_config else ROUTE_STATS
+    assert a.ops_unresolved == 0 and a.ops_ok > 0
+    assert port_log == ref_log and len(ref_log) > a.ops_ok
+    assert _outcome(a, skip) == _outcome(ref, skip)
+    assert a.stats["deps_found"] == ref.stats["deps_found"] > 0
+    assert a.stats.get("DepsRoute.device", 0) > 0
+    mesh_q = sum(v for k, v in a.metrics_snapshot.items()
+                 if k.startswith("device_mesh_queries{"))
+    assert mesh_q > 0
+    if default_config:
+        assert a.stats["device_fused_launches"] > 0
