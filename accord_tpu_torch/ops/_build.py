@@ -40,7 +40,8 @@ ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
                 "accord_level_drain", "accord_logsq_dense",
                 "accord_dense_degree", "accord_dense_to_ell",
                 "accord_calc_deps", "accord_ts_max", "accord_merge_blocks",
-                "accord_sharded_sweep", "accord_attr_tok")
+                "accord_sharded_sweep", "accord_sharded_drain_fix",
+                "accord_attr_tok")
 
 _LOCK = threading.Lock()
 _LIB = None

@@ -14,22 +14,26 @@
 // row_end; header (total, max raw total, max raw maxc, sum n_trans,
 // sum n_dec, row_end); entries[d*s] with -1 after total.
 //
-// Each block's (row, code) composites are ascending (the per-row code
-// order of every raw kernel, kept by the attribution's compaction), so the
-// flat sort is a merge: an entry's place is the number of smaller
-// composites in every block (d binary searches) plus its rank among equal
-// ones (equal entries of lower shards first).  This holds for every block
-// that did not overflow (raw total <= s and raw maxc <= k); an overflowed
-// block leaves -1 holes inside its rows, and its merge — which the host
-// discards at once for a re-launch, the merged header saying so — gets the
-// reference's header but not always its entries.
+// Each block's (row, code) composites are first written to scratch, one
+// thread per entry (the row by a binary search of row_end, once per entry
+// instead of once per probe), and a block that is not ascending is sorted
+// there: an overflowed block (raw total > s or raw maxc > k) leaves -1
+// holes inside its rows, whose composites (row * cs - 1) break the order.
+// The flat sort is then a merge of ascending runs: an entry's place is the
+// number of smaller composites in every block (d binary searches) plus its
+// rank among equal ones (equal entries of lower shards first).  Exact for
+// every input; the merged header still tells the host that a block
+// overflowed, and the host discards such a merge for a re-launch.
 //
 // Bound on this card: bytes — d*s entries read, the merged block written,
-// plus a scratch copy of the sorted composites.  Design: a rank pass (one
-// thread per input entry) scatters each composite to its sorted place; a
-// keep pass over the sorted array applies the dedupe and counts kept
-// entries per row; a block scan and a scan of the block sums place them;
-// one block per store rebuilds row_end and the header.
+// plus a scratch copy of the composites.  Design: a prep pass writes the
+// composites (int64 max past a block's live length) and flags a block
+// whose composites descend anywhere; one block of 1,024 threads sorts each
+// flagged block in place (bitonic, the block padded to a power of two); a
+// rank pass (one thread per input entry) scatters each composite to its
+// sorted place; a keep pass over the sorted array applies the dedupe and
+// counts kept entries per row; a block scan and a scan of the block sums
+// place them; one block per store rebuilds row_end and the header.
 #include <climits>
 
 #include "common.cuh"
@@ -68,37 +72,58 @@ __device__ __forceinline__ int64_t composite(const MergeArgs& a,
   return row * a.cs + code;
 }
 
-// number of live composites of block r below x (strict) or at most x
+// block (st, i)'s composites, padded with INF to P; flag a descent
 template <typename T>
-__device__ __forceinline__ int64_t count_below(const MergeArgs& a,
-                                               const BlockRef& r, int64_t len,
+__global__ void __launch_bounds__(NT)
+merge_prep(MergeArgs a, int64_t P, int64_t* comp, int32_t* unsorted) {
+  const int64_t p = (int64_t)blockIdx.x * NT + threadIdx.x;
+  const int64_t i = blockIdx.y, st = blockIdx.z;
+  const BlockRef& r = a.refs[st * a.d + i];
+  if (p >= P) return;
+  const int64_t len = live_len<T>(r, a.s);
+  const int64_t x = p < len ? composite<T>(a, r, p) : INF;
+  comp[(st * a.d + i) * P + p] = x;
+  if (p + 1 < len && composite<T>(a, r, p + 1) < x)
+    atomicOr(unsorted + st * a.d + i, 1);
+}
+
+// one block per flagged shard block: sort its P composites in place
+__global__ void __launch_bounds__(1024)
+merge_sort_unsorted(int64_t d, int64_t P, int64_t* comp,
+                    const int32_t* unsorted) {
+  const int64_t b = (int64_t)blockIdx.y * d + blockIdx.x;
+  if (!unsorted[b]) return;
+  block_bitonic_sort<1024, int64_t>(comp + b * P, (int)P);
+}
+
+// number of a block's (ascending) composites below x (strict) or at most x
+__device__ __forceinline__ int64_t count_below(const int64_t* c, int64_t len,
                                                int64_t x, bool or_equal) {
   int64_t lo = 0, hi = len;
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
-    const int64_t c = composite<T>(a, r, mid);
-    if (c < x || (or_equal && c == x)) lo = mid + 1; else hi = mid;
+    if (c[mid] < x || (or_equal && c[mid] == x)) lo = mid + 1; else hi = mid;
   }
   return lo;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
-merge_rank(MergeArgs a, int64_t* sorted) {
+merge_rank(MergeArgs a, int64_t P, const int64_t* comp, int64_t* sorted) {
   const int64_t p = (int64_t)blockIdx.x * NT + threadIdx.x;
   const int64_t i = blockIdx.y, st = blockIdx.z;
   const BlockRef* refs = a.refs + st * a.d;
   const int64_t len = live_len<T>(refs[i], a.s);
   if (p >= len) return;
-  const int64_t x = composite<T>(a, refs[i], p);
+  const int64_t* cst = comp + st * a.d * P;
+  const int64_t x = cst[i * P + p];
   int64_t rank = 0;
   for (int64_t j = 0; j < a.d; ++j) {
-    const int64_t lj = live_len<T>(refs[j], a.s);
     if (j == i) {
       rank += p;    // this block's entries before p are all <= x
       continue;
     }
-    rank += count_below<T>(a, refs[j], lj, x, j < i);
+    rank += count_below(cst + j * P, live_len<T>(refs[j], a.s), x, j < i);
   }
   sorted[st * a.d * a.s + rank] = x;
 }
@@ -133,7 +158,10 @@ merge_keep(MergeArgs a, const int64_t* sorted, int32_t* keep,
   }
   keep[st * n + p] = k ? 1 : 0;
   if (k) {
-    const int64_t row = floordiv(x, a.cs);
+    // the reference's scatter-add wraps a row of -1 (a hole in row 0) to
+    // the last row, as an index of -1 does
+    int64_t row = floordiv(x, a.cs);
+    if (row < 0) row += a.B;
     if (row >= 0 && row < a.B) atomicAdd(counts + st * a.B + row, 1ULL);
   }
 }
@@ -221,6 +249,8 @@ int launch(void* const* p, const int64_t* v, cudaStream_t st) {
   unsigned long long* counts = (unsigned long long*)p[6];
   int32_t* hdr = (int32_t*)p[7];
   T* out = (T*)p[8];
+  int64_t* comp = (int64_t*)p[9];
+  int32_t* unsorted = (int32_t*)p[10];
   const int64_t S = v[0];
   a.d = v[1];
   a.s = v[2];
@@ -236,8 +266,14 @@ int launch(void* const* p, const int64_t* v, cudaStream_t st) {
   cudaMemsetAsync(counts, 0, (size_t)(S * a.B) * sizeof(unsigned long long),
                   st);
   if (n > 0) {
+    const int64_t P = next_pow2((int)a.s);
+    cudaMemsetAsync(unsorted, 0, (size_t)(S * a.d) * sizeof(int32_t), st);
+    merge_prep<T><<<dim3((unsigned)((P + NT - 1) / NT), (unsigned)a.d,
+                         (unsigned)S), NT, 0, st>>>(a, P, comp, unsorted);
+    merge_sort_unsorted<<<dim3((unsigned)a.d, (unsigned)S), 1024, 0, st>>>(
+        a.d, P, comp, unsorted);
     merge_rank<T><<<dim3((unsigned)((a.s + NT - 1) / NT), (unsigned)a.d,
-                         (unsigned)S), NT, 0, st>>>(a, sorted);
+                         (unsigned)S), NT, 0, st>>>(a, P, comp, sorted);
     merge_keep<<<dim3((unsigned)nb, (unsigned)S), NT, 0, st>>>(a, sorted,
                                                                keep, counts);
     scan_blocks<<<dim3((unsigned)nb, (unsigned)S), NT, 0, st>>>(keep, n, nb,
@@ -256,7 +292,8 @@ int launch(void* const* p, const int64_t* v, cudaStream_t st) {
 //       offset), dom int32[ndom] (bucketed dedupe; null otherwise),
 //       sorted int64[S*d*s], keep int32[S*d*s], local int32[S*d*s],
 //       bsum int64[S*nb], counts uint64[S*B], hdr int32[S*(5+B)],
-//       out[S*d*s]
+//       out[S*d*s], comp int64[S*d*P] (P = s rounded up to a power of
+//       two), unsorted int32[S*d]
 // vals: S, d, s, B, codespace, dedupe_key_m (0: no dedupe), mq, ndom, wide
 ACCORD_EXPORT int accord_merge_blocks(void* const* p, const int64_t* v,
                                       void* stream) {

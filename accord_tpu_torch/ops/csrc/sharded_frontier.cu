@@ -1,112 +1,285 @@
-// K13: the row-sharded frontier sweep, and one sweep of the row-sharded
-// fixpoint drain.
+// K13: the row-sharded frontier sweep, one sweep of the row-sharded
+// fixpoint drain, and the whole fixpoint drain in one launch.
 //
 // Replaces (JAX reference, accord_tpu/parallel/sharded.py):
 //   sharded_frontier  <- sharded_ready_frontier (:174): one sweep
-//   sharded_drain     <- sharded_drain (:124): the body of its while loop
-//                        (one launch a sweep; the host reads the changed
-//                        flag and re-launches until no slice changes)
+//   sharded_drain     <- sharded_drain (:124): the body of its while loop,
+//                        one launch a sweep (the host reads the changed
+//                        flag and re-launches until no slice changes); the
+//                        path of a mesh whose slices lie on several cards
+//   sharded_drain_fix <- sharded_drain (:124) whole, when every slice lies
+//                        on this card: one cooperative launch
 // Each device sweeps the rows of its own slices (adj bool[n/d, N] each,
 // row exec and awaits local); the columns' status and executeAt, and in
-// the drain the applied vector, are the gathered ones: the kernel reads
-// every slice's column arrays through a table of per-slice pointers, all
-// on this device (a slice of another device is copied here first).  Row i
-// waits on column j when adj[i, j], j is neither invalidated nor free, j
-// is undecided or executes before i or i awaits all, and j is not applied
-// (the frontier: status Applied; the drain: the gathered applied vector of
-// the previous sweep).  ready = Stable and not applied and not waiting;
-// the drain writes applied | ready to the next buffer and sets the flag
-// when any row became ready.  The reference's bf16 matvec ``> 0.5`` is the
-// boolean any used here.
+// the drain the applied vector, are the gathered ones.  Row i waits on
+// column j when adj[i, j], j is neither invalidated nor free, j is
+// undecided or executes before i or i awaits all, and j is not applied
+// (the frontier: status Applied; the drain: the applied set of the
+// previous sweep).  ready = Stable and not applied and not waiting; the
+// drain applies ready rows and stops after a sweep that applied none.  The
+// reference's bf16 matvec ``> 0.5`` is the boolean any used here.
 //
-// Bound on this card: bytes — each sweep reads the N*N adjacency once.
-// Design: one warp per row as in frontier_dense, lanes striding the row so
-// reads coalesce, a warp vote for "some gating column is unapplied".
+// The slices are passed by value, as a __grid_constant__ kernel parameter
+// (at most MAX_SLICES of them): no table is uploaded per launch.  A row's
+// status and executeAt are read from its own slice's column arrays (the
+// wrapper passes the same tensors for both).
+//
+// Bound on this card: bytes — a sweep reads the N*N adjacency once.
+// sweep: one warp per row, each lane loading 16 bytes of the row at a time
+// (512 bytes a warp a step) and testing only the set bytes, a warp vote
+// ending the row at its first waiting edge.
+// drain_fix: modelled on K8's dense fixpoint (drain_fix.cu): the blocking
+// relation and the Stable rows are packed into bits once (2 MB at 8 x 512
+// x 4,096), each sweep ANDs a row's blocking words with the packed
+// unapplied words of the previous sweep (three rotating buffers: Jacobi
+// sweeps, as the reference's while loop), grid.sync() ends a sweep and a
+// flag in three rotating words ends the loop on the device.  Its time is
+// set by the grid barriers, one a sweep (depth + 1 of them).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int NT = 256;
+constexpr int MAX_SLICES = 16;
 
-// one slice whose rows this launch sweeps
-struct RowRef {
-  const uint8_t* adj;       // [n_l, N]
+// one slice: its rows (adj, awaits, out) and its columns (status, exec,
+// applied of the previous sweep in the per-sweep drain)
+struct SliceRef {
+  const uint8_t* adj;       // [n_l, N] (null: not swept by this launch)
+  const uint8_t* awaits;    // [n_l]
   const int32_t* status;    // [n_l]
   const int64_t *emsb, *elsb;
   const int32_t* enode;
-  const uint8_t* awaits;
-  const uint8_t* applied;   // drain: this slice's applied (prev sweep)
-  uint8_t* out;             // frontier: ready; drain: next applied
-  int64_t slice;            // the slice's index in the mesh
+  const uint8_t* applied;   // per-sweep drain: the previous sweep's
+  uint8_t* out;             // frontier: ready; drain: applied
 };
-static_assert(sizeof(RowRef) == 9 * 8, "RowRef is 9 int64 words");
 
-// every slice's column arrays, on this device
-struct ColRef {
-  const int32_t* status;
-  const int64_t *emsb, *elsb;
-  const int32_t* enode;
-  const uint8_t* applied;   // drain only
+struct SweepParams {
+  SliceRef s[MAX_SLICES];
+  int32_t rows[MAX_SLICES];   // the slices this launch sweeps
+  int32_t n_l, N;
+  int32_t* changed;
 };
-static_assert(sizeof(ColRef) == 5 * 8, "ColRef is 5 int64 words");
 
+// does column j gate row i of slice ``si`` (applied columns excluded by
+// the caller)
+__device__ __forceinline__ bool gates(const SliceRef* s, int32_t n_l,
+                                      const SliceRef& r, int32_t il,
+                                      int32_t j) {
+  const SliceRef& c = s[j / n_l];
+  const int32_t jl = j % n_l;
+  const int32_t sj = c.status[jl];
+  if (sj == SLOT_INVALIDATED || sj == SLOT_FREE) return false;
+  const bool undecided = sj >= 0 && sj < SLOT_COMMITTED;
+  return undecided || r.awaits[il] ||
+         ts_lt(c.emsb[jl], c.elsb[jl], c.enode[jl], r.emsb[il], r.elsb[il],
+               r.enode[il]);
+}
+
+template <bool DRAIN>
+__device__ __forceinline__ bool col_applied(const SliceRef* s, int32_t n_l,
+                                            int32_t j) {
+  const SliceRef& c = s[j / n_l];
+  return DRAIN ? c.applied[j % n_l] != 0
+               : c.status[j % n_l] == SLOT_APPLIED;
+}
+
+template <bool DRAIN>
 __global__ void __launch_bounds__(NT)
-sweep(const RowRef* rows, const ColRef* cols, int64_t n_l, int64_t N,
-      int drain, int* changed) {
-  const RowRef r = rows[blockIdx.y];
-  const int64_t i = ((int64_t)blockIdx.x * NT + threadIdx.x) >> 5;
+sweep(const __grid_constant__ SweepParams p) {
+  const SliceRef& r = p.s[p.rows[blockIdx.y]];
+  const int32_t n_l = p.n_l, N = p.N;
+  const int32_t il = (int32_t)(((int64_t)blockIdx.x * NT + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
-  if (i >= n_l) return;   // whole warps exit together
-  const bool done = drain ? r.applied[i] != 0 : false;
-  const bool stable = r.status[i] == SLOT_STABLE && !done;
+  if (il >= n_l) return;   // whole warps exit together
+  const bool done = DRAIN ? r.applied[il] != 0 : false;
+  const bool stable = r.status[il] == SLOT_STABLE && !done;
   bool waiting = false;
   if (stable) {
-    const int64_t im = r.emsb[i], il = r.elsb[i];
-    const int32_t in = r.enode[i];
-    const bool aw = r.awaits[i] != 0;
-    const uint8_t* row = r.adj + i * N;
-    for (int64_t j0 = 0; j0 < N && !waiting; j0 += 32) {
-      const int64_t j = j0 + lane;
-      bool w = false;
-      if (j < N && row[j]) {
-        const ColRef& c = cols[j / n_l];
-        const int64_t jl = j - (j / n_l) * n_l;
-        const int32_t sj = c.status[jl];
-        const bool applied = drain ? c.applied[jl] != 0 : sj == SLOT_APPLIED;
-        if (sj != SLOT_INVALIDATED && sj != SLOT_FREE && !applied) {
-          const bool undecided = sj >= 0 && sj < SLOT_COMMITTED;
-          w = undecided || aw ||
-              ts_lt(c.emsb[jl], c.elsb[jl], c.enode[jl], im, il, in);
+    const uint8_t* row = r.adj + (int64_t)il * N;
+    if ((N & 15) == 0 && ((uintptr_t)row & 15) == 0) {
+      for (int32_t j0 = 0; j0 < N && !waiting; j0 += 512) {
+        const int32_t j = j0 + lane * 16;
+        bool w = false;
+        if (j < N) {
+          const uint4 q = *(const uint4*)(row + j);
+          const uint32_t word[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            if (!((word[e >> 2] >> ((e & 3) * 8)) & 0xff)) continue;
+            const int32_t jj = j + e;
+            if (!col_applied<DRAIN>(p.s, n_l, jj) &&
+                gates(p.s, n_l, r, il, jj))
+              w = true;
+          }
         }
+        waiting = __any_sync(0xffffffffu, w);
       }
-      waiting = __any_sync(0xffffffffu, w);
+    } else {
+      for (int32_t j0 = 0; j0 < N && !waiting; j0 += 32) {
+        const int32_t j = j0 + lane;
+        const bool w = j < N && row[j] && !col_applied<DRAIN>(p.s, n_l, j) &&
+                       gates(p.s, n_l, r, il, j);
+        waiting = __any_sync(0xffffffffu, w);
+      }
     }
   }
   if (lane == 0) {
     const bool ready = stable && !waiting;
-    if (drain) {
-      r.out[i] = done || ready;
-      if (ready) atomicOr(changed, 1);
+    if (DRAIN) {
+      r.out[il] = done || ready;
+      if (ready) atomicOr(p.changed, 1);
     } else {
-      r.out[i] = ready;
+      r.out[il] = ready;
     }
   }
 }
 
+struct FixParams {
+  SliceRef s[MAX_SLICES];
+  int32_t d, n_l, N, W;
+  uint32_t* blk;       // [N*W] packed blocking rows
+  uint32_t* bits;      // [4*W] three rotating applied sets, then Stable
+  int32_t* flags;      // [3]
+  int32_t* sweeps;
+};
+
+__global__ void __launch_bounds__(NT)
+drain_fix(const __grid_constant__ FixParams p) {
+  cg::grid_group grid = cg::this_grid();
+  const int64_t tid = (int64_t)blockIdx.x * NT + threadIdx.x;
+  const int64_t nthreads = (int64_t)gridDim.x * NT;
+  const int64_t warp = tid >> 5, nwarps = nthreads >> 5;
+  const int lane = threadIdx.x & 31;
+  const int32_t n_l = p.n_l, N = p.N;
+  const int64_t W = p.W;
+  uint32_t* stab = p.bits + 3 * W;
+
+  for (int64_t t = tid; t < (int64_t)N * W; t += nthreads) {
+    const int32_t i = (int32_t)(t / W), j0 = (int32_t)(t % W) * 32;
+    const SliceRef& r = p.s[i / n_l];
+    const int32_t il = i % n_l;
+    const uint8_t* row = r.adj + (int64_t)il * N + j0;
+    const int32_t nb = mini(32, N - j0);
+    uint32_t word = 0;
+    for (int32_t b = 0; b < nb; ++b)
+      if (row[b] && gates(p.s, n_l, r, il, j0 + b)) word |= 1u << b;
+    p.blk[t] = word;
+  }
+  for (int64_t v = tid; v < W; v += nthreads) {
+    uint32_t ap = 0, st = 0;
+    for (int32_t b = 0; b < 32 && v * 32 + b < N; ++b) {
+      const int32_t i = (int32_t)v * 32 + b;
+      const int32_t s = p.s[i / n_l].status[i % n_l];
+      if (s == SLOT_APPLIED) ap |= 1u << b;
+      if (s == SLOT_STABLE) st |= 1u << b;
+    }
+    p.bits[v] = ap;
+    p.bits[W + v] = 0;   // sweep 0 ORs its result into the second set
+    stab[v] = st;
+  }
+  if (tid == 0) p.flags[0] = p.flags[1] = p.flags[2] = 0;
+  grid.sync();
+
+  int64_t r = 0;
+  bool more = true;
+  while (more) {
+    const uint32_t* cur = p.bits + (r % 3) * W;
+    uint32_t* nxt = p.bits + ((r + 1) % 3) * W;
+    uint32_t* after = p.bits + ((r + 2) % 3) * W;   // the last sweep's input
+    for (int64_t v = tid; v < W; v += nthreads) {
+      after[v] = 0;
+      atomicOr(&nxt[v], cur[v]);
+    }
+    if (tid == 0) p.flags[(r + 1) % 3] = 0;
+    bool mine = false;
+    for (int64_t i = warp; i < N; i += nwarps) {
+      // warp-uniform: every lane reads the same row state
+      if (!((stab[i >> 5] & ~cur[i >> 5]) >> (i & 31) & 1)) continue;
+      const uint32_t* row = p.blk + i * W;
+      uint32_t wait = 0;
+      for (int64_t v = lane; v < W; v += 32) wait |= row[v] & ~cur[v];
+      if (!__any_sync(0xffffffffu, wait != 0) && lane == 0) {
+        atomicOr(&nxt[i >> 5], 1u << (i & 31));
+        mine = true;
+      }
+    }
+    if (mine) p.flags[r % 3] = 1;
+    grid.sync();
+    more = *(volatile int32_t*)&p.flags[r % 3] != 0;
+    ++r;
+  }
+  const uint32_t* fin = p.bits + (r % 3) * W;
+  for (int64_t i = tid; i < N; i += nthreads)
+    p.s[i / n_l].out[i % n_l] = (fin[i >> 5] >> (i & 31)) & 1;
+  if (tid == 0) *p.sweeps = (int32_t)r;
+}
+
+// ptrs per slice (8 each, slice-major): adj (null for a slice this launch
+// does not sweep), awaits, status, exec_msb, exec_lsb, exec_node, applied
+// (null in the frontier), out (null for a slice not swept)
+int read_slices(void* const* p, int64_t d, SliceRef* s) {
+  if (d < 1 || d > MAX_SLICES) return (int)cudaErrorInvalidValue;
+  for (int64_t k = 0; k < d; ++k) {
+    void* const* q = p + 8 * k;
+    s[k] = SliceRef{(const uint8_t*)q[0], (const uint8_t*)q[1],
+                    (const int32_t*)q[2], (const int64_t*)q[3],
+                    (const int64_t*)q[4], (const int32_t*)q[5],
+                    (const uint8_t*)q[6], (uint8_t*)q[7]};
+  }
+  return 0;
+}
+
 }  // namespace
 
-// ptrs: rows RowRef[R] (the slices of this device), cols ColRef[d] (every
-//       slice, on this device), changed int32[1] (drain: set when a row
-//       became ready; the wrapper zeroes it)
-// vals: R, n_l (rows per slice), N (= d * n_l), drain
+// ptrs: 8 per slice (see read_slices) for d slices, then changed int32[1]
+//       (drain: set when a row became ready; zeroed here)
+// vals: d, n_l (rows per slice), N (= d * n_l), drain, R, then the R
+//       indices of the slices this launch sweeps
 ACCORD_EXPORT int accord_sharded_sweep(void* const* p, const int64_t* v,
                                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int64_t R = v[0], n_l = v[1], N = v[2];
-  if (v[3]) cudaMemsetAsync(p[2], 0, sizeof(int), st);
-  if (R > 0 && n_l > 0)
-    sweep<<<dim3((unsigned)((n_l * 32 + NT - 1) / NT), (unsigned)R), NT, 0,
-            st>>>((const RowRef*)p[0], (const ColRef*)p[1], n_l, N,
-                  (int)v[3], (int*)p[2]);
+  SweepParams a;
+  const int64_t d = v[0], R = v[4];
+  int e = read_slices(p, d, a.s);
+  if (e) return e;
+  if (R < 0 || R > d) return (int)cudaErrorInvalidValue;
+  for (int64_t k = 0; k < R; ++k) a.rows[k] = (int32_t)v[5 + k];
+  a.n_l = (int32_t)v[1];
+  a.N = (int32_t)v[2];
+  a.changed = (int32_t*)p[8 * d];
+  if (v[3]) cudaMemsetAsync(a.changed, 0, sizeof(int32_t), st);
+  if (R > 0 && a.n_l > 0) {
+    const dim3 grid((unsigned)(((int64_t)a.n_l * 32 + NT - 1) / NT),
+                    (unsigned)R);
+    if (v[3]) sweep<true><<<grid, NT, 0, st>>>(a);
+    else sweep<false><<<grid, NT, 0, st>>>(a);
+  }
   return (int)cudaGetLastError();
+}
+
+// ptrs: 8 per slice (applied null) for d slices, then blk int32[N*W]
+//       (W = ceil(N/32)), bits int32[4*W], flags int32[3], sweeps int32[1]
+// vals: d, n_l, N
+ACCORD_EXPORT int accord_sharded_drain_fix(void* const* p, const int64_t* v,
+                                           void* stream) {
+  FixParams a;
+  const int64_t d = v[0];
+  int e = read_slices(p, d, a.s);
+  if (e) return e;
+  a.d = (int32_t)d;
+  a.n_l = (int32_t)v[1];
+  a.N = (int32_t)v[2];
+  a.W = (a.N + 31) / 32;
+  a.blk = (uint32_t*)p[8 * d];
+  a.bits = (uint32_t*)p[8 * d + 1];
+  a.flags = (int32_t*)p[8 * d + 2];
+  a.sweeps = (int32_t*)p[8 * d + 3];
+  // a warp per row
+  return launch_cooperative(drain_fix, NT, ((int64_t)a.N * 32 + NT - 1) / NT,
+                            a, (cudaStream_t)stream);
 }

@@ -37,13 +37,15 @@ kernels.  The wrappers allocate every output and scratch buffer with
 | merge_blocks   | parallel/sharded.py:425 _merge_shard_blocks              |
 | sharded_frontier | parallel/sharded.py:174 sharded_ready_frontier         |
 | sharded_drain  | parallel/sharded.py:124 sharded_drain (one launch a sweep) |
+| sharded_drain_fix | parallel/sharded.py:124 sharded_drain (one launch)    |
 | attr_tok       | parallel/sharded.py:566-576 (the token psum's terms)     |
 
 The fused kernels read every member store's tensors where they lie: the
 wrapper uploads one small table of per-store base pointers and sizes
 (``_store_refs``), and the kernel puts the store on a grid dimension.  The
 mesh kernels read the slices of one device the same way: their wrappers
-take the slices that lie on one device and launch once for them.
+take the slices that lie on one device and launch once for them (K13
+passes the slices' pointers in the kernel parameter instead).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ KERNELS = ("deps_bucketed", "deps_dense", "attr_post", "scatter_rows",
            "level_ell", "level_dense", "drain_fix_dense", "drain_fix_ell",
            "level_drain", "logsq_dense", "dense_degree", "dense_to_ell",
            "calc_deps", "ts_max", "merge_blocks", "sharded_frontier",
-           "sharded_drain", "attr_tok")
+           "sharded_drain", "sharded_drain_fix", "attr_tok")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # codes per row that deps_bucketed sorts in shared memory (32 KiB of
@@ -575,15 +577,16 @@ def logsq_dense(state: drk.DrainState):
     dev = state.status.device
     _check_cols(state)
     n = _square(state)
-    w = -(-n // 32)
-    nr = -(-n // 128) * 128          # rows padded to the column tile
-    packed = [torch.empty(max(nr * w, 1), dtype=torch.int32, device=dev)
-              for _ in range(4)]     # rows x2, columns x2
-    tgt = torch.empty(max(w, 1), dtype=torch.int32, device=dev)
-    hit = torch.empty(max(n, 1), dtype=torch.bool, device=dev)
+    # one int32 workspace (``work`` of csrc/logsq.cu): s by rows and by
+    # columns twice each (N padded to the 256-bit k-chunk), the targets,
+    # the chunk masks, the tile counters, the flags and ``hit``
+    npad = -(-n // 256) * 256
+    w = npad // 32
+    masks = 6 * (npad // 128) * -(-npad // 256 // 32)
+    work = torch.empty(4 * npad * w + w + masks + 6 + -(-n // 4),
+                       dtype=torch.int32, device=dev)
     out = _drain_outputs(dev, n)
-    _launch("logsq_dense", dev,
-            [*state, *packed, tgt, hit, _flags(dev), *out], [n])
+    _launch("logsq_dense", dev, [*state, work, *out], [n])
     return out
 
 
@@ -719,36 +722,63 @@ def merge_blocks(blocks, b: int, s: int, codespace: int,
     counts = torch.empty(n_s * b, dtype=torch.int64, device=dev)
     hdr = torch.empty((n_s, 5 + b), dtype=torch.int32, device=dev)
     out = torch.empty((n_s, n), dtype=ent0.dtype, device=dev)
+    comp = torch.empty(max(n_s * d * _next_pow2(s), 1), dtype=torch.int64,
+                       device=dev)
+    unsorted = torch.empty(n_s * d, dtype=torch.int32, device=dev)
     if dedupe_key_m:
         _check(dom, torch.int32, "dom")
     _launch("merge_blocks", dev,
             [refs, dom if dedupe_key_m else None, sorted_, keep, local, bsum,
-             counts, hdr, out],
+             counts, hdr, out, comp, unsorted],
             [n_s, d, s, b, codespace, dedupe_key_m, mq or 1,
              dom.shape[0] if dedupe_key_m else 1,
              int(ent0.dtype == torch.int64)])
     return hdr, out
 
 
-# -- K13: the row-sharded frontier and fixpoint sweep --------------------------
+# -- K13: the row-sharded frontier, fixpoint sweep and fixpoint drain --------
 
-def _sweep(name: str, rows, cols, n_l: int, n: int, drain: bool):
-    dev = rows[0][1].device
-    rrefs, crefs = [], []
+# slices a K13 launch takes (MAX_SLICES of csrc/sharded_frontier.cu): they
+# travel by value in the kernel parameter, so nothing is uploaded
+SHARDED_MAX_SLICES = 16
+
+
+def _slice_ptrs(rows, cols, n_l: int, n: int, drain: bool) -> list:
+    """The 8 tensors per slice that K13 reads (``read_slices`` of
+    csrc/sharded_frontier.cu): a swept slice's adjacency, awaits and out,
+    every slice's column arrays.  A swept row reads its own status and
+    executeAt from its slice's column arrays, so they must be the same
+    tensors."""
+    d = len(cols)
+    if d > SHARDED_MAX_SLICES:
+        raise ValueError(f"K13 takes at most {SHARDED_MAX_SLICES} slices, "
+                         f"got {d}")
+    swept = {}
     for adj, status, em, el, en, aw, applied, out, idx in rows:
+        col = cols[idx]
+        if (col[0] is not status or col[1] is not em or col[2] is not el
+                or col[3] is not en or (drain and col[4] is not applied)):
+            raise ValueError(f"slice {idx}: its row arrays are not its "
+                             "column arrays")
         _check(adj, torch.bool, "adj")
         if adj.shape != (n_l, n):
             raise ValueError(f"slice adjacency {tuple(adj.shape)} is not "
                              f"[{n_l}, {n}]")
-        rrefs.append([_ptr(adj), _ptr(status), _ptr(em), _ptr(el),
-                      _ptr(en), _ptr(aw), _ptr(applied), _ptr(out), idx])
-    for status, em, el, en, applied in cols:
+        swept[idx] = (adj, aw, out)
+    ptrs = []
+    for k, (status, em, el, en, applied) in enumerate(cols):
         _check(status, torch.int32, "status")
-        crefs.append([_ptr(status), _ptr(em), _ptr(el), _ptr(en),
-                      _ptr(applied)])
+        adj, aw, out = swept.get(k, (None, None, None))
+        ptrs += [adj, aw, status, em, el, en, applied, out]
+    return ptrs
+
+
+def _sweep(name: str, rows, cols, n_l: int, n: int, drain: bool):
+    dev = rows[0][1].device
     changed = torch.empty(1, dtype=torch.int32, device=dev)
-    _launch(name, dev, [_store_refs(dev, rrefs), _store_refs(dev, crefs),
-                        changed], [len(rows), n_l, n, int(drain)],
+    idx = [r[8] for r in rows]
+    _launch(name, dev, _slice_ptrs(rows, cols, n_l, n, drain) + [changed],
+            [len(cols), n_l, n, int(drain), len(idx), *idx],
             entry="sharded_sweep")
     return changed
 
@@ -774,6 +804,30 @@ def sharded_drain(rows, cols, n_l: int, n: int) -> torch.Tensor:
         from ..parallel.sharded import sweep_plain
         return sweep_plain(rows, cols, n_l, drain=True)
     return _sweep("sharded_drain", rows, cols, n_l, n, drain=True)
+
+
+def sharded_drain_fix(rows, cols, n_l: int, n: int) -> torch.Tensor:
+    """The whole row-sharded fixpoint drain in one cooperative launch,
+    every slice on one device: ``rows`` holds every slice as in
+    sharded_frontier (applied None), ``cols`` every slice's column arrays
+    (applied None).  Writes each slice's final applied flags to its out;
+    returns the sweep count int32[1] (the final empty sweep included)."""
+    if not on_cuda(rows[0][1]):
+        from ..parallel.sharded import drain_fix_plain
+        return drain_fix_plain(rows, cols, n_l)
+    dev = rows[0][1].device
+    d = len(cols)
+    if sorted(r[8] for r in rows) != list(range(d)):
+        raise ValueError("sharded_drain_fix sweeps every slice in one "
+                         "launch")
+    w = -(-n // 32)
+    blk = torch.empty(max(n * w, 1), dtype=torch.int32, device=dev)
+    bits = torch.empty(max(4 * w, 1), dtype=torch.int32, device=dev)
+    sweeps = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch("sharded_drain_fix", dev,
+            _slice_ptrs(rows, cols, n_l, n, False)
+            + [blk, bits, _flags(dev), sweeps], [d, n_l, n])
+    return sweeps
 
 
 # -- K2 extension: the mesh-bucketed entry tokens ------------------------------

@@ -15,9 +15,10 @@ reference's tests run 8 virtual CPU devices.
   slices share a device.
 - Each program runs its shards' local bodies with the port's kernels
   (``ops.kernels``): the slot slices of one device go to one launch where
-  the kernel reads them through a pointer table (K11 ``calc_deps``, K13
-  ``sharded_frontier`` / ``sharded_drain``, the token gather
-  ``attr_tok``), and per slice where the local body is one of the
+  the kernel reads them through a pointer table (K11 ``calc_deps``, the
+  token gather ``attr_tok``) or its parameter (K13 ``sharded_frontier``,
+  ``sharded_drain`` and the one-launch fixpoint ``sharded_drain_fix``),
+  and per slice where the local body is one of the
   single-table kernels (K1a, K1b, K2) or the fused K5.  A kernel never
   reads another device's memory.
 - The reference's all-gathers and sums become copies outside the kernels
@@ -236,33 +237,74 @@ def sharded_ready_frontier(mesh: Mesh):
 
 def sharded_drain(mesh: Mesh):
     """Row-sharded fixpoint drain: fn(state) -> (applied[N], newly[N]) on
-    mesh device 0.  One launch a device a sweep; after each the host reads
-    the changed flags and gathers the applied slices for the next sweep,
-    until no slice changed."""
+    mesh device 0.  When every slice lies on one device, one cooperative
+    launch runs the whole fixpoint (K13 ``sharded_drain_fix``); otherwise
+    ``drain_by_sweeps``."""
     def call(state):
+        if len(mesh.groups()) > 1:
+            return drain_by_sweeps(mesh, state)
         slices = _sharded_rows(mesh, state)
         n_l = slices[0].status.shape[0]
-        n = n_l * mesh.size
-        applied0 = [s.status == dk.SLOT_APPLIED for s in slices]
-        applied = applied0
-        groups = mesh.groups()
-        static = {dev: _cols_on(dev, slices) for dev in groups}
-        while True:
-            nxt = [torch.empty(n_l, dtype=torch.bool, device=dev)
-                   for dev in mesh.devices]
-            flags = []
-            for dev, idx in groups.items():
-                cols = [c[:4] + (applied[j].to(dev),)
-                        for j, c in enumerate(static[dev])]
-                rows = [(*slices[i], applied[i], nxt[i], i) for i in idx]
-                flags.append(kernels.sharded_drain(rows, cols, n_l, n))
-            applied = nxt
-            if not any(int(f.item()) for f in flags):
-                break
-        full = gather(mesh, applied)
-        return full, full & ~gather(mesh, applied0)
+        dev = mesh.dev0
+        outs = [torch.empty(n_l, dtype=torch.bool, device=dev)
+                for _ in slices]
+        kernels.sharded_drain_fix(
+            [(*s, None, outs[i], i) for i, s in enumerate(slices)],
+            _cols_on(dev, slices), n_l, n_l * mesh.size)
+        full = gather(mesh, outs)
+        return full, full & ~gather(mesh, [s.status == dk.SLOT_APPLIED
+                                           for s in slices])
 
     return call
+
+
+def drain_by_sweeps(mesh: Mesh, state):
+    """``sharded_drain`` of a mesh whose slices span devices: one launch
+    a device a sweep (K13 ``sharded_drain``); after each the host reads
+    the changed flags and gathers the applied slices for the next sweep,
+    until no slice changed.  (applied[N], newly[N]) on mesh device 0."""
+    slices = _sharded_rows(mesh, state)
+    n_l = slices[0].status.shape[0]
+    n = n_l * mesh.size
+    applied0 = [s.status == dk.SLOT_APPLIED for s in slices]
+    applied = applied0
+    groups = mesh.groups()
+    static = {dev: _cols_on(dev, slices) for dev in groups}
+    while True:
+        nxt = [torch.empty(n_l, dtype=torch.bool, device=dev)
+               for dev in mesh.devices]
+        flags = []
+        for dev, idx in groups.items():
+            cols = [c[:4] + (applied[j].to(dev),)
+                    for j, c in enumerate(static[dev])]
+            rows = [(*slices[i], cols[i][4], nxt[i], i) for i in idx]
+            flags.append(kernels.sharded_drain(rows, cols, n_l, n))
+        applied = nxt
+        if not any(int(f.item()) for f in flags):
+            break
+    full = gather(mesh, applied)
+    return full, full & ~gather(mesh, applied0)
+
+
+def drain_fix_plain(rows, cols, n_l: int) -> torch.Tensor:
+    """The plain version of ``ops.kernels.sharded_drain_fix``: the K13
+    sweep repeated to its fixpoint, each sweep reading the previous one's
+    applied set.  Writes each slice's applied flags to its out; returns
+    the sweep count (int32[1], the final empty sweep included)."""
+    applied = [c[0] == dk.SLOT_APPLIED for c in cols]
+    sweeps = 0
+    while True:
+        nxt = [torch.empty_like(a) for a in applied]
+        cs = [c[:4] + (applied[j],) for j, c in enumerate(cols)]
+        rs = [(*r[:6], applied[r[8]], nxt[r[8]], r[8]) for r in rows]
+        changed = sweep_plain(rs, cs, n_l, drain=True)
+        applied = nxt
+        sweeps += 1
+        if not int(changed[0]):
+            break
+    for r in rows:
+        r[7].copy_(applied[r[8]])
+    return torch.tensor([sweeps], dtype=torch.int32, device=rows[0][1].device)
 
 
 def sweep_plain(rows, cols, n_l: int, drain: bool):

@@ -158,16 +158,26 @@ KMETA = {
                          "accord_tpu/parallel/sharded.py:174"),
     "sharded_drain": ("accord_tpu_torch/ops/csrc/sharded_frontier.cu",
                       "accord_tpu/parallel/sharded.py:124"),
+    "sharded_drain_fix": ("accord_tpu_torch/ops/csrc/sharded_frontier.cu",
+                          "accord_tpu/parallel/sharded.py:124"),
     "attr_tok": ("accord_tpu_torch/ops/csrc/attr_post.cu",
                  "accord_tpu/parallel/sharded.py:566"),
 }
 MESH_KERNELS = ("calc_deps", "ts_max", "merge_blocks", "sharded_frontier",
-                "sharded_drain", "attr_tok")
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
-# non-tensor-core fp32 rate, used as the peak of the scalar integer
-# compare/select work these kernels do (no tensor-core work here)
+                "sharded_drain", "sharded_drain_fix", "attr_tok")
+# the per-sweep K13 drain runs only for a mesh whose slices span cards;
+# every mesh here lies on one card, so the main path never launches it
+# (its kernel is still held against its plain version below)
+MULTI_CARD_ONLY = ("sharded_drain",)
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and the dense
+# int8 tensor-core rate, the stand-in for K9's b1 products (no b1 rate is
+# published)
 HBM_BPS = 3.35e12
-SCALAR_OPS = 67e12
+TENSOR_INT8_OPS = 1979e12
+# the peak of the scalar integer work (compares, selects, AND/OR): 32-bit
+# integer instructions per second, 64 INT32 lanes an SM at the card's
+# maximum SM clock (logic_rate); a CPU rehearsal uses 132 SMs x 1.98 GHz
+LOGIC_OPS = 132 * 64 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -561,17 +571,39 @@ def level_drain_case(torch, kern, drk, status, lv, watermark=None):
             n * 10 + 4, n * 4)
 
 
+def logsq_tile_pairs(torch, step, squarings: int) -> int:
+    """The (128 x 128 output tile, 256-bit k-chunk) pairs whose row words
+    and column words are both non-zero, summed over the squarings of the
+    0/1 step matrix: the products K9's input needs (its blocks skip the
+    other pairs; a dense input meets every pair).  The closure sequence
+    is the plain one, s <- s | (s.s > 0), in fp32 (exact for 0/1 counts
+    below 2^24), N padded with zeros to a multiple of 256."""
+    n = step.shape[0]
+    npad = -(-n // 256) * 256
+    s = torch.zeros((npad, npad), dtype=torch.float32, device=step.device)
+    s[:n, :n] = step
+    pairs = 0
+    for _ in range(squarings):
+        a = s.view(npad // 128, 128, npad // 256, 256).amax(dim=(1, 3)) > 0
+        b = s.view(npad // 256, 256, npad // 128, 128).amax(dim=(1, 3)) > 0
+        pairs += int((a.sum(0) * b.sum(1)).sum())
+        s = ((s @ s > 0) | (s > 0)).float()
+    return pairs
+
+
 def logsq_case(torch, kern, drk, state):
     """K9 log-squaring.  Bytes: one drain's (the adjacency of the Stable
-    rows, read once); operations: the squarings this input takes, each
-    N^2 x ceil(N/32) 32-bit AND/OR pairs, and the final mat-vec.  The
-    library call squares the fp16 0/1 step matrix with torch.matmul (> 0.5)
-    as many times as the kernel does."""
+    rows, read once); operations: 2 x 128 x 128 x 256 for each (output
+    tile, k-chunk) pair that this input's squarings meet with non-zero
+    operands (``logsq_tile_pairs``; squarings x 2 N^3 on a dense input),
+    at the int8 tensor-core rate.  The library call squares the fp16 0/1
+    step matrix with torch.matmul (> 0.5) as many times as the kernel
+    does."""
     n = state.status.shape[0]
-    w = -(-n // 32)
     sq = int(drk.drain_dense_logsq_plain(state)[2])
     stable = state.status == drk.SLOT_STABLE
     step = (drk.blocking_matrix(state) & stable[None, :]).to(torch.float16)
+    pairs = logsq_tile_pairs(torch, step, sq)
 
     def run_library():
         s = step
@@ -582,7 +614,27 @@ def logsq_case(torch, kern, drk, state):
     nbytes, _ops = level_work(torch, drk, state, 2 * n + 4)
     return (lambda: kern.logsq_dense(state),
             lambda: drk.drain_dense_logsq_plain(state), run_library,
-            nbytes, sq * n * n * w * 2 + n * w * 2)
+            nbytes, pairs * 2 * 128 * 128 * 256, TENSOR_INT8_OPS)
+
+
+def logsq_dense_input(convert, dev, n, seed=21):
+    """A K9 input whose every (tile, k-chunk) pair is non-zero from the
+    first squaring: Stable rows with 8 random edges each (cycles
+    included) and awaits_all, so every edge gates; 4 rows Applied."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((n, n), bool)
+    adj[np.repeat(np.arange(n), 8), rng.integers(0, n, 8 * n)] = True
+    status = np.full(n, 4, np.int32)
+    status[rng.integers(0, n, 4)] = 5
+    return convert.tables_from_numpy({"drain": (
+        adj, status, np.arange(n, dtype=np.int64), np.zeros(n, np.int64),
+        np.ones(n, np.int32), np.ones(n, bool))}, dev)["drain"]
+
+
+def logsq_simt_ms(n: int, squarings: int) -> float:
+    """The bound of K9's earlier SIMT design: N^2 x ceil(N/32)
+    32-bit AND/OR pairs a squaring (one LOP3 each) at the logic rate."""
+    return squarings * n * n * -(-n // 32) / LOGIC_OPS * 1e3
 
 
 def degree_case(torch, kern, drk, adj):
@@ -658,30 +710,54 @@ def time_ms(torch, fn, on_cuda: bool, reps: int = 15, warm: int = 3):
     return statistics.median(ts)
 
 
+def logic_rate(torch, dev) -> float:
+    """32-bit integer instructions per second on this card: its SMs x 64
+    INT32 lanes x its maximum SM clock (``nvidia-smi`` clocks.max.sm)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    try:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits", "-i", str(dev.index or 0)],
+            capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0])
+    except (OSError, IndexError, ValueError, subprocess.SubprocessError):
+        fail("nvidia-smi did not report the maximum SM clock")
+    return sms * 64 * mhz * 1e6
+
+
 def run_checks(torch, cases: dict, label: str, on_cuda: bool,
                timed: bool) -> dict:
     """Each case: kernel vs plain on the same inputs, byte-equal."""
     out = {}
-    for name, (kfn, pfn, lfn, nbytes, ops) in cases.items():
+    for name, case in cases.items():
+        kfn, pfn, lfn, nbytes, ops = case[:5]
+        # operations per second of the work a case counts: the scalar
+        # logic rate unless the case names another (a tensor-core rate)
+        peak = case[5] if len(case) > 5 else LOGIC_OPS
         got = kfn()
+        if on_cuda:
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = pfn()
         if on_cuda:
             torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
         # a plain version that loops on the host (a fixpoint's thousands
-        # of sweeps) is timed with fewer repetitions
-        reps, warm = (15, 3) if time.perf_counter() - t0 < 0.2 else (3, 1)
+        # of sweeps) is timed with fewer repetitions, and one that takes
+        # seconds by the call above
+        reps, warm = (15, 3) if plain_s < 0.2 else (3, 1)
         err = _max_abs_err(torch, got, want)
         check(err == 0, f"{label} {name}: kernel != plain (max_abs_err "
                         f"{err})")
         row = {"max_abs_err": err}
         if timed:
             row["ms"] = time_ms(torch, kfn, on_cuda)
-            row["plain_ms"] = time_ms(torch, pfn, on_cuda, reps, warm)
+            row["plain_ms"] = (plain_s * 1e3 if plain_s > 2.0 else
+                               time_ms(torch, pfn, on_cuda, reps, warm))
             row["library_ms"] = (time_ms(torch, lfn, on_cuda)
                                  if lfn is not None else None)
             t_bytes = nbytes / HBM_BPS * 1e3
-            t_ops = ops / SCALAR_OPS * 1e3
+            t_ops = ops / peak * 1e3
             row["bound_ms"] = max(t_bytes, t_ops)
             row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             row["bytes"] = int(nbytes)
@@ -753,6 +829,21 @@ def small_cases(torch, dev, kern, dk, drk, convert):
     cases["level_dense[chain1024]"] = level_case(torch, kern, drk, dchain)
     cases["level_ell[chain1024]"] = level_case(torch, kern, drk, echain)
     cases.update(drain_cases(torch, kern, drk, "chain1024", dchain, echain))
+    # K9 at the edges of its tiling: one row,
+    # either side of a 32-bit word and of a 128-row tile, a prime, and
+    # 4,097 (one past a 256-bit k-chunk: 255 padded rows and columns),
+    # random and as a 4,097-deep chain (13 squarings); the card only
+    sizes = ((11, 1), (12, 31), (13, 33), (14, 127), (15, 129), (16, 1009))
+    if dev.type == "cuda":
+        sizes += ((17, 4097),)
+    logsq_states = [(f"n{n}", convert.tables_from_numpy(
+        {"drain": small_drain(seed, n)[0]}, dev)["drain"])
+        for seed, n in sizes]
+    if dev.type == "cuda":
+        logsq_states.append(("chain4097",
+                             chain_states(convert, dev, 4097)[0]))
+    for tag, st in logsq_states:
+        cases[f"logsq_dense[{tag}]"] = logsq_case(torch, kern, drk, st)
     # K5 on unequal members (capacities and interval widths), int32 and
     # int64 codes, every leg switch, and budgets that overflow
     for seed, wide, shapes in ((5, False, ((256, 4), (96, 2), (160, 8))),
@@ -935,7 +1026,7 @@ def _work(name, a):
         return a[0].numel()
     if name == "merge_blocks":
         return len(a[0]) * len(a[0][0]) * a[2]
-    if name in ("sharded_frontier", "sharded_drain"):
+    if name in ("sharded_frontier", "sharded_drain", "sharded_drain_fix"):
         return len(a[0]) * a[2] * a[3]
     if name == "attr_tok":
         return len(a[0]) * a[0][0].shape[0]
@@ -1728,6 +1819,11 @@ def sweep_case(torch, kern, drk, psh, rows, cols, n_l, n):
     call is torch.any of the precomputed blocking against the unapplied
     columns."""
     drain = rows[0][6] is not None
+    # a swept row reads its status and executeAt from its slice's column
+    # arrays: hand the kernel the same tensors (a recorded call's copies
+    # are distinct)
+    rows = [(r[0], *cols[r[8]][:4], r[5], cols[r[8]][4] if drain else None,
+             r[7], r[8]) for r in rows]
     full = drk.DrainState(
         torch.cat([r[0] for r in rows]), torch.cat([c[0] for c in cols]),
         torch.cat([c[1] for c in cols]), torch.cat([c[2] for c in cols]),
@@ -1753,6 +1849,67 @@ def sweep_case(torch, kern, drk, psh, rows, cols, n_l, n):
     return (run_kernel, run_plain,
             lambda: torch.any(blk & unapplied[None, :], dim=1),
             *frontier_work(torch, drk, full))
+
+
+def fixd_case(torch, kern, drk, psh, rows, cols, n_l, n):
+    """K13's one-launch fixpoint drain (every slice on one card): each
+    slice's final applied flags and the sweep count against the plain
+    sweep loop; the bound is a drain's work on the gathered state (K8's:
+    one pass over the Stable rows' adjacency)."""
+    rows = [(r[0], *cols[r[8]][:4], r[5], None, r[7], r[8]) for r in rows]
+    cols = [c[:4] + (None,) for c in cols]
+    full = drk.DrainState(
+        torch.cat([r[0] for r in rows]), torch.cat([c[0] for c in cols]),
+        torch.cat([c[1] for c in cols]), torch.cat([c[2] for c in cols]),
+        torch.cat([c[3] for c in cols]), torch.cat([r[5] for r in rows]))
+
+    def own():
+        return [r[:7] + (torch.empty_like(r[7]),) + r[8:] for r in rows]
+
+    rk, rp = own(), own()
+
+    def run_kernel():
+        sweeps = kern.sharded_drain_fix(rk, cols, n_l, n)
+        return tuple(r[7] for r in rk) + (sweeps,)
+
+    def run_plain():
+        sweeps = psh.drain_fix_plain(rp, cols, n_l)
+        return tuple(r[7] for r in rp) + (sweeps,)
+
+    return (run_kernel, run_plain, None,
+            *level_work(torch, drk, full, n + 4))
+
+
+def overflow_blocks(torch, dev, kern, dk, psh, convert, mesh, seed=1, s=16,
+                    k=2):
+    """A real K12 overflow: each slice's deps scan (K1b) and attribution
+    (K2) at a budget too small for its answers, which leaves -1 holes
+    inside the attributed rows.  Returns merge_case's (blocks, B, s,
+    codespace); fails unless a block overflowed with its composites
+    descending somewhere."""
+    inp = small_inputs(seed, dk)
+    up = convert.tables_from_numpy({"table": inp["table"],
+                                    "attr": inp["attr"],
+                                    "aidx": inp["aidx"]}, dev)
+    qmat = torch.from_numpy(inp["qmat"]).to(dev)
+    rankb = torch.from_numpy(inp["rankb"]).to(dev)
+    m, m_t = inp["m"], inp["m_t"]
+    sh = psh.shard_table(mesh, up["table"])
+    attr = dk.AttrCols(*(psh._split_rows(mesh, c) for c in up["attr"]))
+    shard_n = sh.lo[0].shape[0]
+    blocks = []
+    for i in range(mesh.size):
+        t = psh.slice_of(sh, i)
+        hdr_raw, ent = kern.deps_dense(t, qmat, m, s, k, inp["prune"], False)
+        hdr, ent = kern.attr_post(t.lo, psh.slice_of(attr, i), up["aidx"],
+                                  rankb, hdr_raw, ent, m_t, m, True, True)
+        blocks.append((hdr, ent, i * shard_n * m_t * m))
+    codespace = mesh.size * shard_n * m_t * m
+    comp = _composites(torch, [blocks], s, codespace).reshape(mesh.size, s)
+    check(any(int(h[1]) > s or int(h[2]) > k for h, _e, _o in blocks)
+          and bool((comp.diff(dim=1) < 0).any()),
+          "K12 overflow case: no overflowed block with a descent")
+    return [blocks], qmat.shape[0], s, codespace
 
 
 def tok_case(torch, kern, psh, ents, los, sn, m_t, m):
@@ -1856,6 +2013,10 @@ def mesh_small_cases(torch, dev, kern, dk, drk, psh, convert, mesh):
         cases["merge_blocks" + tag] = merge_case(
             torch, kern, psh, blocks, 6, 24, cs, 4 if dup else 0,
             dom if dup else None, 8)
+    for seed, s, k in ((1, 16, 2), (2, 24, 2)):
+        cases[f"merge_blocks[overflow seed{seed} s{s}]"] = merge_case(
+            torch, kern, psh, *overflow_blocks(torch, dev, kern, dk, psh,
+                                               convert, mesh, seed, s, k))
     for seed, n in ((3, 64), (4, 512)):
         dense, _ell = small_drain(seed, n)
         st = convert.tables_from_numpy({"drain": dense}, dev)["drain"]
@@ -1863,6 +2024,8 @@ def mesh_small_cases(torch, dev, kern, dk, drk, psh, convert, mesh):
             args = sweep_args(torch, psh, mesh, st, drain)
             name = "sharded_drain" if drain else "sharded_frontier"
             cases[f"{name}[n{n}]"] = sweep_case(torch, kern, drk, psh, *args)
+        cases[f"sharded_drain_fix[n{n}]"] = fixd_case(
+            torch, kern, drk, psh, *sweep_args(torch, psh, mesh, st, False))
     return cases
 
 
@@ -2113,6 +2276,8 @@ def graft_phase(torch, kern, drk, psh, dev, mesh, dense3, ndd, rehearsal):
           "phase11: sharded_ready_frontier != frontier_dense")
     want = drk.drain(dense3)
     sd = psh.sharded_drain(mesh)
+    before = {k: kern.LAUNCHES[k] for k in ("sharded_drain_fix",
+                                            "sharded_drain")}
     sd(dense3)
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -2125,6 +2290,13 @@ def graft_phase(torch, kern, drk, psh, dev, mesh, dense3, ndd, rehearsal):
           and bool(torch.equal(newly, want[1])),
           "phase11: sharded_drain != drain (K8)")
     out["sharded_drain_applied"] = int(applied.sum())
+    # every slice on this card: one launch a drain, no per-sweep launches
+    out["chain_drain_launches"] = {k: kern.LAUNCHES[k] - v
+                                   for k, v in before.items()}
+    check(rehearsal or out["chain_drain_launches"]
+          == {"sharded_drain_fix": 2, "sharded_drain": 0},
+          f"phase11: two chain drains took "
+          f"{out['chain_drain_launches']} launches")
     # the mesh tick: config 3's chain alone in a store with the mesh on
     mstore, mds, _ids = chain_store(ndd, dev, mesh=mesh)
     st, _live = mds.drain.state()
@@ -2169,7 +2341,7 @@ def main(argv=None) -> int:
     from accord_tpu_torch.parallel import sharded as psh
     from accord_tpu_torch.sim.burn import run_burn
     P.load()
-    global OUT
+    global OUT, LOGIC_OPS
     if rehearsal:
         OUT = OUT.with_name("chip_smoke_rehearsal")
     OUT.mkdir(parents=True, exist_ok=True)
@@ -2187,6 +2359,13 @@ def main(argv=None) -> int:
         (OUT / "build_log.txt").write_text(blog["stderr"])
         log(f"build: {blog['seconds']:.2f} s (cached={blog['cached']}) "
             f"-> {_build.BUILD_DIR / _build.LIB_NAME}")
+        LOGIC_OPS = logic_rate(torch, dev)
+        env["logic_ops_per_s"] = LOGIC_OPS
+        log(f"logic rate (SMs x 64 INT32 lanes x max SM clock): "
+            f"{LOGIC_OPS / 1e12:.4f} T/s on {env['nvidia_smi']}: the peak "
+            f"of every scalar bound below")
+    log("K9 logsq_dense: mma.sync.m16n8k256 b1 AND-popc -> s32, output "
+        "tile 128 x 128, k-chunk 256 bits, 8 warps of 32 x 64")
 
     # 3a. small-size kernel checks; the mesh kernels over 8 slices of one
     # card (phases 9-11 use the same mesh, whatever the machine shows)
@@ -2308,6 +2487,11 @@ def main(argv=None) -> int:
     real["drain_fix_ell"] = fix_case(torch, kern, drk, ell3)
     real["drain_fix_dense"] = fix_case(torch, kern, drk, dense3)
     real["logsq_dense"] = logsq_case(torch, kern, drk, dense3)
+    # and on an input that is dense from the first squaring, against the
+    # dense bound: the product's own efficiency
+    real["logsq_dense[dense input]"] = logsq_case(
+        torch, kern, drk,
+        logsq_dense_input(convert, dev, dense3.status.shape[0]))
     real["level_drain"] = level_drain_case(
         torch, kern, drk, ell3.status, drk.level_assign_ell_plain(ell3)[0])
     real["dense_degree"] = degree_case(torch, kern, drk, dense3.adj)
@@ -2679,7 +2863,7 @@ def main(argv=None) -> int:
                               "attr_post", "deps_dense")),
                        ("10", ("calc_deps", "ts_max", "deps_dense")),
                        ("11", ("calc_deps", "ts_max", "sharded_frontier",
-                               "sharded_drain"))):
+                               "sharded_drain_fix"))):
         for k_ in names:
             check(rehearsal or phase_launches[tag][k_] > 0,
                   f"phase{tag}: {k_} never launched {phase_launches[tag]}")
@@ -2687,7 +2871,8 @@ def main(argv=None) -> int:
                 for k in kern.KERNELS}
     log("launches by phase: " + json.dumps(phase_launches))
     if not rehearsal:
-        missing = [k for k, v in launches.items() if v == 0]
+        missing = [k for k, v in launches.items()
+                   if v == 0 and k not in MULTI_CARD_ONLY]
         check(not missing, f"kernels never launched on the main path: "
                            f"{missing}")
 
@@ -2709,14 +2894,40 @@ def main(argv=None) -> int:
     a, kw, _w = rec9.calls["merge_blocks"]
     mesh_real["merge_blocks"] = merge_case(torch, kern, psh, *a, **kw)
     shapes["merge_blocks"] = [len(a[0]), len(a[0][0]), a[2]]
-    for name in ("sharded_frontier", "sharded_drain"):
-        a, kw, _w = rec9.calls[name]
-        mesh_real[name] = sweep_case(torch, kern, drk, psh, *a, **kw)
-        shapes[name] = [len(a[0]), a[2], a[3]]
+    a, kw, _w = rec9.calls["sharded_frontier"]
+    mesh_real["sharded_frontier"] = sweep_case(torch, kern, drk, psh, *a,
+                                               **kw)
+    shapes["sharded_frontier"] = [len(a[0]), a[2], a[3]]
+    a, kw, _w = rec9.calls["sharded_drain_fix"]
+    mesh_real["sharded_drain_fix"] = fixd_case(torch, kern, drk, psh, *a,
+                                               **kw)
+    shapes["sharded_drain_fix"] = [len(a[0]), a[2], a[3]]
+    # the per-sweep drain (a mesh across cards) on phase 11's chain: its
+    # first sweep
+    a = sweep_args(torch, psh, mesh, dense3, True)
+    mesh_real["sharded_drain"] = sweep_case(torch, kern, drk, psh, *a)
+    shapes["sharded_drain"] = [len(a[0]), a[2], a[3]]
     a, kw, _w = rec9.calls["attr_tok"]
     mesh_real["attr_tok"] = tok_case(torch, kern, psh, *a, **kw)
     shapes["attr_tok"] = [len(a[0]), a[0][0].shape[0]]
     rows.update(run_checks(torch, mesh_real, "real", on_cuda, timed=True))
+    # the per-sweep loop that sharded_drain takes for a mesh across cards
+    # (a check, after the main path), on phase 11's chain against K8
+    before = kern.LAUNCHES["sharded_drain"]
+    if on_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    applied, newly = psh.drain_by_sweeps(mesh, dense3)
+    want = kern.drain_fix_dense(dense3)
+    check(bool(torch.equal(applied, want[0]))
+          and bool(torch.equal(newly, want[1])),
+          "drain_by_sweeps != drain_fix_dense (K8) on the chain")
+    phase11["drain_by_sweeps"] = {
+        "ms": (time.perf_counter() - t0) * 1e3,
+        "launches": kern.LAUNCHES["sharded_drain"] - before,
+        "applied": int(applied.sum())}
+    log("drain_by_sweeps on the chain: equal to K8, "
+        + json.dumps(phase11["drain_by_sweeps"]))
 
     profiles = {}
     if on_cuda:
@@ -2750,6 +2961,20 @@ def main(argv=None) -> int:
                       "card": env["nvidia_smi"]})
     detail = {name: {"shape": shapes[name], "bytes": rows[name]["bytes"],
                      "ops": rows[name]["ops"]} for name in KMETA}
+    sq3 = int(drk.drain_dense_logsq_plain(dense3)[2])
+    n3 = dense3.status.shape[0]
+    k9 = detail["logsq_dense"]
+    k9["dense_bound_ms"] = sq3 * 2 * n3 ** 3 / TENSOR_INT8_OPS * 1e3
+    k9["earlier_simt_bound_ms"] = logsq_simt_ms(n3, sq3)
+    k9["dense_input"] = {key: rows["logsq_dense[dense input]"][key]
+                         for key in ("ms", "bound_ms", "library_ms", "ops")}
+    log(f"K9 at config 3's chain: {sq3} squarings, "
+        f"{rows['logsq_dense']['ms']:.4f} ms against the bound of the "
+        f"tile pairs its data needs {rows['logsq_dense']['bound_ms']:.4f} "
+        f"ms (dense squarings: {k9['dense_bound_ms']:.4f}; the earlier "
+        f"SIMT design's: {k9['earlier_simt_bound_ms']:.4f}); on a dense "
+        f"input {k9['dense_input']['ms']:.4f} ms against its dense bound "
+        f"{k9['dense_input']['bound_ms']:.4f}")
     summary = {"env": env, "kernels": table, "kernel_shapes": detail,
                "phase_launches": phase_launches,
                "phase4_queries_per_s": nq / dt, "phase4_breakdown": breakdown,

@@ -26,8 +26,8 @@ from accord_tpu_torch.ops import convert
 from accord_tpu_torch.ops import drain_kernel as pdrk
 from accord_tpu_torch.utils import faults as pfaults
 from accord_tpu_torch.utils.random_source import RandomSource as PRandom
-from tests.test_torch_level_assign import (D_PAD, N_PAD, STABLE, _arrays,
-                                           chain_case, make_case)
+from tests.test_torch_level_assign import (D_PAD, N_PAD, STABLE, STATUSES,
+                                           _arrays, chain_case, make_case)
 
 
 @pytest.fixture(autouse=True)
@@ -123,6 +123,46 @@ def test_chain_counts():
     _check_case(ref, port, 64)
     assert int(pdrk.drain_levels(port[0])[2]) == 64
     assert int(pdrk.drain_ell_logdepth(port[1])[2]) <= 2 * 6 + 4
+
+
+def _logsq_case(rng, n):
+    """make_case's distribution at ``n`` rows, plus (n >= 3) a gating
+    cycle between two Stable rows that await all, and a Stable row on an
+    undecided dep."""
+    case = make_case(rng)
+    edges = set()
+    for i in range(1, n):
+        for _ in range(int(rng.integers(0, 4))):
+            edges.add((i, int(rng.integers(0, i))))
+    for _ in range(3):
+        a, b = (int(x) for x in rng.integers(0, n, 2))
+        if a != b:
+            edges.add((a, b))
+    status = [STATUSES[int(i)] for i in rng.integers(0, len(STATUSES), n)]
+    awaits = [bool(x) for x in rng.random(n) < 0.15]
+    if n >= 3:
+        edges |= {(n - 1, n - 2), (n - 2, n - 1), (n - 3, 0)}
+        status[n - 1] = status[n - 2] = status[n - 3] = STABLE
+        status[0] = 1                       # undecided
+        awaits[n - 1] = awaits[n - 2] = True
+    case.update(n=n, edges=sorted(edges), status=status, awaits=awaits,
+                msb=[int(x) for x in rng.integers(0, 6, n)],
+                node=[int(x) for x in rng.integers(1, 3, n)])
+    return case
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 211])
+def test_logsq_equals_reference_at_tile_edges(n):
+    """K9's plain version at the sizes around its kernel's tiling (one
+    row, either side of a 32-bit word and of a 128-row tile, a prime)
+    against the reference's drain_dense_logsq, squarings included."""
+    case = _logsq_case(np.random.default_rng(9300 + n), n)
+    (rd, _re), (pd, _pe) = _states(*_arrays(case, n, 8))
+    want = rdrk.drain_dense_logsq(rd)
+    got = pdrk.drain_dense_logsq(pd)
+    _eq(want, got)
+    if n >= 3:   # the cycle and the row behind the undecided dep wait
+        assert not got[0][[n - 1, n - 2, n - 3]].any()
 
 
 # -- the routed drains ----------------------------------------------------------

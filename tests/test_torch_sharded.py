@@ -22,6 +22,7 @@ from accord_tpu.ops import drain_kernel as rdrk
 from accord_tpu.ops import packing as rpk
 from accord_tpu.parallel import sharded as rsh
 from accord_tpu_torch.ops import convert
+from accord_tpu_torch.ops import kernels
 from accord_tpu_torch.ops import deps_kernel as pdk
 from accord_tpu_torch.ops import drain_kernel as pdrk
 from accord_tpu_torch.ops import packing as ppk
@@ -233,10 +234,13 @@ def test_sharded_fused_flat_equals_reference(meshes):
 
 # -- K12: the cross-shard merge ------------------------------------------------
 
-def _blocks(seed, b=6, s=24, codespace=4096, dup=False):
+def _blocks(seed, b=6, s=24, codespace=4096, dup=False, holes=False):
     """d attributed shard blocks: ascending codes per row, some rows
     empty, one overflowed shard header; ``dup`` repeats codes across
-    shards and within (row, slot, col) runs (the bucketed form)."""
+    shards and within (row, slot, col) runs (the bucketed form);
+    ``holes``: every block overflowed, with -1 holes inside its rows as
+    an overflowed attribution leaves them (the first entry of row 0
+    among them in block 0)."""
     rng = np.random.default_rng(seed)
     hdrs = np.zeros((D, 5 + b), np.int32)
     ents = np.full((D, s), -1, np.int32)
@@ -263,6 +267,14 @@ def _blocks(seed, b=6, s=24, codespace=4096, dup=False):
         hdrs[i, 3] = rng.integers(0, 4)
         hdrs[i, 4] = rng.integers(0, 4)
         hdrs[i, 5:] = row_end
+    if holes:
+        hr = np.random.default_rng(seed + 1000)
+        for i in range(D):
+            live = int(hdrs[i, 0])
+            at = hr.choice(live, min(live, 3), replace=False)
+            ents[i, at] = -1
+            hdrs[i, 1] = s + 1 + hr.integers(0, 5)
+        ents[0, 0] = -1
     return hdrs, ents
 
 
@@ -294,6 +306,47 @@ def test_merge_bucketed_dedupe_equals_reference(seed):
     _eq(want[1], got[1])
     # the merge dropped something: duplicates existed across shards
     assert int(got[0][0]) < int(hdrs[:, 0].sum())
+
+
+def _descends(hdrs, ents, s=24, codespace=4096):
+    """Whether some block's live (row, code) composites descend."""
+    for h, e in zip(hdrs, ents):
+        pos = np.arange(min(int(h[0]), s))
+        comp = np.searchsorted(h[5:], pos, side="right") * codespace + e[pos]
+        if (np.diff(comp) < 0).any():
+            return True
+    return False
+
+
+@pytest.mark.parametrize("seed,dup", [(20, False), (21, False), (22, True),
+                                      (23, True)])
+def test_merge_overflowed_with_holes_equals_reference(seed, dup):
+    """An overflowed merge (-1 holes inside the blocks' rows, so their
+    composites are not ascending): the plain K12 and the port's merge
+    entry on the CPU give the reference's header and entries."""
+    m_t, m = 2, 4
+    mq = m_t * m
+    n = 4096 // mq
+    cs = n * mq if dup else 4096
+    hdrs, ents = _blocks(seed, dup=dup, holes=True)
+    assert (hdrs[:, 1] > 24).all() and _descends(hdrs, ents, codespace=cs)
+    dom = np.random.default_rng(seed).integers(0, 2, n).astype(np.int32)
+    key_m = m if dup else 0
+    want = rsh._merge_shard_blocks(
+        jnp.asarray(hdrs), jnp.asarray(ents), 6, 24, cs, key_m,
+        dom=jnp.asarray(dom) if dup else None, mq=mq if dup else None)
+    tdom = torch.from_numpy(dom) if dup else None
+    got = psh.merge_shard_blocks_plain(
+        torch.from_numpy(hdrs), torch.from_numpy(ents), 6, 24, cs, key_m,
+        tdom, mq if dup else None)
+    _eq(want[0], got[0])
+    _eq(want[1], got[1])
+    blocks = [[(torch.from_numpy(h), torch.from_numpy(e), 0)
+               for h, e in zip(hdrs, ents)]]
+    hdr, out = kernels.merge_blocks(blocks, 6, 24, cs, key_m, tdom,
+                                    mq if dup else None)
+    _eq(want[0], hdr[0])
+    _eq(want[1], out[0])
 
 
 # -- the attributed mesh kernels (K1 + K2 per slice, then K12) ------------------
@@ -400,8 +453,56 @@ def test_sharded_frontier_and_drain_equal_reference(meshes, seed):
     got = psh.sharded_drain(pm)(ps)
     _eq(want[0], got[0])
     _eq(want[1], got[1])
+    # the per-sweep loop that a mesh across devices takes
+    by_sweeps = psh.drain_by_sweeps(pm, ps)
+    _eq(want[0], by_sweeps[0])
+    _eq(want[1], by_sweeps[1])
     # and the port's single-device K8 oracle agrees
     _eq(got[0], pdrk.drain(ps)[0])
+
+
+def _drain_edge_cases(seed, n):
+    """_drain_cols with a gating cycle between two Stable rows, a Stable
+    row on an undecided dep, and one on an invalidated and a free
+    column."""
+    adj, status, em, el, en, aw = _drain_cols(seed, n)
+    status[[3, 10, 5, 7]] = 4
+    adj[3, 10] = adj[10, 3] = True
+    aw[[3, 10]] = True
+    status[20], adj[5, 20] = 1, True
+    status[30], status[31] = 6, -1
+    adj[7, [30, 31]] = True
+    return (adj, status, em, el, en, aw)
+
+
+@pytest.mark.parametrize("seed,n", [(3, 64), (4, 72), (5, 200)])
+def test_sharded_drain_one_launch_equals_reference(meshes, seed, n):
+    """sharded_drain through the one-launch entry's plain path (every
+    slice on one device) against the reference on its 8 devices, at N
+    not a multiple of the 32-bit words too; the entry's sweep count is
+    the single-device fixpoint's."""
+    rm, pm = meshes
+    cols = _drain_edge_cases(seed, n)
+    rs = _ref_nt("drain", cols)
+    ps = _port_nt("drain", cols)
+    assert len(pm.groups()) == 1
+    want = rsh.sharded_drain(rm)(rs)
+    got = psh.sharded_drain(pm)(ps)
+    _eq(want[0], got[0])
+    _eq(want[1], got[1])
+    # the cycle and the undecided dep stay unapplied
+    assert not got[0][[3, 10, 5]].any()
+    by_sweeps = psh.drain_by_sweeps(pm, ps)
+    _eq(want[0], by_sweeps[0])
+    _eq(want[1], by_sweeps[1])
+    slices = psh._sharded_rows(pm, ps)
+    n_l = n // D
+    outs = [torch.empty(n_l, dtype=torch.bool) for _ in slices]
+    sweeps = kernels.sharded_drain_fix(
+        [(*sl, None, outs[i], i) for i, sl in enumerate(slices)],
+        psh._cols_on(pm.dev0, slices), n_l, n)
+    _eq(got[0], torch.cat(outs))
+    assert int(sweeps[0]) == int(pdrk._drain_fix_plain(ps)[2])
 
 
 def test_sharded_protocol_step_equals_reference(meshes):
