@@ -1,14 +1,15 @@
 """Device-backed conflict index + execution drain for a CommandStore, on
 PyTorch and CUDA.
 
-The port of ``accord_tpu/local/device_index.py`` for the single-device
-path: every globally-visible transaction a store witnesses is registered
-in a struct-of-arrays DepsTable slot kept incrementally in sync with the
-host command state; PreAccept/Accept/BeginRecovery dependency scans run as
-batched kernel launches (ops.kernels: deps_bucketed / deps_dense, then
-attr_post); the executeAt-gated execution drain is driven by the frontier
-sweep (frontier_dense / frontier_ell) over a live adjacency graph instead
-of per-dependency listener fan-out.
+The port of ``accord_tpu/local/device_index.py``, on one device and on a
+mesh of slices (below): every globally-visible transaction a store
+witnesses is registered in a struct-of-arrays DepsTable slot kept
+incrementally in sync with the host command state;
+PreAccept/Accept/BeginRecovery dependency scans run as batched kernel
+launches (ops.kernels: deps_bucketed / deps_dense, then attr_post); the
+executeAt-gated execution drain is driven by the frontier sweep
+(frontier_dense / frontier_ell) over a live adjacency graph instead of
+per-dependency listener fan-out.
 
 Ref semantics preserved:
  - deps scan: accord-core/src/main/java/accord/local/CommandsForKey.java:614-650
@@ -45,13 +46,22 @@ priced from a once-per-process probe of the port's own kernels on the
 store's device (``_measure_route_calibration``); ``route_override`` pins a
 route.
 
-Device-fault tolerance: the injected device-fault family of
-``utils.faults`` (and MemoryError) quarantines the device routes and fails
-the flush over to the host route, with the same bytes:
+Device-fault tolerance: every type in ``utils.faults.DEVICE_EXCEPTIONS``
+quarantines the device routes and fails the flush over to the host route,
+with the same bytes:
 
     device route -> quarantine -> host route -> compaction -> backpressure
 
-Real CUDA runtime errors are not caught here: they propagate.
+Those are the injected device-fault family, MemoryError, and the real
+CUDA errors a process survives: a launch the runtime refuses for want of
+resources (``faults.CudaLaunchError`` from ``ops.kernels._launch``) and
+device memory exhausted (``torch.OutOfMemoryError``, e.g. from a kernel
+wrapper's ``torch.empty``).  Any other return code of the kernel library
+(an invalid argument, no image for this card) is a build or wrapper fault
+and propagates; so do errors that only show at synchronisation (a
+kernel's illegal address, a device-side assert: ``torch.AcceleratorError``
+from the download in ``_host``), which poison the CUDA context, so no
+fail-over inside the process could survive them.
 
 Fused multi-store launches (driven by ``local.dispatch``'s per-node
 DeviceDispatcher): ``fused_eligible`` / ``fused_commit`` prepare a store's
@@ -315,8 +325,8 @@ class _DepsMirror:
         self._bdev_pending: Set[int] = set()      # rows _bdev hasn't seen
         self._g_cap = 0
         # wide/straggler host arrays cached per padded width, keyed on the
-        # wide version counter (the reference's mesh consumer asks for a
-        # different width; this slice has the single-device one only)
+        # wide version counter (the single-device path asks for width 16,
+        # bucket_device_sharded for max(16, d))
         self._whost_cache: Dict[int, tuple] = {}  # w -> (wide_version, arrs)
         self._wdev = None                         # (wlo, whi, wslot...)
         self._bsh = None                          # mesh-sharded BucketTable

@@ -30,6 +30,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "accord_tpu_torch"
 LIB_NAME = "libaccord_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# what a launch takes by value in its kernel parameter: K12's blocks, K3's
+# columns, K13's slices.  nvcc gets them as macros, so that a kernel and
+# its wrapper in ops.kernels read one number
+LIMITS = {"ACCORD_MERGE_MAX_REFS": 128, "ACCORD_SCATTER_MAX_COLS": 16,
+          "ACCORD_SHARDED_MAX_SLICES": 16}
+DEFINES = [f"-D{k}={v}" for k, v in LIMITS.items()]
 ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
                 "accord_attr_post", "accord_scatter_rows",
                 "accord_frontier_ell", "accord_frontier_dense",
@@ -45,6 +51,7 @@ ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
 
 _LOCK = threading.Lock()
 _LIB = None
+_ENTRIES = {}
 _LOG = {"seconds": None, "stderr": "", "cached": None}
 
 
@@ -61,7 +68,7 @@ def _nvcc() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
+    h = hashlib.sha256(" ".join(ARCH + FLAGS + DEFINES).encode())
     for f in sorted(CSRC.glob("*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -70,7 +77,7 @@ def source_hash() -> str:
 
 def _compile(nvcc: str, out_dir: Path) -> Path:
     """nvcc per source in parallel, then one link; returns the library."""
-    flags = ARCH + FLAGS
+    flags = ARCH + FLAGS + DEFINES
     procs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = out_dir / (src.stem + ".o")
@@ -126,10 +133,21 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            _ENTRIES[name[len("accord_"):]] = fn
         lib.accord_error_string.argtypes = [ctypes.c_int]
         lib.accord_error_string.restype = ctypes.c_char_p
+        lib.accord_merge_workspace_words.argtypes = [ctypes.c_int64] * 4
+        lib.accord_merge_workspace_words.restype = ctypes.c_int64
         _LIB = lib
         return lib
+
+
+def entries() -> dict:
+    """Every entry point of the loaded library by its short name
+    ("scatter_rows" for ``accord_scatter_rows``), resolved once at load."""
+    if _LIB is None:
+        library()
+    return _ENTRIES
 
 
 def build_log() -> dict:

@@ -11,6 +11,8 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 #define ACCORD_EXPORT extern "C" __attribute__((visibility("default")))
@@ -157,21 +159,46 @@ __device__ __forceinline__ bool drain_gates(const int32_t* status,
 
 // One cooperative launch of ``kernel(args)`` with ``nt`` threads a block:
 // ``want`` blocks, at most as many as fit on the card at once (grid.sync()
-// needs every block resident), at least one.  Returns a cudaError_t.
+// needs every block resident), at least one.  The resident limit of a
+// (kernel, device, block size) is asked of the runtime once and kept.
+// Returns a cudaError_t.
 template <typename Args>
 inline int launch_cooperative(void (*kernel)(Args), int nt, int64_t want,
                               Args& args, cudaStream_t st) {
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  struct Cap {
+    const void* kernel;
+    int dev, nt;
+    int64_t blocks;
+  };
+  static Cap caps[16];
+  static int n_caps = 0;
+  static std::mutex mu;
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt, 0);
   if (e != cudaSuccess) return (int)e;
-  const int64_t cap = (int64_t)sms * per_sm;
+  int64_t cap = 0;
+  {
+    std::lock_guard<std::mutex> g(mu);
+    for (int i = 0; i < n_caps; ++i)
+      if (caps[i].kernel == (const void*)kernel && caps[i].dev == dev &&
+          caps[i].nt == nt)
+        cap = caps[i].blocks;
+  }
+  if (cap == 0) {
+    int sms = 0, per_sm = 0, coop = 0;
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
+                                                        0);
+    if (e != cudaSuccess) return (int)e;
+    cap = (int64_t)sms * per_sm;
+    if (cap < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    std::lock_guard<std::mutex> g(mu);
+    if (n_caps < 16) caps[n_caps++] = Cap{(const void*)kernel, dev, nt, cap};
+  }
   if (want < 1) want = 1;
   const unsigned blocks = (unsigned)(want < cap ? want : cap);
   void* argv[] = {&args};

@@ -44,7 +44,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int NT = 256;
-constexpr int MAX_SLICES = 16;
+constexpr int MAX_SLICES = ACCORD_SHARDED_MAX_SLICES;  // ops/_build.py
 
 // one slice: its rows (adj, awaits, out) and its columns (status, exec,
 // applied of the previous sweep in the per-sweep drain)

@@ -491,6 +491,76 @@ def scatter_rows_plain(cols: Sequence[torch.Tensor], idx: torch.Tensor,
         col[ii] = row
 
 
+# K3's packed host layout: one staging buffer a scatter, uploaded in one
+# copy.  The index (int64[P]) lies at byte 0 and each column's P source
+# rows follow, cast to the column's dtype, each at a PACK_ALIGN boundary
+PACK_ALIGN = 16
+
+_NP_DTYPES = {torch.int64: np.int64, torch.int32: np.int32,
+              torch.bool: np.bool_}
+
+
+def row_bytes(col: torch.Tensor) -> int:
+    """Bytes of one row of a scatter column (a scalar or a whole row)."""
+    n = col.element_size()
+    for x in col.shape[1:]:
+        n *= x
+    return n
+
+
+def pack_layout(cols: Sequence[torch.Tensor], p: int):
+    """(byte offset of each column's source rows, total bytes) of the
+    packed staging buffer of a P-row scatter into ``cols``."""
+    off = -(-8 * p // PACK_ALIGN) * PACK_ALIGN
+    offs = []
+    for col in cols:
+        offs.append(off)
+        off = -(-(off + p * row_bytes(col)) // PACK_ALIGN) * PACK_ALIGN
+    return offs, off
+
+
+def pack_rows(buf: np.ndarray, cols: Sequence[torch.Tensor], idx, rows,
+              offs, pool=None, workers: int = 1) -> None:
+    """Write ``idx`` and each column's source rows (array-likes of shape
+    [P, *row]) into the uint8 buffer ``buf`` at ``offs``; with ``pool``
+    (an executor of ``workers`` threads) the copies run there as about two
+    row ranges a worker."""
+    p = len(idx)
+    buf[:8 * p].view(np.int64)[:] = idx
+    pairs = []
+    for col, row, off in zip(cols, rows, offs):
+        shape = (p,) + tuple(col.shape[1:])
+        row = np.asarray(row)
+        if row.shape != shape:
+            raise ValueError(f"scatter rows {row.shape} do not fit column "
+                             f"{tuple(col.shape)}")
+        dst = buf[off:off + p * row_bytes(col)].view(_NP_DTYPES[col.dtype])
+        pairs.append((dst.reshape(shape), row, row_bytes(col)))
+    if pool is None:
+        for dst, row, _rb in pairs:
+            dst[...] = row
+        return
+    share = max(1, sum(p * rb for _d, _r, rb in pairs) // (2 * workers))
+    parts = []
+    for dst, row, rb in pairs:
+        step = max(1, share // max(rb, 1))
+        parts += [(dst[a:a + step], row[a:a + step])
+                  for a in range(0, p, step)]
+    for f in [pool.submit(np.copyto, d, r, "unsafe") for d, r in parts]:
+        f.result()
+
+
+def scatter_rows_packed_plain(cols: Sequence[torch.Tensor],
+                              buf: torch.Tensor, p: int, offs) -> None:
+    """The plain version of K3 on the packed layout: ``cols[c][idx] =
+    rows[c]``, with idx and the rows read from ``buf`` (uint8) at
+    ``offs``."""
+    idx = buf[:8 * p].view(torch.int64)
+    for col, off in zip(cols, offs):
+        src = buf[off:off + p * row_bytes(col)].view(col.dtype)
+        col[idx] = src.reshape((p,) + tuple(col.shape[1:]))
+
+
 # -- fused (batched-over-stores) plain versions -------------------------------
 #
 # One launch answers the deps flushes of several CommandStores: each

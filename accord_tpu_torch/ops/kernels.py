@@ -44,18 +44,31 @@ The fused kernels read every member store's tensors where they lie: the
 wrapper uploads one small table of per-store base pointers and sizes
 (``_store_refs``), and the kernel puts the store on a grid dimension.  The
 mesh kernels read the slices of one device the same way: their wrappers
-take the slices that lie on one device and launch once for them (K13
-passes the slices' pointers in the kernel parameter instead).
+take the slices that lie on one device and launch once for them (K12 and
+K13 pass the blocks' or slices' pointers in the kernel parameter
+instead, up to ``MERGE_MAX_REFS`` and ``SHARDED_MAX_SLICES``).  K3 handed
+numpy packs its index and rows into one pinned staging buffer
+(``StagingRing``) and uploads it in one copy.
+
+A non-zero return code of an entry point raises ``launch_error``'s
+exception: ``faults.CudaLaunchError`` for a launch refused for want of
+resources, which the device fault ladder fails over on, or a plain
+RuntimeError for every other code (a lost context, an invalid argument, a
+library not built for this card), which propagates.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
+import threading
+from array import array
 from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
+from ..utils import faults
+from . import _build
 from . import deps_kernel as dk
 from . import drain_kernel as drk
 
@@ -90,6 +103,8 @@ def on_cuda(t: torch.Tensor) -> bool:
 def _ptr(t) -> int:
     if t is None:
         return 0
+    if isinstance(t, int):
+        return t
     if not t.is_cuda:
         raise ValueError("kernel argument is not on a CUDA device")
     if not t.is_contiguous():
@@ -122,20 +137,62 @@ def _check_cols(nt) -> None:
         _check(col, dtype, f"{type(nt).__name__}.{name}")
 
 
+# cudaError_t codes of a launch the runtime refused for want of resources
+# (memory allocation, out of resources, a cooperative grid over the
+# resident limit): the run-time refusals the reference's XlaRuntimeError
+# covers, which leave the context usable
+_RESOURCE = frozenset({2, 701, 720})
+# cudaError_t codes that leave the CUDA context unusable (illegal address,
+# launch timeout, device-side assert, hardware stack error, illegal
+# instruction, misaligned address, invalid address space, invalid pc,
+# launch failure): every later call returns them too
+_STICKY = frozenset({700, 702, 710, 714, 715, 716, 717, 718, 719})
+
+# the current stream's cudaStream_t of a device index, without building a
+# torch.cuda.Stream (absent from builds without CUDA)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch_error(name: str, rc: int, message: str) -> RuntimeError:
+    """The exception for a non-zero return code ``rc`` of kernel ``name``'s
+    entry point.  A launch refused for want of resources (memory, threads
+    or registers, a cooperative grid over the resident limit) is a
+    ``faults.CudaLaunchError``: the device fault ladder quarantines and
+    fails over on it.  Every other code is a plain RuntimeError, which
+    propagates: a sticky code means the context is lost, and the rest (an
+    invalid argument, no image of the kernel for this card) mean the
+    library or its wrapper is wrong, which no host route may hide."""
+    text = f"CUDA kernel {name} failed to launch: error {rc} ({message})"
+    if rc in _RESOURCE:
+        return faults.CudaLaunchError(text, rc)
+    if rc in _STICKY:
+        return RuntimeError(text + "; the CUDA context is lost")
+    return RuntimeError(text + "; a fault of the kernel library's build "
+                        "or of its wrapper")
+
+
 def _launch(name: str, device: torch.device, ptrs, vals,
             entry: str = None) -> None:
-    from . import _build
-    lib = _build.library()
-    p = (ctypes.c_void_p * len(ptrs))(*[_ptr(t) for t in ptrs])
-    v = (ctypes.c_int64 * len(vals))(*[int(x) for x in vals])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = getattr(lib, "accord_" + (entry or name))(
-            p, v, ctypes.c_void_p(stream))
+    """Call entry point ``entry`` (default ``name``) with the data pointers
+    of ``ptrs`` (tensors, None for null, or int addresses) and the integers
+    ``vals``, on the current stream of ``device``.  The entry point is
+    resolved once, the argument arrays are packed by ``array`` in C, and
+    the device is switched only when it is not the current one."""
+    fn = _build.entries()[entry or name]
+    p = array("Q", [_ptr(t) for t in ptrs])
+    v = array("q", vals)
+    cur = torch.cuda.current_device()
+    idx = cur if device.index is None else device.index
+    stream = (_raw_stream(idx) if _raw_stream is not None
+              else torch.cuda.current_stream(idx).cuda_stream)
+    if idx == cur:
+        rc = fn(p.buffer_info()[0], v.buffer_info()[0], stream)
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(p.buffer_info()[0], v.buffer_info()[0], stream)
     if rc != 0:
-        msg = lib.accord_error_string(rc).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"error {rc} ({msg})")
+        raise launch_error(
+            name, rc, _build.library().accord_error_string(rc).decode())
     LAUNCHES[name] += 1
 
 
@@ -270,31 +327,148 @@ def attr_post(tlo: torch.Tensor, attr: dk.AttrCols, aidx: dk.AttrIndex,
 
 # -- K3: dirty-row scatter ----------------------------------------------------
 
+# columns one scatter takes (MAX_COLS of csrc/scatter_rows.cu)
+SCATTER_MAX_COLS = _build.LIMITS["ACCORD_SCATTER_MAX_COLS"]
+
+
+class StagingRing:
+    """Host staging buffers for K3's one upload a call, reused round-robin.
+    The copy to the device is asynchronous, so a buffer is written again
+    only after the event recorded behind its last copy has completed:
+    ``take`` waits on it.  Four slots: a store's flush makes up to three
+    scatters (its table, bucket rows and attribution columns) before it
+    waits on its results, so they never wait on one another.  A buffer
+    over ``keep`` bytes serves the call that needed it and is given back
+    (to PyTorch's pinned-memory cache) when its slot is next taken for
+    less.  ``event`` makes the events
+    (``torch.cuda.Event`` on the card)."""
+
+    def __init__(self, slots: int = 4, pin: bool = True, event=None,
+                 keep: int = 1 << 20) -> None:
+        self.pin = pin
+        self.event = event or torch.cuda.Event
+        self.keep = keep
+        self.bufs = [None] * slots
+        self.marks = [None] * slots     # each slot's event, made once
+        self.pending = [False] * slots  # its mark is behind a copy
+        self.next = 0
+        self.lock = threading.Lock()
+
+    def take(self, nbytes: int):
+        """(slot, uint8 host tensor of at least ``nbytes``) free to write."""
+        i = self.next
+        self.next = (i + 1) % len(self.bufs)
+        if self.pending[i]:
+            self.marks[i].synchronize()
+            self.pending[i] = False
+        want = _next_pow2(max(nbytes, 4096))
+        buf = self.bufs[i]
+        if buf is None or buf.numel() < nbytes \
+                or buf.numel() > max(want, self.keep):
+            self.bufs[i] = None     # given back before the new one comes
+            buf = self.bufs[i] = torch.empty(want, dtype=torch.uint8,
+                                             pin_memory=self.pin)
+        return i, buf
+
+    def copied(self, slot: int, stream=None) -> None:
+        """The copy out of ``slot``'s buffer is enqueued on ``stream``."""
+        if self.marks[slot] is None:
+            self.marks[slot] = self.event()
+        self.marks[slot].record(stream)
+        self.pending[slot] = True
+
+
+_RINGS: Dict[int, StagingRing] = {}
+
+# a staging payload this large is packed by several threads (numpy's
+# copies release the GIL), one smaller by the caller's.  chip_smoke.py's
+# pack timings on the one-card H100 machine (8 host cores): the pool
+# loses up to 3.1 MB (handing work to threads costs about 1 ms), wins at
+# 50 MB (3.3-5.1 ms against 9.0-10.0) and is a toss-up at 12.6 MB; the
+# main path's payloads are under 4 MB but for two over 8 MB (100.8 MB)
+PACK_PARALLEL_BYTES = 1 << 23
+PACK_WORKERS = 8
+_POOL = None
+
+
+def _pack_pool():
+    global _POOL
+    if _POOL is None:
+        from concurrent.futures import ThreadPoolExecutor
+        _POOL = ThreadPoolExecutor(max_workers=PACK_WORKERS,
+                                   thread_name_prefix="accord-pack")
+    return _POOL
+
+
+def _as(t: torch.Tensor, dev: torch.device, dtype) -> torch.Tensor:
+    """``t`` contiguous, of ``dtype``, on ``dev`` (no copy when it is)."""
+    if t.dtype is dtype and t.is_contiguous() \
+            and t.get_device() == (dev.index if dev.type == "cuda" else -1):
+        return t
+    return t.to(device=dev, dtype=dtype).contiguous()
+
+
+def _scatter_launch(dev, cols, idx_ptr: int, srcs, p: int) -> None:
+    """K3 over ``cols``, whose P source rows lie at the addresses
+    ``srcs``, the int64 index at ``idx_ptr``."""
+    ptrs, vals = [idx_ptr], [len(cols), p]
+    for c, src in zip(cols, srcs):
+        if c.get_device() != dev.index or not c.is_contiguous():
+            raise ValueError(f"scatter column is not a contiguous tensor "
+                             f"on {dev}")
+        ptrs += (c.data_ptr(), src)
+        vals.append(dk.row_bytes(c))
+    _launch("scatter_rows", dev, ptrs, vals)
+
+
 def scatter_rows(cols: Sequence[torch.Tensor], idx,
                  rows: Sequence) -> None:
-    """In place: ``cols[c][idx] = rows[c]`` for every column.  ``idx`` and
-    ``rows`` may be numpy arrays (uploaded here) or tensors."""
+    """In place: ``cols[c][idx] = rows[c]`` for every column.  Tensors are
+    read where they lie (no copy on the card); numpy ``idx`` and ``rows``
+    are packed into one staging buffer (``dk.pack_layout``) and uploaded
+    in one copy, which the kernel reads at offsets."""
     dev = cols[0].device
-    idx_t = torch.as_tensor(np.asarray(idx) if not torch.is_tensor(idx)
-                            else idx).to(device=dev, dtype=torch.int64)
-    rows_t = [torch.as_tensor(np.ascontiguousarray(r)
-                              if not torch.is_tensor(r) else r)
-              .to(device=dev, dtype=c.dtype).contiguous()
-              for c, r in zip(cols, rows)]
-    if not on_cuda(cols[0]):
-        dk.scatter_rows_plain(cols, idx_t, rows_t)
+    if len(cols) > SCATTER_MAX_COLS or len(rows) != len(cols):
+        raise ValueError(f"scatter_rows takes 1 to {SCATTER_MAX_COLS} "
+                         f"columns and one row array each, got {len(cols)} "
+                         f"and {len(rows)}")
+    p = len(idx)
+    if p == 0:
         return
-    p = len(idx_t)
-    ptrs = [idx_t]
-    vals = [len(cols), p]
-    for c, r in zip(cols, rows_t):
-        if r.shape[0] != p or r.shape[1:] != c.shape[1:]:
-            raise ValueError(f"scatter row shape {tuple(r.shape)} does not "
-                             f"fit column {tuple(c.shape)}")
-        ptrs += [c, r]
-        vals.append(c[0].numel() * c.element_size() if c.dim() > 1
-                    else c.element_size())
-    _launch("scatter_rows", dev, ptrs, vals)
+    on_card = on_cuda(cols[0])
+    if torch.is_tensor(idx):
+        idx_t = _as(idx, dev, torch.int64)
+        rows_t = [_as(r, dev, c.dtype) for c, r in zip(cols, rows)]
+        for c, r in zip(cols, rows_t):
+            if r.shape[0] != p or r.shape[1:] != c.shape[1:]:
+                raise ValueError(f"scatter rows {tuple(r.shape)} do not fit "
+                                 f"column {tuple(c.shape)}")
+        if not on_card:
+            dk.scatter_rows_plain(cols, idx_t, rows_t)
+            return
+        _scatter_launch(dev, cols, idx_t.data_ptr(),
+                        [r.data_ptr() for r in rows_t], p)
+        return
+    offs, total = dk.pack_layout(cols, p)
+    if not on_card:
+        buf = np.empty(total, np.uint8)
+        dk.pack_rows(buf, cols, idx, rows, offs)
+        dk.scatter_rows_packed_plain(cols, torch.from_numpy(buf), p, offs)
+        return
+    ring = _RINGS.get(dev.index)
+    if ring is None:
+        ring = _RINGS[dev.index] = StagingRing()
+    with ring.lock:
+        slot, host = ring.take(total)
+        dk.pack_rows(host.numpy(), cols, idx, rows, offs,
+                     _pack_pool() if total >= PACK_PARALLEL_BYTES else None,
+                     PACK_WORKERS)
+        staged = torch.empty(total, dtype=torch.uint8, device=dev)
+        staged.copy_(host[:total], non_blocking=True)
+        ring.copied(slot, None if dev.index == torch.cuda.current_device()
+                    else torch.cuda.current_stream(dev))
+    base = staged.data_ptr()
+    _scatter_launch(dev, cols, base, [base + o for o in offs], p)
 
 
 # -- K4: drain frontier -------------------------------------------------------
@@ -688,6 +862,18 @@ def ts_max(msb: torch.Tensor, lsb: torch.Tensor, node: torch.Tensor):
 
 # -- K12: the cross-shard merge ------------------------------------------------
 
+# blocks a K12 launch takes by value (MAX_REFS of csrc/merge.cu): (header,
+# entries, offset) of each of S x d blocks travel in the kernel parameter;
+# a larger call uploads them as a table
+MERGE_MAX_REFS = _build.LIMITS["ACCORD_MERGE_MAX_REFS"]
+
+
+@functools.lru_cache(maxsize=64)
+def _merge_workspace_words(n_s: int, d: int, s: int, b: int) -> int:
+    """The int64 words of K12's workspace, as its entry point lays it out."""
+    return _build.library().accord_merge_workspace_words(n_s, d, s, b)
+
+
 def merge_blocks(blocks, b: int, s: int, codespace: int,
                  dedupe_key_m: int = 0, dom: torch.Tensor = None,
                  mq: int = None):
@@ -701,38 +887,33 @@ def merge_blocks(blocks, b: int, s: int, codespace: int,
                                   dom, mq)
     dev = ent0.device
     n_s, d = len(blocks), len(blocks[0])
-    rows = []
+    refs = []
+    hshape, eshape, edt = (5 + b,), (s,), ent0.dtype
     for blk in blocks:
         if len(blk) != d:
             raise ValueError("merge_blocks: stores differ in shard count")
         for h, e, off in blk:
-            _check(h, torch.int32, "header")
-            if h.shape != (5 + b,) or e.shape != (s,) \
-                    or e.dtype != ent0.dtype:
+            if h.dtype is not torch.int32 or e.dtype is not edt \
+                    or h.shape != hshape or e.shape != eshape:
                 raise ValueError("merge_blocks: a block does not fit "
-                                 f"[5+{b}] / [{s}] {ent0.dtype}")
-            rows.append([_ptr(h), _ptr(e), int(off)])
-    refs = _store_refs(dev, rows)
-    n = d * s
-    nb = -(-n // 256)
-    sorted_ = torch.empty(max(n_s * n, 1), dtype=torch.int64, device=dev)
-    keep = torch.empty(max(n_s * n, 1), dtype=torch.int32, device=dev)
-    local = torch.empty(max(n_s * n, 1), dtype=torch.int32, device=dev)
-    bsum = torch.empty(max(n_s * nb, 1), dtype=torch.int64, device=dev)
-    counts = torch.empty(n_s * b, dtype=torch.int64, device=dev)
-    hdr = torch.empty((n_s, 5 + b), dtype=torch.int32, device=dev)
-    out = torch.empty((n_s, n), dtype=ent0.dtype, device=dev)
-    comp = torch.empty(max(n_s * d * _next_pow2(s), 1), dtype=torch.int64,
-                       device=dev)
-    unsorted = torch.empty(n_s * d, dtype=torch.int32, device=dev)
+                                 f"int32[5+{b}] / {edt}[{s}]")
+            refs += (_ptr(h), _ptr(e), off)
     if dedupe_key_m:
         _check(dom, torch.int32, "dom")
+    words = _merge_workspace_words(n_s, d, s, b)
+    ws = torch.empty(words, dtype=torch.int64, device=dev)
+    hdr = torch.empty((n_s, 5 + b), dtype=torch.int32, device=dev)
+    out = torch.empty((n_s, d * s), dtype=edt, device=dev)
+    vals = [n_s, d, s, b, codespace, dedupe_key_m, mq or 1,
+            dom.shape[0] if dedupe_key_m else 1,
+            int(ent0.dtype == torch.int64), words]
+    table = None
+    if n_s * d > MERGE_MAX_REFS:
+        table = _store_refs(dev, np.asarray(refs, np.int64).reshape(-1, 3))
+    else:
+        vals += refs
     _launch("merge_blocks", dev,
-            [refs, dom if dedupe_key_m else None, sorted_, keep, local, bsum,
-             counts, hdr, out, comp, unsorted],
-            [n_s, d, s, b, codespace, dedupe_key_m, mq or 1,
-             dom.shape[0] if dedupe_key_m else 1,
-             int(ent0.dtype == torch.int64)])
+            [table, dom if dedupe_key_m else None, ws, hdr, out], vals)
     return hdr, out
 
 
@@ -740,7 +921,7 @@ def merge_blocks(blocks, b: int, s: int, codespace: int,
 
 # slices a K13 launch takes (MAX_SLICES of csrc/sharded_frontier.cu): they
 # travel by value in the kernel parameter, so nothing is uploaded
-SHARDED_MAX_SLICES = 16
+SHARDED_MAX_SLICES = _build.LIMITS["ACCORD_SHARDED_MAX_SLICES"]
 
 
 def _slice_ptrs(rows, cols, n_l: int, n: int, drain: bool) -> list:

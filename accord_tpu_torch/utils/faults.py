@@ -24,6 +24,24 @@ The consumer of the fault surface is the degradation ladder in
 local/device_index.py (route quarantine -> host fallback -> compaction ->
 backpressure); all defaults are off — a production process never draws.
 
+Real CUDA errors take the same ladder when they are refusals of resources
+the process survives, as the reference treats jaxlib's ``XlaRuntimeError``
+at run time: a launch the runtime refuses for want of resources
+(``CudaLaunchError``, raised by ``ops.kernels._launch`` for the return
+codes of memory allocation, out of resources and a cooperative grid over
+the resident limit) and device memory exhausted (``torch.OutOfMemoryError``,
+from a wrapper's ``torch.empty`` or a copy) quarantine the device and fail
+the flush over to the host route, with the same bytes.  Every other return
+code propagates as a plain ``RuntimeError``: an invalid argument or a
+library with no image for this card is a fault of the build or of a
+wrapper, which no host route may hide.  An error that only shows at
+synchronisation (a fault during a kernel's run: an illegal address, a
+device-side assert) poisons the CUDA context, so no fail-over inside the
+process can survive it: it is not in ``DEVICE_EXCEPTIONS`` and propagates
+(``torch.AcceleratorError`` from the download that synchronises, or
+``RuntimeError`` from ``_launch`` when a later launch returns such a sticky
+code).
+
 Fused launches (r08, local/dispatch.py) are a SINGLE fault domain: one
 ``kernel_launch`` draw covers the whole fused dispatch and one ``transfer``
 draw covers the shared result download, so a fault inside a fused launch
@@ -37,6 +55,8 @@ from __future__ import annotations
 import contextlib
 import sys
 from typing import Dict, Iterator, Optional, Tuple
+
+import torch
 
 from .random_source import RandomSource
 
@@ -79,12 +99,26 @@ DEVICE_FAULT_KINDS: Dict[str, type] = {
     "stale_result": StaleResultFault,
 }
 
+class CudaLaunchError(RuntimeError):
+    """The CUDA runtime refused a kernel launch for want of resources (a
+    kernel library entry point returned cudaErrorMemoryAllocation,
+    cudaErrorLaunchOutOfResources or cudaErrorCooperativeLaunchTooLarge);
+    ``code`` is the cudaError_t."""
+
+    def __init__(self, message: str, code: int = 0):
+        super().__init__(message)
+        self.code = code
+
+
 # exception types the device layer treats as a device-boundary failure (and
-# therefore quarantines + fails over on): the injected fault family plus
-# MemoryError.  Real CUDA runtime and kernel-build errors are deliberately
-# NOT here — they propagate to the caller instead of hiding behind the host
-# route
-DEVICE_EXCEPTIONS: Tuple[type, ...] = (DeviceFaultError, MemoryError)
+# therefore quarantines + fails over on) — injected faults plus the real
+# runtime's launches refused for want of resources and device OOM, as the
+# reference adds XlaRuntimeError.  Kernel-build errors, invalid arguments
+# and sticky CUDA errors (those that poison the context, seen at
+# synchronisation) are NOT here: they propagate
+DEVICE_EXCEPTIONS: Tuple[type, ...] = (DeviceFaultError, MemoryError,
+                                       CudaLaunchError,
+                                       torch.OutOfMemoryError)
 
 # kind -> (probability, RandomSource); empty means no draws anywhere
 _armed: Dict[str, Tuple[float, RandomSource]] = {}

@@ -17,7 +17,13 @@ Phases:
      drain kernels' on phase 8's states; the mesh kernels' the largest
      of phases 9-11); median ms of kernel, plain version, library call
      (where one exists) and the least time the card could take (bound,
-     from the bytes and operations this input needs);
+     from the bytes and operations this input needs).  K3 is held at P =
+     1, 7, 8 and 4,097 rows on every scatter's columns, in its timed form
+     (device tensors in) and its live form (numpy in: one packed upload),
+     and timed in both at the largest recorded call and in the live form
+     at 8 rows of the store's table; K12 over 1 to 17 stores of 1, 3 or
+     8 blocks (under and over the blocks a launch takes by value), with
+     and without the dedupe, with overflowed blocks;
   4. the main path, a PreAccept deps store at real size: 100,000 in-flight
      txns over a 1,000,000-key space, up to 8 intervals each, with
      RedundantBefore floors and CommandsForKey state; 12,288 queries in
@@ -82,9 +88,16 @@ Phases:
      ``dryrun_multichip(8)``), the row-sharded frontier and fixpoint
      drain on config 3's 4,096-deep chain against K4b and K8, and a store
      with the mesh on ticking until a mesh tick served.
-Then torch.profiler traces of two phase-4 batches and of four phase-7
-rounds, solo and fused, give the device's busy share and its time by
-kernel name.
+After the main path, a real CUDA error in a store's flush: every free
+byte of the card is held while one dirty-row scatter allocates, so it
+raises torch.OutOfMemoryError; the flush fails over to the host with a
+twin store's bytes, one device fault, one quarantine, and the probe's
+restore.  A real launch the library refuses for an invalid argument
+(cudaErrorInvalidValue) must instead propagate, off the fault ladder.
+Then torch.profiler counts the device operations of one K12 call (one
+kernel) and one live K3 call (one copy, one kernel), and traces two
+phase-4 batches and four phase-7 rounds, solo and fused, for the device's
+busy share and its time by kernel name.
 
 Every kernel launch count is set to 0 just before phases 4-11 and read
 after each; each phase's seconds are printed: each kernel of the path must
@@ -173,6 +186,10 @@ MULTI_CARD_ONLY = ("sharded_drain",)
 # int8 tensor-core rate, the stand-in for K9's b1 products (no b1 rate is
 # published)
 HBM_BPS = 3.35e12
+# the host-to-device link of the SXM part: PCIe Gen5 x16, 128 GB/s both
+# ways on NVIDIA's H100 data sheet, so 64 GB/s each way; it bounds a call
+# that must upload its inputs (K3's live form)
+PCIE_BPS = 64e9
 TENSOR_INT8_OPS = 1979e12
 # the peak of the scalar integer work (compares, selects, AND/OR): 32-bit
 # integer instructions per second, 64 INT32 lanes an SM at the card's
@@ -406,8 +423,12 @@ def attr_case(torch, kern, dk, tlo, attr, aidx, rankb, hdr_raw, ent, m_t, m,
             None, nbytes, ops)
 
 
-def scatter_case(torch, kern, dk, cols, idx, rows):
-    """Kernel and plain version each write into their own copy."""
+def scatter_case(torch, kern, dk, cols, idx, rows, live=False):
+    """Kernel and plain version each write into their own copy.  The timed
+    form hands the kernel device tensors; the live form (``live``) hands it
+    numpy, as the mirrors do: one packed upload, then the kernel, against
+    the plain version on the same packed layout and the library's upload
+    of each column plus index_copy_."""
     dev = cols[0].device
     idx_t = torch.as_tensor(np.asarray(idx)).to(dev, torch.int64)
     rows_t = [torch.as_tensor(np.ascontiguousarray(r)).to(dev, c.dtype)
@@ -416,23 +437,146 @@ def scatter_case(torch, kern, dk, cols, idx, rows):
     cp = [c.clone() for c in cols]
     cl = [c.clone() for c in cols]
     p = len(idx_t)
-    row_bytes = sum((c[0].numel() if c.dim() > 1 else 1) * c.element_size()
-                    for c in cols)
+    row_bytes = sum(dk.row_bytes(c) for c in cols)
+    if live:
+        idx_np = np.asarray(idx)
+        rows_np = [np.asarray(r) for r in rows]
+        offs, total = dk.pack_layout(cols, p)
 
-    def run_kernel():
-        kern.scatter_rows(ck, idx_t, rows_t)
-        return tuple(ck)
+        def run_kernel():
+            kern.scatter_rows(ck, idx_np, rows_np)
+            return tuple(ck)
 
-    def run_plain():
-        dk.scatter_rows_plain(cp, idx_t, rows_t)
-        return tuple(cp)
+        def run_plain():
+            buf = np.empty(total, np.uint8)
+            dk.pack_rows(buf, cols, idx_np, rows_np, offs)
+            dk.scatter_rows_packed_plain(cp, torch.from_numpy(buf).to(dev),
+                                         p, offs)
+            return tuple(cp)
 
-    def run_library():
-        for c, r in zip(cl, rows_t):
-            c.index_copy_(0, idx_t, r)
+        def run_library():
+            ii = torch.from_numpy(idx_np).to(dev, torch.int64)
+            for c, r in zip(cl, rows_np):
+                c.index_copy_(0, ii, torch.from_numpy(r).to(dev, c.dtype))
+        return (run_kernel, run_plain, run_library,
+                2 * p * row_bytes + p * 8, p * len(cols), LOGIC_OPS, total)
+    else:
+        def run_kernel():
+            kern.scatter_rows(ck, idx_t, rows_t)
+            return tuple(ck)
+
+        def run_plain():
+            dk.scatter_rows_plain(cp, idx_t, rows_t)
+            return tuple(cp)
+
+        def run_library():
+            for c, r in zip(cl, rows_t):
+                c.index_copy_(0, idx_t, r)
 
     return (run_kernel, run_plain, run_library, 2 * p * row_bytes + p * 8,
             p * len(cols))
+
+
+def host_ms(fn, reps: int = 7) -> float:
+    """Median ms of ``fn`` on the host clock, after one warm-up call."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def pack_timings(torch, kern, dk, cols, idx, rows, on_cuda) -> dict:
+    """K3's host packing at the largest recorded call and at row prefixes
+    of it (a quarter each step, down to 64 KB): serial, and by the pool of
+    ``kern.PACK_WORKERS`` threads (host medians); and the whole live call
+    (pack, upload, kernel) at the largest call with each (CUDA events)."""
+    idx = np.asarray(idx)
+    rows = [np.asarray(r) for r in rows]
+    p = len(idx)
+    host = torch.empty(dk.pack_layout(cols, p)[1], dtype=torch.uint8,
+                       pin_memory=on_cuda).numpy()
+    out = {"workers": kern.PACK_WORKERS, "sizes": []}
+    while True:
+        offs, total = dk.pack_layout(cols, p)
+        sub_idx, sub_rows = idx[:p], [r[:p] for r in rows]
+        out["sizes"].append({
+            "rows": p, "bytes": total,
+            "serial_ms": host_ms(lambda: dk.pack_rows(
+                host, cols, sub_idx, sub_rows, offs)),
+            "pool_ms": host_ms(lambda: dk.pack_rows(
+                host, cols, sub_idx, sub_rows, offs, kern._pack_pool(),
+                kern.PACK_WORKERS))})
+        if total < 1 << 16 or p < 8:
+            break
+        p //= 4
+    ck = [c.clone() for c in cols]
+    out["live_pool_ms"] = time_ms(
+        torch, lambda: kern.scatter_rows(ck, idx, rows), on_cuda)
+    keep = kern.PACK_PARALLEL_BYTES
+    kern.PACK_PARALLEL_BYTES = 1 << 62
+    try:
+        out["live_serial_ms"] = time_ms(
+            torch, lambda: kern.scatter_rows(ck, idx, rows), on_cuda)
+    finally:
+        kern.PACK_PARALLEL_BYTES = keep
+    log("K3 packing, serial vs pool: " + json.dumps(out))
+    return out
+
+
+def scatter_cols(rng, kind, n, dev=None):
+    """Seeded columns of one of the four scatters K3 replaces: the table
+    (``table``: 32-byte interval rows; ``table_m3``: 24-byte ones), the
+    attribution columns (bool among them), bucket rows of 3 entries
+    (12-byte int32 rows) and the drain scalars; numpy, or tensors on
+    ``dev``."""
+    words = np.array([0, 1, (1 << 48) - 1, (1 << 62), -1, -(1 << 48)],
+                     np.int64)
+
+    def i64(*shape):
+        return rng.choice(words, shape).astype(np.int64)
+
+    def i32(*shape):
+        return rng.integers(-1, 7, shape).astype(np.int32)
+    if kind in ("table", "table_m3"):
+        m_t = 4 if kind == "table" else 3
+        cols = [i64(n), i64(n), i32(n), i32(n), i32(n), i64(n, m_t),
+                i64(n, m_t)]
+    elif kind == "attr":
+        cols = [i32(n), i32(n), i64(n), i64(n), i32(n), i64(n), i64(n),
+                i32(n), rng.random(n) < 0.5]
+    elif kind == "bucket":
+        cols = [i64(n, 3), i64(n, 3), i32(n, 3), i32(n, 3), i64(n, 3),
+                i64(n, 3), i32(n, 3), i32(n, 3)]
+    else:
+        cols = [i32(n), i64(n), i64(n), i32(n)]
+    if dev is None:
+        return cols
+    import torch
+    return [torch.from_numpy(c).to(dev) for c in cols]
+
+
+def scatter_edge_cases(torch, kern, dk, dev) -> dict:
+    """K3 at P = 1, 7, 8 and 4,097 rows (pad rows repeating the last), on
+    every scatter's columns (every dtype, bool included; rows of 12, 24
+    and 32 bytes), in its timed and its live form."""
+    cases = {}
+    for kind in ("table", "table_m3", "attr", "bucket", "drain"):
+        for p in (1, 7, 8, 4097):
+            rng = np.random.default_rng(p * 10 + len(kind))
+            n = 5000 if p > 8 else 64
+            cols = scatter_cols(rng, kind, n, dev)
+            distinct = {1: 1, 7: 7, 8: 5, 4097: 4000}[p]
+            rows = np.sort(rng.choice(n, distinct, replace=False))
+            idx = np.concatenate([rows, np.full(p - distinct, rows[-1])])
+            src = [a[idx] for a in scatter_cols(rng, kind, n)]
+            for live in (False, True):
+                tag = f"[{kind} P{p}{' live' if live else ''}]"
+                cases["scatter_rows" + tag] = scatter_case(
+                    torch, kern, dk, cols, idx.astype(np.int32), src, live)
+    return cases
 
 
 def frontier_work(torch, drk, state):
@@ -732,8 +876,11 @@ def run_checks(torch, cases: dict, label: str, on_cuda: bool,
     for name, case in cases.items():
         kfn, pfn, lfn, nbytes, ops = case[:5]
         # operations per second of the work a case counts: the scalar
-        # logic rate unless the case names another (a tensor-core rate)
+        # logic rate unless the case names another (a tensor-core rate);
+        # a case that uploads its inputs names the bytes it sends over the
+        # host link
         peak = case[5] if len(case) > 5 else LOGIC_OPS
+        link_bytes = case[6] if len(case) > 6 else 0
         got = kfn()
         if on_cuda:
             torch.cuda.synchronize()
@@ -756,12 +903,15 @@ def run_checks(torch, cases: dict, label: str, on_cuda: bool,
                                time_ms(torch, pfn, on_cuda, reps, warm))
             row["library_ms"] = (time_ms(torch, lfn, on_cuda)
                                  if lfn is not None else None)
-            t_bytes = nbytes / HBM_BPS * 1e3
+            t_bytes = max(nbytes / HBM_BPS, link_bytes / PCIE_BPS) * 1e3
             t_ops = ops / peak * 1e3
             row["bound_ms"] = max(t_bytes, t_ops)
             row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             row["bytes"] = int(nbytes)
             row["ops"] = int(ops)
+            if link_bytes:
+                row["link_bytes"] = int(link_bytes)
+                row["link_ms"] = link_bytes / PCIE_BPS * 1e3
         out[name] = row
         log(f"check {label} {name}: equal " + json.dumps(row))
     return out
@@ -796,6 +946,7 @@ def small_cases(torch, dev, kern, dk, drk, convert):
         src = small_inputs(seed + 10, dk)["table"]
         cases[f"scatter_rows[seed{seed}]"] = scatter_case(
             torch, kern, dk, list(up["table"]), rows, [a[rows] for a in src])
+    cases.update(scatter_edge_cases(torch, kern, dk, dev))
     # rows with more candidates than shared memory holds (C > 4096) sort
     # in global scratch: 8 intervals x 4 probes x 128 entries + the wide list
     for seed, wide in ((6, False), (7, True)):
@@ -1066,6 +1217,39 @@ class Recorder:
     def restore(self):
         for name, fn in self.orig.items():
             setattr(self.kern, name, fn)
+
+
+class ScatterSizes:
+    """Wrap K3's wrapper to note the payload of each call the main path
+    makes: the packed staging buffer's bytes of a live call (numpy in),
+    the rows' bytes of a call handed tensors."""
+
+    def __init__(self, torch, kern, dk):
+        self.kern, self.real = kern, kern.scatter_rows
+        self.live, self.tensor = [], []
+
+        def wrapped(cols, idx, rows):
+            if torch.is_tensor(idx):
+                self.tensor.append(len(idx) * sum(dk.row_bytes(c)
+                                                  for c in cols))
+            elif len(idx):
+                self.live.append(dk.pack_layout(cols, len(idx))[1])
+            return self.real(cols, idx, rows)
+        kern.scatter_rows = wrapped
+
+    def restore(self):
+        self.kern.scatter_rows = self.real
+
+    def summary(self, threshold: int) -> dict:
+        live = sorted(self.live)
+        return {"live_calls": len(live),
+                "live_at_least_pool_threshold": sum(b >= threshold
+                                                    for b in live),
+                "pool_threshold_bytes": threshold,
+                "live_bytes_median": live[len(live) // 2] if live else 0,
+                "live_bytes_max": live[-1] if live else 0,
+                "live_bytes_total": sum(live),
+                "tensor_calls": len(self.tensor)}
 
 
 class DrainRecord:
@@ -1495,13 +1679,156 @@ def burn_once(run_burn, device, n_ops):
     for k in ("n_bucketed_queries", "n_dense_queries", "n_host_queries",
               "n_device_ticks", "n_host_ticks", "n_device_faults",
               "n_fallback_queries", "n_queries", "n_fused_flushes",
-              "n_fused_ticks", "n_wavefront_ticks"):
+              "n_fused_ticks", "n_wavefront_ticks", "n_quarantines"):
         tot[k] = sum(getattr(d, k) for d in made)
     digest = hashlib.sha256(json.dumps(
         [r.ops_ok, r.ops_failed, r.ops_unresolved, r.epochs, r.restarts,
          r.evictions, r.stats, r.metrics_snapshot, r.span_export],
         sort_keys=True, default=str).encode()).hexdigest()
     return r, tot, digest
+
+
+def device_ops(torch, fn) -> dict:
+    """The device operations one call of ``fn`` makes (after a warm-up
+    call), from a torch.profiler trace: kernels, copies and memsets, and
+    their device time; the rest of a call's CUDA-event time is the host's
+    (its path before the device starts, and the gaps between launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {"kernels": 0, "copies": 0, "memsets": 0, "device_us": 0.0,
+           "names": []}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = ("copies" if e.name.startswith("Memcpy") else
+                "memsets" if e.name.startswith("Memset") else "kernels")
+        ops[kind] += 1
+        ops["device_us"] += e.time_range.elapsed_us()
+        ops["names"].append(e.name[:80])
+    return ops
+
+
+def table_rows(ds, p=8, distinct=5, seed=8):
+    """A P-row scatter into the store's device table as the burn's flushes
+    make it (numpy rows from the host mirror, pad rows repeating the
+    last): (columns, idx, rows)."""
+    m = ds.deps
+    live = np.nonzero(m.status >= 0)[0]
+    rows = np.sort(np.random.default_rng(seed).choice(live, distinct,
+                                                      replace=False))
+    idx = np.concatenate([rows, np.full(p - distinct, rows[-1])]).astype(
+        np.int32)
+    return (list(m.device_table()), idx,
+            [m.msb[idx], m.lsb[idx], m.node[idx], m.kind[idx],
+             m.status[idx], m.lo[idx], m.hi[idx]])
+
+
+def hold_device_memory(torch, dev) -> list:
+    """Tensors that hold every block the caching allocator can still hand
+    out on ``dev``: the cache emptied, then the largest allocation that
+    succeeds, again and again, halving on each refusal down to the
+    allocator's 512-byte granule.  While they live, any allocation on
+    ``dev`` raises torch.OutOfMemoryError."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    held, size = [], torch.cuda.mem_get_info(dev)[0]
+    while size >= 512:
+        try:
+            held.append(torch.empty(size, dtype=torch.uint8, device=dev))
+        except torch.OutOfMemoryError:
+            size //= 2
+    return held
+
+
+def real_error_check(torch, kern, dev, rehearsal) -> dict:
+    """A real CUDA error the process survives, in a store's flush: device
+    memory exhausted.  While one dirty-row scatter runs, every free byte
+    of the card is held, so the scatter's allocation of its staging
+    buffer raises torch.OutOfMemoryError.  The flush must fail over to
+    the host route with the bytes a twin store gives with no error, and
+    count one device fault and one quarantine; the quarantine's probe
+    flush must restore the device route, still with the twin's bytes.
+    Beside it, a return code that blames the library or its wrapper (a
+    real scatter launch with no columns: cudaErrorInvalidValue) must
+    propagate as a plain error, off the fault ladder."""
+    from accord_tpu_torch.utils import faults
+    if not rehearsal:
+        before = kern.LAUNCHES["scatter_rows"]
+        try:
+            kern._launch("scatter_rows", dev, [None], [0, 1])
+            fail("real error: a scatter of no columns launched")
+        except faults.DEVICE_EXCEPTIONS as e:
+            fail(f"real error: an invalid argument took the fault "
+                 f"ladder: {e!r}")
+        except RuntimeError as e:
+            log(f"real error: an invalid argument propagates: {e}")
+        check(kern.LAUNCHES["scatter_rows"] == before,
+              "real error: a refused scatter was counted as a launch")
+    n, b, keyspace = (4000, 256, 1_000_000) if not rehearsal else \
+        (600, 32, 1_000_000)
+    entries = build_workload(np.random.default_rng(31), n + 4 * b, keyspace,
+                             8, P)
+    batches = [make_queries(3100 + i, b, keyspace, 8, P) for i in range(12)]
+    real = kern.scatter_rows
+    fired = []
+
+    def starved(cols, idx, rows):
+        if fired:
+            return real(cols, idx, rows)
+        fired.append({"rows": len(idx), "oom": False})
+        if rehearsal:   # no card: the allocator's exception, as it raises
+            raise torch.OutOfMemoryError("CUDA out of memory (rehearsal)")
+        held = hold_device_memory(torch, dev)
+        fired[0]["held_bytes"] = sum(t.numel() for t in held)
+        try:
+            return real(cols, idx, rows)
+        except torch.OutOfMemoryError:
+            fired[0]["oom"] = True
+            raise
+        finally:
+            del held
+            torch.cuda.empty_cache()
+
+    def run(provoke):
+        store, ds, safe = build_store(entries[:n], keyspace, dev)
+        ds.route_override = "device"
+        out = []
+        for i, batch in enumerate(batches):
+            if i < 4:                     # new rows: a scatter each flush
+                register(ds, store, entries[n + i * b:n + (i + 1) * b])
+            if provoke and i == 1:
+                kern.scatter_rows = starved
+            try:
+                out.append(deps_digest(attributed(ds, safe, batch)))
+            finally:
+                kern.scatter_rows = real
+        return out, ds
+
+    want, clean = run(False)
+    got, ds = run(True)
+    res = {k: getattr(ds, k) for k in (
+        "n_device_faults", "n_quarantines", "n_restores",
+        "n_fallback_queries", "n_bucketed_queries", "n_dense_queries")}
+    res["starved_scatter"] = fired[0] if fired else None
+    log("real error check: " + json.dumps(res))
+    check(fired and (rehearsal or fired[0]["oom"]),
+          f"real error: the starved scatter did not run out of memory "
+          f"{fired}")
+    check(got == want, "real error: the failed-over flushes differ from "
+          "the twin store's")
+    check(clean.n_device_faults == 0 and clean.n_quarantines == 0,
+          "real error: the twin store faulted")
+    check(res["n_device_faults"] == 1 and res["n_quarantines"] == 1
+          and res["n_restores"] == 1,
+          f"real error: expected one fault, one quarantine, one restore "
+          f"{res}")
+    return res
 
 
 def profile_window(torch, label: str, fn) -> dict:
@@ -1923,33 +2250,41 @@ def tok_case(torch, kern, psh, ents, los, sn, m_t, m):
 
 
 def merge_blocks_small(seed, torch, dev, d=8, b=6, s=24, codespace=4096,
-                       dup=False, wide=False):
+                       dup=False, wide=False, n_s=1, holes=False):
     """d ascending shard blocks (some rows empty, repeats across shards in
-    the bucketed form) as a one-store K12 argument list."""
+    the bucketed form) for each of ``n_s`` stores, as a K12 argument list;
+    ``holes``: every block overflowed, with -1 holes inside its rows."""
     rng = np.random.default_rng(seed)
+    hr = np.random.default_rng(seed + 1000)
     pool = rng.integers(0, codespace, 12)
-    blk = []
-    for i in range(d):
-        counts = rng.integers(0, 5, b)
-        while counts.sum() > s:
-            counts[np.argmax(counts)] -= 1
-        ent = np.full(s, -1, np.int64 if wide else np.int32)
-        pos = 0
-        for r in range(b):
-            src = pool if dup else np.arange(codespace)
-            codes = np.sort(rng.choice(src, min(counts[r], len(src)),
-                                       replace=False))
-            ent[pos:pos + len(codes)] = codes
-            pos += len(codes)
-            counts[r] = len(codes)
-        row_end = np.cumsum(counts)
-        hdr = np.concatenate([[row_end[-1], row_end[-1], counts.max(),
-                               rng.integers(0, 4), rng.integers(0, 4)],
-                              row_end]).astype(np.int32)
-        off = 0 if dup else i * codespace
-        blk.append((torch.from_numpy(hdr).to(dev),
-                    torch.from_numpy(ent).to(dev), off))
-    return [blk]
+    stores = []
+    for _st in range(n_s):
+        blk = []
+        for i in range(d):
+            counts = rng.integers(0, 5, b)
+            while counts.sum() > s:
+                counts[np.argmax(counts)] -= 1
+            ent = np.full(s, -1, np.int64 if wide else np.int32)
+            pos = 0
+            for r in range(b):
+                src = pool if dup else np.arange(codespace)
+                codes = np.sort(rng.choice(src, min(counts[r], len(src)),
+                                           replace=False))
+                ent[pos:pos + len(codes)] = codes
+                pos += len(codes)
+                counts[r] = len(codes)
+            row_end = np.cumsum(counts)
+            hdr = np.concatenate([[row_end[-1], row_end[-1], counts.max(),
+                                   rng.integers(0, 4), rng.integers(0, 4)],
+                                  row_end]).astype(np.int32)
+            if holes and pos:
+                ent[hr.choice(pos, min(pos, 3), replace=False)] = -1
+                hdr[1] = s + 1 + hr.integers(0, 5)
+            off = 0 if dup else i * codespace
+            blk.append((torch.from_numpy(hdr).to(dev),
+                        torch.from_numpy(ent).to(dev), off))
+        stores.append(blk)
+    return stores
 
 
 def mesh_small_cases(torch, dev, kern, dk, drk, psh, convert, mesh):
@@ -2013,6 +2348,23 @@ def mesh_small_cases(torch, dev, kern, dk, drk, psh, convert, mesh):
         cases["merge_blocks" + tag] = merge_case(
             torch, kern, psh, blocks, 6, 24, cs, 4 if dup else 0,
             dom if dup else None, 8)
+    # S stores in one launch: under (3 x 8 blocks) and over (17 x 8 = 136)
+    # the blocks a launch takes by value, the dedupe on and off, blocks
+    # that overflowed (-1 holes inside their rows) or not; one block (no
+    # merge level) and three (an odd run merged with none)
+    n_dom = 4096 // 8
+    for n_s, d, dup, holes in ((3, 8, False, False), (3, 8, True, True),
+                               (17, 8, False, True), (17, 8, True, False),
+                               (2, 1, True, True), (2, 3, False, True)):
+        blocks = merge_blocks_small(50 + n_s + d, torch, dev, d=d, dup=dup,
+                                    n_s=n_s, holes=holes)
+        dom = torch.from_numpy(np.random.default_rng(n_s).integers(
+            0, 2, n_dom).astype(np.int32)).to(dev)
+        tag = (f"[S{n_s} d{d}{' dedupe' if dup else ''}"
+               f"{' holes' if holes else ''}]")
+        cases["merge_blocks" + tag] = merge_case(
+            torch, kern, psh, blocks, 6, 24, 4096 if dup else d * 4096,
+            4 if dup else 0, dom if dup else None, 8)
     for seed, s, k in ((1, 16, 2), (2, 24, 2)):
         cases[f"merge_blocks[overflow seed{seed} s{s}]"] = merge_case(
             torch, kern, psh, *overflow_blocks(torch, dev, kern, dk, psh,
@@ -2472,6 +2824,13 @@ def main(argv=None) -> int:
     real["attr_post"] = attr_case(torch, kern, dk, *a, **kw)
     a, kw, _w = rec.calls["scatter_rows"]
     real["scatter_rows"] = scatter_case(torch, kern, dk, *a, **kw)
+    # K3's live form, as the mirrors call it (numpy in: one packed upload
+    # and one launch), at the largest recorded call and at P = 8 rows of
+    # the store's table, as the burn's flushes scatter them
+    real["scatter_rows[live]"] = scatter_case(torch, kern, dk, *a, **kw,
+                                              live=True)
+    real["scatter_rows[live P8]"] = scatter_case(torch, kern, dk,
+                                                 *table_rows(ds), live=True)
     real["frontier_ell"] = ell_case(torch, kern, drk, dstate)
     a, kw, _w = rec7.calls["fused_deps_dense"]
     real["fused_deps_dense"] = fused_scan_case(torch, kern, dk, *a, **kw)
@@ -2498,6 +2857,8 @@ def main(argv=None) -> int:
     real["dense_to_ell"] = to_ell_case(torch, kern, drk, dense3.adj,
                                        dense3_ell.adj_idx.shape[1])
     rows = run_checks(torch, real, "real", on_cuda, timed=True)
+    pack_t = pack_timings(torch, kern, dk, *rec.calls["scatter_rows"][0],
+                          on_cuda)
     level_rounds = {
         "ell_100k": int(drk.level_assign_ell_plain(dstate)[1]),
         "dense_chain": int(drk.level_assign_dense_plain(cstate)[1])}
@@ -2508,6 +2869,9 @@ def main(argv=None) -> int:
         "deps_dense": list(rec.calls["deps_dense"][0][1].shape),
         "attr_post": [int(rec.calls["attr_post"][0][5].shape[0])],
         "scatter_rows": [len(rec.calls["scatter_rows"][0][1])],
+        "scatter_rows[live]": [len(rec.calls["scatter_rows"][0][1]),
+                               len(rec.calls["scatter_rows"][0][0])],
+        "scatter_rows[live P8]": [8, 7],
         "frontier_ell": list(dstate.adj_idx.shape),
         "fused_deps_dense": list(rec7.calls["fused_deps_dense"][0][1].shape)
         + [max(t.lo.shape[0] for t in rec7.calls["fused_deps_dense"][0][0])],
@@ -2524,7 +2888,9 @@ def main(argv=None) -> int:
         "dense_degree": list(dense3.adj.shape),
         "dense_to_ell": list(dense3_ell.adj_idx.shape)}
 
-    # 4-11. the main path, with every launch count set to 0 first
+    # 4-11. the main path, with every launch count set to 0 first, and
+    # the payload of each K3 call noted
+    sizes = ScatterSizes(torch, kern, dk)
     kern.reset_launches()
     phase_launches = {}
     phase_seconds = {}
@@ -2542,7 +2908,7 @@ def main(argv=None) -> int:
     # 4. the deps store at real size
     before = {k: getattr(ds, k) for k in (
         "n_bucketed_queries", "n_dense_queries", "n_host_queries",
-        "n_device_faults", "n_fallback_queries")}
+        "n_device_faults", "n_fallback_queries", "n_quarantines")}
     keep = {0: None, n_batches - 1: None}
     kt0 = {k: tuple(v) for k, v in ds.kernel_times.items()}
     t0 = time.perf_counter()
@@ -2595,8 +2961,8 @@ def main(argv=None) -> int:
     check(delta["n_dense_queries"] > 0 and delta["n_bucketed_queries"] > 0,
           f"both device kernels must serve queries: {delta}")
     check(delta["n_host_queries"] == 0, f"host queries: {delta}")
-    check(delta["n_device_faults"] == 0 and delta["n_fallback_queries"] == 0,
-          f"device faults: {delta}")
+    check(delta["n_device_faults"] == 0 and delta["n_fallback_queries"] == 0
+          and delta["n_quarantines"] == 0, f"device faults: {delta}")
     # the host route answers two of the batches with the same Deps, on the
     # same store state (no mutation since the device pass)
     ds.route_override = "host"
@@ -2743,7 +3109,8 @@ def main(argv=None) -> int:
           "burn: no kernel deps flushes")
     check(c1["n_device_ticks"] > 0, "burn: no device drain ticks")
     check(c1["n_host_ticks"] == 0, f"burn: host ticks {c1['n_host_ticks']}")
-    check(c1["n_device_faults"] == 0 and c1["n_host_queries"] == 0,
+    check(c1["n_device_faults"] == 0 and c1["n_host_queries"] == 0
+          and c1["n_quarantines"] == 0,
           f"burn: faults or host queries {c1}")
     check(not any(k.startswith("DeviceFault.") for k in r1.stats),
           "burn: fault events in the stats")
@@ -2859,6 +3226,9 @@ def main(argv=None) -> int:
         phase_done("11")
     finally:
         rec9.restore()
+        sizes.restore()
+    scatter_sizes = sizes.summary(kern.PACK_PARALLEL_BYTES)
+    log("K3 calls on the main path: " + json.dumps(scatter_sizes))
     for tag, names in (("9", ("merge_blocks", "attr_tok", "deps_bucketed",
                               "attr_post", "deps_dense")),
                        ("10", ("calc_deps", "ts_max", "deps_dense")),
@@ -2929,6 +3299,35 @@ def main(argv=None) -> int:
     log("drain_by_sweeps on the chain: equal to K8, "
         + json.dumps(phase11["drain_by_sweeps"]))
 
+    # a real CUDA error in a store's flush, after the main path: its fault
+    # and quarantine are its own (every phase above counted none)
+    fault_check = real_error_check(torch, kern, dev, rehearsal)
+
+    # the device operations one call makes and their device time: K12 at
+    # phase 9's recorded shape, K3's timed form and its live form at the
+    # largest recorded call and at P = 8, and the library calls they are
+    # timed against
+    call_ops = {}
+    if on_cuda:
+        for name, case in (("merge_blocks", mesh_real["merge_blocks"]),
+                           ("scatter_rows", real["scatter_rows"]),
+                           ("scatter_rows[live]",
+                            real["scatter_rows[live]"]),
+                           ("scatter_rows[live P8]",
+                            real["scatter_rows[live P8]"])):
+            call_ops[name] = device_ops(torch, case[0])
+            call_ops[name + " library"] = device_ops(torch, case[2])
+        log("device operations per call: " + json.dumps(call_ops))
+        k12, k3, k3s = (call_ops["merge_blocks"],
+                        call_ops["scatter_rows[live]"],
+                        call_ops["scatter_rows[live P8]"])
+        check(k12["kernels"] == 1 and k12["copies"] == 0
+              and k12["memsets"] == 0,
+              f"K12: not one kernel and no copy a call {k12}")
+        check(all(x["kernels"] == 1 and x["copies"] == 1
+                  and x["memsets"] == 0 for x in (k3, k3s)),
+              f"K3 live: not one copy and one kernel a call {k3} {k3s}")
+
     profiles = {}
     if on_cuda:
         def two_batches():
@@ -2989,6 +3388,11 @@ def main(argv=None) -> int:
                "level_rounds": level_rounds, "profiles": profiles,
                "phase8": phase8, "phase9": phase9, "phase10": phase10,
                "phase11": phase11, "phase_seconds": phase_seconds,
+               "scatter_live": {k: rows[k] for k in (
+                   "scatter_rows[live]", "scatter_rows[live P8]")},
+               "real_error_check": fault_check,
+               "scatter_sizes": scatter_sizes, "pack_timings": pack_t,
+               "device_ops_per_call": call_ops,
                "seconds": time.perf_counter() - t_start}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     if rehearsal:

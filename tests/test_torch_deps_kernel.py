@@ -270,23 +270,141 @@ def test_int64_codes_equal(monkeypatch):
     _eq(ref, port)
 
 
-def test_scatter_rows_equal():
-    """K3 against scatter_table_rows / scatter_attr_cols, with the pad rows
-    repeating the last dirty row."""
-    inp = _inputs(8)
-    rows = np.array([3, 17, 40, 40, 40], np.int32)     # last row repeated
-    tnew = _inputs(9)["table"]
-    src = [a[rows] for a in tnew]
-    ref = rdk.scatter_table_rows(_ref("table", inp["table"]),
-                                 jnp.asarray(rows), *src)
-    port = pdk.scatter_table_rows(_port(inp, "table"), rows, *src)
-    _eq(ref, port)
-    anew = _inputs(10)["attr"]
-    src = [a[rows] for a in anew]
-    ref = rdk.scatter_attr_cols(_ref("attr", inp["attr"]), jnp.asarray(rows),
-                                *src)
-    port = pdk.scatter_attr_cols(_port(inp, "attr"), rows, *src)
-    _eq(ref, port)
+def _scatter_ref(kind, cols, idx, src):
+    from accord_tpu.local import device_index as rdi
+    if kind in ("table", "table_m3"):
+        return rdk.scatter_table_rows(_ref("table", cols), idx, *src)
+    if kind == "attr":
+        return rdk.scatter_attr_cols(_ref("attr", cols), idx, *src)
+    if kind == "bucket":
+        return rdi._scatter_bucket_rows(tuple(jnp.asarray(c) for c in cols),
+                                        idx, tuple(jnp.asarray(r)
+                                                   for r in src))
+    return rdi._scatter_drain_scalars(*(jnp.asarray(c) for c in cols), idx,
+                                      *src)
+
+
+def _scatter_port(kind, cols, idx, src):
+    from accord_tpu_torch.ops import kernels
+    if kind in ("table", "table_m3"):
+        return pdk.scatter_table_rows(_port({"table": cols}, "table"), idx,
+                                      *src)
+    if kind == "attr":
+        return pdk.scatter_attr_cols(_port({"attr": cols}, "attr"), idx,
+                                     *src)
+    dev = [torch.from_numpy(c.copy()) for c in cols]
+    kernels.scatter_rows(dev, idx, src)
+    return dev
+
+
+@pytest.mark.parametrize("kind", ["table", "table_m3", "attr", "bucket",
+                                  "drain"])
+@pytest.mark.parametrize("p", [1, 7, 8, 4097])
+def test_scatter_rows_equal(kind, p):
+    """K3 against each of the four reference scatters, through the packed
+    staging layout (numpy in), on the columns ``chip_smoke.py`` holds the
+    kernel on: P dirty rows, the pad rows repeating the last one's bytes
+    as the mirrors pad them, every column dtype (bool included) and rows
+    of 12, 24 and 32 bytes."""
+    import chip_smoke as cs
+    rng = np.random.default_rng(p * 10 + len(kind))
+    n = 5000 if p > 8 else 64
+    cols = cs.scatter_cols(rng, kind, n)
+    distinct = {1: 1, 7: 7, 8: 5, 4097: 4000}[p]
+    rows = np.sort(rng.choice(n, distinct, replace=False)).astype(np.int32)
+    idx = np.concatenate([rows, np.full(p - distinct, rows[-1], np.int32)])
+    new = cs.scatter_cols(rng, kind, n)
+    src = [a[idx] for a in new]
+    _eq(_scatter_ref(kind, cols, jnp.asarray(idx), src),
+        _scatter_port(kind, cols, idx, src))
+
+
+def test_packed_layout_offsets():
+    """Every column's source rows start at a 16-byte boundary after the
+    int64 index, the buffer holds exactly the rows it packs, and packing
+    by several threads gives the same bytes."""
+    cols = [torch.zeros((9, 3), dtype=torch.int32),
+            torch.zeros(9, dtype=torch.bool),
+            torch.zeros((9, 4), dtype=torch.int64)]
+    offs, total = pdk.pack_layout(cols, 5)
+    assert offs == [48, 112, 128] and total == 288
+    buf = np.zeros(total, np.uint8)
+    idx = np.array([0, 2, 4, 4, 4])
+    rows = [np.arange(15).reshape(5, 3), np.array([1, 0, 1, 1, 1]),
+            np.full((5, 4), -7)]
+    pdk.pack_rows(buf, cols, idx, rows, offs)
+    pdk.scatter_rows_packed_plain(cols, torch.from_numpy(buf), 5, offs)
+    assert cols[0][4].tolist() == [12, 13, 14]
+    assert cols[1].tolist() == [1, 0, 0, 0, 1, 0, 0, 0, 0]
+    assert int(cols[2].sum()) == -7 * 12
+    with pytest.raises(ValueError):
+        pdk.pack_rows(buf, cols, idx, [rows[0][:, :2]] + rows[1:], offs)
+    # packed by a pool of threads in row ranges: the same bytes
+    from concurrent.futures import ThreadPoolExecutor
+    threaded = np.zeros(total, np.uint8)
+    with ThreadPoolExecutor(3) as pool:
+        pdk.pack_rows(threaded, cols, idx, rows, offs, pool, 3)
+    np.testing.assert_array_equal(threaded, buf)
+
+
+class _Mark:
+    """A stand-in for a CUDA event: pending until synchronized."""
+
+    def __init__(self):
+        self.pending = False
+        self.waits = 0
+
+    def record(self, stream=None):
+        self.pending = True
+
+    def synchronize(self):
+        self.waits += 1
+        self.pending = False
+
+
+def test_staging_ring_waits_for_its_last_copy():
+    """A staging buffer is written again only once the copy out of it has
+    completed: taking a slot whose copy is pending waits on its event
+    first, and a slot is never handed out twice while pending."""
+    from accord_tpu_torch.ops.kernels import StagingRing
+    ring = StagingRing(slots=2, pin=False, event=_Mark)
+    s0, b0 = ring.take(100)
+    b0[:4] = 7
+    ring.copied(s0)
+    mark0 = ring.marks[s0]
+    assert mark0.pending and mark0.waits == 0
+    s1, b1 = ring.take(5000)
+    assert s1 != s0 and b1.numel() >= 5000 and mark0.pending
+    ring.copied(s1)
+    s2, b2 = ring.take(100)             # slot 0 again: its copy must end
+    assert s2 == s0 and b2 is b0
+    assert mark0.waits == 1 and not mark0.pending
+    assert ring.marks[s1].pending        # slot 1's copy still in flight
+    s3, b3 = ring.take(100000)           # grows slot 1 after its wait
+    assert s3 == s1 and ring.marks[s1].waits == 1 and b3.numel() >= 100000
+    s4, _b4 = ring.take(10)              # slot 0 was not copied again
+    assert s4 == s0 and mark0.waits == 1
+
+
+def test_staging_ring_gives_back_an_oversized_buffer():
+    """A buffer grown past ``keep`` for one large call is replaced by one
+    of the size asked for when its slot is next taken for less, after the
+    wait on its copy; buffers up to ``keep`` are reused as they are."""
+    from accord_tpu_torch.ops.kernels import StagingRing
+    ring = StagingRing(slots=2, pin=False, event=_Mark, keep=1 << 16)
+    s0, big = ring.take(1 << 20)
+    ring.copied(s0)
+    s1, small = ring.take(5000)
+    ring.copied(s1)
+    s2, b2 = ring.take(100)              # slot 0: the large one goes
+    assert s2 == s0 and b2 is not big and b2.numel() == 4096
+    assert ring.marks[s0].waits == 1 and ring.bufs[s0] is b2
+    s3, b3 = ring.take(100)              # slot 1: under keep, reused
+    assert s3 == s1 and b3 is small
+    s4, b4 = ring.take(1 << 20)          # slot 0 grows again for a large one
+    assert s4 == s0 and b4.numel() == 1 << 20
+    s5, b5 = ring.take(40000)            # under keep but more than held
+    assert s5 == s1 and b5.numel() == 1 << 16
 
 
 @pytest.mark.parametrize("seed", [21, 22])

@@ -349,6 +349,43 @@ def test_merge_overflowed_with_holes_equals_reference(seed, dup):
     _eq(want[1], out[0])
 
 
+@pytest.mark.parametrize("n_s,dup,holes", [(3, False, False),
+                                            (3, True, True),
+                                            (17, False, True),
+                                            (17, True, False)])
+def test_merge_batched_equals_reference(n_s, dup, holes):
+    """K12 over S stores in one call, as sharded_fused_attr batches it, on
+    slot-sharded blocks (code offsets) and bucketed ones (dedupe), with and
+    without overflowed blocks; 17 stores x 8 blocks is above the 128
+    blocks a launch takes by value (the table upload path on the card).
+    Each store's merge equals the reference's on its globalized codes."""
+    m_t, m = 2, 4
+    mq = m_t * m
+    n = 4096 // mq
+    cs = n * mq if dup else D * 4096
+    dom = np.random.default_rng(n_s).integers(0, 2, n).astype(np.int32)
+    key_m = m if dup else 0
+    blocks, want = [], []
+    for st in range(n_s):
+        hdrs, ents = _blocks(40 + st, dup=dup, holes=holes)
+        offs = [0 if dup else i * 4096 for i in range(D)]
+        glob = np.where(ents >= 0, ents + np.array(offs)[:, None], ents)
+        want.append(rsh._merge_shard_blocks(
+            jnp.asarray(hdrs), jnp.asarray(glob.astype(np.int32)), 6, 24,
+            cs, key_m, dom=jnp.asarray(dom) if dup else None,
+            mq=mq if dup else None))
+        blocks.append([(torch.from_numpy(h), torch.from_numpy(e), o)
+                       for h, e, o in zip(hdrs, ents, offs)])
+    assert (n_s * D > kernels.MERGE_MAX_REFS) == (n_s == 17)
+    hdr, out = kernels.merge_blocks(blocks, 6, 24, cs, key_m,
+                                    torch.from_numpy(dom) if dup else None,
+                                    mq if dup else None)
+    assert hdr.shape == (n_s, 11) and out.shape == (n_s, D * 24)
+    for st, (wh, we) in enumerate(want):
+        _eq(wh, hdr[st])
+        _eq(we, out[st])
+
+
 # -- the attributed mesh kernels (K1 + K2 per slice, then K12) ------------------
 
 @pytest.mark.parametrize("seed", [7, 12])
