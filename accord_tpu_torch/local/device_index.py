@@ -774,8 +774,8 @@ class _DepsMirror:
         if self._attr_repl is not None and self._attr_repl_key == key:
             return self._attr_repl
         faults.check("transfer", "attr replicated upload")
-        self._attr_repl = dk.AttrCols(
-            *(_upload(a, mesh.dev0) for a in self._attr_host_cols()))
+        self._attr_repl = kernels.checked_cols(dk.AttrCols(
+            *(_upload(a, mesh.dev0) for a in self._attr_host_cols())))
         self._attr_repl_key = key
         return self._attr_repl
 
@@ -801,8 +801,8 @@ class _DepsMirror:
         if self._attr_dev is None or self._attr_dirty:
             faults.check("transfer", "attr column upload")
         if self._attr_dev is None:
-            self._attr_dev = dk.AttrCols(
-                *(_upload(a, self.device) for a in self._attr_host_cols()))
+            self._attr_dev = kernels.checked_cols(dk.AttrCols(
+                *(_upload(a, self.device) for a in self._attr_host_cols())))
             self._attr_dirty.clear()
         elif self._attr_dirty:
             rows = np.array(sorted(self._attr_dirty), np.int32)
@@ -813,7 +813,7 @@ class _DepsMirror:
             rows = np.concatenate([rows, np.full(padded - len(rows),
                                                  rows[-1], np.int32)])
             host = self._attr_host_cols()
-            self._attr_dev = self._own(self._attr_dev)
+            self._attr_dev = kernels.checked_cols(self._own(self._attr_dev))
             kernels.scatter_rows(list(self._attr_dev), rows,
                                  [a[rows] for a in host])
             self._attr_dirty.clear()
@@ -1011,10 +1011,10 @@ class _DepsMirror:
         if self._device is None or self._dirty:
             faults.check("transfer", "slot upload")
         if self._device is None:
-            self._device = dk.DepsTable(
+            self._device = kernels.checked_cols(dk.DepsTable(
                 *(_upload(a, self.device) for a in
                   (self.msb, self.lsb, self.node, self.kind, self.status,
-                   self.lo, self.hi)))
+                   self.lo, self.hi))))
             self._dirty.clear()
         elif self._dirty:
             rows = np.array(sorted(self._dirty), np.int32)
@@ -1027,7 +1027,7 @@ class _DepsMirror:
             padded = _pow2_at_least(len(rows), 8)
             rows = np.concatenate([rows, np.full(padded - len(rows),
                                                  rows[-1], np.int32)])
-            self._device = self._own(self._device)
+            self._device = kernels.checked_cols(self._own(self._device))
             kernels.scatter_rows(
                 list(self._device), rows,
                 [self.msb[rows], self.lsb[rows], self.node[rows],
@@ -1558,8 +1558,8 @@ class _AttrIndexHost:
     def device(self, device) -> "dk.AttrIndex":
         if self._dev is None or self._dev[0] != device:
             faults.check("transfer", "attr index upload")
-            self._dev = (device, dk.AttrIndex(
-                *(_upload(np.asarray(a), device) for a in self.pad)))
+            self._dev = (device, kernels.checked_cols(dk.AttrIndex(
+                *(_upload(np.asarray(a), device) for a in self.pad))))
         return self._dev[1]
 
     def device_replicated(self, mesh) -> "dk.AttrIndex":
@@ -1567,8 +1567,8 @@ class _AttrIndexHost:
         which each slice's launch reads on its own device."""
         if self._repl is None or self._repl[0] != mesh.key():
             faults.check("transfer", "attr index upload")
-            self._repl = (mesh.key(), dk.AttrIndex(
-                *(_upload(np.asarray(a), mesh.dev0) for a in self.pad)))
+            self._repl = (mesh.key(), kernels.checked_cols(dk.AttrIndex(
+                *(_upload(np.asarray(a), mesh.dev0) for a in self.pad))))
         return self._repl[1]
 
     def keep_floor(self, tok, dmsb, dlsb, dnode) -> np.ndarray:

@@ -20,15 +20,45 @@
 //
 // Bound on this card: bytes — each entry is read once and written at most
 // once, with a handful of gathers (attr columns, one lo) and two short
-// binary searches per entry.  Design: one thread per entry computes the
-// keep flag and counts its row's drops and the elision tallies with
-// integer atomics (order-free, so deterministic); a block scan plus a scan
-// of the block sums places the kept entries; one block rebuilds row_end.
+// binary searches per entry.  At the main path's sizes a call is its fixed
+// part (the burn's calls hold a few hundred entries), so the design is one
+// cooperative launch, one workspace (accord_attr_workspace_words) and no
+// memset, in three phases between two grid barriers:
+//   1. each CTA takes a contiguous range of 32-entry words, a warp a word,
+//      a lane an entry: its row by one search of row_end staged in shared
+//      memory, the previous entry's (row, slot, col) key from the lane
+//      before (lane 0 computes its own), the keep flag, and one ballot
+//      word of keep flags; the CTA sums its kept entries and its elision
+//      tallies (integers, so the order does not matter);
+//   2. one CTA scans the CTAs' sums into their offsets and sums the
+//      tallies into the header;
+//   3. each CTA places its kept entries at its offset (1,024 words at a
+//      time: a block scan of their popcounts, then the warps write the
+//      words' entries in turn, a word coalesced), writes -1 after the
+//      last kept entry, and the recompacted row_end.  No per-row drop
+//      counts: entries are in row order, so the live entries of rows <= b
+//      are the positions below X(b) = min(row_end[b], total, s)
+//      (min(total, s) for the last row, which takes every later
+//      position), and row b's new end is row_end[b] - (X(b) -
+//      kept(X(b))), with kept(x) the kept entries below position x: the
+//      thread whose word holds X(b) reads it off its word's offset and a
+//      popcount, and CTA 0 takes X(b) = s.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "dense_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int NT = 256;
+// attr_post's CTA: 1,024 threads, two an SM (32 registers a thread), so
+// that the grid barriers and the one-CTA scan see few CTAs while as many
+// warps are in flight as with small CTAs
+constexpr int ANT = 1024;
+// row_end entries staged in shared memory (a larger batch searches global)
+constexpr int SROWS = 2048;
 
 struct AttrArgs {
   const int64_t* tlo;
@@ -37,134 +67,267 @@ struct AttrArgs {
       *erank, *exm, *exl, *estride, *rankb;
   const uint8_t* eknown;
   const int32_t* hdr_raw;
+  const void* ent;
   const int64_t* tok;   // per-entry token (mesh bucketed), or null: tlo
+  int32_t* hdr;
+  void* out;
+  uint32_t* keepw;      // [s / 32] keep flags, one word a 32 entries
+  long long* csum;      // [grid + 1] kept entries of each CTA, then
+                        // their exclusive prefix and the total
+  long long* tally;     // [2 x grid] n_trans, n_dec of each CTA
   int64_t s, F, T_len, L;
   int B, m_t, m, floors, elide;
 };
 
+// Python floor division and modulo by b > 0, in the codes' own width
 template <typename T>
-__device__ __forceinline__ int64_t pair_key(const AttrArgs& a, const T* ent,
-                                            int64_t pos) {
-  const int64_t row = min64(upper_bound(a.hdr_raw + 2, a.B, pos),
-                          (int64_t)a.B - 1);
-  return row * (int64_t(1) << 40) + floordiv((int64_t)ent[pos], a.m);
+__device__ __forceinline__ T fdiv(T a, T b) {
+  const T q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-// keep flag of entry ``pos``; counts drops per row and the elision tallies
+// the keep flag of live entry ``pos`` (code, row, first of its key); a
+// key-domain entry it grades adds to the elision tallies.  The legs run
+// in the order that skips the most searches: a repeat of its key is
+// dropped and counted nowhere, a TRANSITIVE entry needs only the floor
+// (its tally), and only a decided entry above the floor needs the pivot
+// search; the result is the reference's keep_floor & !el_trans & !el_dec
+// & firstp, and its tallies firstp & keep_floor & el_trans and firstp &
+// keep_floor & !el_trans & el_dec
 template <typename T>
-__global__ void __launch_bounds__(NT)
-attr_keep(AttrArgs a, const T* ent, int32_t* keep,
-          unsigned long long* drops, unsigned long long* tallies) {
-  const int64_t pos = (int64_t)blockIdx.x * NT + threadIdx.x;
-  if (pos >= a.s) return;
-  const int64_t total = a.hdr_raw[0];
-  if (pos >= total) {
-    keep[pos] = 0;
-    return;
-  }
-  const int64_t code = (int64_t)ent[pos];
-  const int64_t mq = (int64_t)a.m_t * a.m;
-  const int64_t slot = max64(floordiv(code, mq), 0);
-  const int64_t col =
-      min64(max64(floordiv(floormod(code, mq), a.m), 0), a.m_t - 1);
-  const int64_t row = min64(upper_bound(a.hdr_raw + 2, a.B, pos),
-                          (int64_t)a.B - 1);
-  const bool key_dep = a.dom[slot] == 0;
+__device__ __forceinline__ bool entry_keep(const AttrArgs& a, T code,
+                                           int64_t pos, int64_t row,
+                                           bool firstp, int& n_tr,
+                                           int& n_dc) {
+  const T mq = (T)a.m_t * (T)a.m;
+  const T q = fdiv<T>(code, mq);
+  const int64_t slot = max64((int64_t)q, 0);
+  if (a.dom[slot] != 0) return true;       // not a key dep: kept
+  if (!firstp) return false;
   const int32_t st = a.status[slot];
+  const int64_t col = min64(
+      max64((int64_t)fdiv<T>((T)(code - q * mq), (T)a.m), 0), a.m_t - 1);
   const int64_t tok = a.tok ? a.tok[pos] : a.tlo[slot * a.m_t + col];
-  const int64_t dm = a.dmsb[slot], dl = a.dlsb[slot];
-  const int32_t dn = a.dnode[slot];
-  bool keep_floor = true;
   if (a.floors) {
     const int64_t fi = upper_bound(a.fbnd, a.F, tok);
-    keep_floor = !ts_lt(dm, dl, dn, a.fmsb[fi], a.flsb[fi], a.fnode[fi]);
+    if (ts_lt(a.dmsb[slot], a.dlsb[slot], a.dnode[slot], a.fmsb[fi],
+              a.flsb[fi], a.fnode[fi]))
+      return false;                        // below the floor
   }
-  const bool el_trans = st == SLOT_TRANSITIVE;
-  bool el_dec = false;
-  if (a.elide) {
-    const int64_t seg = lower_bound(a.etok, a.T_len, tok);
-    const int64_t seg_c = min64(seg, max64(a.T_len - 1, 0));
-    const bool seg_ok = a.etok[seg_c] == tok;
-    const int64_t base = a.eptr[seg_c];
-    const int64_t cnt =
-        lower_bound(a.erank, a.L, seg_c * a.estride[0] + a.rankb[row]) - base;
-    const bool has_pivot = seg_ok && cnt > 0;
-    const int64_t pidx = max64(base + cnt - 1, 0);
-    const bool below = ts_lt(a.emsb[slot], a.elsb[slot], a.enode[slot],
-                             a.exm[pidx], a.exl[pidx], a.exn[pidx]);
-    const bool decided = st >= SLOT_COMMITTED && st <= SLOT_APPLIED &&
-                         a.eknown[slot];
-    el_dec = decided && has_pivot && below;
+  if (st == SLOT_TRANSITIVE) {
+    ++n_tr;
+    return false;
   }
-  const bool firstp =
-      pos == 0 || pair_key(a, ent, pos) != pair_key(a, ent, pos - 1);
-  const bool drop_key = !keep_floor || el_trans || el_dec || !firstp;
-  const bool k = !key_dep || !drop_key;
-  keep[pos] = k ? 1 : 0;
-  if (!k) atomicAdd(drops + row, 1ULL);
-  if (key_dep && firstp && keep_floor) {
-    if (el_trans) atomicAdd(tallies, 1ULL);
-    else if (el_dec) atomicAdd(tallies + 1, 1ULL);
+  if (!a.elide || !(st >= SLOT_COMMITTED && st <= SLOT_APPLIED &&
+                    a.eknown[slot]))
+    return true;                           // not decided: no pivot
+  const int64_t seg = lower_bound(a.etok, a.T_len, tok);
+  const int64_t seg_c = min64(seg, max64(a.T_len - 1, 0));
+  if (a.etok[seg_c] != tok) return true;
+  const int64_t base = a.eptr[seg_c];
+  const int64_t cnt =
+      lower_bound(a.erank, a.L, seg_c * a.estride[0] + a.rankb[row]) - base;
+  if (cnt <= 0) return true;
+  const int64_t pidx = base + cnt - 1;
+  if (ts_lt(a.emsb[slot], a.elsb[slot], a.enode[slot], a.exm[pidx],
+            a.exl[pidx], a.exn[pidx])) {
+    ++n_dc;                                // decided below the pivot
+    return false;
+  }
+  return true;
+}
+
+// first index i in [0, n) with x[i] >= v, else n
+__device__ __forceinline__ int64_t first_at_least(const int32_t* x, int64_t n,
+                                                  int64_t v) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if ((int64_t)x[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// new row ends for the rows b whose X(b) lies in [p0, p1): ``kb`` kept
+// entries lie below p0 and ``word`` holds the keep flags from p0 on
+__device__ __forceinline__ void row_ends_in(const AttrArgs& a,
+                                           const int32_t* re, int64_t p0,
+                                           int64_t p1, int64_t live_end,
+                                           long long kb, unsigned word) {
+  if (p0 > live_end) return;
+  const int64_t last = a.B - 1;
+  for (int64_t b = first_at_least(re, last, p0); b <= last; ++b) {
+    const int64_t x = b == last ? live_end : min64(re[b], live_end);
+    if (x >= p1) break;
+    const long long kept = kb + __popc(word & ((1u << (x - p0)) - 1u));
+    const int32_t ne = (int32_t)((long long)re[b] - (x - kept));
+    a.hdr[5 + b] = ne;
+    if (b == last) a.hdr[0] = ne;
   }
 }
 
-// exclusive scan of keep within each block; block sums to ``bsum``
-__global__ void __launch_bounds__(NT)
-scan_blocks(const int32_t* keep, int64_t s, int32_t* local, long long* bsum) {
-  const int64_t pos = (int64_t)blockIdx.x * NT + threadIdx.x;
-  const int v = pos < s ? keep[pos] : 0;
-  int tot;
-  const int e = block_exclusive_scan<NT, int>(v, &tot);
-  if (pos < s) local[pos] = e;
-  if (threadIdx.x == 0) bsum[blockIdx.x] = tot;
-}
-
-// one block: exclusive scan of the block sums, in place
-__global__ void __launch_bounds__(1024)
-scan_sums(long long* bsum, int64_t nb) {
-  long long run = 0;
-  for (int64_t base = 0; base < nb; base += 1024) {
-    const int64_t i = base + threadIdx.x;
-    const long long v = i < nb ? bsum[i] : 0;
-    long long tot;
-    const long long e = block_exclusive_scan<1024, long long>(v, &tot);
-    if (i < nb) bsum[i] = run + e;
-    run += tot;
-  }
-}
-
+// the entries' chains of dependent loads are hidden by the warps in
+// flight, not by work inside one
 template <typename T>
-__global__ void __launch_bounds__(NT)
-attr_write(const int32_t* keep, const int32_t* local, const long long* bsum,
-           const T* ent, int64_t s, T* out) {
-  const int64_t pos = (int64_t)blockIdx.x * NT + threadIdx.x;
-  if (pos < s && keep[pos]) out[bsum[blockIdx.x] + local[pos]] = ent[pos];
-}
+__global__ void __launch_bounds__(ANT, 2) attr_post(AttrArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int32_t s_rows[SROWS];
+  __shared__ unsigned long long s_sum[3];
+  __shared__ unsigned s_word[ANT];
+  __shared__ int s_off[ANT];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const T* ent = (const T*)a.ent;
+  const int32_t* re = a.B <= SROWS ? s_rows : a.hdr_raw + 2;
+  const int64_t live_end = min64(max64((int64_t)a.hdr_raw[0], 0), a.s);
+  const int64_t nw = (a.s + 31) / 32;
+  const int64_t wpc = (nw + gridDim.x - 1) / gridDim.x;
+  const int64_t w0 = min64((int64_t)blockIdx.x * wpc, nw);
+  const int64_t w1 = min64(w0 + wpc, nw);
+  if (a.B <= SROWS)
+    for (int i = threadIdx.x; i < a.B; i += ANT) s_rows[i] = a.hdr_raw[2 + i];
+  if (threadIdx.x < 3) s_sum[threadIdx.x] = 0;
+  __syncthreads();
 
-// one block: new_end = row_end - cumsum(drops) and the attributed header
-__global__ void __launch_bounds__(1024)
-attr_header(const int32_t* hdr_raw, const unsigned long long* drops,
-            const unsigned long long* tallies, int B, int32_t* hdr) {
-  long long run = 0;
-  for (int base = 0; base < B; base += 1024) {
-    const int b = base + threadIdx.x;
-    const long long d = b < B ? (long long)drops[b] : 0;
-    long long tot;
-    const long long e = block_exclusive_scan<1024, long long>(d, &tot);
-    if (b < B) hdr[5 + b] = (int32_t)((long long)hdr_raw[2 + b] - (run + e + d));
-    run += tot;
+  // 1. keep flags, a ballot word a warp
+  int n_tr = 0, n_dc = 0;
+  for (int64_t w = w0 + wid; w < w1; w += ANT / 32) {
+    const int64_t pos = w * 32 + lane;
+    const bool live = pos < live_end;
+    const T code = live ? ent[pos] : (T)0;
+    const int64_t row = live ? dense_tile::row_of(re, a.B, pos) : 0;
+    const int64_t key = row * (int64_t(1) << 40) + (int64_t)fdiv<T>(code,
+                                                                    (T)a.m);
+    int64_t pkey = __shfl_up_sync(0xffffffffu, key, 1);
+    if (lane == 0 && live && pos > 0) {
+      const int64_t prow = dense_tile::row_of(re, a.B, pos - 1);
+      pkey = prow * (int64_t(1) << 40) +
+             (int64_t)fdiv<T>(ent[pos - 1], (T)a.m);
+    }
+    const bool k = live && entry_keep<T>(a, code, pos, row,
+                                         pos == 0 || key != pkey, n_tr, n_dc);
+    const unsigned word = __ballot_sync(0xffffffffu, k);
+    if (lane == 0) {
+      a.keepw[w] = word;
+      atomicAdd(&s_sum[0], (unsigned long long)__popc(word));
+    }
   }
+  if (n_tr) atomicAdd(&s_sum[1], (unsigned long long)n_tr);
+  if (n_dc) atomicAdd(&s_sum[2], (unsigned long long)n_dc);
+  __syncthreads();
   if (threadIdx.x == 0) {
-    hdr[0] = (int32_t)((long long)hdr_raw[2 + B - 1] - run);
-    hdr[1] = hdr_raw[0];
-    hdr[2] = hdr_raw[1];
-    hdr[3] = (int32_t)tallies[0];
-    hdr[4] = (int32_t)tallies[1];
+    a.csum[blockIdx.x] = (long long)s_sum[0];
+    a.tally[2 * blockIdx.x] = (long long)s_sum[1];
+    a.tally[2 * blockIdx.x + 1] = (long long)s_sum[2];
+  }
+  grid.sync();
+
+  // 2. one CTA: the CTAs' kept entries scanned in place (their offsets,
+  // then the total at csum[grid]) and the tallies summed into the header.
+  // (Not every CTA summing the sums before it: at a thousand CTAs that
+  // reads the same few lines of L2 a million times, and it took most of
+  // the call.)
+  if (blockIdx.x == 0) {
+    if (threadIdx.x == 0) s_sum[1] = s_sum[2] = 0;   // ordered by the scan
+    long long run = 0, tr = 0, dc = 0;
+    for (int base = 0; base < (int)gridDim.x; base += ANT) {
+      const int i = base + threadIdx.x;
+      const long long v = i < (int)gridDim.x ? a.csum[i] : 0;
+      if (i < (int)gridDim.x) {
+        tr += a.tally[2 * i];
+        dc += a.tally[2 * i + 1];
+      }
+      long long tot;
+      const long long e = block_exclusive_scan<ANT, long long>(v, &tot);
+      if (i < (int)gridDim.x) a.csum[i] = run + e;
+      run += tot;
+    }
+    if (tr) atomicAdd(&s_sum[1], (unsigned long long)tr);
+    if (dc) atomicAdd(&s_sum[2], (unsigned long long)dc);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      a.csum[gridDim.x] = run;
+      a.hdr[1] = a.hdr_raw[0];
+      a.hdr[2] = a.hdr_raw[1];
+      a.hdr[3] = (int32_t)s_sum[1];
+      a.hdr[4] = (int32_t)s_sum[2];
+    }
+  }
+  grid.sync();
+
+  // 3. each CTA's kept entries at its offset, -1 after the last, and the
+  // new row ends
+  long long base = a.csum[blockIdx.x];
+  const long long kept_all = a.csum[gridDim.x];
+  T* out = (T*)a.out;
+  for (int64_t c0 = w0; c0 < w1; c0 += ANT) {
+    const int64_t w = c0 + threadIdx.x;
+    const unsigned word = w < w1 ? a.keepw[w] : 0u;
+    int ctot;
+    const int off = block_exclusive_scan<ANT, int>(__popc(word), &ctot);
+    s_word[threadIdx.x] = word;
+    s_off[threadIdx.x] = off;
+    if (w < w1)
+      row_ends_in(a, re, w * 32, min64(w * 32 + 32, a.s), live_end,
+                  base + off, word);
+    __syncthreads();
+    for (int t = wid; t < ANT && c0 + t < w1; t += ANT / 32) {
+      const unsigned x = s_word[t];
+      if ((x >> lane) & 1)
+        out[base + s_off[t] + __popc(x & ((1u << lane) - 1u))] =
+            ent[(c0 + t) * 32 + lane];
+    }
+    base += ctot;
+    __syncthreads();   // s_word, s_off are the next chunk's
+  }
+  for (int64_t p = kept_all + (int64_t)blockIdx.x * ANT + threadIdx.x;
+       p < a.s; p += (int64_t)gridDim.x * ANT)
+    out[p] = (T)-1;
+  if (blockIdx.x == 0 && live_end == a.s) {
+    // the rows whose X(b) is s itself: every kept entry lies below
+    const int64_t last = a.B - 1;
+    for (int64_t b = first_at_least(re, last, a.s) + threadIdx.x; b <= last;
+         b += ANT) {
+      const int32_t ne =
+          (int32_t)((long long)re[b] - ((long long)a.s - kept_all));
+      a.hdr[5 + b] = ne;
+      if (b == last) a.hdr[0] = ne;
+    }
   }
 }
 
+// CTAs a call of s entries wants: a word a warp at least
+int64_t attr_ctas(int64_t s) {
+  const int64_t nw = (s + 31) / 32;
+  const int64_t c = (nw + ANT / 32 - 1) / (ANT / 32);
+  return c > 1 ? c : 1;
+}
+
+// the workspace's int64 words for s entries: keep words (s / 32, 32 bits),
+// per CTA its kept entries (then their total) and two tallies
+int64_t attr_workspace_words(int64_t s) {
+  return ((s + 31) / 32 + 1) / 2 + 3 * attr_ctas(s) + 1;
+}
+
 template <typename T>
-int launch(void* const* p, const int64_t* v, cudaStream_t st) {
+int launch(AttrArgs& a, cudaStream_t st) {
+  return launch_cooperative(attr_post<T>, ANT, attr_ctas(a.s), a, st);
+}
+
+}  // namespace
+
+// The workspace a call needs, in int64 words: the wrapper allocates it.
+ACCORD_EXPORT int64_t accord_attr_workspace_words(int64_t s) {
+  return attr_workspace_words(s);
+}
+
+// ptrs: tlo, dom, status, dmsb, dlsb, dnode, emsb, elsb, enode, eknown,
+//       fbnd, fmsb, flsb, fnode, etok, eptr, erank, exm, exl, exn, estride,
+//       rankb, hdr_raw, ent, workspace int64[words]
+//       (accord_attr_workspace_words), hdr int32[5+B], out[s], tok[s]
+//       (null: gather lo[slot, col])
+// vals: s, B, m_t, m, floors, elide, F, T, L, wide, workspace words
+ACCORD_EXPORT int accord_attr_post(void* const* p, const int64_t* v,
+                                   void* stream) {
   AttrArgs a;
   a.tlo = (const int64_t*)p[0];
   a.dom = (const int32_t*)p[1];
@@ -189,15 +352,11 @@ int launch(void* const* p, const int64_t* v, cudaStream_t st) {
   a.estride = (const int64_t*)p[20];
   a.rankb = (const int64_t*)p[21];
   a.hdr_raw = (const int32_t*)p[22];
-  const T* ent = (const T*)p[23];
-  int32_t* keep = (int32_t*)p[24];
-  int32_t* local = (int32_t*)p[25];
-  long long* bsum = (long long*)p[26];
-  unsigned long long* drops = (unsigned long long*)p[27];
-  unsigned long long* tallies = (unsigned long long*)p[28];
-  int32_t* hdr = (int32_t*)p[29];
-  T* out = (T*)p[30];
-  a.tok = (const int64_t*)p[31];
+  a.ent = p[23];
+  int64_t* ws = (int64_t*)p[24];
+  a.hdr = (int32_t*)p[25];
+  a.out = p[26];
+  a.tok = (const int64_t*)p[27];
   a.s = v[0];
   a.B = (int)v[1];
   a.m_t = (int)v[2];
@@ -207,32 +366,15 @@ int launch(void* const* p, const int64_t* v, cudaStream_t st) {
   a.F = v[6];
   a.T_len = v[7];
   a.L = v[8];
-  const int64_t nb = (a.s + NT - 1) / NT;
-  cudaMemsetAsync(out, 0xff, (size_t)a.s * sizeof(T), st);
-  cudaMemsetAsync(drops, 0, (size_t)a.B * sizeof(unsigned long long), st);
-  cudaMemsetAsync(tallies, 0, 2 * sizeof(unsigned long long), st);
-  if (nb > 0) {
-    attr_keep<T><<<(unsigned)nb, NT, 0, st>>>(a, ent, keep, drops, tallies);
-    scan_blocks<<<(unsigned)nb, NT, 0, st>>>(keep, a.s, local, bsum);
-    scan_sums<<<1, 1024, 0, st>>>(bsum, nb);
-    attr_write<T><<<(unsigned)nb, NT, 0, st>>>(keep, local, bsum, ent, a.s,
-                                               out);
-  }
-  attr_header<<<1, 1024, 0, st>>>(a.hdr_raw, drops, tallies, a.B, hdr);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// ptrs: tlo, dom, status, dmsb, dlsb, dnode, emsb, elsb, enode, eknown,
-//       fbnd, fmsb, flsb, fnode, etok, eptr, erank, exm, exl, exn, estride,
-//       rankb, hdr_raw, ent, keep[s], local[s], bsum[nb], drops[B],
-//       tallies[2], hdr[5+B], out[s], tok[s] (null: gather lo[slot, col])
-// vals: s, B, m_t, m, floors, elide, F, T, L, wide
-ACCORD_EXPORT int accord_attr_post(void* const* p, const int64_t* v,
-                                   void* stream) {
+  if (a.s < 0 || v[1] < 1 || v[1] > INT32_MAX || a.m_t < 1 || a.m < 1 ||
+      v[10] < attr_workspace_words(a.s))
+    return (int)cudaErrorInvalidValue;
+  const int64_t ctas = attr_ctas(a.s);
+  a.csum = (long long*)ws;
+  a.tally = a.csum + ctas + 1;
+  a.keepw = (uint32_t*)(a.tally + 2 * ctas);
   cudaStream_t st = (cudaStream_t)stream;
-  return v[9] ? launch<int64_t>(p, v, st) : launch<int32_t>(p, v, st);
+  return v[9] ? launch<int64_t>(a, st) : launch<int32_t>(a, st);
 }
 
 namespace {

@@ -12,23 +12,57 @@
 // row_end[B]) and entries[s] (int32 or int64 composite codes
 // slot*M_t*Q + col*Q + q, ascending and unique per row, -1 elsewhere).
 //
-// Bound on this card: the bucketed scan reads each touched bucket line and
-// the wide list once per query (bytes), plus a per-row sort of the few
-// codes that pass the predicate; the dense scan reads the whole slot table
-// once per query row (bytes, L2-resident for small tables).  Design: one
-// block per query row.  The bucketed row first counts its valid
-// candidates, gathers them into shared memory (global scratch when the row
-// has more candidates than fit), sorts them with a bitonic network and
-// keeps the first of each run; the dense row compacts its mask in slot
-// order with a block scan.  Both write each row's first k codes to a row
-// buffer; one block then scans the row counts into the header, and a last
-// pass copies each row to its offset, truncated at s, exactly as the
-// reference's _compact_rows does.
+// deps_bucketed.  Bound on this card: it reads each touched bucket line
+// and the wide list once per query (bytes), plus a per-row sort of the few
+// codes that pass the predicate.  Design: one block per query row, which
+// counts its valid candidates, gathers them into shared memory (global
+// scratch when the row has more candidates than fit), sorts them with a
+// bitonic network and keeps the first of each run into a row buffer; one
+// block then scans the row counts into the header, and a last pass copies
+// each row to its offset, truncated at s, exactly as the reference's
+// _compact_rows does.
+//
+// deps_dense.  Bound on this card: operations, B x N (row, slot) tests of
+// up to m x m_t interval pairs, two int64 compares a pair.  A design of
+// one block a query row walking the whole table (the first port) reads
+// the table once a row and leaves the card with two blocks an SM, each a
+// chain of block scans.  Now the slots are tiled across CTAs, so that one
+// staged group of query rows serves a tile of slots and one slot in
+// registers serves the group (the predicate and its exact filters are
+// dense_tile.cuh's).  One cooperative launch, four phases between grid
+// barriers, every scratch buffer carved from one workspace
+// (accord_dense_workspace_words), no memset:
+//   1. items of (256 slots x 32 query rows): a thread holds its slot, and
+//      for each staged row a warp ballots its 32 mask bits into one word
+//      and sums its triple counts: mask words and word sums [B, N/32];
+//   2. a CTA a row: the popcount prefix finds the word where the mask rank
+//      crosses kp = min(k, N), which keeps only its first bits (one warp
+//      recounts that word's triples); the selected triples' count, the
+//      mask count and each selected word's triple offset;
+//   3. one CTA scans the counts into the header and the row starts;
+//   4. a warp takes 32 words of a row and walks their selected slots in
+//      order from each word's offset: for one slot its lanes test 32
+//      (col, q) pairs at a time and a ballot places the overlapping ones,
+//      up to kk a row; then -1 after the total and in a row's positions
+//      past kk.  (Not a lane a slot, each recounting its pairs: that
+//      phase took most of the call at the recorded shape; the pairs of
+//      one slot are the parallel work, the selected slots of a word few.)
+// Why one cooperative launch and not three plain ones: phases 2 and 3
+// each need every CTA of the phase before, the small calls (the burn's
+// flushes) are all host path and launch latency, and the grid barriers
+// cost a few microseconds where the launches and the memset they replace
+// cost more.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "dense_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 256;
+// threads a CTA (ops/_build.py GEOMETRY)
+constexpr int NT = ACCORD_DEPS_THREADS;
 
 template <typename T>
 __device__ __forceinline__ T sentinel();
@@ -170,83 +204,10 @@ bucketed_rows(BucketArgs a, T* scratch, int32_t* counts, T* rowbuf) {
   if (threadIdx.x == 0) counts[b] = run;
 }
 
-struct DenseArgs {
-  const int64_t* qmat;
-  const int64_t *tmsb, *tlsb, *tlo, *thi;
-  const int32_t *tnode, *tkind, *tstatus;
-  int qcols, m, N, m_t, kp;
-  int64_t pm, pl;
-  int32_t pn;
-};
-
-// the dense route's exact mask: live, not invalidated, any interval pair
-// overlaps, and the entry predicate
-__device__ __forceinline__ bool dense_mask(const DenseArgs& a,
-                                           const int64_t* row,
-                                           const Query& q, int j) {
-  const int32_t st = a.tstatus[j];
-  if (st < 0 || st == SLOT_INVALIDATED) return false;
-  if (!entry_pred(q, a.tmsb[j], a.tlsb[j], a.tnode[j], a.tkind[j], a.pm,
-                  a.pl, a.pn))
-    return false;
-  const int64_t* lo = a.tlo + (int64_t)j * a.m_t;
-  const int64_t* hi = a.thi + (int64_t)j * a.m_t;
-  for (int qi = 0; qi < a.m; ++qi) {
-    const int64_t qlo = row[7 + qi], qhi = row[7 + a.m + qi];
-    for (int c = 0; c < a.m_t; ++c)
-      if (qlo <= hi[c] && lo[c] <= qhi) return true;
-  }
-  return false;
-}
-
-__device__ __forceinline__ int triple_count(const DenseArgs& a,
-                                            const int64_t* row, int j) {
-  const int64_t* lo = a.tlo + (int64_t)j * a.m_t;
-  const int64_t* hi = a.thi + (int64_t)j * a.m_t;
-  int n = 0;
-  for (int c = 0; c < a.m_t; ++c)
-    for (int qi = 0; qi < a.m; ++qi)
-      n += row[7 + qi] <= hi[c] && lo[c] <= row[7 + a.m + qi];
-  return n;
-}
-
-// per row: the first kp mask columns in slot order (sel), the full mask
-// count (pair_counts) and the triple count over the selected slots
-__global__ void __launch_bounds__(NT)
-dense_select(DenseArgs a, int32_t* sel, int32_t* pair_counts,
-             int32_t* counts) {
-  __shared__ int tri;
-  const int b = blockIdx.x;
-  const int64_t* row = a.qmat + (int64_t)b * a.qcols;
-  const Query q = load_query(row);
-  if (threadIdx.x == 0) tri = 0;
-  __syncthreads();
-  int run = 0;
-  int mine = 0;
-  for (int base = 0; base < a.N; base += NT) {
-    const int j = base + threadIdx.x;
-    const bool f = j < a.N && dense_mask(a, row, q, j);
-    int tot;
-    const int r = block_exclusive_scan<NT, int>(f ? 1 : 0, &tot);
-    if (f && run + r < a.kp) {
-      sel[(int64_t)b * a.kp + run + r] = j;
-      mine += triple_count(a, row, j);
-    }
-    run += tot;
-  }
-  if (mine) atomicAdd(&tri, mine);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    pair_counts[b] = run;
-    counts[b] = tri;
-  }
-}
-
 // one block: row_end = cumsum(counts), header (total, maxc, row_end),
-// starts for the write pass.  maxc also covers pair_counts (dense route).
+// starts for the write pass
 __global__ void __launch_bounds__(1024)
-rows_scan(const int32_t* counts, const int32_t* pair_counts, int B,
-          int64_t* starts, int32_t* hdr) {
+rows_scan(const int32_t* counts, int B, int64_t* starts, int32_t* hdr) {
   __shared__ int maxc;
   if (threadIdx.x == 0) maxc = 0;
   __syncthreads();
@@ -255,10 +216,7 @@ rows_scan(const int32_t* counts, const int32_t* pair_counts, int B,
   for (int base = 0; base < B; base += 1024) {
     const int b = base + threadIdx.x;
     const int v = b < B ? counts[b] : 0;
-    if (b < B) {
-      mx = maxi(mx, v);
-      if (pair_counts) mx = maxi(mx, pair_counts[b]);
-    }
+    if (b < B) mx = maxi(mx, v);
     long long tot;
     const long long e = block_exclusive_scan<1024, long long>(v, &tot);
     if (b < B) {
@@ -285,40 +243,6 @@ rows_write(const int32_t* counts, const int64_t* starts, const T* rowbuf,
   for (int r = threadIdx.x; r < n; r += NT) {
     const int64_t pos = st + r;
     if (pos < s) ent[pos] = rowbuf[(int64_t)b * kk + r];
-  }
-}
-
-// dense triple expansion: selected slot r of row b emits its valid
-// (col, q) pairs in order at the row's running triple offset
-template <typename T>
-__global__ void __launch_bounds__(NT)
-dense_write(DenseArgs a, const int32_t* sel, const int32_t* pair_counts,
-            const int64_t* starts, int kk, int64_t s, T* ent) {
-  const int b = blockIdx.x;
-  const int64_t* row = a.qmat + (int64_t)b * a.qcols;
-  const int n = mini(pair_counts[b], a.kp);
-  const int64_t st = starts[b];
-  const int64_t mq = (int64_t)a.m_t * a.m;
-  int run = 0;
-  for (int base = 0; base < n; base += NT) {
-    const int r = base + threadIdx.x;
-    const int j = r < n ? sel[(int64_t)b * a.kp + r] : 0;
-    const int t = r < n ? triple_count(a, row, j) : 0;
-    int tot;
-    int off = run + block_exclusive_scan<NT, int>(t, &tot);
-    if (r < n) {
-      const int64_t* lo = a.tlo + (int64_t)j * a.m_t;
-      const int64_t* hi = a.thi + (int64_t)j * a.m_t;
-      for (int c = 0; c < a.m_t && off < kk; ++c)
-        for (int qi = 0; qi < a.m && off < kk; ++qi)
-          if (row[7 + qi] <= hi[c] && lo[c] <= row[7 + a.m + qi]) {
-            const int64_t pos = st + off;
-            if (pos < s)
-              ent[pos] = (T)((T)j * (T)mq + (T)c * (T)a.m + (T)qi);
-            ++off;
-          }
-    }
-    run += tot;
   }
 }
 
@@ -371,45 +295,273 @@ int launch_bucketed(void* const* p, const int64_t* v, cudaStream_t st) {
   // the wrapper passes scratch when a row's codes outgrow shared memory
   const size_t smem = scratch ? 0 : (size_t)a.Cp * sizeof(T);
   bucketed_rows<T><<<B, NT, smem, st>>>(a, scratch, counts, rowbuf);
-  rows_scan<<<1, 1024, 0, st>>>(counts, nullptr, B, starts, hdr);
+  rows_scan<<<1, 1024, 0, st>>>(counts, B, starts, hdr);
   rows_write<T><<<B, NT, 0, st>>>(counts, starts, rowbuf, a.kk, s, ent);
   return (int)cudaGetLastError();
 }
 
+// -- K1b: the dense route, tiled across slots ---------------------------------
+
+// query rows a pass-1 item stages, and the query intervals they may hold
+constexpr int DR = 32;
+constexpr int DQ = 1024;
+
+struct DenseParams {
+  dense_tile::Table t;
+  const int64_t* qmat;
+  int64_t* starts;    // [B + 1] row starts, then the total
+  uint32_t* maskw;    // [B, W] mask words (bit l of word w: slot 32w + l)
+  int32_t* tpre;      // [B, W] triples of each word, then their prefix
+  int32_t* counts;    // [B] selected triples
+  int32_t* pairc;     // [B] mask bits
+  int32_t* nsel;      // [B] leading words that hold the selected slots
+  int32_t* hdr;
+  void* ent;
+  int64_t s;
+  int B, qcols, m, W, kp, kk, rows;
+};
+
+// the n lowest set bits of x
+__device__ __forceinline__ unsigned low_set_bits(unsigned x, int n) {
+  unsigned r = 0;
+  for (; n > 0 && x; --n) {
+    const unsigned b = x & (0u - x);
+    r |= b;
+    x ^= b;
+  }
+  return r;
+}
+
+template <typename T, int MT>
+__global__ void __launch_bounds__(NT) dense_csr(DenseParams a) {
+  namespace dt = dense_tile;
+  cg::grid_group grid = cg::this_grid();
+  __shared__ dt::Row srow[DR];
+  __shared__ int64_t sq[2 * DQ];
+  __shared__ int s_cut, s_csum;
+  __shared__ unsigned s_cword;
+  __shared__ int s_max;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int m = a.m, m_t = a.t.m_t;
+
+  // 1. mask words and their triple sums: one item is NT slots (one a
+  // thread, in registers) against a group of staged query rows
+  const int64_t ntiles = ((int64_t)a.t.N + NT - 1) / NT;
+  const int64_t ngroups = (a.B + a.rows - 1) / a.rows;
+  for (int64_t item = blockIdx.x; item < ntiles * ngroups;
+       item += gridDim.x) {
+    const int64_t tile = item % ntiles;
+    const int b0 = (int)(item / ntiles) * a.rows;
+    const int nr = mini(a.rows, a.B - b0);
+    __syncthreads();   // the previous item's rows are read
+    for (int r = threadIdx.x; r < nr; r += NT)
+      srow[r] = dt::load_row(a.qmat + (int64_t)(b0 + r) * a.qcols, m);
+    for (int i = threadIdx.x; i < nr * m; i += NT) {
+      const int r = i / m, qi = i - r * m;
+      const int64_t* q = a.qmat + (int64_t)(b0 + r) * a.qcols;
+      sq[i] = q[7 + qi];
+      sq[DQ + i] = q[7 + m + qi];
+    }
+    __syncthreads();
+    const int64_t j = tile * NT + threadIdx.x;
+    const dt::Slot<MT> slot = dt::load_slot<MT>(a.t, j);
+    const int64_t w = j >> 5;
+    for (int r = 0; r < nr; ++r) {
+      int n = 0;
+      if (dt::row_admits(srow[r], slot))
+        n = dt::pair_count(srow[r], slot, sq + r * m, sq + DQ + r * m, m,
+                           m_t);
+      const unsigned word = __ballot_sync(0xffffffffu, n > 0);
+      const int sum = __reduce_add_sync(0xffffffffu, n);
+      if (lane == 0 && w < a.W) {
+        const int64_t o = (int64_t)(b0 + r) * a.W + w;
+        a.maskw[o] = word;
+        a.tpre[o] = sum;
+      }
+    }
+  }
+  grid.sync();
+
+  // 2. per row: the mask count, the word where the rank crosses kp (only
+  // its first bits stay), the selected triples and each selected word's
+  // triple offset in the row
+  const int per = (a.W + NT - 1) / NT;
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    uint32_t* mw = a.maskw + (int64_t)b * a.W;
+    int32_t* tp = a.tpre + (int64_t)b * a.W;
+    const int w0 = mini(threadIdx.x * per, a.W), w1 = mini(w0 + per, a.W);
+    int pc = 0;
+    for (int w = w0; w < w1; ++w) pc += __popc(mw[w]);
+    if (threadIdx.x == 0) {
+      s_cut = a.W;
+      s_cword = 0;
+      s_csum = 0;
+    }
+    int ptot;
+    const int pex = block_exclusive_scan<NT, int>(pc, &ptot);
+    int run = pex;
+    // (a segment that starts past kp may begin with empty words: only a
+    // word with bits decides anything, and only the one thread whose
+    // segment holds the crossing word writes s_cword)
+    for (int w = w0; w < w1; ++w) {
+      const unsigned x = mw[w];
+      const int p = __popc(x);
+      if (p == 0) continue;
+      if (run >= a.kp) {               // nothing of w is selected
+        atomicMin(&s_cut, w);
+        break;
+      }
+      if (run + p > a.kp) {            // the first kp - run bits are
+        s_cword = low_set_bits(x, a.kp - run);
+        atomicMin(&s_cut, w + 1);
+        break;
+      }
+      run += p;
+    }
+    __syncthreads();
+    const int cut = s_cut;
+    const unsigned cword = s_cword;
+    if (cword && wid == 0) {           // recount the partial word
+      const int64_t* q = a.qmat + (int64_t)b * a.qcols;
+      int n = 0;
+      for (unsigned x = cword; x; x &= x - 1) {
+        const int64_t js = (int64_t)(cut - 1) * 32 + (__ffs(x) - 1);
+        for (int p0 = 0; p0 < m_t * m; p0 += 32) {
+          const int p = p0 + lane;
+          n += __popc(__ballot_sync(
+              0xffffffffu, p < m_t * m && dt::pair_hit(q, m, a.t.lo + js * m_t,
+                                                      a.t.hi + js * m_t, p)));
+        }
+      }
+      if (lane == 0) s_csum = n;
+    }
+    __syncthreads();
+    const int full = cword ? cut - 1 : cut;
+    int ts = 0;
+    for (int w = w0; w < mini(w1, full); ++w) ts += tp[w];
+    if (cword && cut - 1 >= w0 && cut - 1 < w1) ts += s_csum;
+    int ttot;
+    int off = block_exclusive_scan<NT, int>(ts, &ttot);
+    for (int w = w0; w < mini(w1, cut); ++w) {
+      const int v = w < full ? tp[w] : s_csum;
+      tp[w] = off;
+      off += v;
+    }
+    if (cword && cut - 1 >= w0 && cut - 1 < w1) mw[cut - 1] = cword;
+    if (threadIdx.x == 0) {
+      a.counts[b] = ttot;
+      a.pairc[b] = ptot;
+      a.nsel[b] = cut;
+    }
+    __syncthreads();   // s_cut, s_cword, s_csum are the next row's
+  }
+  grid.sync();
+
+  // 3. one CTA: row_end = cumsum(counts), the header, the row starts
+  if (blockIdx.x == 0) {
+    if (threadIdx.x == 0) s_max = 0;
+    long long run = 0;
+    int mx = 0;
+    for (int base = 0; base < a.B; base += NT) {
+      const int b = base + threadIdx.x;
+      const int v = b < a.B ? a.counts[b] : 0;
+      if (b < a.B) mx = maxi(mx, maxi(v, a.pairc[b]));
+      long long tot;
+      const long long e = block_exclusive_scan<NT, long long>(v, &tot);
+      if (b < a.B) {
+        a.starts[b] = run + e;
+        a.hdr[2 + b] = (int32_t)(run + e + v);
+      }
+      run += tot;
+    }
+    atomicMax(&s_max, mx);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      a.hdr[0] = (int32_t)run;
+      a.hdr[1] = s_max;
+      a.starts[a.B] = run;
+    }
+  }
+  grid.sync();
+
+  // 4. the triples of the selected slots in (slot, col, q) order: a warp
+  // takes 32 words of a row and walks their selected slots in order from
+  // each word's offset; for one slot its lanes test 32 (col, q) pairs at
+  // a time, and a ballot places the overlapping ones; then -1 after the
+  // total and in a row's positions past kk
+  T* ent = (T*)a.ent;
+  const int ngw = (a.W + 31) / 32;
+  const int mq = m_t * m;
+  const int64_t nwarps = (int64_t)gridDim.x * (NT / 32);
+  const unsigned below = (1u << lane) - 1u;
+  for (int64_t it = (int64_t)blockIdx.x * (NT / 32) + wid;
+       it < (int64_t)a.B * ngw; it += nwarps) {
+    const int b = (int)(it / ngw);
+    const int g = (int)(it - (int64_t)b * ngw);
+    const int ns = a.nsel[b];
+    if (g * 32 >= ns) continue;
+    const int w = g * 32 + lane;
+    const unsigned word = w < ns ? a.maskw[(int64_t)b * a.W + w] : 0u;
+    const int tpw = word ? a.tpre[(int64_t)b * a.W + w] : 0;
+    unsigned nz = __ballot_sync(0xffffffffu, word != 0);
+    if (!nz) continue;
+    const int64_t* q = a.qmat + (int64_t)b * a.qcols;
+    const int64_t st = a.starts[b];
+    while (nz) {
+      const int l = __ffs(nz) - 1;
+      nz &= nz - 1;
+      unsigned x = __shfl_sync(0xffffffffu, word, l);
+      int off = __shfl_sync(0xffffffffu, tpw, l);
+      while (x && off < a.kk) {
+        const int64_t js = (int64_t)(g * 32 + l) * 32 + (__ffs(x) - 1);
+        x &= x - 1;
+        const int64_t* lo = a.t.lo + js * m_t;
+        const int64_t* hi = a.t.hi + js * m_t;
+        for (int p0 = 0; p0 < mq && off < a.kk; p0 += 32) {
+          const int p = p0 + lane;
+          const bool hit = p < mq && dt::pair_hit(q, m, lo, hi, p);
+          const unsigned bal = __ballot_sync(0xffffffffu, hit);
+          const int o = off + __popc(bal & below);
+          if (hit && o < a.kk && st + o < a.s)
+            ent[st + o] = (T)((T)js * (T)mq + (T)p);
+          off += __popc(bal);
+        }
+      }
+    }
+  }
+  const int64_t total = a.starts[a.B];
+  for (int64_t p = min64(total, a.s) + (int64_t)blockIdx.x * NT + threadIdx.x;
+       p < a.s; p += (int64_t)gridDim.x * NT)
+    ent[p] = (T)-1;
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    const int c = a.counts[b];
+    if (c <= a.kk) continue;
+    const int64_t st = a.starts[b];
+    const int64_t end = min64(st + c, a.s);
+    for (int64_t p = st + a.kk + threadIdx.x; p < end; p += NT)
+      ent[p] = (T)-1;
+  }
+}
+
+// the workspace's int64 words for B rows over N slots (W = N / 32 words):
+// starts (B + 1), mask words and triple prefixes (B x W each, 32 bits),
+// counts, mask counts and selected words (B each, 32 bits)
+int64_t dense_workspace_words(int64_t B, int64_t N) {
+  const int64_t W = (N + 31) / 32;
+  return (B + 1) + B * W + (3 * B + 1) / 2;
+}
+
 template <typename T>
-int launch_dense(void* const* p, const int64_t* v, cudaStream_t st) {
-  DenseArgs a;
-  a.qmat = (const int64_t*)p[0];
-  a.tmsb = (const int64_t*)p[1];
-  a.tlsb = (const int64_t*)p[2];
-  a.tnode = (const int32_t*)p[3];
-  a.tkind = (const int32_t*)p[4];
-  a.tstatus = (const int32_t*)p[5];
-  a.tlo = (const int64_t*)p[6];
-  a.thi = (const int64_t*)p[7];
-  int32_t* counts = (int32_t*)p[8];
-  int32_t* pair_counts = (int32_t*)p[9];
-  int32_t* sel = (int32_t*)p[10];
-  int64_t* starts = (int64_t*)p[11];
-  int32_t* hdr = (int32_t*)p[12];
-  T* ent = (T*)p[13];
-  const int B = (int)v[0];
-  a.qcols = (int)v[1];
-  a.m = (int)v[2];
-  a.N = (int)v[3];
-  a.m_t = (int)v[4];
-  a.pm = v[5];
-  a.pl = v[6];
-  a.pn = (int32_t)v[7];
-  const int64_t s = v[9];
-  const int k = (int)v[10];
-  a.kp = mini(k, a.N);
-  const int kk = mini(k, a.kp * a.m_t * a.m);
-  cudaMemsetAsync(ent, 0xff, (size_t)s * sizeof(T), st);
-  dense_select<<<B, NT, 0, st>>>(a, sel, pair_counts, counts);
-  rows_scan<<<1, 1024, 0, st>>>(counts, pair_counts, B, starts, hdr);
-  dense_write<T><<<B, NT, 0, st>>>(a, sel, pair_counts, starts, kk, s, ent);
-  return (int)cudaGetLastError();
+int launch_dense(DenseParams& a, cudaStream_t st) {
+  const int64_t ntiles = ((int64_t)a.t.N + NT - 1) / NT;
+  const int64_t items = ntiles * ((a.B + a.rows - 1) / a.rows);
+  const int64_t warps = (int64_t)a.B * ((a.W + 31) / 32) / (NT / 32);
+  int64_t want = items > a.B ? items : a.B;
+  if (warps > want) want = warps;
+  return a.t.m_t <= dense_tile::MT_REG
+             ? launch_cooperative(dense_csr<T, dense_tile::MT_REG>, NT, want,
+                                  a, st)
+             : launch_cooperative(dense_csr<T, 0>, NT, want, a, st);
 }
 
 }  // namespace
@@ -427,12 +579,52 @@ ACCORD_EXPORT int accord_deps_bucketed(void* const* p, const int64_t* v,
                : launch_bucketed<int32_t>(p, v, st);
 }
 
-// ptrs: qmat, msb, lsb, node, kind, status, lo, hi, counts[B],
-//       pair_counts[B], sel[B*kp], starts[B], hdr[2+B], ent[s]
-// vals: B, qcols, m, N, m_t, pm, pl, pn, wide, s, k
+// The workspace a call needs, in int64 words: the wrapper allocates it.
+ACCORD_EXPORT int64_t accord_dense_workspace_words(int64_t B, int64_t N) {
+  return dense_workspace_words(B, N);
+}
+
+// ptrs: qmat, msb, lsb, node, kind, status, lo, hi, workspace int64[words]
+//       (accord_dense_workspace_words), hdr int32[2+B], ent[s]
+// vals: B, qcols, m, N, m_t, pm, pl, pn, wide, s, k, workspace words
 ACCORD_EXPORT int accord_deps_dense(void* const* p, const int64_t* v,
                                     void* stream) {
+  DenseParams a;
+  a.qmat = (const int64_t*)p[0];
+  a.t.msb = (const int64_t*)p[1];
+  a.t.lsb = (const int64_t*)p[2];
+  a.t.node = (const int32_t*)p[3];
+  a.t.kind = (const int32_t*)p[4];
+  a.t.status = (const int32_t*)p[5];
+  a.t.lo = (const int64_t*)p[6];
+  a.t.hi = (const int64_t*)p[7];
+  int64_t* ws = (int64_t*)p[8];
+  a.hdr = (int32_t*)p[9];
+  a.ent = p[10];
+  const int64_t B = v[0], N = v[3], k = v[10];
+  a.qcols = (int)v[1];
+  a.m = (int)v[2];
+  a.t.m_t = (int)v[4];
+  a.t.pm = v[5];
+  a.t.pl = v[6];
+  a.t.pn = (int32_t)v[7];
+  a.s = v[9];
+  if (B < 1 || B > INT32_MAX || N < 0 || N > INT32_MAX || a.m < 0 ||
+      a.m > DQ || a.t.m_t < 1 || a.qcols != 7 + 2 * a.m || a.s < 0 ||
+      k < 0 || v[11] < dense_workspace_words(B, N))
+    return (int)cudaErrorInvalidValue;
+  a.B = (int)B;
+  a.t.N = (int)N;
+  a.W = (int)((N + 31) / 32);
+  a.kp = (int)min64(k, N);
+  a.kk = (int)min64(k, (int64_t)a.kp * a.t.m_t * a.m);
+  a.rows = mini(DR, DQ / maxi(a.m, 1));
+  a.starts = ws;
+  a.maskw = (uint32_t*)(ws + B + 1);
+  a.tpre = (int32_t*)(a.maskw + B * a.W);
+  a.counts = a.tpre + B * a.W;
+  a.pairc = a.counts + B;
+  a.nsel = a.pairc + B;
   cudaStream_t st = (cudaStream_t)stream;
-  return v[8] ? launch_dense<int64_t>(p, v, st)
-              : launch_dense<int32_t>(p, v, st);
+  return v[8] ? launch_dense<int64_t>(a, st) : launch_dense<int32_t>(a, st);
 }

@@ -428,21 +428,14 @@ def _attr_key_masks(tok, dmsb, dlsb, dnode, status, emsb, elsb, enode,
     return keep_floor, elide_trans, decided & has_pivot & below
 
 
-def attr_post_plain(tlo: torch.Tensor, attr: AttrCols, aidx: AttrIndex,
-                    rankb: torch.Tensor, hdr_raw: torch.Tensor,
-                    ent: torch.Tensor, m_t: int, m: int, floors: bool = True,
-                    elide: bool = True, tok: torch.Tensor = None):
-    """Post-compaction attribution (the reference's ``_attr_post``) over the
-    compacted entry buffer: per-token RedundantBefore floors, elision of
-    TRANSITIVE and decided-below-pivot key entries, the key-domain
-    (row, slot, col) dedupe, and a cumsum-scatter recompaction.  ``tok``
-    (int64[s]) replaces the token gather from ``tlo``: a mesh-bucketed
-    caller assembles it across the slices.  Returns the attributed
-    (header int32[5+B], entries[s])."""
+def _attr_keep_plain(tlo, attr: AttrCols, aidx: AttrIndex, rankb, hdr_raw,
+                     ent, m_t: int, m: int, floors: bool, elide: bool, tok):
+    """The keep flag of every entry position and the two elision tallies
+    (the per-entry half of ``_attr_post``): (keep bool[s], live bool[s],
+    row_of int64[s], n_trans, n_dec)."""
     s = ent.shape[0]
     dev = ent.device
     total = hdr_raw[0].to(torch.int64)
-    maxc_raw = hdr_raw[1]
     row_end = hdr_raw[2:].to(torch.int64)
     b = row_end.shape[0]
     pos = torch.arange(s, dtype=torch.int64, device=dev)
@@ -468,6 +461,26 @@ def attr_post_plain(tlo: torch.Tensor, attr: AttrCols, aidx: AttrIndex,
     keep = live & (~key_dep | ~drop_key)
     n_trans = (live & key_dep & firstp & keep_floor & el_trans).sum()
     n_dec = (live & key_dep & firstp & keep_floor & ~el_trans & el_dec).sum()
+    return keep, live, row_of, n_trans, n_dec
+
+
+def attr_post_plain(tlo: torch.Tensor, attr: AttrCols, aidx: AttrIndex,
+                    rankb: torch.Tensor, hdr_raw: torch.Tensor,
+                    ent: torch.Tensor, m_t: int, m: int, floors: bool = True,
+                    elide: bool = True, tok: torch.Tensor = None):
+    """Post-compaction attribution (the reference's ``_attr_post``) over the
+    compacted entry buffer: per-token RedundantBefore floors, elision of
+    TRANSITIVE and decided-below-pivot key entries, the key-domain
+    (row, slot, col) dedupe, and a cumsum-scatter recompaction.  ``tok``
+    (int64[s]) replaces the token gather from ``tlo``: a mesh-bucketed
+    caller assembles it across the slices.  Returns the attributed
+    (header int32[5+B], entries[s])."""
+    s = ent.shape[0]
+    dev = ent.device
+    keep, live, row_of, n_trans, n_dec = _attr_keep_plain(
+        tlo, attr, aidx, rankb, hdr_raw, ent, m_t, m, floors, elide, tok)
+    row_end = hdr_raw[2:].to(torch.int64)
+    b = row_end.shape[0]
     out_pos = torch.cumsum(keep.to(torch.int64), 0) - 1
     out = torch.full((s + 1,), -1, dtype=ent.dtype, device=dev)
     out.index_put_((torch.where(keep, out_pos, torch.full_like(out_pos, s)),),
@@ -477,8 +490,9 @@ def attr_post_plain(tlo: torch.Tensor, attr: AttrCols, aidx: AttrIndex,
                                     torch.full_like(row_of, b)),
                      torch.ones_like(row_of))
     new_end = row_end - torch.cumsum(drops[:b], 0)
-    head = torch.stack([new_end[-1], total, maxc_raw.to(torch.int64),
-                        n_trans, n_dec]).to(torch.int32)
+    head = torch.stack([new_end[-1], hdr_raw[0].to(torch.int64),
+                        hdr_raw[1].to(torch.int64), n_trans,
+                        n_dec]).to(torch.int32)
     return torch.cat([head, new_end.to(torch.int32)]), out[:s]
 
 

@@ -133,8 +133,64 @@ _DTYPES = {
 
 def _check_cols(nt) -> None:
     """Every column of a kernel input has the dtype the kernel reads."""
-    for name, col, dtype in zip(nt._fields, nt, _DTYPES[type(nt)]):
-        _check(col, dtype, f"{type(nt).__name__}.{name}")
+    for i, (col, dtype) in enumerate(zip(nt, _DTYPES[type(nt)])):
+        if col.dtype != dtype:
+            raise TypeError(f"{type(nt).__name__}.{nt._fields[i]}: expected "
+                            f"{dtype}, got {col.dtype}")
+
+
+# A column set checked once for its lifetime carries its plan: the
+# device its columns all lie on, contiguous (None if they do not), their
+# data pointers and their first-axis lengths.  The mirrors make such a set
+# where they build or replace one (``checked_cols``), so the plan lives and
+# dies with the tuple they keep; a wrapper handed any other set checks it
+# on every call.  A NamedTuple is immutable and the mirrors write rows in
+# place, so a plan stays true for its tuple; ``_replace`` and a copy make
+# a tuple without one.
+_PLANNED: Dict[type, type] = {}   # column set type -> its planned type
+
+
+def _planned(cls):
+    """The subclass of column set type ``cls`` whose instances carry a
+    ``_plan`` (``cls`` itself if it is one); a copy of one
+    (``__getstate__``) does not."""
+    sub = _PLANNED.get(cls)
+    if sub is None:
+        sub = type(cls.__name__, (cls,), {"__getstate__": lambda self: None})
+        _DTYPES[sub] = _DTYPES[cls]
+        _PLANNED[cls] = _PLANNED[sub] = sub
+    return sub
+
+
+def _plan(nt) -> tuple:
+    """(device or None, data pointers, first-axis lengths) of column set
+    ``nt``, its dtypes checked."""
+    _check_cols(nt)
+    devs = {c.device for c in nt}
+    dev = (devs.pop() if len(devs) == 1
+           and all(c.is_contiguous() for c in nt) else None)
+    return (dev, [c.data_ptr() for c in nt],
+            [c.shape[0] if c.dim() else 1 for c in nt])
+
+
+def checked_cols(nt):
+    """``nt`` (a kernel input column set) as a tuple of the same columns
+    that carries its checked plan."""
+    if getattr(nt, "_plan", None) is not None:
+        return nt
+    out = _planned(type(nt))(*nt)
+    out._plan = _plan(nt)
+    return out
+
+
+def _cols_on(nt, dev: torch.device) -> tuple:
+    """(data pointers, first-axis lengths) of a column set that lies,
+    contiguous, on ``dev``; raises otherwise."""
+    plan = getattr(nt, "_plan", None) or _plan(nt)
+    if plan[0] != dev:
+        raise ValueError(f"{type(nt).__name__}: its columns are not all "
+                         f"contiguous on {dev}")
+    return plan[1], plan[2]
 
 
 # cudaError_t codes of a launch the runtime refused for want of resources
@@ -179,7 +235,7 @@ def _launch(name: str, device: torch.device, ptrs, vals,
     resolved once, the argument arrays are packed by ``array`` in C, and
     the device is switched only when it is not the current one."""
     fn = _build.entries()[entry or name]
-    p = array("Q", [_ptr(t) for t in ptrs])
+    p = array("Q", [t if type(t) is int else _ptr(t) for t in ptrs])
     v = array("q", vals)
     cur = torch.cuda.current_device()
     idx = cur if device.index is None else device.index
@@ -249,31 +305,40 @@ def deps_bucketed(m_t: int, buckets: dk.BucketTable, qmat: torch.Tensor,
     return hdr, ent
 
 
+@functools.lru_cache(maxsize=256)
+def _dense_workspace_words(b: int, n: int) -> int:
+    """The int64 words of K1b's workspace, as its entry point lays it out."""
+    return _build.library().accord_dense_workspace_words(b, n)
+
+
+@functools.lru_cache(maxsize=256)
+def _attr_workspace_words(s: int) -> int:
+    """The int64 words of K2's workspace, as its entry point lays it out."""
+    return _build.library().accord_attr_workspace_words(s)
+
+
 def deps_dense(table: dk.DepsTable, qmat: torch.Tensor, m: int, s: int,
                k: int, prune=None, wide: bool = False):
     """Dense exact CSR (header int32[2+B], entries[s])."""
     if not on_cuda(qmat):
         return dk.flat_csr_plain(table, qmat, m, s, k, prune, wide)
+    if qmat.dtype is not torch.int64:
+        raise TypeError(f"qmat: expected torch.int64, got {qmat.dtype}")
     dev = qmat.device
-    _check(qmat, torch.int64, "qmat")
-    _check_cols(table)
-    b = qmat.shape[0]
-    if qmat.shape[1] != 7 + 2 * m:
-        raise ValueError(f"qmat has {qmat.shape[1]} columns, expected "
-                         f"{7 + 2 * m}")
+    cols, _ = _cols_on(table, dev)
+    b, qcols = qmat.shape
+    if qcols != 7 + 2 * m:
+        raise ValueError(f"qmat has {qcols} columns, expected {7 + 2 * m}")
     n, m_t = table.lo.shape
-    kp = min(k, n)
-    dt = dk.code_dtype(wide)
-    counts = torch.empty(b, dtype=torch.int32, device=dev)
-    pair_counts = torch.empty(b, dtype=torch.int32, device=dev)
-    sel = torch.empty(max(b * kp, 1), dtype=torch.int32, device=dev)
-    starts = torch.empty(b, dtype=torch.int64, device=dev)
+    words = _dense_workspace_words(b, n)
+    ws = torch.empty(words, dtype=torch.int64, device=dev)
     hdr = torch.empty(2 + b, dtype=torch.int32, device=dev)
-    ent = torch.empty(s, dtype=dt, device=dev)
+    ent = torch.empty(s, dtype=torch.int64 if wide else torch.int32,
+                      device=dev)
     pm, pl, pn = _prune_vals(prune)
     _launch("deps_dense", dev,
-            [qmat, *table, counts, pair_counts, sel, starts, hdr, ent],
-            [b, qmat.shape[1], m, n, m_t, pm, pl, pn, int(wide), s, k])
+            [qmat, *cols, ws.data_ptr(), hdr.data_ptr(), ent.data_ptr()],
+            [b, qcols, m, n, m_t, pm, pl, pn, int(wide), s, k, words])
     return hdr, ent
 
 
@@ -284,44 +349,40 @@ def attr_post(tlo: torch.Tensor, attr: dk.AttrCols, aidx: dk.AttrIndex,
               m_t: int, m: int, floors: bool = True, elide: bool = True,
               tok: torch.Tensor = None):
     """Attributed CSR (header int32[5+B], entries[s]) from the raw one;
-    ``tok`` (int64[s]) replaces the token gather from ``tlo``."""
+    ``tok`` (int64[s]) replaces the token gather from ``tlo``.  A column
+    set that carries its plan (``checked_cols``) is not checked again."""
     if not on_cuda(ent):
         return dk.attr_post_plain(tlo, attr, aidx, rankb, hdr_raw, ent, m_t,
                                   m, floors, elide, tok)
     dev = ent.device
-    _check_cols(attr)
-    _check_cols(aidx)
-    _check(rankb, torch.int64, "rankb")
-    _check(hdr_raw, torch.int32, "hdr_raw")
+    acols, alens = _cols_on(attr, dev)
+    icols, ilens = _cols_on(aidx, dev)
     s = ent.shape[0]
     b = hdr_raw.shape[0] - 2
+    if rankb.dtype is not torch.int64 or hdr_raw.dtype is not torch.int32:
+        raise TypeError("attr_post: rankb must be int64 and hdr_raw int32")
     if tok is None:
-        _check(tlo, torch.int64, "tlo")
-        if tlo.shape != (attr.dom.shape[0], m_t):
+        if tlo.dtype is not torch.int64 or tlo.shape != (alens[0], m_t):
             raise ValueError("attr_post: tlo does not fit the attribution "
                              "columns")
-        tlo_p = tlo
-    else:
-        _check(tok, torch.int64, "tok")
-        if tok.shape != (s,):
-            raise ValueError("attr_post: tok does not fit the entries")
-        tlo_p = None
+    elif tok.dtype is not torch.int64 or tok.shape != (s,):
+        raise ValueError("attr_post: tok does not fit the entries")
     if rankb.shape[0] != b:
         raise ValueError("attr_post: rankb does not fit the header")
-    nb = -(-s // 256)
-    keep = torch.empty(max(s, 1), dtype=torch.int32, device=dev)
-    local = torch.empty(max(s, 1), dtype=torch.int32, device=dev)
-    bsum = torch.empty(max(nb, 1), dtype=torch.int64, device=dev)
-    drops = torch.empty(b, dtype=torch.int64, device=dev)
-    tallies = torch.empty(2, dtype=torch.int64, device=dev)
-    hdr = torch.empty(5 + b, dtype=torch.int32, device=dev)
-    out = torch.empty(s, dtype=ent.dtype, device=dev)
+    words = _attr_workspace_words(s)
+    # one allocation a call: the entries, the header (int32[5+B]), then
+    # the scratch, each at a whole int64 word
+    n_out = s if ent.dtype == torch.int64 else (s + 1) // 2
+    n_hdr = (6 + b) // 2
+    buf = torch.empty(n_out + n_hdr + words, dtype=torch.int64, device=dev)
+    out = buf[:n_out].view(ent.dtype)[:s]
+    hdr = buf[n_out:n_out + n_hdr].view(torch.int32)[:5 + b]
     _launch("attr_post", dev,
-            [tlo_p, *attr, *aidx, rankb, hdr_raw, ent, keep, local, bsum,
-             drops, tallies, hdr, out, tok],
-            [s, b, m_t, m, int(floors), int(elide), aidx.fbnd.shape[0],
-             aidx.etok.shape[0], aidx.erank.shape[0],
-             int(ent.dtype == torch.int64)])
+            [None if tok is not None else tlo, *acols, *icols, rankb,
+             hdr_raw, ent, buf.data_ptr() + 8 * (n_out + n_hdr),
+             hdr.data_ptr(), out.data_ptr(), tok],
+            [s, b, m_t, m, int(floors), int(elide), ilens[0], ilens[4],
+             ilens[6], int(ent.dtype == torch.int64), words])
     return hdr, out
 
 

@@ -202,8 +202,8 @@ class StoreShards:
         dev = self.devices[i]
         self.last_slice_touched = i
         faults.check("transfer", f"slice {i} attr upload")
-        self._attrs[i] = dk.AttrCols(
-            *(_upload(a, dev) for a in self._attr_slice_cols(i)))
+        self._attrs[i] = kernels.checked_cols(dk.AttrCols(
+            *(_upload(a, dev) for a in self._attr_slice_cols(i))))
 
     def _sync_attrs(self) -> None:
         m = self.mirror

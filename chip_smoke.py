@@ -374,6 +374,25 @@ def _max_abs_err(torch, a, b) -> int:
     return err
 
 
+def _diff_report(torch, a, b) -> str:
+    """Where two outputs differ: per tensor, the count of differing
+    positions and the first few (position, kernel, plain)."""
+    if torch.is_tensor(a):
+        a, b = (a,), (b,)
+    out = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            out.append(f"[{i}] {tuple(x.shape)} {x.dtype} vs "
+                       f"{tuple(y.shape)} {y.dtype}")
+            continue
+        d = torch.nonzero((x != y).reshape(-1)).reshape(-1)
+        if d.numel():
+            xs, ys = x.reshape(-1), y.reshape(-1)
+            first = [(int(p), int(xs[p]), int(ys[p])) for p in d[:6]]
+            out.append(f"[{i}] {d.numel()} of {x.numel()} differ: {first}")
+    return "; ".join(out)
+
+
 def bucket_case(torch, kern, dk, m_t, buckets, qmat, m, span, s, k, prune,
                 keff, wide):
     b = qmat.shape[0]
@@ -394,20 +413,75 @@ def bucket_case(torch, kern, dk, m_t, buckets, qmat, m, span, s, k, prune,
             None, nbytes, ops)
 
 
+def dense_needed_ops(torch, dk, table, qmat, m, s, k, prune) -> int:
+    """The operations K1b's inputs need, counted with torch on their
+    device: per slot its live and floor tests (6) and its span (2 m_t);
+    per row its span (2 m); per (row, live slot) the scalar tests
+    (witness, earlier, not self: 12); per pair that passes them the span
+    test (2); per query interval of a pair whose spans meet its span test
+    (2); per (query interval, slot interval) pair that test leaves, the
+    overlap test (2); and 1 for each triple written.  The exact span
+    filters of csrc/dense_tile.cuh skip every other interval pair, which
+    the formula b n (2 m m_t + 12) counts."""
+    b = qmat.shape[0]
+    n, m_t = table.lo.shape
+    q = dk.query_from_qmat(qmat, m)
+    pm, pl, pn = dk._prune_tensors(prune, table.msb.device)
+    ok = ((table.status >= dk.SLOT_TRANSITIVE)
+          & (table.status != dk.SLOT_INVALIDATED)
+          & ~dk.ts_lt(table.msb, table.lsb, table.node, pm, pl, pn))
+    slo = table.lo.min(dim=1).values
+    shi = table.hi.max(dim=1).values
+    ops = n * (6 + 2 * m_t) + b * 2 * m + 12 * b * int(ok.sum())
+    kp = min(k, n)
+    kk = min(k, kp * m_t * m)
+    written = 0
+    t = [c[None, :] for c in (table.msb, table.lsb, table.node)]
+    step = max(1, (1 << 26) // max(n * m * m_t, 1))
+    for r0 in range(0, b, step):
+        r = slice(r0, min(r0 + step, b))
+        qlo, qhi = q.lo[r], q.hi[r]
+        adm = (ok[None, :]
+               & (((q.witness_mask[r, None] >> table.kind[None, :]) & 1) > 0)
+               & dk.ts_lt(*t, q.msb[r, None], q.lsb[r, None],
+                          q.node[r, None])
+               & ~dk.ts_eq(*t, q.self_msb[r, None], q.self_lsb[r, None],
+                           q.self_node[r, None]))
+        meet = (adm & (qlo.min(dim=1).values[:, None] <= shi[None, :])
+                & (slo[None, :] <= qhi.max(dim=1).values[:, None]))
+        qmeet = (meet[:, :, None] & (qlo[:, None, :] <= shi[None, :, None])
+                 & (slo[None, :, None] <= qhi[:, None, :]))
+        tri = ((qlo[:, None, :, None] <= table.hi[None, :, None, :])
+               & (table.lo[None, :, None, :] <= qhi[:, None, :, None])
+               & qmeet[..., None]).sum(dim=(2, 3))
+        mask = tri > 0
+        sel = mask & (torch.cumsum(mask.to(torch.int32), 1) <= kp)
+        written += int(torch.where(sel, tri, 0).sum(1).clamp(max=kk).sum())
+        ops += (2 * int(adm.sum()) + 2 * m * int(meet.sum())
+                + 2 * m_t * int(qmeet.sum()))
+    return ops + min(written, s)
+
+
 def dense_case(torch, kern, dk, table, qmat, m, s, k, prune, wide):
+    """K1b.  Its operations are what this run's data needs
+    (``dense_needed_ops``), counted only when the case is timed; the
+    formula that counts every interval pair stands beside them."""
     b = qmat.shape[0]
     n, m_t = table.lo.shape
     cs = 8 if wide else 4
     nbytes = (n * (28 + 16 * m_t) + qmat.numel() * 8 + (2 + b) * 4
               + s * cs)
-    ops = b * n * (2 * m * m_t + 12)
+
+    def ops():
+        return (dense_needed_ops(torch, dk, table, qmat, m, s, k, prune),
+                {"ops_formula": b * n * (2 * m * m_t + 12)})
     return (lambda: kern.deps_dense(table, qmat, m, s, k, prune, wide),
             lambda: dk.flat_csr_plain(table, qmat, m, s, k, prune, wide),
             None, nbytes, ops)
 
 
 def attr_case(torch, kern, dk, tlo, attr, aidx, rankb, hdr_raw, ent, m_t, m,
-              floors, elide):
+              floors, elide, tok=None):
     s = ent.shape[0]
     cs = ent.element_size()
     live = min(int(hdr_raw[0]), s)
@@ -417,10 +491,77 @@ def attr_case(torch, kern, dk, tlo, attr, aidx, rankb, hdr_raw, ent, m_t, m,
               + aidx_bytes + b * 8)
     ops = live * 64
     return (lambda: kern.attr_post(tlo, attr, aidx, rankb, hdr_raw, ent, m_t,
-                                   m, floors, elide),
+                                   m, floors, elide, tok),
             lambda: dk.attr_post_plain(tlo, attr, aidx, rankb, hdr_raw, ent,
-                                       m_t, m, floors, elide),
+                                       m_t, m, floors, elide, tok),
             None, nbytes, ops)
+
+
+def dense_edge_cases(torch, kern, dk, convert, dev) -> dict:
+    """K1b at the edges of its tiling (256-slot tiles, 32-slot words,
+    32-row groups, 256 phase-2 threads a row): N = 1, 31, 32, 33, 255, 257,
+    4,097, 20,000, 50,000 and (on the card) 131,072; m_t = 1; m = 8
+    against m_t = 8; B = 1, 33 and 600; a k that cuts kp inside a word,
+    past the first thread's words, and an s that cuts inside a row; narrow
+    and wide codes.  K2 on those raw CSRs
+    with the raw total below, at and above s, and in the ``tok`` form."""
+    cases = {}
+    shapes = (("n1", dict(n=1), 4096, 64), ("n31", dict(n=31), 4096, 64),
+              ("n32", dict(n=32), 4096, 64), ("n33", dict(n=33), 4096, 64),
+              ("n255", dict(n=255, space=600), 4096, 64),
+              ("n257", dict(n=257, space=600), 4096, 64),
+              ("n4097", dict(n=4097, b=70, space=20_000), 1 << 16, 64),
+              # more (tile, row group) items than the grid holds at once,
+              # and more rows than CTAs
+              ("n50k", dict(n=50_000, b=600, m=8, m_t=8, space=400_000),
+               1 << 20, 512),
+              ("mt1", dict(n=64, m_t=1), 4096, 64),
+              ("m8mt8", dict(n=64, m=8, m_t=8), 4096, 64),
+              ("b1", dict(n=64, b=1), 4096, 64),
+              ("b33", dict(n=96, b=33), 4096, 64),
+              ("kp_in_word", dict(n=64, b=8), 4096, 5),
+              ("s_in_row", dict(n=64, b=8), 7, 64),
+              # more than 256 x 32 slots: each phase-2 thread walks
+              # several words, and the threads after the crossing one
+              # start past kp, some on empty words
+              ("kp_past_one_thread", dict(n=20_000, b=64, space=3000),
+               1 << 16, 300))
+    if dev.type == "cuda":
+        # the main path's table size, its query and slot widths
+        shapes += (("n131072", dict(n=131_072, b=64, m=8, m_t=8,
+                                    space=2_000_000), 1 << 17, 512),)
+    for i, (tag, shape, s, k) in enumerate(shapes):
+        inp = small_inputs(40 + i, dk, **shape)
+        up = convert.tables_from_numpy(
+            {"table": inp["table"], "attr": inp["attr"],
+             "aidx": inp["aidx"]}, dev)
+        qd = torch.from_numpy(inp["qmat"]).to(dev)
+        rankb = torch.from_numpy(inp["rankb"]).to(dev)
+        m, m_t = inp["m"], inp["m_t"]
+        for wide in (False, True):
+            cases[f"deps_dense[{tag}{' i64' if wide else ''}]"] = dense_case(
+                torch, kern, dk, up["table"], qd, m, s, k, inp["prune"],
+                wide)
+        hdr, ent = dk.flat_csr_plain(up["table"], qd, m, 4096, 64,
+                                     inp["prune"])
+        total = int(hdr[0])
+        for tag2, s2 in (("lt", total + 37), ("eq", total),
+                         ("gt", max(total * 2 // 3, 1))):
+            hdr2, ent2 = dk.flat_csr_plain(up["table"], qd, m, s2, 64,
+                                           inp["prune"])
+            cases[f"attr_post[{tag} total {tag2} s]"] = attr_case(
+                torch, kern, dk, up["table"].lo, up["attr"], up["aidx"],
+                rankb, hdr2, ent2, m_t, m, True, True)
+        # the tok form: each entry's token handed in (the mesh-bucketed
+        # attribution), here the same lo[slot, col] the gather reads
+        mq = m_t * m
+        code = ent.to(torch.int64)
+        tok = up["table"].lo[torch.clamp(code // mq, min=0),
+                             torch.clamp(code % mq // m, 0, m_t - 1)]
+        cases[f"attr_post[{tag} tok]"] = attr_case(
+            torch, kern, dk, up["table"].lo, up["attr"], up["aidx"], rankb,
+            hdr, ent, m_t, m, True, True, tok.contiguous())
+    return cases
 
 
 def scatter_case(torch, kern, dk, cols, idx, rows, live=False):
@@ -620,8 +761,13 @@ def ell_case(torch, kern, drk, state):
 
 
 def dense_frontier_case(torch, kern, drk, state):
+    """K4b; the library call is torch.any of the precomputed blocking
+    against the unapplied columns (as K13's)."""
+    blk = drk.blocking_matrix(state)
+    unapplied = state.status != 5
     return (lambda: kern.frontier_dense(state),
-            lambda: drk.ready_frontier_plain(state), None,
+            lambda: drk.ready_frontier_plain(state),
+            lambda: torch.any(blk & unapplied[None, :], dim=1),
             *frontier_work(torch, drk, state))
 
 
@@ -666,7 +812,15 @@ def fused_frontier_case(torch, kern, drk, states):
     kfn = kern.fused_frontier_ell if ell else kern.fused_frontier_dense
     pfn = (drk.fused_ready_frontier_ell_plain if ell
            else drk.fused_ready_frontier_plain)
-    return (lambda: kfn(states), lambda: pfn(states), None,
+    lfn = None
+    if not ell and len({st.adj.shape for st in states}) == 1:
+        # members of one shape: torch.any over the stacked masked blocking
+        blk = torch.stack([drk.blocking_matrix(st) for st in states])
+        unapplied = torch.stack([st.status != 5 for st in states])
+
+        def lfn():
+            return torch.any(blk & unapplied[:, None, :], dim=2)
+    return (lambda: kfn(states), lambda: pfn(states), lfn,
             sum(w[0] for w in work), sum(w[1] for w in work))
 
 
@@ -785,7 +939,8 @@ def degree_case(torch, kern, drk, adj):
     """K10: the adjacency read once."""
     n = adj.shape[0]
     return (lambda: kern.dense_degree(adj),
-            lambda: drk._dense_degree_plain(adj), None, n * n + 4, n * n)
+            lambda: drk._dense_degree_plain(adj),
+            lambda: torch.count_nonzero(adj, dim=1), n * n + 4, n * n)
 
 
 def to_ell_case(torch, kern, drk, adj, d):
@@ -895,7 +1050,7 @@ def run_checks(torch, cases: dict, label: str, on_cuda: bool,
         reps, warm = (15, 3) if plain_s < 0.2 else (3, 1)
         err = _max_abs_err(torch, got, want)
         check(err == 0, f"{label} {name}: kernel != plain (max_abs_err "
-                        f"{err})")
+                        f"{err}) {_diff_report(torch, got, want)}")
         row = {"max_abs_err": err}
         if timed:
             row["ms"] = time_ms(torch, kfn, on_cuda)
@@ -904,6 +1059,11 @@ def run_checks(torch, cases: dict, label: str, on_cuda: bool,
             row["library_ms"] = (time_ms(torch, lfn, on_cuda)
                                  if lfn is not None else None)
             t_bytes = max(nbytes / HBM_BPS, link_bytes / PCIE_BPS) * 1e3
+            if callable(ops):     # a count of what this run's data needs
+                ops, notes = ops()
+                row.update(notes)
+                row["bound_formula_ms"] = max(
+                    t_bytes, notes["ops_formula"] / peak * 1e3)
             t_ops = ops / peak * 1e3
             row["bound_ms"] = max(t_bytes, t_ops)
             row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -947,6 +1107,7 @@ def small_cases(torch, dev, kern, dk, drk, convert):
         cases[f"scatter_rows[seed{seed}]"] = scatter_case(
             torch, kern, dk, list(up["table"]), rows, [a[rows] for a in src])
     cases.update(scatter_edge_cases(torch, kern, dk, dev))
+    cases.update(dense_edge_cases(torch, kern, dk, convert, dev))
     # rows with more candidates than shared memory holds (C > 4096) sort
     # in global scratch: 8 intervals x 4 probes x 128 entries + the wide list
     for seed, wide in ((6, False), (7, True)):
@@ -1189,8 +1350,14 @@ def _copy(x):
         return x.clone()
     if isinstance(x, (tuple, list)):
         items = [_copy(y) for y in x]
-        return (type(x)(*items) if hasattr(x, "_fields")
-                else type(x)(items))
+        if not hasattr(x, "_fields"):
+            return type(x)(items)
+        if getattr(x, "_plan", None) is None:
+            return type(x)(*items)
+        # a column set a mirror planned: its copy is planned too, so that
+        # a recorded call takes the main path's host path
+        from accord_tpu_torch.ops import kernels
+        return kernels.checked_cols(type(x)(*items))
     return x
 
 
@@ -1217,6 +1384,24 @@ class Recorder:
     def restore(self):
         for name, fn in self.orig.items():
             setattr(self.kern, name, fn)
+
+
+class MedianRecorder(Recorder):
+    """A Recorder that keeps a copy of every call of ``names``, so that a
+    run can be timed at its median call (by ``_work``) as well as its
+    largest."""
+
+    def _wrap(self, name, fn):
+        def wrapped(*a, **kw):
+            self.calls.setdefault(name, []).append(
+                (_copy(a), kw, _work(name, a)))
+            return fn(*a, **kw)
+        return wrapped
+
+    def median(self, name):
+        """(args, kwargs, work, number of calls) of the median call."""
+        calls = sorted(self.calls[name], key=lambda c: c[2])
+        return calls[len(calls) // 2] + (len(calls),)
 
 
 class ScatterSizes:
@@ -1697,15 +1882,20 @@ def device_ops(torch, fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    # the profiler may lose every record of a short window: a trace with
+    # no device event at all is taken again, three times at most
+    for traces in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
     ops = {"kernels": 0, "copies": 0, "memsets": 0, "device_us": 0.0,
-           "names": []}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+           "names": [], "traces": traces}
+    for e in events:
         kind = ("copies" if e.name.startswith("Memcpy") else
                 "memsets" if e.name.startswith("Memset") else "kernels")
         ops[kind] += 1
@@ -3095,9 +3285,12 @@ def main(argv=None) -> int:
     n_ops = 150 if not rehearsal else 20
     t0 = time.perf_counter()
     rec6 = Recorder(kern, ["frontier_dense"])   # the dense ticks' largest
+    # every K1b and K2 call of the burn, to time both at its median call
+    med6 = MedianRecorder(kern, ["deps_dense", "attr_post"])
     try:
         r1, c1, d1 = burn_once(run_burn, dev, n_ops)
     finally:
+        med6.restore()
         rec6.restore()
     t1 = time.perf_counter()
     r2, c2, d2 = burn_once(run_burn, dev, n_ops)
@@ -3165,6 +3358,19 @@ def main(argv=None) -> int:
     check(rehearsal or len(set(per_flush.values())) == 1,
           f"phase7: kernel launches per fused flush grow with S: "
           f"{per_flush}")
+    # the solo leg once more, untimed and left out of the phase's launch
+    # counts, to record its largest K1b call (the dense route of each
+    # store's flush)
+    disp.fusion = False
+    l0 = dict(kern.LAUNCHES)
+    rec7s = Recorder(kern, ["deps_dense"])
+    try:
+        drive_flushes(fnode, fdevs, ROUNDS5, KEYS5, seed=7)
+    finally:
+        rec7s.restore()
+        disp.fusion = True
+    for k_ in seen:
+        seen[k_] += kern.LAUNCHES[k_] - l0[k_]
     for mode in ("solo", "fused"):
         del fused7[mode]["digest"]
     log(f"phase7: config-5 harness, {S5} stores x {NPER5} txns, 4-query "
@@ -3253,6 +3459,26 @@ def main(argv=None) -> int:
     rows.update(run_checks(torch, {"frontier_dense": dense_frontier_case(
         torch, kern, drk, *a, **kw)}, "real", on_cuda, timed=True))
     shapes["frontier_dense"] = list(a[0].adj.shape)
+    # K1b and K2 at the burn's median call (most of their launches are the
+    # burn's small flushes), and K1b at the largest call of phase 7's solo
+    # leg (config 5's fused-off flushes)
+    dense_more = {}
+    for name, case in (("deps_dense", dense_case), ("attr_post", attr_case)):
+        if name in med6.calls:
+            a, kw, _w, n_calls = med6.median(name)
+            dense_more[name + "[burn median]"] = case(torch, kern, dk, *a,
+                                                      **kw)
+            shapes[name + "[burn median]"] = (
+                list(a[1].shape) + [a[0].lo.shape[0]]
+                if name == "deps_dense" else [int(a[5].shape[0])])
+            log(f"burn: {n_calls} {name} calls, the median "
+                f"{shapes[name + '[burn median]']}")
+    if "deps_dense" in rec7s.calls:
+        a, kw, _w = rec7s.calls["deps_dense"]
+        dense_more["deps_dense[phase7]"] = dense_case(torch, kern, dk, *a,
+                                                      **kw)
+        shapes["deps_dense[phase7]"] = list(a[1].shape) + [a[0].lo.shape[0]]
+    rows.update(run_checks(torch, dense_more, "real", on_cuda, timed=True))
     # the mesh kernels at the largest shapes phases 9-11 gave them
     mesh_real = {}
     a, kw, _w = rec9.calls["calc_deps"]
@@ -3317,7 +3543,22 @@ def main(argv=None) -> int:
                             real["scatter_rows[live P8]"])):
             call_ops[name] = device_ops(torch, case[0])
             call_ops[name + " library"] = device_ops(torch, case[2])
+        # K1b and K2 at the largest recorded call and the burn's median:
+        # the device's share of each call's time
+        for name in ("deps_dense", "attr_post"):
+            call_ops[name] = device_ops(torch, real[name][0])
+            if name + "[burn median]" in dense_more:
+                call_ops[name + "[burn median]"] = device_ops(
+                    torch, dense_more[name + "[burn median]"][0])
         log("device operations per call: " + json.dumps(call_ops))
+        for name, ops_ in call_ops.items():
+            if name.startswith("attr_post"):
+                check(ops_["kernels"] == 1 and ops_["copies"] == 0
+                      and ops_["memsets"] == 0,
+                      f"K2 {name}: not one kernel and no copy a call {ops_}")
+            if name.startswith("deps_dense"):
+                check(ops_["kernels"] == 1 and ops_["memsets"] == 0,
+                      f"K1b {name}: not one kernel and no memset {ops_}")
         k12, k3, k3s = (call_ops["merge_blocks"],
                         call_ops["scatter_rows[live]"],
                         call_ops["scatter_rows[live P8]"])
@@ -3393,6 +3634,8 @@ def main(argv=None) -> int:
                "real_error_check": fault_check,
                "scatter_sizes": scatter_sizes, "pack_timings": pack_t,
                "device_ops_per_call": call_ops,
+               "k1b_k2_more": {k: dict(rows[k], shape=shapes[k])
+                               for k in dense_more},
                "seconds": time.perf_counter() - t_start}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     if rehearsal:

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 from accord_tpu.local.device_index import _AttrIndexHost
 from accord_tpu.ops import deps_kernel as rdk
-from accord_tpu_torch.ops import convert
+from accord_tpu_torch.ops import _build, convert
 from accord_tpu_torch.ops import deps_kernel as pdk
 
 I64 = np.iinfo(np.int64)
@@ -164,20 +164,215 @@ def test_bucketed_flat_equal(seed, s, k):
     assert int(port[0][0]) > 0
 
 
-@pytest.mark.parametrize("seed", [0, 8])
-@pytest.mark.parametrize("s,k", [(4096, 64), (20, 2)])
-def test_dense_flat_equal(seed, s, k):
-    """K1b: dense mask, per-row slot compaction, triple expansion."""
-    inp = _inputs(seed)
+# -- K1b's and K2's decompositions, in plain arithmetic -----------------------
+#
+# The CUDA kernels split the work in a way the port's plain versions do
+# not: mask words, a cut inside a word, offsets per word, CTA ranges.
+# These models follow ops/csrc/deps_scan.cu ``dense_csr`` and
+# ops/csrc/attr_post.cu ``attr_post`` step by step, with the launch
+# geometry the kernels are built with (ops/_build.py GEOMETRY), so that
+# the split itself is held against the reference at its edges.
+
+
+def _low_set_bits(x: int, n: int) -> int:
+    """The n lowest set bits of x."""
+    r = 0
+    while n > 0 and x:
+        low = x & -x
+        r |= low
+        x ^= low
+        n -= 1
+    return r
+
+
+def _dense_csr_words(table, qmat: torch.Tensor, m: int, s: int, k: int,
+                     prune=None, wide: bool = False):
+    """K1b's decomposition: (1) the mask as 32-slot words with each word's
+    triple sum; (2) per row, the word where the mask rank crosses kp =
+    min(k, N) keeps its first bits only, the words up to it are the
+    selection, and each gets its triple offset in the row (each thread of
+    the kernel's CTA walks its own segment of words from its prefix); (3)
+    the header and row starts; (4) each selected slot's triples written at its word's
+    offset plus the triples of the slots before it in the word, up to kk a
+    row and s in all, then -1 after the total and in a row's positions
+    past kk.  The entries start as a value no step writes, so a position
+    left unwritten shows.  Returns (header int32[2+B], entries[s]), equal
+    to ``flat_csr_plain``."""
+    query = pdk.query_from_qmat(qmat, m)
+    mask = pdk.dep_mask_plain(table, query, prune).cpu().numpy()
+    qlo, qhi = query.lo.cpu().numpy(), query.hi.cpu().numpy()
+    tlo, thi = table.lo.cpu().numpy(), table.hi.cpu().numpy()
+    b, n = mask.shape
+    m_t = tlo.shape[1]
+    # [B, N, m_t, m]: the overlapping pairs in (col, q) order
+    ov = ((qlo[:, None, None, :] <= thi[None, :, :, None])
+          & (tlo[None, :, :, None] <= qhi[:, None, None, :]))
+    tri = np.where(mask, ov.sum(axis=(2, 3)), 0)
+    nw = (n + 31) // 32
+    bits = np.zeros((b, nw * 32), bool)
+    bits[:, :n] = mask
+    words = [[int(sum(1 << l for l in range(32) if bits[r, w * 32 + l]))
+              for w in range(nw)] for r in range(b)]
+    tsum = np.zeros((b, nw * 32), np.int64)
+    tsum[:, :n] = tri
+    tsum = tsum.reshape(b, nw, 32).sum(axis=2)
+    kp = min(k, n)
+    kk = min(k, kp * m_t * m)
+    counts = np.zeros(b, np.int64)
+    pairc = bits.sum(axis=1)
+    nsel = np.zeros(b, np.int64)
+    tpre = np.zeros((b, nw), np.int64)
+    nt = _build.GEOMETRY["ACCORD_DEPS_THREADS"]   # a CTA's threads
+    per = -(-nw // nt)              # words a thread walks in phase 2
+    for r in range(b):
+        pcs = [bin(x).count("1") for x in words[r]]
+        cut, cword, pex = nw, 0, 0
+        for t in range(nt):         # thread t's segment, from its prefix
+            run = pex
+            for w in range(min(t * per, nw), min(t * per + per, nw)):
+                p = pcs[w]
+                if p == 0:
+                    continue
+                if run >= kp:
+                    cut = min(cut, w)
+                    break
+                if run + p > kp:
+                    cword = _low_set_bits(words[r][w], kp - run)
+                    cut = min(cut, w + 1)
+                    break
+                run += p
+            pex += sum(pcs[t * per:t * per + per])
+        full = cut - 1 if cword else cut
+        csum = sum(int(tri[r, (cut - 1) * 32 + l]) for l in range(32)
+                   if cword >> l & 1)
+        off = 0
+        for w in range(cut):
+            tpre[r, w] = off
+            off += int(tsum[r, w]) if w < full else csum
+        if cword:
+            words[r][cut - 1] = cword
+        counts[r], nsel[r] = off, cut
+    row_end = np.cumsum(counts)
+    starts = row_end - counts
+    total = int(row_end[-1])
+    dt = np.int64 if wide else np.int32
+    ent = np.full(s, 0x5A5A5A5A, dt)
+    mq = m_t * m
+    for r in range(b):
+        for w in range(int(nsel[r])):
+            off = int(tpre[r, w])
+            for l in range(32):
+                if not words[r][w] >> l & 1:
+                    continue
+                j = w * 32 + l
+                for t in np.flatnonzero(ov[r, j].reshape(-1)):
+                    pos = int(starts[r]) + off
+                    if off < kk and pos < s:
+                        ent[pos] = j * mq + t
+                    off += 1
+    ent[min(total, s):] = -1
+    for r in range(b):
+        if counts[r] > kk:
+            ent[int(starts[r]) + kk:min(int(row_end[r]), s)] = -1
+    maxc = max(int(counts.max()), int(pairc.max()))
+    hdr = np.concatenate([[total, maxc], row_end]).astype(np.int32)
+    return torch.from_numpy(hdr), torch.from_numpy(ent)
+
+
+def _attr_post_ctas(tlo, attr, aidx, rankb, hdr_raw, ent, m_t: int, m: int,
+                    floors: bool = True, elide: bool = True, tok=None,
+                    ctas: int = 1):
+    """K2's decomposition over ``ctas`` CTAs: the keep flags as 32-entry
+    words, each CTA a contiguous range of words; each CTA's kept entries
+    placed after the kept entries of the CTAs before it; and each row's
+    new end read off the kept prefix, row_end[b] - (X(b) - kept(X(b)))
+    with X(b) = min(row_end[b], total, s) (min(total, s) for the last row)
+    and kept(x) the kept entries below position x, in place of a cumsum of
+    per-row drops.  The kernel's CTA count is its cooperative grid's, set
+    by occupancy, so a test sweeps it.  Returns (header int32[5+B], entries[s]), equal to
+    ``attr_post_plain``."""
+    keep, _live, _row, n_trans, n_dec = pdk._attr_keep_plain(
+        tlo, attr, aidx, rankb, hdr_raw, ent, m_t, m, floors, elide, tok)
+    keep = keep.cpu().numpy()
+    e = ent.cpu().numpy()
+    h = hdr_raw.cpu().numpy().astype(np.int64)
+    s = e.shape[0]
+    row_end = h[2:]
+    b = row_end.shape[0]
+    live_end = min(max(int(h[0]), 0), s)
+    nw = (s + 31) // 32
+    wpc = -(-nw // ctas)
+    ranges = [(min(c * wpc, nw), min(c * wpc + wpc, nw))
+              for c in range(ctas)]
+    csum = [int(keep[w0 * 32:w1 * 32].sum()) for w0, w1 in ranges]
+    out = np.full(s, 0x5A5A5A5A, e.dtype)
+    new_end = np.full(b, 0x5A5A5A5A, np.int64)
+    x = np.minimum(row_end, live_end)
+    x[-1] = live_end
+    for c, (w0, w1) in enumerate(ranges):
+        base = sum(csum[:c])
+        for p in range(w0 * 32, min(w1 * 32, s)):
+            for r in np.flatnonzero(x == p):
+                new_end[r] = row_end[r] - (p - base)
+            if keep[p]:
+                out[base] = e[p]
+                base += 1
+    kept_all = sum(csum)
+    for r in np.flatnonzero(x == s):
+        new_end[r] = row_end[r] - (s - kept_all)
+    out[kept_all:] = -1
+    head = [new_end[-1], h[0], h[1], int(n_trans), int(n_dec)]
+    hdr = np.concatenate([head, new_end]).astype(np.int32)
+    return torch.from_numpy(hdr), torch.from_numpy(out)
+
+
+
+# K1b's tiling: 256-slot tiles, 32-slot mask words, 32-row groups
+DENSE_CASES = [pytest.param(seed, s, k, {}, id=f"{s}-{k}-{seed}")
+               for s, k in ((4096, 64), (20, 2)) for seed in (0, 8)]
+DENSE_CASES += [pytest.param(seed, 4096, 64, shape, id=tag)
+                for seed, shape, tag in (
+                    (1, dict(n=1), "n1"), (2, dict(n=31), "n31"),
+                    (3, dict(n=32), "n32"), (4, dict(n=33), "n33"),
+                    (5, dict(n=255, space=600), "n255"),
+                    (6, dict(n=257, space=600), "n257"),
+                    (9, dict(m_t=1), "mt1"),
+                    (10, dict(m=8, m_t=8), "m8_mt8"),
+                    (13, dict(b=1), "b1"),
+                    (12, dict(b=33, n=96), "b33"))]
+# k = 5 cuts kp inside a word; s = 7 cuts inside a row; over 256 x 32
+# slots, each phase-2 thread walks several words, and the thread after the
+# crossing one may start on empty words
+DENSE_CASES += [pytest.param(13, 4096, 5, dict(b=8), id="kp_in_word"),
+                pytest.param(14, 7, 64, dict(b=8), id="s_in_row"),
+                pytest.param(16, 1 << 14, 300,
+                             dict(n=20_000, b=4, space=3000),
+                             id="kp_past_one_thread")]
+
+
+@pytest.mark.parametrize("seed,s,k,shape", DENSE_CASES)
+def test_dense_flat_equal(seed, s, k, shape):
+    """K1b: dense mask, per-row slot compaction, triple expansion; and its
+    decomposition (mask words, the kp cut inside a word, word offsets) at
+    the edges of its tiles and words."""
+    inp = _inputs(seed, **shape)
     m = inp["m"]
     table = _ref("table", inp["table"])
     ref = rdk.calculate_deps_flat_pruned(table, jnp.asarray(inp["qmat"]),
                                          *_prune_ref(inp["prune"]), m, s, k)
-    port = pdk.calculate_deps_flat(_port(inp, "table"),
-                                   torch.from_numpy(inp["qmat"]), m, s, k,
-                                   prune=inp["prune"])
+    args = (_port(inp, "table"), torch.from_numpy(inp["qmat"]), m, s, k)
+    port = pdk.calculate_deps_flat(*args, prune=inp["prune"])
     _eq(ref, port)
-    assert int(port[0][0]) > 0
+    _eq(ref, _dense_csr_words(*args, prune=inp["prune"]))
+    if shape.get("n", 64) > 1:
+        assert int(port[0][0]) > 0
+    if k in (5, 300):  # some row's mask count passes kp: the cut is live
+        assert int(port[0][1]) > k
+    if s == 7:       # a row starts below s and ends above it
+        ends = port[0][2:].numpy()
+        assert ((ends - np.diff(ends, prepend=0) < s) & (ends > s)).any()
+    if shape:
+        return
     # no prune: the reference's unpruned kernel
     ref = rdk.calculate_deps_flat(table, jnp.asarray(inp["qmat"]), m, s, k)
     port = pdk.calculate_deps_flat(_port(inp, "table"),
@@ -185,16 +380,42 @@ def test_dense_flat_equal(seed, s, k):
     _eq(ref, port)
 
 
-@pytest.mark.parametrize("floors,elide", [(True, True), (False, True),
-                                          (True, False), (False, False)])
-@pytest.mark.parametrize("seed", [7, 12])
-def test_attributed_equal(seed, floors, elide):
-    """K1 + K2: both attributed compositions, every static leg switch."""
+def _attr_args(inp):
+    return ((_ref("table", inp["table"]), _ref("attr", inp["attr"]),
+             _ref("aidx", inp["aidx"])),
+            (_port(inp, "table"), _port(inp, "attr"), _port(inp, "aidx")))
+
+
+def _attr_ctas_eq(ref, inp, raw, m, floors=True, elide=True):
+    """K2's decomposition over 1 to 9 CTA ranges equals the reference."""
+    table, attr, aidx = _attr_args(inp)[1]
+    for ctas in (1, 2, 3, (raw[1].shape[0] + 31) // 32):
+        _eq(ref, _attr_post_ctas(
+            table.lo, attr, aidx, torch.from_numpy(inp["rankb"]), *raw,
+            inp["m_t"], m, floors, elide, ctas=ctas))
+
+
+ATTR_CASES = [pytest.param(seed, floors, elide, None,
+                           id=f"{seed}-{floors}-{elide}")
+              for seed in (7, 12)
+              for floors, elide in ((True, True), (False, True),
+                                    (True, False), (False, False))]
+ATTR_CASES += [pytest.param(7, True, True, case, id=case)
+               for case in ("row_all_dropped", "total_lt_s", "total_eq_s",
+                            "total_gt_s", "run_across_ctas")]
+
+
+@pytest.mark.parametrize("seed,floors,elide,case", ATTR_CASES)
+def test_attributed_equal(seed, floors, elide, case):
+    """K1 + K2: both attributed compositions, every static leg switch; and
+    K2's decomposition (CTA ranges, row ends off the kept prefix) on a row
+    whose every entry is dropped, on a dedupe run across a CTA range and
+    with the raw total below, at and above s."""
+    if case is not None:
+        return _attr_edge(case)
     inp = _inputs(seed)
     m = inp["m"]
-    args_ref = (_ref("table", inp["table"]), _ref("attr", inp["attr"]),
-                _ref("aidx", inp["aidx"]))
-    args_port = (_port(inp, "table"), _port(inp, "attr"), _port(inp, "aidx"))
+    args_ref, args_port = _attr_args(inp)
     rankb = inp["rankb"]
     ref = rdk.bucketed_attr_jit(*args_ref, _ref("buckets", inp["buckets"]),
                                 jnp.asarray(inp["qmat_b"]),
@@ -217,11 +438,70 @@ def test_attributed_equal(seed, floors, elide):
                                         inp["prune"], m, 4096, 64,
                                         floors=floors, elide=elide)
     _eq(ref, port)
+    raw = pdk.calculate_deps_flat(args_port[0],
+                                  torch.from_numpy(inp["qmat"]), m, 4096, 64,
+                                  prune=inp["prune"])
+    _attr_ctas_eq(ref, inp, raw, m, floors, elide)
     # live entries, some elided as transitive (and, for seed 12, some
     # below a decided pivot) when the legs are on
     assert int(port[0][0]) > 0
     if elide:
         assert int(port[0][3]) + int(port[0][4]) > 0
+
+
+def _attr_edge(case):
+    """One K2 edge: the dense attributed composition against the
+    reference, and K2's decomposition on the same raw CSR."""
+    run = case == "run_across_ctas"
+    inp = _inputs(27, m=8, space=60) if run else _inputs(21)
+    m = inp["m"]
+    qmat = torch.from_numpy(inp["qmat"])
+    if case == "row_all_dropped":
+        # every slot the fullest row finds is a TRANSITIVE key dep: elided
+        raw = pdk.flat_csr_plain(_port(inp, "table"), qmat, m, 4096, 64,
+                                 inp["prune"])
+        hdr, ent = raw[0].numpy(), raw[1].numpy()
+        row = int(np.argmax(np.diff(hdr[2:], prepend=0)))
+        start = hdr[2 + row - 1] if row else 0
+        slots = ent[start:hdr[2 + row]] // (inp["m_t"] * m)
+        slots = slots[slots >= 0]
+        dom, status = inp["attr"][0].copy(), inp["attr"][1].copy()
+        dom[slots], status[slots] = 0, rdk.SLOT_TRANSITIVE
+        inp["attr"] = (dom, status) + inp["attr"][2:]
+    s = 4096
+    if case.startswith("total_"):
+        full = pdk.flat_csr_plain(_port(inp, "table"), qmat, m, 4096, 64,
+                                  inp["prune"])
+        total = int(full[0][0])
+        s = {"total_lt_s": total + 37, "total_eq_s": total,
+             "total_gt_s": total * 2 // 3}[case]
+    args_ref, args_port = _attr_args(inp)
+    ref = rdk.calculate_deps_flat_attr(
+        *args_ref, jnp.asarray(inp["qmat"]), jnp.asarray(inp["rankb"]),
+        *_prune_ref(inp["prune"]), m, s, 64)
+    port = pdk.calculate_deps_flat_attr(
+        *args_port, qmat, torch.from_numpy(inp["rankb"]), inp["prune"], m,
+        s, 64)
+    _eq(ref, port)
+    raw = pdk.calculate_deps_flat(args_port[0], qmat, m, s, 64,
+                                  prune=inp["prune"])
+    _attr_ctas_eq(ref, inp, raw, m)
+    h = port[0].numpy()
+    if case == "row_all_dropped":
+        ends = np.concatenate([[0], h[5:]])
+        assert ends[row + 1] == ends[row]
+        assert np.diff(raw[0].numpy()[2:], prepend=0)[row] > 0
+    if run:
+        # a key-domain (row, slot, col) run crosses a 32-entry word, and so
+        # the boundary of some CTA range above
+        e = raw[1].numpy().astype(np.int64)
+        ends = raw[0].numpy()[2:]
+        pos = np.arange(len(e))
+        key = np.searchsorted(ends, pos, side="right") * (1 << 40) + e // m
+        dom = inp["attr"][0][np.clip(e // (inp["m_t"] * m), 0, None)]
+        cross = [p for p in range(32, int(raw[0][0]), 32)
+                 if key[p] == key[p - 1] and dom[p] == 0]
+        assert cross
 
 
 def test_attributed_overflow_equal():
@@ -445,3 +725,48 @@ def test_reference_store_tables_carry_across(seed):
             torch.from_numpy(rankb), q_m, 4, s, k, prune, keff=keff)
         _eq(ref, port)
     assert int(port[0][0]) > 0
+
+
+def test_checked_cols_by_identity():
+    """A column set is checked once for its lifetime: the mirrors' copy
+    carries its plan (device, data pointers, lengths), a set with a
+    replaced column is a new tuple and is checked anew, and a set handed
+    without a plan is checked on every call."""
+    from accord_tpu_torch.ops import kernels
+    attr = _port(_inputs(0), "attr")
+    planned = kernels.checked_cols(attr)
+    assert isinstance(planned, pdk.AttrCols) and tuple(planned) == attr
+    assert kernels.checked_cols(planned) is planned
+    again = kernels.checked_cols(type(planned)(*planned))
+    assert type(again) is type(planned) and again is not planned
+    assert type(planned).__name__ == "AttrCols"
+    cpu = torch.device("cpu")
+    plan = ([c.data_ptr() for c in attr], [c.shape[0] for c in attr])
+    assert kernels._cols_on(planned, cpu) == plan
+    assert kernels._cols_on(attr, cpu) == plan
+    for bad in (attr._replace(dom=attr.dom.to(torch.int64)),
+                planned._replace(dom=planned.dom.to(torch.int64))):
+        assert getattr(bad, "_plan", None) is None
+        with pytest.raises(TypeError, match="AttrCols.dom"):
+            kernels._cols_on(bad, cpu)
+        with pytest.raises(TypeError, match="AttrCols.dom"):
+            kernels.checked_cols(bad)
+    with pytest.raises(ValueError, match="not all contiguous"):
+        kernels._cols_on(attr._replace(
+            dmsb=torch.stack([attr.dmsb, attr.dmsb], 1)[:, 0]), cpu)
+
+
+def test_checked_cols_keep_no_dropped_set_alive():
+    """The plan lives on the tuple the mirror keeps: once the mirror drops
+    a set, nothing in the kernels module holds its columns."""
+    import gc
+    import weakref
+
+    from accord_tpu_torch.ops import kernels
+    attr = kernels.checked_cols(_port(_inputs(0), "attr"))
+    aidx = kernels.checked_cols(_port(_inputs(0), "aidx"))
+    kernels._cols_on(attr, torch.device("cpu"))
+    gone = [weakref.ref(c) for c in (*attr, *aidx)]
+    del attr, aidx
+    gc.collect()
+    assert all(w() is None for w in gone)
