@@ -329,6 +329,8 @@ class _DepsMirror:
         # bucket_device_sharded for max(16, d))
         self._whost_cache: Dict[int, tuple] = {}  # w -> (wide_version, arrs)
         self._wdev = None                         # (wlo, whi, wslot...)
+        self._btable = None                       # planned BucketTable
+        self._btable_src = None                   # its (_bdev, _wdev)
         self._bsh = None                          # mesh-sharded BucketTable
         self._bsh_key = None
         self._wdev_key = None
@@ -578,7 +580,14 @@ class _DepsMirror:
             faults.check("transfer", "wide upload")
             self._wdev = tuple(_upload(a, self.device) for a in whost)
             self._wdev_key = wkey
-        return dk.BucketTable(*self._bdev, *self._wdev)
+        # the table a kernel reads, planned once while its columns stay the
+        # same tensors (a scatter writes them in place)
+        src = self._btable_src
+        if src is None or src[0] is not self._bdev or src[1] is not self._wdev:
+            self._btable = kernels.checked_cols(
+                dk.BucketTable(*self._bdev, *self._wdev))
+            self._btable_src = (self._bdev, self._wdev)
+        return self._btable
 
     def bucket_device_sharded(self, mesh) -> "dk.BucketTable":
         """Mesh placement of the bucket index: bucket ROWS and the wide

@@ -36,8 +36,10 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIMITS = {"ACCORD_MERGE_MAX_REFS": 128, "ACCORD_SCATTER_MAX_COLS": 16,
           "ACCORD_SHARDED_MAX_SLICES": 16}
 # launch geometry that the CPU tests' model of a kernel's decomposition
-# follows: K1b's threads a CTA, in which phase 2 walks a row's mask words
-GEOMETRY = {"ACCORD_DEPS_THREADS": 256}
+# follows: K1b's threads a CTA, in which phase 2 walks a row's mask words;
+# the largest level of K8's dense frontier drain that its first CTA
+# finishes alone
+GEOMETRY = {"ACCORD_DEPS_THREADS": 256, "ACCORD_DRAIN_HANDOVER": 128}
 DEFINES = [f"-D{k}={v}" for k, v in {**LIMITS, **GEOMETRY}.items()]
 ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
                 "accord_attr_post", "accord_scatter_rows",
@@ -141,10 +143,14 @@ def library() -> ctypes.CDLL:
         lib.accord_error_string.restype = ctypes.c_char_p
         lib.accord_merge_workspace_words.argtypes = [ctypes.c_int64] * 4
         lib.accord_merge_workspace_words.restype = ctypes.c_int64
+        lib.accord_bucketed_workspace_words.argtypes = [ctypes.c_int64] * 4
+        lib.accord_bucketed_workspace_words.restype = ctypes.c_int64
         lib.accord_dense_workspace_words.argtypes = [ctypes.c_int64] * 2
         lib.accord_dense_workspace_words.restype = ctypes.c_int64
         lib.accord_attr_workspace_words.argtypes = [ctypes.c_int64]
         lib.accord_attr_workspace_words.restype = ctypes.c_int64
+        lib.accord_drain_fix_workspace_words.argtypes = [ctypes.c_int64]
+        lib.accord_drain_fix_workspace_words.restype = ctypes.c_int64
         _LIB = lib
         return lib
 

@@ -157,14 +157,16 @@ __device__ __forceinline__ bool drain_gates(const int32_t* status,
          ts_lt(emsb[j], elsb[j], enode[j], emsb[i], elsb[i], enode[i]);
 }
 
-// One cooperative launch of ``kernel(args)`` with ``nt`` threads a block:
-// ``want`` blocks, at most as many as fit on the card at once (grid.sync()
-// needs every block resident), at least one.  The resident limit of a
-// (kernel, device, block size) is asked of the runtime once and kept.
+// One cooperative launch of ``kernel(args)`` with ``nt`` threads and
+// ``smem`` bytes of dynamic shared memory a block: ``want`` blocks, at most
+// as many as fit on the card at once (grid.sync() needs every block
+// resident), at least one.  The resident limit of a (kernel, device, block
+// size) is asked of the runtime once and kept, so a kernel is always
+// launched with the same ``smem`` (above 48 KB it is opted into first).
 // Returns a cudaError_t.
 template <typename Args>
 inline int launch_cooperative(void (*kernel)(Args), int nt, int64_t want,
-                              Args& args, cudaStream_t st) {
+                              Args& args, cudaStream_t st, size_t smem = 0) {
   struct Cap {
     const void* kernel;
     int dev, nt;
@@ -190,9 +192,13 @@ inline int launch_cooperative(void (*kernel)(Args), int nt, int64_t want,
     if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess && smem > 48 * 1024)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
-                                                        0);
+                                                        smem);
     if (e != cudaSuccess) return (int)e;
     cap = (int64_t)sms * per_sm;
     if (cap < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -203,7 +209,7 @@ inline int launch_cooperative(void (*kernel)(Args), int nt, int64_t want,
   const unsigned blocks = (unsigned)(want < cap ? want : cap);
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(nt),
-                                  argv, 0, st);
+                                  argv, smem, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -14,13 +14,26 @@
 //
 // deps_bucketed.  Bound on this card: it reads each touched bucket line
 // and the wide list once per query (bytes), plus a per-row sort of the few
-// codes that pass the predicate.  Design: one block per query row, which
-// counts its valid candidates, gathers them into shared memory (global
-// scratch when the row has more candidates than fit), sorts them with a
-// bitonic network and keeps the first of each run into a row buffer; one
-// block then scans the row counts into the header, and a last pass copies
-// each row to its offset, truncated at s, exactly as the reference's
-// _compact_rows does.
+// codes that pass the predicate.  Most calls are small (the burn's
+// flushes), so a call is one cooperative launch with no memset, three
+// phases between grid barriers, every buffer carved from one workspace
+// (accord_bucketed_workspace_words):
+//   1. a CTA a query row: each candidate is evaluated once (its slot,
+//      then the rest of a live entry), a lane EU at a time with their
+//      loads in flight together, four CTAs an SM (the scan is bound by
+//      the latency of its gathers), and ballots place the valid codes in
+//      a shared buffer (one shared atomic a warp's 32 x EU, their order
+//      kept within the warp).  A row of at most 32 codes is sorted by one warp
+//      in registers (a bitonic network of shuffles), deduplicated by its
+//      neighbour and cut at kk, with no block barrier; a longer row sorts
+//      its nv codes as warp-sorted runs of 32 merged pairwise (a search a
+//      code a round, one block barrier a round), then keeps the first of
+//      each run of equal codes up to kk.  Rows with more candidates than
+//      SMEM_CODES sort in a global scratch of their CTA instead;
+//   2. one CTA scans the row counts into the header and the row starts;
+//   3. a CTA a row copies its kept codes to its offset, truncated at s,
+//      with -1 in a row's positions past kk and after the total, as the
+//      reference's _compact_rows lays them out.
 //
 // deps_dense.  Bound on this card: operations, B x N (row, slot) tests of
 // up to m x m_t interval pairs, two int64 compares a pair.  A design of
@@ -111,144 +124,314 @@ struct BucketArgs {
   int qcols, m, span, K, keff, W, m_t;
   int64_t pm, pl;
   int32_t pn;
-  int C, kk, Cp;
+  int C, kk;
   // row-sharded slice: global bucket rows translate to [0, G) by - roff,
   // rows outside the slice read as no bucket (has_roff == 0: unsharded)
   int has_roff, roff, G;
 };
 
-// candidate c of row b: (valid, code).  Candidates [0, m*span*keff) are the
-// touched bucket lines (probe p = c / keff probes query interval p / span);
-// the rest cross the wide list with every query interval.
+__device__ __forceinline__ int64_t ldg64(const int64_t* p) {
+  return (int64_t)__ldg(reinterpret_cast<const long long*>(p));
+}
+
+// candidates a lane of K1a evaluates at once: their loads are issued
+// together, one round trip for the slots and one for the rest
+constexpr int EU = 2;
+
+// candidates cb + 32u + lane (u < EU) of a row: (valid, code) each.
+// Candidates [0, m*span*keff) are the touched bucket lines (probe p = c /
+// keff probes query interval p / span); the rest cross the wide list with
+// every query interval.  An entry's slot is read first; its interval,
+// timestamp, kind and column only if the slot is live.
 template <typename T>
-__device__ __forceinline__ bool bucket_candidate(const BucketArgs& a,
-                                                 const int64_t* row,
-                                                 const Query& q, int c,
-                                                 T* code) {
+__device__ __forceinline__ void bucket_candidates(const BucketArgs& a,
+                                                  const int64_t* row,
+                                                  const Query& q, int cb,
+                                                  bool* valid, T* code) {
   const int nb = a.m * a.span * a.keff;
   const int64_t mq = (int64_t)a.m_t * a.m;
-  if (c < nb) {
-    const int p = c / a.keff;
-    const int e = c - p * a.keff;
-    const int qi = p / a.span;
-    int32_t g = (int32_t)row[7 + 2 * a.m + p];
-    if (a.has_roff) {
-      const int32_t l = g - a.roff;
-      g = (g >= 0 && l >= 0 && l < a.G) ? l : -1;
+  const int lane = threadIdx.x & 31;
+  int64_t at[EU];   // the entry's index, -1: none
+  bool wide[EU];
+  int qi[EU];
+#pragma unroll
+  for (int u = 0; u < EU; ++u) {
+    const int c = cb + 32 * u + lane;
+    at[u] = -1;
+    wide[u] = c >= nb;
+    qi[u] = 0;
+    if (c < nb) {
+      const int p = c / a.keff;
+      qi[u] = p / a.span;
+      int32_t g = (int32_t)ldg64(row + 7 + 2 * a.m + p);
+      if (a.has_roff) {
+        const int32_t l = g - a.roff;
+        g = (g >= 0 && l >= 0 && l < a.G) ? l : -1;
+      }
+      if (g >= 0) at[u] = (int64_t)g * a.K + (c - p * a.keff);
+    } else if (c < a.C) {
+      qi[u] = (c - nb) / a.W;
+      at[u] = c - nb - (int64_t)qi[u] * a.W;
     }
-    if (g < 0) return false;
-    const int64_t idx = (int64_t)g * a.K + e;
-    const int32_t slot = a.bslot[idx];
-    if (slot < 0) return false;
-    const int64_t qlo = row[7 + qi], qhi = row[7 + a.m + qi];
-    if (!(a.blo[idx] <= qhi && qlo <= a.bhi[idx])) return false;
-    if (!entry_pred(q, a.bmsb[idx], a.blsb[idx], a.bnode[idx], a.bkind[idx],
-                    a.pm, a.pl, a.pn))
-      return false;
-    *code = (T)((T)slot * (T)mq + (T)a.bcol[idx] * (T)a.m + (T)qi);
-    return true;
   }
-  const int c2 = c - nb;
-  const int qi = c2 / a.W;
-  const int w = c2 - qi * a.W;
-  const int32_t slot = a.wslot[w];
-  if (slot < 0) return false;
-  const int64_t qlo = row[7 + qi], qhi = row[7 + a.m + qi];
-  if (!(a.wlo[w] <= qhi && qlo <= a.whi[w])) return false;
-  if (!entry_pred(q, a.wmsb[w], a.wlsb[w], a.wnode[w], a.wkind[w], a.pm,
-                  a.pl, a.pn))
-    return false;
-  *code = (T)((T)slot * (T)mq + (T)a.wcol[w] * (T)a.m + (T)qi);
-  return true;
+  int32_t slot[EU];
+#pragma unroll
+  for (int u = 0; u < EU; ++u)
+    slot[u] = at[u] < 0 ? -1 : (wide[u] ? a.wslot : a.bslot)[at[u]];
+  int64_t lo[EU], hi[EU], em[EU], el[EU];
+  int32_t en[EU], ek[EU], col[EU];
+#pragma unroll
+  for (int u = 0; u < EU; ++u) {
+    if (slot[u] < 0) continue;
+    const int64_t x = at[u];
+    lo[u] = (wide[u] ? a.wlo : a.blo)[x];
+    hi[u] = (wide[u] ? a.whi : a.bhi)[x];
+    em[u] = (wide[u] ? a.wmsb : a.bmsb)[x];
+    el[u] = (wide[u] ? a.wlsb : a.blsb)[x];
+    en[u] = (wide[u] ? a.wnode : a.bnode)[x];
+    ek[u] = (wide[u] ? a.wkind : a.bkind)[x];
+    col[u] = (wide[u] ? a.wcol : a.bcol)[x];
+  }
+#pragma unroll
+  for (int u = 0; u < EU; ++u) {
+    valid[u] = false;
+    if (slot[u] < 0) continue;
+    const int64_t qlo = ldg64(row + 7 + qi[u]);
+    const int64_t qhi = ldg64(row + 7 + a.m + qi[u]);
+    valid[u] = lo[u] <= qhi && qlo <= hi[u] &&
+               entry_pred(q, em[u], el[u], en[u], ek[u], a.pm, a.pl, a.pn);
+    code[u] = (T)((T)slot[u] * (T)mq + (T)col[u] * (T)a.m + (T)qi[u]);
+  }
 }
 
+constexpr unsigned FULL = 0xffffffffu;
+// codes a row sorts in shared memory (ops/kernels.py SMEM_CODES); a row
+// with more candidates sorts in its CTA's global scratch
+constexpr int SMEM_CODES = 4096;
+// CTAs of a launch whose rows sort in global scratch: the scratch the
+// workspace holds
+constexpr int GLOBAL_CTAS = 512;
+
+__host__ __device__ __forceinline__ int64_t round32(int64_t n) {
+  return (n + 31) & ~(int64_t)31;
+}
+
+// ascending bitonic sort of one code a lane across a warp
 template <typename T>
-__global__ void __launch_bounds__(NT)
-bucketed_rows(BucketArgs a, T* scratch, int32_t* counts, T* rowbuf) {
+__device__ __forceinline__ T warp_sort32(T x, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const T y = __shfl_xor_sync(FULL, x, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      x = keep_min ? (y < x ? y : x) : (y < x ? x : y);
+    }
+  return x;
+}
+
+// codes of x[0:n) below v / not above v
+template <typename T>
+__device__ __forceinline__ int count_below(const T* x, int n, T v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (x[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+template <typename T>
+__device__ __forceinline__ int count_not_above(const T* x, int n, T v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (x[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// ascending sort of a[0:n) by the block (n > 32): warp-sorted runs of 32
+// (the last padded with the sentinel), then pairwise merges into the
+// other buffer, a code placed by its rank in the partner run (equal codes:
+// the left run's first).  Returns the buffer that holds the result.
+template <typename T>
+__device__ T* block_merge_sort(T* a, T* b, int n) {
+  const int lane = threadIdx.x & 31;
+  const int n32 = (int)round32(n);
+  for (int r = threadIdx.x - lane; r < n32; r += NT) {
+    const int i = r + lane;
+    a[i] = warp_sort32(i < n ? a[i] : sentinel<T>(), lane);
+  }
+  __syncthreads();
+  for (int w = 32; w < n32; w <<= 1) {
+    for (int i = threadIdx.x; i < n32; i += NT) {
+      const int base = i & ~(2 * w - 1), in = i - base;
+      const T x = a[i];
+      const int right = mini(w, maxi(0, n32 - base - w));
+      b[base + (in < w ? in + count_below(a + base + w, right, x)
+                       : in - w + count_not_above(a + base, w, x))] = x;
+    }
+    __syncthreads();
+    T* t = a;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+struct BucketOut {
+  int32_t* hdr;
+  void* ent;
+  int64_t* starts;   // [B + 1] row starts, then the total
+  int32_t* counts;   // [B] unique codes a row (uncut)
+  void* rowbuf;      // [B, kk] a row's first kk unique codes
+  void* scratch;     // [GLOBAL_CTAS, 2, round32(C)] (rows past SMEM_CODES)
+  int64_t s;
+  int B;
+};
+
+struct BucketParams {
+  BucketArgs a;
+  BucketOut o;
+};
+
+// four CTAs an SM (64 registers a thread): the scan is bound by the
+// latency of its gathers, so CTAs in flight matter more than registers
+template <typename T, bool SMEM>
+__global__ void __launch_bounds__(NT, 4) bucketed_csr(BucketParams P) {
+  cg::grid_group grid = cg::this_grid();
+  const BucketArgs& a = P.a;
+  const BucketOut& o = P.o;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int n_valid, fill;
-  const int b = blockIdx.x;
-  const int64_t* row = a.qmat + (int64_t)b * a.qcols;
-  const Query q = load_query(row);
-  if (threadIdx.x == 0) {
-    n_valid = 0;
-    fill = 0;
-  }
-  __syncthreads();
-  int mine = 0;
-  T code;
-  for (int c = threadIdx.x; c < a.C; c += NT)
-    mine += bucket_candidate<T>(a, row, q, c, &code);
-  if (mine) atomicAdd(&n_valid, mine);
-  __syncthreads();
-  const int nv = n_valid;
-  const int np = next_pow2(nv > 0 ? nv : 1);
-  T* buf = scratch ? scratch + (int64_t)b * a.Cp
-                  : reinterpret_cast<T*>(smem_raw);
-  for (int c = threadIdx.x; c < a.C; c += NT)
-    if (bucket_candidate<T>(a, row, q, c, &code)) buf[atomicAdd(&fill, 1)] = code;
-  for (int i = nv + threadIdx.x; i < np; i += NT) buf[i] = sentinel<T>();
-  __syncthreads();
-  block_bitonic_sort<NT>(buf, np);
-  // keep the first code of each run (a triple reachable via several
-  // buckets), in ascending order
-  int run = 0;
-  for (int base = 0; base < nv; base += NT) {
-    const int i = base + threadIdx.x;
-    const bool u = i < nv && (i == 0 || buf[i] != buf[i - 1]);
-    int tot;
-    const int r = block_exclusive_scan<NT, int>(u ? 1 : 0, &tot);
-    if (u && run + r < a.kk) rowbuf[(int64_t)b * a.kk + run + r] = buf[i];
-    run += tot;
-  }
-  if (threadIdx.x == 0) counts[b] = run;
-}
+  __shared__ int s_fill[2], s_max;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t c32 = round32(a.C);
+  T* buf = SMEM ? reinterpret_cast<T*>(smem_raw)
+                : (T*)o.scratch + (int64_t)blockIdx.x * 2 * c32;
+  T* alt = buf + c32;
+  T* rowbuf = (T*)o.rowbuf;
 
-// one block: row_end = cumsum(counts), header (total, maxc, row_end),
-// starts for the write pass
-__global__ void __launch_bounds__(1024)
-rows_scan(const int32_t* counts, int B, int64_t* starts, int32_t* hdr) {
-  __shared__ int maxc;
-  if (threadIdx.x == 0) maxc = 0;
-  __syncthreads();
-  long long run = 0;
-  int mx = 0;
-  for (int base = 0; base < B; base += 1024) {
-    const int b = base + threadIdx.x;
-    const int v = b < B ? counts[b] : 0;
-    if (b < B) mx = maxi(mx, v);
-    long long tot;
-    const long long e = block_exclusive_scan<1024, long long>(v, &tot);
-    if (b < B) {
-      starts[b] = run + e;
-      hdr[2 + b] = (int32_t)(run + e + v);
+  // 1. a CTA a row: candidates once, ballot-placed; sort, dedupe, kk cut.
+  // A row fills s_fill[it & 1] and clears the other for the next row
+  if (threadIdx.x < 2) s_fill[threadIdx.x] = 0;
+  int it = 0;
+  for (int b = blockIdx.x; b < o.B; b += gridDim.x, ++it) {
+    const int64_t* row = a.qmat + (int64_t)b * a.qcols;
+    const Query q = load_query(row);
+    __syncthreads();   // the previous row's buffer and count are read
+    if (threadIdx.x == 0) s_fill[(it + 1) & 1] = 0;
+    for (int cb = (threadIdx.x - lane) * EU; cb < a.C; cb += NT * EU) {
+      bool v[EU];
+      T code[EU];
+      bucket_candidates<T>(a, row, q, cb, v, code);
+      unsigned bal[EU];
+      int n = 0;
+#pragma unroll
+      for (int u = 0; u < EU; ++u) {
+        bal[u] = __ballot_sync(FULL, v[u]);
+        n += __popc(bal[u]);
+      }
+      int base = 0;
+      if (lane == 0 && n) base = atomicAdd(&s_fill[it & 1], n);
+      base = __shfl_sync(FULL, base, 0);
+#pragma unroll
+      for (int u = 0; u < EU; ++u) {
+        if (v[u]) buf[base + __popc(bal[u] & below)] = code[u];
+        base += __popc(bal[u]);
+      }
     }
-    run += tot;
+    __syncthreads();
+    const int nv = s_fill[it & 1];
+    T* out = rowbuf + (int64_t)b * a.kk;
+    if (nv <= 32) {
+      if (threadIdx.x < 32) {
+        const T x = warp_sort32(lane < nv ? buf[lane] : sentinel<T>(), lane);
+        const T prev = __shfl_up_sync(FULL, x, 1);
+        const bool u = lane < nv && (lane == 0 || x != prev);
+        const unsigned keep = __ballot_sync(FULL, u);
+        const int r = __popc(keep & below);
+        if (u && r < a.kk) out[r] = x;
+        if (lane == 0) o.counts[b] = __popc(keep);
+      }
+      continue;
+    }
+    const T* srt = block_merge_sort(buf, alt, nv);
+    if (threadIdx.x < 32) {   // one warp keeps the first of each run
+      int run = 0;
+      for (int i = lane; i - lane < nv; i += 32) {
+        const bool u = i < nv && (i == 0 || srt[i] != srt[i - 1]);
+        const unsigned keep = __ballot_sync(FULL, u);
+        const int r = run + __popc(keep & below);
+        if (u && r < a.kk) out[r] = srt[i];
+        run += __popc(keep);
+      }
+      if (lane == 0) o.counts[b] = run;
+    }
   }
-  atomicMax(&maxc, mx);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    hdr[0] = (int32_t)run;
-    hdr[1] = maxc;
+  grid.sync();
+
+  // 2. one CTA: row_end = cumsum(counts), the header, the row starts
+  if (blockIdx.x == 0) {
+    if (threadIdx.x == 0) s_max = 0;
+    long long run = 0;
+    int mx = 0;
+    for (int base = 0; base < o.B; base += NT) {
+      const int b = base + threadIdx.x;
+      const int v = b < o.B ? o.counts[b] : 0;
+      mx = maxi(mx, v);
+      long long tot;
+      const long long e = block_exclusive_scan<NT, long long>(v, &tot);
+      if (b < o.B) {
+        o.starts[b] = run + e;
+        o.hdr[2 + b] = (int32_t)(run + e + v);
+      }
+      run += tot;
+    }
+    atomicMax(&s_max, mx);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      o.hdr[0] = (int32_t)run;
+      o.hdr[1] = s_max;
+      o.starts[o.B] = run;
+    }
   }
+  grid.sync();
+
+  // 3. a CTA a row: its kept codes at its offset, -1 past kk; then -1
+  // after the total
+  T* ent = (T*)o.ent;
+  for (int b = blockIdx.x; b < o.B; b += gridDim.x) {
+    const int c = o.counts[b];
+    const int64_t st = o.starts[b];
+    const int64_t end = min64(st + c, o.s);
+    const T* src = rowbuf + (int64_t)b * a.kk;
+    for (int64_t p = st + threadIdx.x; p < end; p += NT)
+      ent[p] = p - st < a.kk ? src[p - st] : (T)-1;
+  }
+  for (int64_t p = min64(o.starts[o.B], o.s) + (int64_t)blockIdx.x * NT +
+                   threadIdx.x;
+       p < o.s; p += (int64_t)gridDim.x * NT)
+    ent[p] = (T)-1;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-rows_write(const int32_t* counts, const int64_t* starts, const T* rowbuf,
-           int kk, int64_t s, T* ent) {
-  const int b = blockIdx.x;
-  const int n = mini(counts[b], kk);
-  const int64_t st = starts[b];
-  for (int r = threadIdx.x; r < n; r += NT) {
-    const int64_t pos = st + r;
-    if (pos < s) ent[pos] = rowbuf[(int64_t)b * kk + r];
-  }
+// the workspace's int64 words: row starts (B + 1), counts (B, 32 bits),
+// the rows' kept codes (B x kk) and, for rows past SMEM_CODES, the
+// scratch of GLOBAL_CTAS CTAs (two buffers of round32(C) codes each)
+int64_t bucketed_workspace_words(int64_t B, int64_t C, int64_t kk,
+                                 bool wide) {
+  const int64_t cs = wide ? 8 : 4;
+  const int64_t scratch =
+      C > SMEM_CODES ? min64(B, GLOBAL_CTAS) * 2 * round32(C) : 0;
+  return (B + 1) + (B + 1) / 2 + (B * kk * cs + 7) / 8 +
+         (scratch * cs + 7) / 8;
 }
 
 template <typename T>
 int launch_bucketed(void* const* p, const int64_t* v, cudaStream_t st) {
-  BucketArgs a;
+  BucketParams P;
+  BucketArgs& a = P.a;
+  BucketOut& o = P.o;
   a.qmat = (const int64_t*)p[0];
   a.blo = (const int64_t*)p[1];
   a.bhi = (const int64_t*)p[2];
@@ -266,13 +449,7 @@ int launch_bucketed(void* const* p, const int64_t* v, cudaStream_t st) {
   a.wlsb = (const int64_t*)p[14];
   a.wnode = (const int32_t*)p[15];
   a.wkind = (const int32_t*)p[16];
-  int32_t* counts = (int32_t*)p[17];
-  int64_t* starts = (int64_t*)p[18];
-  T* rowbuf = (T*)p[19];
-  T* scratch = (T*)p[20];
-  int32_t* hdr = (int32_t*)p[21];
-  T* ent = (T*)p[22];
-  const int B = (int)v[0];
+  const int64_t B = v[0];
   a.qcols = (int)v[1];
   a.m = (int)v[2];
   a.span = (int)v[3];
@@ -283,21 +460,33 @@ int launch_bucketed(void* const* p, const int64_t* v, cudaStream_t st) {
   a.pl = v[8];
   a.pn = (int32_t)v[9];
   a.m_t = (int)v[10];
-  const int64_t s = v[12];
-  const int k = (int)v[13];
+  const int64_t s = v[12], k = v[13];
   a.has_roff = (int)v[14];
   a.roff = (int)v[15];
   a.G = (int)v[16];
-  a.C = a.m * a.span * a.keff + a.m * a.W;
-  a.kk = mini(k, a.C);
-  a.Cp = next_pow2(a.C);
-  cudaMemsetAsync(ent, 0xff, (size_t)s * sizeof(T), st);
-  // the wrapper passes scratch when a row's codes outgrow shared memory
-  const size_t smem = scratch ? 0 : (size_t)a.Cp * sizeof(T);
-  bucketed_rows<T><<<B, NT, smem, st>>>(a, scratch, counts, rowbuf);
-  rows_scan<<<1, 1024, 0, st>>>(counts, B, starts, hdr);
-  rows_write<T><<<B, NT, 0, st>>>(counts, starts, rowbuf, a.kk, s, ent);
-  return (int)cudaGetLastError();
+  const int64_t C = (int64_t)a.m * a.span * a.keff + (int64_t)a.m * a.W;
+  if (B < 1 || B > INT32_MAX || a.m < 0 || a.span < 0 || a.keff < 0 ||
+      a.keff > a.K || a.W < 0 || C > INT32_MAX / 2 ||
+      a.qcols != 7 + 2 * a.m + a.m * a.span || s < 0 || k < 0)
+    return (int)cudaErrorInvalidValue;
+  a.C = (int)C;
+  a.kk = (int)min64(k, C);
+  if (v[17] < bucketed_workspace_words(B, C, a.kk, sizeof(T) == 8))
+    return (int)cudaErrorInvalidValue;
+  o.hdr = (int32_t*)p[18];
+  o.ent = p[19];
+  int64_t* ws = (int64_t*)p[17];
+  o.starts = ws;
+  o.counts = (int32_t*)(ws + B + 1);
+  o.rowbuf = ws + (B + 1) + (B + 1) / 2;
+  o.scratch = (unsigned char*)o.rowbuf + ((B * a.kk * sizeof(T) + 7) / 8) * 8;
+  o.s = s;
+  o.B = (int)B;
+  if (C <= SMEM_CODES)
+    return launch_cooperative(bucketed_csr<T, true>, NT, B, P, st,
+                              2 * SMEM_CODES * sizeof(T));
+  return launch_cooperative(bucketed_csr<T, false>, NT,
+                            min64(B, GLOBAL_CTAS), P, st);
 }
 
 // -- K1b: the dense route, tiled across slots ---------------------------------
@@ -566,12 +755,20 @@ int launch_dense(DenseParams& a, cudaStream_t st) {
 
 }  // namespace
 
+// The workspace a call of accord_deps_bucketed needs, in int64 words, for
+// B rows of C candidates kept up to kk: the wrapper allocates it.
+ACCORD_EXPORT int64_t accord_bucketed_workspace_words(int64_t B, int64_t C,
+                                                      int64_t kk,
+                                                      int64_t wide) {
+  return bucketed_workspace_words(B, C, kk, wide != 0);
+}
+
 // ptrs: qmat, blo, bhi, bslot, bcol, bmsb, blsb, bnode, bkind, wlo, whi,
-//       wslot, wcol, wmsb, wlsb, wnode, wkind, counts[B], starts[B],
-//       rowbuf[B*kk], scratch[B*Cp] (null: sort in shared memory),
-//       hdr[2+B], ent[s]
+//       wslot, wcol, wmsb, wlsb, wnode, wkind, workspace int64[words]
+//       (accord_bucketed_workspace_words), hdr int32[2+B], ent[s]
 // vals: B, qcols, m, span, K, keff, W, pm, pl, pn, m_t, wide, s, k,
-//       has_row_offset, row_offset, G (bucket rows of this slice)
+//       has_row_offset, row_offset, G (bucket rows of this slice),
+//       workspace words
 ACCORD_EXPORT int accord_deps_bucketed(void* const* p, const int64_t* v,
                                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

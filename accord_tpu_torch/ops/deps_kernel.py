@@ -331,23 +331,19 @@ def _entry_pred(query: DepsQuery, ov, slot, emsb, elsb, enode, ekind):
     return valid & ov & witnessed & earlier & not_self
 
 
-def bucketed_flat_plain(m_t: int, buckets: BucketTable, qmat: torch.Tensor,
-                        m: int, span: int, s: int, k: int, prune=None,
-                        keff: int = None, wide: bool = False,
-                        row_offset: int = None):
-    """Bucketed route (the reference's ``bucketed_flat``): candidates are the
-    ``keff`` entries of each touched bucket plus the wide list crossed with
-    every query interval; the exact predicate, a per-row sort with adjacent
-    dedupe, then the row compaction.  ``qmat`` carries the m*span bucket-row
-    columns after the standard 7+2m query columns.  ``row_offset``
-    translates global bucket rows to the rows of a row-sharded slice: rows
-    outside the slice become -1 (no bucket here)."""
+def bucket_candidates(m_t: int, buckets: BucketTable, qmat: torch.Tensor,
+                      m: int, span: int, prune=None, keff: int = None,
+                      wide: bool = False, row_offset: int = None):
+    """The bucketed route's candidates of each query row, in the order the
+    reference lays them out: (pred bool[B, C], code [B, C]) with C =
+    m*span*keff bucket entries (probe p = c // keff probes query interval
+    p // span) then m*W wide entries (query interval (c - m*span*keff) //
+    W).  ``pred`` is the exact predicate, ``code`` the triple code."""
     query = query_from_qmat(qmat, m)
     b = qmat.shape[0]
     dev = qmat.device
     mq = m_t * m
     dt = code_dtype(wide)
-    sent = _code_sentinel(wide)
     kb = buckets.blo.shape[1]
     keff = kb if keff is None else min(keff, kb)
     blo, bhi = buckets.blo[:, :keff], buckets.bhi[:, :keff]
@@ -392,6 +388,25 @@ def bucketed_flat_plain(m_t: int, buckets: BucketTable, qmat: torch.Tensor,
     pred = pred & torch.cat(
         [above_b, above_w[None, None, :].expand(b, m, w).reshape(b, -1)],
         dim=1)
+    return pred, cand
+
+
+def bucketed_flat_plain(m_t: int, buckets: BucketTable, qmat: torch.Tensor,
+                        m: int, span: int, s: int, k: int, prune=None,
+                        keff: int = None, wide: bool = False,
+                        row_offset: int = None):
+    """Bucketed route (the reference's ``bucketed_flat``): candidates are the
+    ``keff`` entries of each touched bucket plus the wide list crossed with
+    every query interval; the exact predicate, a per-row sort with adjacent
+    dedupe, then the row compaction.  ``qmat`` carries the m*span bucket-row
+    columns after the standard 7+2m query columns.  ``row_offset``
+    translates global bucket rows to the rows of a row-sharded slice: rows
+    outside the slice become -1 (no bucket here)."""
+    pred, cand = bucket_candidates(m_t, buckets, qmat, m, span, prune, keff,
+                                   wide, row_offset)
+    b = qmat.shape[0]
+    dev = qmat.device
+    sent = _code_sentinel(wide)
     hit = torch.where(pred, cand, torch.full_like(cand, sent))
     hit = torch.sort(hit, dim=1).values
     uniq = (hit != sent) & torch.cat(

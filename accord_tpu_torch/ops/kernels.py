@@ -81,8 +81,8 @@ KERNELS = ("deps_bucketed", "deps_dense", "attr_post", "scatter_rows",
            "sharded_drain", "sharded_drain_fix", "attr_tok")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-# codes per row that deps_bucketed sorts in shared memory (32 KiB of
-# int64); a row with more sorts in the global scratch passed with it
+# candidates a row of deps_bucketed sorts in shared memory (SMEM_CODES of
+# csrc/deps_scan.cu); a row with more sorts in its CTA's global scratch
 SMEM_CODES = 4096
 
 
@@ -267,41 +267,61 @@ def _prune_vals(prune):
 
 # -- K1: the deps scan --------------------------------------------------------
 
+@functools.lru_cache(maxsize=256)
+def _bucketed_workspace_words(b: int, c: int, kk: int, wide: bool) -> int:
+    """The int64 words of K1a's workspace, as its entry point lays it
+    out."""
+    return _build.library().accord_bucketed_workspace_words(b, c, kk,
+                                                            int(wide))
+
+
 def deps_bucketed(m_t: int, buckets: dk.BucketTable, qmat: torch.Tensor,
                   m: int, span: int, s: int, k: int, prune=None,
                   keff: int = None, wide: bool = False,
                   row_offset: int = None):
     """Bucketed exact CSR (header int32[2+B], entries[s]); ``row_offset``
-    for a row-sharded slice of the bucket table."""
+    for a row-sharded slice of the bucket table.  A bucket table that
+    carries its plan (``checked_cols``) is not checked again; the
+    entries, the header and the workspace are one allocation."""
     if not on_cuda(qmat):
         return dk.bucketed_flat_plain(m_t, buckets, qmat, m, span, s, k,
                                       prune, keff, wide, row_offset)
+    if qmat.dtype is not torch.int64:
+        raise TypeError(f"qmat: expected torch.int64, got {qmat.dtype}")
     dev = qmat.device
-    _check(qmat, torch.int64, "qmat")
-    _check_cols(buckets)
+    cols, lens = _cols_on(buckets, dev)
     b, qcols = qmat.shape
     if qcols != 7 + 2 * m + m * span:
         raise ValueError(f"qmat has {qcols} columns, expected "
                          f"{7 + 2 * m + m * span}")
     kb = buckets.blo.shape[1]
     keff = kb if keff is None else min(keff, kb)
-    w = buckets.wlo.shape[0]
+    w = lens[8]
     c = m * span * keff + m * w
     kk = min(k, c)
-    dt = dk.code_dtype(wide)
-    counts = torch.empty(b, dtype=torch.int32, device=dev)
-    starts = torch.empty(b, dtype=torch.int64, device=dev)
-    rowbuf = torch.empty(max(b * kk, 1), dtype=dt, device=dev)
-    scratch = (torch.empty(b * _next_pow2(c), dtype=dt, device=dev)
-               if c > SMEM_CODES else None)
-    hdr = torch.empty(2 + b, dtype=torch.int32, device=dev)
-    ent = torch.empty(s, dtype=dt, device=dev)
+    words = _bucketed_workspace_words(b, c, kk, wide)
+    # one allocation a call: the entries, the header (int32[2+B]), then
+    # the workspace, each at a whole int64 word (two views a call)
+    n_out = s if wide else (s + 1) // 2
+    n_hdr = (3 + b) // 2
+    if wide:
+        buf = torch.empty(n_out + n_hdr + words, dtype=torch.int64,
+                          device=dev)
+        ent = buf[:s]
+        hdr = buf.view(torch.int32)[2 * s:2 * s + 2 + b]
+    else:
+        buf = torch.empty(2 * (n_out + n_hdr + words), dtype=torch.int32,
+                          device=dev)
+        ent = buf[:s]
+        hdr = buf[2 * n_out:2 * n_out + 2 + b]
+    base = buf.data_ptr()
     pm, pl, pn = _prune_vals(prune)
     _launch("deps_bucketed", dev,
-            [qmat, *buckets, counts, starts, rowbuf, scratch, hdr, ent],
+            [qmat, *cols, base + 8 * (n_out + n_hdr), base + 8 * n_out,
+             base],
             [b, qcols, m, span, kb, keff, w, pm, pl, pn, m_t, int(wide), s,
-             k, int(row_offset is not None), int(row_offset or 0),
-             buckets.blo.shape[0]])
+             k, int(row_offset is not None), int(row_offset or 0), lens[0],
+             words])
     return hdr, ent
 
 
@@ -749,19 +769,25 @@ def _drain_outputs(dev, n: int):
             torch.empty((), dtype=torch.int32, device=dev))
 
 
+@functools.lru_cache(maxsize=64)
+def _drain_fix_words(n: int) -> int:
+    """The int32 words of K8 dense's workspace, as its entry point lays it
+    out."""
+    return _build.library().accord_drain_fix_workspace_words(n)
+
+
 def drain_fix_dense(state: drk.DrainState):
-    """(applied, newly, sweeps int32[]) by one cooperative launch."""
+    """(applied, newly, sweeps int32[]) by one cooperative launch (the
+    frontier form of the fixpoint, ``csrc/drain_fix.cu``)."""
     if not on_cuda(state.status):
         return drk._drain_fix_plain(state)
     dev = state.status.device
     _check_cols(state)
     n = _square(state)
-    w = -(-n // 32)
-    blk = torch.empty(max(n * w, 1), dtype=torch.int32, device=dev)
-    bits = torch.empty(max(3 * w, 1), dtype=torch.int32, device=dev)
+    words = _drain_fix_words(n)
+    ws = torch.empty(words, dtype=torch.int32, device=dev)
     out = _drain_outputs(dev, n)
-    _launch("drain_fix_dense", dev, [*state, blk, bits, _flags(dev), *out],
-            [n])
+    _launch("drain_fix_dense", dev, [*state, ws, *out], [n, words])
     return out
 
 

@@ -23,7 +23,13 @@ Phases:
      and timed in both at the largest recorded call and in the live form
      at 8 rows of the store's table; K12 over 1 to 17 stores of 1, 3 or
      8 blocks (under and over the blocks a launch takes by value), with
-     and without the dedupe, with overflowed blocks;
+     and without the dedupe, with overflowed blocks; K1a at its design's
+     edges (no valid candidate, merge-sorted rows, rows past SMEM_CODES,
+     kk in a run of equal codes, s in a row, a row-sharded slice, more
+     rows than CTAs) and K8 dense at N = 0 to 8,193 and either side of
+     its handover; K1a also at the burn's median call, K8 also on a wide
+     input and on narrow-then-wide levels, and the latency of one grid
+     barrier and one block barrier (ops/csrc/probes.cu);
   4. the main path, a PreAccept deps store at real size: 100,000 in-flight
      txns over a 1,000,000-key space, up to 8 intervals each, with
      RedundantBefore floors and CommandsForKey state; 12,288 queries in
@@ -95,7 +101,8 @@ twin store's bytes, one device fault, one quarantine, and the probe's
 restore.  A real launch the library refuses for an invalid argument
 (cudaErrorInvalidValue) must instead propagate, off the fault ladder.
 Then torch.profiler counts the device operations of one K12 call (one
-kernel) and one live K3 call (one copy, one kernel), and traces two
+kernel), one live K3 call (one copy, one kernel) and K1a's, K1b's, K2's
+and K8's calls (one kernel, no memset, no copy), and traces two
 phase-4 batches and four phase-7 rounds, solo and fused, for the device's
 busy share and its time by kernel name.
 
@@ -394,7 +401,7 @@ def _diff_report(torch, a, b) -> str:
 
 
 def bucket_case(torch, kern, dk, m_t, buckets, qmat, m, span, s, k, prune,
-                keff, wide):
+                keff, wide, row_offset=None):
     b = qmat.shape[0]
     kb = buckets.blo.shape[1]
     keff_ = kb if keff is None else min(keff, kb)
@@ -407,10 +414,57 @@ def bucket_case(torch, kern, dk, m_t, buckets, qmat, m, span, s, k, prune,
               + (2 + b) * 4 + s * cs)
     ops = b * c * 12
     return (lambda: kern.deps_bucketed(m_t, buckets, qmat, m, span, s, k,
-                                       prune, keff, wide),
+                                       prune, keff, wide, row_offset),
             lambda: dk.bucketed_flat_plain(m_t, buckets, qmat, m, span, s, k,
-                                           prune, keff, wide),
+                                           prune, keff, wide, row_offset),
             None, nbytes, ops)
+
+
+def bucket_edge_cases(torch, kern, dk, convert, dev) -> dict:
+    """K1a at the edges of its design, the CPU tests' (narrow and wide
+    codes each): no valid candidate (nv0); rows of more than 32 codes,
+    merge-sorted in shared memory (merge); kk cutting a run of equal codes
+    (every probe of a row on one bucket line, k = 2); s inside a row; the
+    upper half of the bucket rows as a row-sharded slice (row_offset); and
+    1,200 rows, more than the CTAs a launch holds (grid-stride rows)."""
+    cases = {}
+    for i, (tag, shape, keff) in enumerate((
+            ("nv0", {}, 8), ("merge", dict(m=8, kb=32, space=40), 32),
+            ("kk_in_dup_run", {}, 8), ("s_in_row", {}, 8),
+            ("row_offset", {}, 8),
+            ("b1200", dict(b=1200, m=8, kb=32, space=400), 32))):
+        inp = small_inputs(60 + i, dk, **shape)
+        buckets, qb = inp["buckets"], inp["qmat_b"].copy()
+        m, prune, roff, s, k = inp["m"], inp["prune"], None, 8192, 64
+        if tag == "nv0":
+            prune = (-1, -1, 3)
+        if tag == "row_offset":
+            roff = buckets[0].shape[0] // 2
+            buckets = tuple(c[roff:] for c in buckets[:8]) + buckets[8:]
+        up = convert.tables_from_numpy({"buckets": buckets}, dev)["buckets"]
+        if tag == "kk_in_dup_run":
+            g = buckets[0].shape[0]
+            tries = np.repeat(qb, g, axis=0)
+            tries[:, 7 + 2 * m:] = np.tile(np.arange(g), len(qb))[:, None]
+            pred, cand = dk.bucket_candidates(
+                inp["m_t"], up, torch.from_numpy(tries).to(dev), m, 4, prune,
+                keff)
+            uniq = [len(set(c[p].tolist())) for p, c in zip(pred, cand)]
+            qb[1] = tries[int(np.argmax(uniq))]
+            k = 2
+        qmat = torch.from_numpy(qb).to(dev)
+        if tag == "s_in_row":
+            hdr, _e = dk.bucketed_flat_plain(inp["m_t"], up, qmat, m, 4, s,
+                                             k, prune, keff)
+            ends = hdr[2:].to(torch.int64)
+            sizes = torch.diff(ends, prepend=ends.new_zeros(1))
+            r = int(torch.argmax((sizes >= 2).to(torch.int32)))
+            s = int(ends[r] - sizes[r]) + 1     # one entry into a row of 2+
+        for wide in (False, True):
+            cases[f"deps_bucketed[{tag}{' i64' if wide else ''}]"] = \
+                bucket_case(torch, kern, dk, inp["m_t"], up, qmat, m, 4, s,
+                            k, prune, keff, wide, roff)
+    return cases
 
 
 def dense_needed_ops(torch, dk, table, qmat, m, s, k, prune) -> int:
@@ -860,6 +914,125 @@ def fix_case(torch, kern, drk, state):
             *level_work(torch, drk, state, 2 * n + 4))
 
 
+def wide_drain_input(convert, dev, n, levels=4, deg=8, seed=31):
+    """A wide K8 input: ``n`` Stable rows in ``levels`` antichains of n /
+    levels rows, scattered over the slots; a row of antichain l > 0 waits
+    on ``deg`` random rows of antichain l - 1 (executeAt ascending by
+    antichain), so the fixpoint takes levels + 1 sweeps."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    level = np.empty(n, np.int64)
+    level[perm] = np.arange(n) * levels // n
+    adj = np.zeros((n, n), bool)
+    for lv in range(1, levels):
+        rows = np.nonzero(level == lv)[0]
+        prev = np.nonzero(level == lv - 1)[0]
+        adj[np.repeat(rows, deg), rng.choice(prev, deg * len(rows))] = True
+    return convert.tables_from_numpy({"drain": (
+        adj, np.full(n, 4, np.int32), level * n + np.arange(n),
+        np.zeros(n, np.int64), np.ones(n, np.int32), np.zeros(n, bool))},
+        dev)["drain"]
+
+
+def sync_probe_us(torch, mode: int, blocks: int, threads: int,
+                  iters: int = 4096) -> dict:
+    """One step of ``ops/csrc/probes.cu``'s empty loops (mode 0: a grid
+    barrier of a cooperative grid of ``blocks`` x ``threads``; mode 1: a
+    block barrier and a shared-memory round trip), in us: the CUDA-event
+    time of ``iters`` + 1 steps less that of one, over ``iters``."""
+    import ctypes
+    from accord_tpu_torch.ops import _build
+    fn = _build.library().accord_sync_probe
+    fn.argtypes = [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(it):
+        p = (ctypes.c_uint64 * 1)(out.data_ptr())
+        v = (ctypes.c_int64 * 4)(mode, blocks, threads, it)
+        rc = fn(p, v, stream)
+        check(rc == 0, f"sync probe mode {mode}: error {rc}")
+
+    t = {it: time_ms(torch, lambda it=it: run(it), True, reps=7, warm=2)
+         for it in (1, iters + 1)}
+    return {"us": (t[iters + 1] - t[1]) / iters * 1e3,
+            "blocks": int(out[0]) if mode == 0 else 1, "threads": threads}
+
+
+def bucket_row_stats(torch, dk, a, kw) -> dict:
+    """Per query row of one K1a call: its candidates C, the valid ones nv
+    and the unique ones (percentiles over the rows)."""
+    m_t, buckets, qmat, m, span, s, k = a[:7]
+    prune = a[7] if len(a) > 7 else kw.get("prune")
+    keff = a[8] if len(a) > 8 else kw.get("keff")
+    wide = a[9] if len(a) > 9 else kw.get("wide", False)
+    row_offset = kw.get("row_offset")
+    pred, cand = dk.bucket_candidates(m_t, buckets, qmat, m, span, prune,
+                                      keff, wide, row_offset)
+    hdr, _ent = dk.bucketed_flat_plain(m_t, buckets, qmat, m, span, s, k,
+                                       prune, keff, wide, row_offset)
+    ends = hdr[2:].to(torch.int64)
+    uniq = torch.diff(ends, prepend=ends.new_zeros(1))
+    nv = pred.sum(dim=1)
+
+    def pct(x):
+        x = torch.sort(x.to(torch.int64).cpu()).values
+        return [int(x[min(len(x) - 1, int(q * len(x)))]) for q in
+                (0.0, 0.5, 0.9, 0.99)] + [int(x[-1])]
+    return {"B": int(qmat.shape[0]), "C": int(pred.shape[1]),
+            "W": int(buckets.wlo.shape[0]), "s": int(s), "k": int(k),
+            "nv_p0_50_90_99_max": pct(nv),
+            "unique_p0_50_90_99_max": pct(uniq),
+            "rows_nv_le_32": int((nv <= 32).sum())}
+
+
+def levels_graph(sizes, n_pad, seed, deg=3):
+    """Stable rows in antichains of ``sizes`` rows, scattered over
+    ``n_pad`` slots (the rest FREE): a row of antichain l > 0 waits on 1 to
+    ``deg`` rows of antichain l - 1, executeAt ascending by antichain (the
+    CPU tests' ``_levels_graph``)."""
+    rng = np.random.default_rng(seed)
+    slots = rng.permutation(n_pad)[:sum(sizes)]
+    adj = np.zeros((n_pad, n_pad), bool)
+    status = np.full(n_pad, -1, np.int32)
+    msb = np.zeros(n_pad, np.int64)
+    ends = np.cumsum(sizes)
+    for lv, (a, b) in enumerate(zip(ends - sizes, ends)):
+        status[slots[a:b]] = 4
+        msb[slots[a:b]] = lv
+        if lv:
+            prev = slots[a - sizes[lv - 1]:a]
+            for i in slots[a:b]:
+                adj[i, rng.choice(prev, int(rng.integers(1, deg + 1)))] = True
+    return (adj, status, msb, np.zeros(n_pad, np.int64),
+            np.ones(n_pad, np.int32), np.zeros(n_pad, bool))
+
+
+def fix_edge_cases(torch, kern, drk, convert, dev) -> dict:
+    """K8 dense at the edges of the frontier form: N = 0, 1, 31, 33 and
+    4,097 (rows not 16-byte aligned), a level either side of the handover
+    size and a wide level after the handover (the first CTA alone), and
+    (on the card) 8,193 rows, past the counts held in shared memory."""
+    from accord_tpu_torch.ops import _build
+    h = _build.GEOMETRY.get("ACCORD_DRAIN_HANDOVER", 128)
+    graphs = {"n0": levels_graph((), 0, 1), "n1": levels_graph((1,), 1, 2),
+              "n31": small_drain(70, 31)[0], "n33": small_drain(71, 33)[0],
+              "handover_below": levels_graph((h - 1, 3, 3), 4 * h, 11),
+              "handover_at": levels_graph((h, 3, 3), 4 * h, 12),
+              "handover_above": levels_graph((h + 1, 3, 3), 4 * h, 13),
+              "handover_later": levels_graph((h + 1, h, h + 1, 2), 4 * h, 14),
+              "wide_after_handover": levels_graph((2, 1500, 1500, 3), 3100,
+                                                  15),
+              "n4097": levels_graph((1800, 1500, 797), 4097, 7)}
+    if dev.type == "cuda":
+        graphs["n8193"] = levels_graph((4000, 8, 4000, 185), 8193, 16)
+    return {f"drain_fix_dense[{tag}]": fix_case(
+        torch, kern, drk,
+        convert.tables_from_numpy({"drain": g}, dev)["drain"])
+        for tag, g in graphs.items()}
+
+
 def level_drain_case(torch, kern, drk, status, lv, watermark=None):
     """K9 epilogue: status and levels read, two flags and the depth
     written."""
@@ -1108,6 +1281,8 @@ def small_cases(torch, dev, kern, dk, drk, convert):
             torch, kern, dk, list(up["table"]), rows, [a[rows] for a in src])
     cases.update(scatter_edge_cases(torch, kern, dk, dev))
     cases.update(dense_edge_cases(torch, kern, dk, convert, dev))
+    cases.update(bucket_edge_cases(torch, kern, dk, convert, dev))
+    cases.update(fix_edge_cases(torch, kern, drk, convert, dev))
     # rows with more candidates than shared memory holds (C > 4096) sort
     # in global scratch: 8 intervals x 4 probes x 128 entries + the wide list
     for seed, wide in ((6, False), (7, True)):
@@ -3035,6 +3210,15 @@ def main(argv=None) -> int:
     # K8-K10 at phase 8's shapes: the 100k ELL drain, the 4,096-deep chain
     real["drain_fix_ell"] = fix_case(torch, kern, drk, ell3)
     real["drain_fix_dense"] = fix_case(torch, kern, drk, dense3)
+    # and on a wide input: 4 antichains of NDD3 / 4 rows, 5 sweeps
+    wide3 = wide_drain_input(convert, dev, NDD3)
+    real["drain_fix_dense[wide]"] = fix_case(torch, kern, drk, wide3)
+    # and two narrow levels before two wide ones: the frontier form's
+    # first CTA alone on the wide levels
+    real["drain_fix_dense[narrow then wide]"] = fix_case(
+        torch, kern, drk, convert.tables_from_numpy(
+            {"drain": levels_graph((2, 1, NDD3 // 2 - 2, NDD3 // 2 - 1),
+                                   NDD3, 17)}, dev)["drain"])
     real["logsq_dense"] = logsq_case(torch, kern, drk, dense3)
     # and on an input that is dense from the first squaring, against the
     # dense bound: the product's own efficiency
@@ -3047,6 +3231,13 @@ def main(argv=None) -> int:
     real["dense_to_ell"] = to_ell_case(torch, kern, drk, dense3.adj,
                                        dense3_ell.adj_idx.shape[1])
     rows = run_checks(torch, real, "real", on_cuda, timed=True)
+    # K1a's rows at its largest recorded call: candidates, valid, unique
+    k1a_rows = {"largest": bucket_row_stats(
+        torch, dk, *rec.calls["deps_bucketed"][:2])}
+    fix_sweeps = {tag: int(kern.drain_fix_dense(st)[2]) for tag, st in (
+        ("chain", dense3), ("wide", wide3))}
+    log("K1a rows: " + json.dumps(k1a_rows) + "; K8 sweeps: "
+        + json.dumps(fix_sweeps))
     pack_t = pack_timings(torch, kern, dk, *rec.calls["scatter_rows"][0],
                           on_cuda)
     level_rounds = {
@@ -3073,6 +3264,8 @@ def main(argv=None) -> int:
         "level_dense": list(cstate.adj.shape),
         "drain_fix_ell": list(ell3.adj_idx.shape),
         "drain_fix_dense": list(dense3.adj.shape),
+        "drain_fix_dense[wide]": list(wide3.adj.shape),
+        "drain_fix_dense[narrow then wide]": [NDD3, NDD3],
         "logsq_dense": list(dense3.adj.shape),
         "level_drain": [ND3],
         "dense_degree": list(dense3.adj.shape),
@@ -3285,8 +3478,10 @@ def main(argv=None) -> int:
     n_ops = 150 if not rehearsal else 20
     t0 = time.perf_counter()
     rec6 = Recorder(kern, ["frontier_dense"])   # the dense ticks' largest
-    # every K1b and K2 call of the burn, to time both at its median call
-    med6 = MedianRecorder(kern, ["deps_dense", "attr_post"])
+    # every K1a, K1b and K2 call of the burn, to time each at its median
+    # call
+    med6 = MedianRecorder(kern, ["deps_bucketed", "deps_dense",
+                                 "attr_post"])
     try:
         r1, c1, d1 = burn_once(run_burn, dev, n_ops)
     finally:
@@ -3459,18 +3654,22 @@ def main(argv=None) -> int:
     rows.update(run_checks(torch, {"frontier_dense": dense_frontier_case(
         torch, kern, drk, *a, **kw)}, "real", on_cuda, timed=True))
     shapes["frontier_dense"] = list(a[0].adj.shape)
-    # K1b and K2 at the burn's median call (most of their launches are the
-    # burn's small flushes), and K1b at the largest call of phase 7's solo
-    # leg (config 5's fused-off flushes)
+    # K1a, K1b and K2 at the burn's median call (most of their launches
+    # are the burn's small flushes), and K1b at the largest call of phase
+    # 7's solo leg (config 5's fused-off flushes)
     dense_more = {}
-    for name, case in (("deps_dense", dense_case), ("attr_post", attr_case)):
+    for name, case in (("deps_bucketed", bucket_case),
+                       ("deps_dense", dense_case), ("attr_post", attr_case)):
         if name in med6.calls:
             a, kw, _w, n_calls = med6.median(name)
             dense_more[name + "[burn median]"] = case(torch, kern, dk, *a,
                                                       **kw)
             shapes[name + "[burn median]"] = (
+                list(a[2].shape) if name == "deps_bucketed" else
                 list(a[1].shape) + [a[0].lo.shape[0]]
                 if name == "deps_dense" else [int(a[5].shape[0])])
+            if name == "deps_bucketed":
+                k1a_rows["burn median"] = bucket_row_stats(torch, dk, a, kw)
             log(f"burn: {n_calls} {name} calls, the median "
                 f"{shapes[name + '[burn median]']}")
     if "deps_dense" in rec7s.calls:
@@ -3543,13 +3742,17 @@ def main(argv=None) -> int:
                             real["scatter_rows[live P8]"])):
             call_ops[name] = device_ops(torch, case[0])
             call_ops[name + " library"] = device_ops(torch, case[2])
-        # K1b and K2 at the largest recorded call and the burn's median:
-        # the device's share of each call's time
-        for name in ("deps_dense", "attr_post"):
+        # K1a, K1b and K2 at the largest recorded call and the burn's
+        # median, K8 on the chain and the wide input: the device's share of
+        # each call's time
+        for name in ("deps_bucketed", "deps_dense", "attr_post"):
             call_ops[name] = device_ops(torch, real[name][0])
             if name + "[burn median]" in dense_more:
                 call_ops[name + "[burn median]"] = device_ops(
                     torch, dense_more[name + "[burn median]"][0])
+        for name in ("drain_fix_dense", "drain_fix_dense[wide]",
+                     "drain_fix_dense[narrow then wide]"):
+            call_ops[name] = device_ops(torch, real[name][0])
         log("device operations per call: " + json.dumps(call_ops))
         for name, ops_ in call_ops.items():
             if name.startswith("attr_post"):
@@ -3559,6 +3762,10 @@ def main(argv=None) -> int:
             if name.startswith("deps_dense"):
                 check(ops_["kernels"] == 1 and ops_["memsets"] == 0,
                       f"K1b {name}: not one kernel and no memset {ops_}")
+            if name.startswith(("deps_bucketed", "drain_fix_dense")):
+                check(ops_["kernels"] == 1 and ops_["copies"] == 0
+                      and ops_["memsets"] == 0,
+                      f"{name}: not one kernel and no copy a call {ops_}")
         k12, k3, k3s = (call_ops["merge_blocks"],
                         call_ops["scatter_rows[live]"],
                         call_ops["scatter_rows[live P8]"])
@@ -3568,6 +3775,21 @@ def main(argv=None) -> int:
         check(all(x["kernels"] == 1 and x["copies"] == 1
                   and x["memsets"] == 0 for x in (k3, k3s)),
               f"K3 live: not one copy and one kernel a call {k3} {k3s}")
+
+    # the latency floors of a sweep: one grid barrier of the fixpoint's
+    # grid (the earlier design's: a warp a row, 256-thread CTAs; the
+    # frontier design's: every resident 1,024-thread CTA), and one block
+    # barrier with a shared-memory round trip
+    sync_floor = {}
+    if on_cuda:
+        n3 = dense3.status.shape[0]
+        sync_floor = {
+            "grid_warp_a_row": sync_probe_us(torch, 0, -(-n3 * 32 // 256),
+                                             256),
+            "grid_resident_1024": sync_probe_us(torch, 0, 1 << 20, 1024),
+            "block_256": sync_probe_us(torch, 1, 1, 256),
+            "block_1024": sync_probe_us(torch, 1, 1, 1024)}
+        log("sweep latency floors [us a step]: " + json.dumps(sync_floor))
 
     profiles = {}
     if on_cuda:
@@ -3634,8 +3856,13 @@ def main(argv=None) -> int:
                "real_error_check": fault_check,
                "scatter_sizes": scatter_sizes, "pack_timings": pack_t,
                "device_ops_per_call": call_ops,
-               "k1b_k2_more": {k: dict(rows[k], shape=shapes[k])
-                               for k in dense_more},
+               "recorded_calls_more": {k: dict(rows[k], shape=shapes[k])
+                                       for k in dense_more},
+               "k1a_rows": k1a_rows, "k8_sweeps": fix_sweeps,
+               "k8_more": {k: dict(rows[k], shape=shapes[k]) for k in (
+                   "drain_fix_dense[wide]",
+                   "drain_fix_dense[narrow then wide]")},
+               "sync_floor_us": sync_floor,
                "seconds": time.perf_counter() - t_start}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     if rehearsal:

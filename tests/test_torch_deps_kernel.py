@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 from accord_tpu.local.device_index import _AttrIndexHost
 from accord_tpu.ops import deps_kernel as rdk
-from accord_tpu_torch.ops import _build, convert
+from accord_tpu_torch.ops import _build, convert, kernels
 from accord_tpu_torch.ops import deps_kernel as pdk
 
 I64 = np.iinfo(np.int64)
@@ -146,22 +146,182 @@ def _prune_ref(prune):
             jnp.asarray(np.int32(prune[2])))
 
 
-@pytest.mark.parametrize("seed", [0, 3, 7])
-@pytest.mark.parametrize("s,k", [(4096, 64), (24, 3)])
-def test_bucketed_flat_equal(seed, s, k):
+# -- K1a's decomposition, in plain arithmetic ----------------------------------
+#
+# ops/csrc/deps_scan.cu ``bucketed_csr``: a CTA a query row.  Each warp
+# takes 32 x EU candidates at a time and ballots place the valid codes, in
+# candidate order, at an offset that one shared atomic claims (so the
+# warps' chunks land in any order).  A row of at most 32 codes is sorted by
+# one warp's shuffle network; a longer row as warp-sorted runs of 32 (the
+# last padded with the sentinel) merged pairwise, each code placed by its
+# rank in the partner run.  The first of each run of equal codes is kept
+# up to kk = min(k, C); the header and row starts are a scan of the
+# counts; each row is written at its start, -1 in its positions past kk
+# and after the total, truncated at s.  Rows of more than SMEM_CODES
+# candidates sort in global scratch, by the same steps.
+
+
+EU = 2   # candidates a lane evaluates at once (csrc/deps_scan.cu EU)
+
+
+def _warp_sort32(x):
+    """``warp_sort32``'s bitonic network of shuffles over 32 lanes."""
+    lane = np.arange(32)
+    k = 2
+    while k <= 32:
+        j = k // 2
+        while j:
+            y = x[lane ^ j]
+            keep_min = ((lane & j) == 0) == ((lane & k) == 0)
+            x = np.where(keep_min, np.minimum(x, y), np.maximum(x, y))
+            j //= 2
+        k *= 2
+    return x
+
+
+def _merge_sort(a, sent):
+    """``block_merge_sort``: sorted runs of 32, then pairwise merges, each
+    code of a left run placed after the partner's codes below it, each of
+    a right run after the partner's codes not above it; every position of
+    a round is written exactly once."""
+    n = len(a)
+    n32 = -(-n // 32) * 32
+    a = np.concatenate([a, np.full(n32 - n, sent, a.dtype)])
+    for r in range(0, n32, 32):
+        a[r:r + 32] = _warp_sort32(a[r:r + 32])
+    w = 32
+    while w < n32:
+        b = np.zeros(n32, a.dtype)
+        hits = np.zeros(n32, np.int64)
+        for base in range(0, n32, 2 * w):
+            left, right = a[base:base + w], a[base + w:base + 2 * w]
+            pos_l = np.arange(len(left)) + np.searchsorted(right, left, "left")
+            pos_r = np.arange(len(right)) + np.searchsorted(left, right,
+                                                            "right")
+            for pos, vals in ((pos_l, left), (pos_r, right)):
+                b[base + pos] = vals
+                np.add.at(hits, base + pos, 1)
+        assert (hits == 1).all()
+        a, w = b, 2 * w
+    return a[:n]
+
+
+def _bucketed_csr_model(m_t, buckets, qmat, m, span, s, k, prune, keff,
+                        wide, row_offset, rng):
+    """K1a's steps: ((header int32[2+B], entries[s]), nv a row, path)."""
+    pred, cand = pdk.bucket_candidates(m_t, buckets, qmat, m, span, prune,
+                                       keff, wide, row_offset)
+    pred, cand = pred.numpy(), cand.numpy()
+    b, c = pred.shape
+    kk = min(k, c)
+    sent = np.iinfo(cand.dtype).max
+    counts, kept, nvs = [], [], []
+    for r in range(b):
+        chunks = [cand[r, c0:c0 + 32 * EU][pred[r, c0:c0 + 32 * EU]]
+                  for c0 in range(0, c, 32 * EU)]
+        buf = np.concatenate([cand[r, :0]]
+                             + [chunks[i] for i in rng.permutation(len(chunks))])
+        nvs.append(len(buf))
+        if len(buf) <= 32:
+            srt = _warp_sort32(np.concatenate(
+                [buf, np.full(32 - len(buf), sent, buf.dtype)]))[:len(buf)]
+        else:
+            srt = _merge_sort(buf, sent)
+        uniq = srt[np.concatenate([[True], srt[1:] != srt[:-1]])[:len(srt)]]
+        counts.append(len(uniq))
+        kept.append(uniq[:kk])
+    ends = np.cumsum(counts)
+    hdr = np.concatenate([[ends[-1], max(counts)], ends]).astype(np.int32)
+    ent = np.full(s, -7, cand.dtype)      # a value no step writes
+    for r in range(b):
+        st = int(ends[r]) - counts[r]
+        for p in range(st, min(st + counts[r], s)):
+            ent[p] = kept[r][p - st] if p - st < kk else -1
+    ent[min(int(ends[-1]), s):] = -1
+    return (hdr, ent), nvs, ("shared" if c <= kernels.SMEM_CODES
+                             else "global")
+
+
+BUCKET_CASES = ([pytest.param(seed, s, k, None, id=f"{s}-{k}-{seed}")
+                 for s, k in ((4096, 64), (24, 3)) for seed in (0, 3, 7)]
+                + [pytest.param(seed, s, k, edge, id=edge) for seed, s, k, edge
+                   in ((1, 4096, 64, "nv0"), (9, 4096, 64, "merge"),
+                       (2, 8192, 512, "past_smem"),
+                       (4, 4096, 2, "kk_in_dup_run"), (5, 0, 64, "s_in_row"),
+                       (6, 4096, 64, "row_offset"), (8, 4096, 64, "wide"))])
+
+
+@pytest.mark.parametrize("seed,s,k,edge", BUCKET_CASES)
+def test_bucketed_flat_equal(seed, s, k, edge):
     """K1a: keys and ranges, wide-list spill, duplicate bucket entries,
-    empty rows; (24, 3) overflows both s and k."""
-    inp = _inputs(seed)
-    m, keff = inp["m"], 8
+    empty rows; (24, 3) overflows both s and k.  The model of the kernel's
+    steps gives the same bytes, also at its edges: no valid candidate
+    (nv0), rows of more than 32 codes merge-sorted in shared memory
+    (merge) and past SMEM_CODES in global scratch (past_smem), kk
+    cutting a run of equal codes, s inside a row, a row-sharded slice of
+    the table, int64 codes."""
+    past = edge == "past_smem"
+    many = past or edge == "merge"         # rows of more than 32 codes
+    inp = (_inputs(seed, m=8, kb=128 if past else 32, space=40) if many
+           else _inputs(seed))
+    m, keff = inp["m"], 128 if past else 32 if many else 8
+    buckets, qmat_b = inp["buckets"], inp["qmat_b"].copy()
+    prune, wide, row_offset = inp["prune"], edge == "wide", None
+    if edge == "nv0":                      # every entry below the floor
+        prune = (-1, -1, 3)
+    if edge == "kk_in_dup_run":
+        # row 1 becomes the (query, bucket line) pair with the most unique
+        # codes when every probe of the query hits that one line: each
+        # code then comes 4 times (one a probe of its interval)
+        g = inp["g"]
+        tries = np.repeat(inp["qmat_b"], g, axis=0)
+        tries[:, 7 + 2 * m:] = np.tile(np.arange(g), len(qmat_b))[:, None]
+        pred, cand = pdk.bucket_candidates(
+            inp["m_t"], _port(inp, "buckets"), torch.from_numpy(tries), m,
+            4, prune, keff)
+        uniq = [len(set(c[p].tolist())) for p, c in zip(pred, cand)]
+        qmat_b[1] = tries[int(np.argmax(uniq))]
+    if edge == "row_offset":               # the upper half of the rows
+        g = inp["g"] // 2
+        buckets = tuple(c[g:] for c in buckets[:8]) + buckets[8:]
+        row_offset = g
+    if edge == "s_in_row":
+        hdr = pdk.bucketed_flat(_port(inp, "table"), _port(inp, "buckets"),
+                                torch.from_numpy(qmat_b), m, 4, 4096, k,
+                                prune, keff=keff)[0]
+        ends = hdr[2:].numpy().astype(np.int64)
+        sizes = np.diff(ends, prepend=0)
+        r = int(np.argmax(sizes >= 2))     # one entry into a row of 2+
+        s = int(ends[r] - sizes[r]) + 1
+    port_b = convert.tables_from_numpy({"buckets": buckets}, "cpu")[
+        "buckets"]
     ref = rdk.bucketed_flat_jit(_ref("table", inp["table"]),
-                                _ref("buckets", inp["buckets"]),
-                                jnp.asarray(inp["qmat_b"]), m, 4, s, k,
-                                _prune_ref(inp["prune"]), keff=keff)
-    port = pdk.bucketed_flat(_port(inp, "table"), _port(inp, "buckets"),
-                             torch.from_numpy(inp["qmat_b"]), m, 4, s, k,
-                             inp["prune"], keff=keff)
+                                _ref("buckets", buckets),
+                                jnp.asarray(qmat_b), m, 4, s, k,
+                                _prune_ref(prune), row_offset=row_offset,
+                                keff=keff, wide=wide)
+    port = pdk.bucketed_flat(_port(inp, "table"), port_b,
+                             torch.from_numpy(qmat_b), m, 4, s, k, prune,
+                             keff=keff, wide=wide, row_offset=row_offset)
     _eq(ref, port)
+    got, nvs, path = _bucketed_csr_model(
+        inp["m_t"], port_b, torch.from_numpy(qmat_b), m, 4, s, k, prune,
+        keff, wide, row_offset, np.random.default_rng(seed))
+    _eq(ref, tuple(torch.from_numpy(x) for x in got))
+    counts = np.diff(got[0][2:], prepend=0)
+    assert (path == "global") == past
+    if edge == "nv0":
+        assert max(nvs) == 0 and int(port[0][0]) == 0
+        return
     assert int(port[0][0]) > 0
+    if past:
+        assert max(nvs) > 32
+    if edge == "kk_in_dup_run":
+        assert nvs[1] >= 2 * counts[1] and counts[1] > k
+    if edge == "s_in_row":
+        assert ends[r] - sizes[r] < s < ends[r] <= int(got[0][0])
+    if edge == "merge":
+        assert min(nvs) <= 32 and max(nvs) > 64
 
 
 # -- K1b's and K2's decompositions, in plain arithmetic -----------------------
@@ -324,7 +484,6 @@ def _attr_post_ctas(tlo, attr, aidx, rankb, hdr_raw, ent, m_t: int, m: int,
     head = [new_end[-1], h[0], h[1], int(n_trans), int(n_dec)]
     hdr = np.concatenate([head, new_end]).astype(np.int32)
     return torch.from_numpy(hdr), torch.from_numpy(out)
-
 
 
 # K1b's tiling: 256-slot tiles, 32-slot mask words, 32-row groups
@@ -565,7 +724,6 @@ def _scatter_ref(kind, cols, idx, src):
 
 
 def _scatter_port(kind, cols, idx, src):
-    from accord_tpu_torch.ops import kernels
     if kind in ("table", "table_m3"):
         return pdk.scatter_table_rows(_port({"table": cols}, "table"), idx,
                                       *src)
@@ -732,7 +890,6 @@ def test_checked_cols_by_identity():
     carries its plan (device, data pointers, lengths), a set with a
     replaced column is a new tuple and is checked anew, and a set handed
     without a plan is checked on every call."""
-    from accord_tpu_torch.ops import kernels
     attr = _port(_inputs(0), "attr")
     planned = kernels.checked_cols(attr)
     assert isinstance(planned, pdk.AttrCols) and tuple(planned) == attr
@@ -762,11 +919,12 @@ def test_checked_cols_keep_no_dropped_set_alive():
     import gc
     import weakref
 
-    from accord_tpu_torch.ops import kernels
     attr = kernels.checked_cols(_port(_inputs(0), "attr"))
     aidx = kernels.checked_cols(_port(_inputs(0), "aidx"))
+    buckets = kernels.checked_cols(_port(_inputs(0), "buckets"))
     kernels._cols_on(attr, torch.device("cpu"))
-    gone = [weakref.ref(c) for c in (*attr, *aidx)]
-    del attr, aidx
+    kernels._cols_on(buckets, torch.device("cpu"))
+    gone = [weakref.ref(c) for c in (*attr, *aidx, *buckets)]
+    del attr, aidx, buckets
     gc.collect()
     assert all(w() is None for w in gone)

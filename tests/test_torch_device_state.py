@@ -226,6 +226,29 @@ def test_collected_batch_releases_its_table():
     assert dev.deps._device is table                        # in place
 
 
+def test_bucket_table_carries_its_plan():
+    """The mirror's bucket table is one planned tuple while its columns
+    stay the same tensors (a scatter writes them in place), and a new
+    planned tuple once a lease makes the next scatter copy them."""
+    from accord_tpu_torch.ops import kernels
+    dev, safe, qs, register = _build(accord_tpu_torch, 5)
+    dev.route_override = "device"
+    _attributed(accord_tpu_torch, dev, safe, qs[:4], True)   # uploads
+    bt = dev.deps.bucket_device()
+    assert bt._plan is not None and dev.deps.bucket_device() is bt
+    register(8, 10_000, 10_500)
+    now = dev.deps.bucket_device()              # rows scattered in place,
+    assert now._plan is not None                # or a wide list re-made
+    assert (now is bt) == (now.blo is bt.blo and now.wlo is bt.wlo)
+    lease = dev.deps.share_device((now,))
+    register(8, 10_500, 11_000)
+    again = dev.deps.bucket_device()
+    dev.deps.release_device(lease)
+    assert again is not now and again.blo is not now.blo
+    assert kernels._cols_on(again, torch.device("cpu"))[0] == [
+        c.data_ptr() for c in again]
+
+
 def test_drain_tick_frontier_equal():
     """The drain mirror's state() feeds the port's frontier kernels the
     same graph the reference's does, dense and ELL, scalar deltas

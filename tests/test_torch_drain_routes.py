@@ -22,12 +22,14 @@ import accord_tpu_torch
 from accord_tpu.ops import drain_kernel as rdrk
 from accord_tpu.utils import faults as rfaults
 from accord_tpu.utils.random_source import RandomSource as RRandom
-from accord_tpu_torch.ops import convert
+from accord_tpu_torch.ops import _build, convert
 from accord_tpu_torch.ops import drain_kernel as pdrk
 from accord_tpu_torch.utils import faults as pfaults
 from accord_tpu_torch.utils.random_source import RandomSource as PRandom
-from tests.test_torch_level_assign import (D_PAD, N_PAD, STABLE, STATUSES,
-                                           _arrays, chain_case, make_case)
+from tests.test_torch_level_assign import (APPLIED, COMMITTED, D_PAD, FREE,
+                                           INVALIDATED, N_PAD, STABLE,
+                                           STATUSES, _arrays, chain_case,
+                                           make_case)
 
 
 @pytest.fixture(autouse=True)
@@ -163,6 +165,155 @@ def test_logsq_equals_reference_at_tile_edges(n):
     _eq(want, got)
     if n >= 3:   # the cycle and the row behind the undecided dep wait
         assert not got[0][[n - 1, n - 2, n - 3]].any()
+
+
+# -- K8 dense's frontier form, in plain arithmetic ------------------------------
+#
+# csrc/drain_fix.cu ``fix_frontier_kernel`` does not sweep every row: it
+# counts each Stable row's gating deps not applied at the start, and each
+# level decrements the counts of the Stable rows that the level's rows
+# gate (the transposed words); a row whose count reaches 0 joins the next
+# level, in whatever order the atomics leave it.  The grid works on a
+# level while it holds more than HANDOVER rows (ops/_build.py GEOMETRY,
+# which the kernel is built with); from the first level that holds fewer,
+# the first CTA finishes alone.  This model follows those steps and is
+# held to the reference's drain_levels, sweeps included.
+
+HANDOVER = _build.GEOMETRY["ACCORD_DRAIN_HANDOVER"]
+
+
+def _frontier_drain_model(dense, rng):
+    """((applied, newly, sweeps), [(mode, level size), ...])."""
+    adj, status, msb, lsb, node, awaits = dense
+    # drain_gates: exec(j) < exec(i) in the unsigned 128-bit order, the
+    # node id signed; undecided deps and awaits_all rows always gate
+    um, ul = msb.view(np.uint64), lsb.view(np.uint64)
+    before = ((um[None, :] < um[:, None])
+              | ((um[None, :] == um[:, None])
+                 & ((ul[None, :] < ul[:, None])
+                    | ((ul[None, :] == ul[:, None])
+                       & (node[None, :] < node[:, None])))))
+    dead = (status == INVALIDATED) | (status == FREE)
+    undecided = (status >= 0) & (status < COMMITTED)
+    blk = adj & ~dead[None, :] & (undecided[None, :] | awaits[:, None]
+                                  | before)
+    stable, app0 = status == STABLE, status == APPLIED
+    blk_t = (blk & stable[:, None]).T     # dep j -> the Stable rows it gates
+    cnt = np.where(stable, (blk & ~app0[None, :]).sum(axis=1), -1)
+    level = [int(i) for i in np.nonzero(stable & (cnt == 0))[0]]
+    modes, block = [], False
+    while level:
+        block = block or len(level) <= HANDOVER
+        modes.append(("block" if block else "grid", len(level)))
+        nxt = []
+        for j in rng.permutation(level):
+            for i in np.nonzero(blk_t[j])[0]:
+                cnt[i] -= 1
+                if cnt[i] == 0:
+                    nxt.append(int(i))
+        level = nxt
+    newly = stable & (cnt == 0)
+    return (app0 | newly, newly, np.int32(len(modes) + 1)), modes
+
+
+def _levels_graph(sizes, n_pad, seed, deg=3):
+    """Stable rows in antichains of ``sizes`` rows, scattered over
+    ``n_pad`` slots (the rest FREE): a row of antichain l > 0 waits on 1 to
+    ``deg`` rows of antichain l - 1, executeAt ascending by antichain."""
+    rng = np.random.default_rng(seed)
+    slots = rng.permutation(n_pad)[:sum(sizes)]
+    adj = np.zeros((n_pad, n_pad), bool)
+    status = np.full(n_pad, FREE, np.int32)
+    msb = np.zeros(n_pad, np.int64)
+    ends = np.cumsum(sizes)
+    for lv, (a, b) in enumerate(zip(ends - sizes, ends)):
+        status[slots[a:b]] = STABLE
+        msb[slots[a:b]] = lv
+        if lv:
+            prev = slots[a - sizes[lv - 1]:a]
+            for i in slots[a:b]:
+                adj[i, rng.choice(prev, int(rng.integers(1, deg + 1)))] = True
+    return (adj, status, msb, np.zeros(n_pad, np.int64),
+            np.ones(n_pad, np.int32), np.zeros(n_pad, bool))
+
+
+def _edges_graph(n, edges, status, n_pad=64, awaits=()):
+    """A hand-made case: executeAt ascending by slot."""
+    case = {"n": n, "edges": edges, "status": status,
+            "msb": list(range(n)), "node": [1] * n,
+            "awaits": [i in awaits for i in range(n)]}
+    return _arrays(case, n_pad, 8)[0]
+
+
+H = HANDOVER
+K8_GRAPHS = {
+    "empty": lambda: _edges_graph(8, [], [STABLE] * 8),
+    "n0": lambda: tuple(np.zeros((0, 0) if i == 0 else 0, d) for i, d in
+                        enumerate((bool, np.int32, np.int64, np.int64,
+                                   np.int32, bool))),
+    "n1": lambda: _edges_graph(1, [], [STABLE], n_pad=1),
+    "n31": lambda: _arrays(_logsq_case(np.random.default_rng(31), 31), 31,
+                           8)[0],
+    "n33": lambda: _arrays(_logsq_case(np.random.default_rng(33), 33), 33,
+                           8)[0],
+    "n4097": lambda: _levels_graph((1800, 1500, 797), 4097, 7),
+    # two Stable rows that await all gate each other; a third waits on both
+    "cycle": lambda: _edges_graph(
+        4, [(1, 2), (2, 1), (3, 1), (3, 2)], [APPLIED] + [STABLE] * 3,
+        awaits=(1, 2)),
+    "self_gating": lambda: _edges_graph(3, [(1, 1), (2, 1), (2, 0)],
+                                        [STABLE] * 3),
+    # a Stable row behind an unapplied Committed row, and one behind it
+    "behind_non_stable": lambda: _edges_graph(
+        4, [(1, 0), (2, 1), (3, 2)], [STABLE, COMMITTED, STABLE, STABLE]),
+    "applied_at_start": lambda: _edges_graph(
+        6, [(1, 0), (2, 0), (3, 1), (4, 3), (5, 2)],
+        [APPLIED, APPLIED, STABLE, STABLE, STABLE, APPLIED]),
+    "handover_below": lambda: _levels_graph((H - 1, 3, 3), 4 * H, 11),
+    "handover_at": lambda: _levels_graph((H, 3, 3), 4 * H, 12),
+    "handover_above": lambda: _levels_graph((H + 1, 3, 3), 4 * H, 13),
+    "handover_later": lambda: _levels_graph((H + 1, H, H + 1, 2), 4 * H,
+                                            14),
+}
+
+
+@pytest.mark.parametrize("name", list(K8_GRAPHS))
+def test_frontier_drain_model_equals_reference(name):
+    """The model of K8 dense's frontier form equals the reference's
+    drain_levels (applied, newly, sweeps), as does the port's plain
+    version, at the edges named; the handover falls on the first level of
+    at most HANDOVER rows and lasts."""
+    dense = K8_GRAPHS[name]()
+    ref = rdrk.drain_levels(rdrk.DrainState(*map(jnp.asarray, dense)))
+    got, modes = _frontier_drain_model(dense, np.random.default_rng(5))
+    _eq(ref, tuple(torch.from_numpy(np.asarray(x)) for x in got))
+    port = convert.tables_from_numpy({"drain": dense}, "cpu")["drain"]
+    _eq(ref, pdrk.drain_levels(port))
+    sizes = [m[1] for m in modes]
+    assert [m[0] for m in modes] == [
+        "grid" if all(x > H for x in sizes[:i + 1]) else "block"
+        for i in range(len(sizes))]
+    if name.startswith("handover"):
+        assert sizes[0] == {"below": H - 1, "at": H, "above": H + 1,
+                            "later": H + 1}[name.split("_")[1]]
+        assert modes[0][0] == ("grid" if sizes[0] > H else "block")
+    if name in ("cycle", "self_gating", "behind_non_stable"):
+        assert not got[0].all()
+
+
+def test_frontier_drain_model_on_seeded_graphs():
+    """The model against the reference on the generator's seeded graphs
+    (undecided, invalidated and free deps, executeAt ties, awaits_all
+    cycles) and a deep chain."""
+    rng = np.random.default_rng(9400)
+    for _ in range(12):
+        dense = _arrays(make_case(rng), N_PAD, D_PAD)[0]
+        ref = rdrk.drain_levels(rdrk.DrainState(*map(jnp.asarray, dense)))
+        got, _modes = _frontier_drain_model(dense, rng)
+        _eq(ref, tuple(torch.from_numpy(np.asarray(x)) for x in got))
+    dense = _arrays(chain_case(64), 64, 4)[0]
+    got, modes = _frontier_drain_model(dense, rng)
+    assert int(got[2]) == 64 and {m for m, _n in modes} == {"block"}
 
 
 # -- the routed drains ----------------------------------------------------------
