@@ -31,15 +31,20 @@ LIB_NAME = "libaccord_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # what a launch takes by value in its kernel parameter: K12's blocks, K3's
-# columns, K13's slices.  nvcc gets them as macros, so that a kernel and
-# its wrapper in ops.kernels read one number
+# columns, K13's slices, K5's member stores.  nvcc gets them as macros, so
+# that a kernel and its wrapper in ops.kernels read one number.  K5's
+# members are 104 bytes each in the scan and 192 in the attribution, so
+# 128 of them fill most of the 32,764 bytes a kernel parameter may hold
+# (CUDA 12.1 and later)
 LIMITS = {"ACCORD_MERGE_MAX_REFS": 128, "ACCORD_SCATTER_MAX_COLS": 16,
-          "ACCORD_SHARDED_MAX_SLICES": 16}
+          "ACCORD_SHARDED_MAX_SLICES": 16, "ACCORD_FUSED_MAX_STORES": 128}
 # launch geometry that the CPU tests' model of a kernel's decomposition
-# follows: K1b's threads a CTA, in which phase 2 walks a row's mask words;
-# the largest level of K8's dense frontier drain that its first CTA
-# finishes alone
-GEOMETRY = {"ACCORD_DEPS_THREADS": 256, "ACCORD_DRAIN_HANDOVER": 128}
+# follows: K1b's and K5's threads a scan CTA, in which phase 2 walks a
+# row's mask words; the largest level of K8's dense frontier drain that
+# its first CTA finishes alone; the 32-entry words of a K5 attribution
+# chunk
+GEOMETRY = {"ACCORD_DEPS_THREADS": 256, "ACCORD_DRAIN_HANDOVER": 128,
+            "ACCORD_FUSED_CHUNK_WORDS": 32}
 DEFINES = [f"-D{k}={v}" for k, v in {**LIMITS, **GEOMETRY}.items()]
 ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
                 "accord_attr_post", "accord_scatter_rows",
@@ -149,6 +154,10 @@ def library() -> ctypes.CDLL:
         lib.accord_dense_workspace_words.restype = ctypes.c_int64
         lib.accord_attr_workspace_words.argtypes = [ctypes.c_int64]
         lib.accord_attr_workspace_words.restype = ctypes.c_int64
+        lib.accord_fused_scan_workspace_words.argtypes = [ctypes.c_int64] * 3
+        lib.accord_fused_scan_workspace_words.restype = ctypes.c_int64
+        lib.accord_fused_attr_workspace_words.argtypes = [ctypes.c_int64] * 2
+        lib.accord_fused_attr_workspace_words.restype = ctypes.c_int64
         lib.accord_drain_fix_workspace_words.argtypes = [ctypes.c_int64]
         lib.accord_drain_fix_workspace_words.restype = ctypes.c_int64
         _LIB = lib

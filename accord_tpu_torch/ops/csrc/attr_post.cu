@@ -49,6 +49,7 @@
 #include "dense_tile.cuh"
 
 namespace cg = cooperative_groups;
+namespace dt = dense_tile;
 
 namespace {
 
@@ -79,13 +80,6 @@ struct AttrArgs {
   int B, m_t, m, floors, elide;
 };
 
-// Python floor division and modulo by b > 0, in the codes' own width
-template <typename T>
-__device__ __forceinline__ T fdiv(T a, T b) {
-  const T q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
-
 // the keep flag of live entry ``pos`` (code, row, first of its key); a
 // key-domain entry it grades adds to the elision tallies.  The legs run
 // in the order that skips the most searches: a repeat of its key is
@@ -100,13 +94,13 @@ __device__ __forceinline__ bool entry_keep(const AttrArgs& a, T code,
                                            bool firstp, int& n_tr,
                                            int& n_dc) {
   const T mq = (T)a.m_t * (T)a.m;
-  const T q = fdiv<T>(code, mq);
+  const T q = dt::fdiv<T>(code, mq);
   const int64_t slot = max64((int64_t)q, 0);
   if (a.dom[slot] != 0) return true;       // not a key dep: kept
   if (!firstp) return false;
   const int32_t st = a.status[slot];
   const int64_t col = min64(
-      max64((int64_t)fdiv<T>((T)(code - q * mq), (T)a.m), 0), a.m_t - 1);
+      max64((int64_t)dt::fdiv<T>((T)(code - q * mq), (T)a.m), 0), a.m_t - 1);
   const int64_t tok = a.tok ? a.tok[pos] : a.tlo[slot * a.m_t + col];
   if (a.floors) {
     const int64_t fi = upper_bound(a.fbnd, a.F, tok);
@@ -137,35 +131,6 @@ __device__ __forceinline__ bool entry_keep(const AttrArgs& a, T code,
   return true;
 }
 
-// first index i in [0, n) with x[i] >= v, else n
-__device__ __forceinline__ int64_t first_at_least(const int32_t* x, int64_t n,
-                                                  int64_t v) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if ((int64_t)x[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// new row ends for the rows b whose X(b) lies in [p0, p1): ``kb`` kept
-// entries lie below p0 and ``word`` holds the keep flags from p0 on
-__device__ __forceinline__ void row_ends_in(const AttrArgs& a,
-                                           const int32_t* re, int64_t p0,
-                                           int64_t p1, int64_t live_end,
-                                           long long kb, unsigned word) {
-  if (p0 > live_end) return;
-  const int64_t last = a.B - 1;
-  for (int64_t b = first_at_least(re, last, p0); b <= last; ++b) {
-    const int64_t x = b == last ? live_end : min64(re[b], live_end);
-    if (x >= p1) break;
-    const long long kept = kb + __popc(word & ((1u << (x - p0)) - 1u));
-    const int32_t ne = (int32_t)((long long)re[b] - (x - kept));
-    a.hdr[5 + b] = ne;
-    if (b == last) a.hdr[0] = ne;
-  }
-}
-
 // the entries' chains of dependent loads are hidden by the warps in
 // flight, not by work inside one
 template <typename T>
@@ -194,14 +159,14 @@ __global__ void __launch_bounds__(ANT, 2) attr_post(AttrArgs a) {
     const int64_t pos = w * 32 + lane;
     const bool live = pos < live_end;
     const T code = live ? ent[pos] : (T)0;
-    const int64_t row = live ? dense_tile::row_of(re, a.B, pos) : 0;
-    const int64_t key = row * (int64_t(1) << 40) + (int64_t)fdiv<T>(code,
-                                                                    (T)a.m);
+    const int64_t row = live ? dt::row_of(re, a.B, pos) : 0;
+    const int64_t key = row * (int64_t(1) << 40) +
+                        (int64_t)dt::fdiv<T>(code, (T)a.m);
     int64_t pkey = __shfl_up_sync(0xffffffffu, key, 1);
     if (lane == 0 && live && pos > 0) {
-      const int64_t prow = dense_tile::row_of(re, a.B, pos - 1);
+      const int64_t prow = dt::row_of(re, a.B, pos - 1);
       pkey = prow * (int64_t(1) << 40) +
-             (int64_t)fdiv<T>(ent[pos - 1], (T)a.m);
+             (int64_t)dt::fdiv<T>(ent[pos - 1], (T)a.m);
     }
     const bool k = live && entry_keep<T>(a, code, pos, row,
                                          pos == 0 || key != pkey, n_tr, n_dc);
@@ -267,8 +232,8 @@ __global__ void __launch_bounds__(ANT, 2) attr_post(AttrArgs a) {
     s_word[threadIdx.x] = word;
     s_off[threadIdx.x] = off;
     if (w < w1)
-      row_ends_in(a, re, w * 32, min64(w * 32 + 32, a.s), live_end,
-                  base + off, word);
+      dt::row_ends_in(a.hdr, a.B, re, w * 32, min64(w * 32 + 32, a.s),
+                      live_end, base + off, word);
     __syncthreads();
     for (int t = wid; t < ANT && c0 + t < w1; t += ANT / 32) {
       const unsigned x = s_word[t];
@@ -285,8 +250,8 @@ __global__ void __launch_bounds__(ANT, 2) attr_post(AttrArgs a) {
   if (blockIdx.x == 0 && live_end == a.s) {
     // the rows whose X(b) is s itself: every kept entry lies below
     const int64_t last = a.B - 1;
-    for (int64_t b = first_at_least(re, last, a.s) + threadIdx.x; b <= last;
-         b += ANT) {
+    for (int64_t b = dt::first_at_least(re, last, a.s) + threadIdx.x;
+         b <= last; b += ANT) {
       const int32_t ne =
           (int32_t)((long long)re[b] - ((long long)a.s - kept_all));
       a.hdr[5 + b] = ne;

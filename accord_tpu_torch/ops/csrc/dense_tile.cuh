@@ -1,6 +1,6 @@
-// The dense route's per-(query row, slot) predicate and the CSR row lookup,
-// shared by K1b (deps_scan.cu) and K2 (attr_post.cu), and written so that
-// K5 (fused_scan.cu) can take them when it is redesigned.
+// The dense route's per-(query row, slot) predicate, its mask-word cut and
+// the CSR row lookups, shared by K1b (deps_scan.cu), K2 (attr_post.cu) and
+// K5 (fused_scan.cu).
 //
 // The predicate is the reference's dense mask (accord_tpu/ops/
 // deps_kernel.py:174 _dep_mask_and_conflict): a live, not invalidated
@@ -154,12 +154,62 @@ __device__ __forceinline__ bool pair_hit(const int64_t* q, int m,
   return q[7 + qi] <= hi[c] && lo[c] <= q[7 + m + qi];
 }
 
+// the n lowest set bits of x (the kp cut inside a mask word)
+__device__ __forceinline__ unsigned low_set_bits(unsigned x, int n) {
+  unsigned r = 0;
+  for (; n > 0 && x; --n) {
+    const unsigned b = x & (0u - x);
+    r |= b;
+    x ^= b;
+  }
+  return r;
+}
+
 // The CSR row of position pos: the reference's min(searchsorted(row_end,
 // pos, side="right"), B - 1), with row_end staged in shared memory by the
 // caller where it fits.
 __device__ __forceinline__ int64_t row_of(const int32_t* row_end, int64_t B,
                                           int64_t pos) {
   return min64(upper_bound(row_end, B, pos), B - 1);
+}
+
+// Python floor division by b > 0, in the codes' own width
+template <typename T>
+__device__ __forceinline__ T fdiv(T a, T b) {
+  const T q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// first index i in [0, n) with x[i] >= v, else n
+__device__ __forceinline__ int64_t first_at_least(const int32_t* x, int64_t n,
+                                                  int64_t v) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if ((int64_t)x[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The attribution's new row ends (header int32[5+B]: hdr[5 + b], and
+// hdr[0] for the last row) for the rows b whose X(b) = min(row_end[b],
+// live_end) (live_end for the last row) lies in [p0, p1): ``kb`` kept
+// entries lie below p0 and ``word`` holds the keep flags from p0 on, so
+// row b ends at row_end[b] - (X(b) - kept(X(b))).
+__device__ __forceinline__ void row_ends_in(int32_t* hdr, int64_t B,
+                                           const int32_t* re, int64_t p0,
+                                           int64_t p1, int64_t live_end,
+                                           long long kb, unsigned word) {
+  if (p0 > live_end) return;
+  const int64_t last = B - 1;
+  for (int64_t b = first_at_least(re, last, p0); b <= last; ++b) {
+    const int64_t x = b == last ? live_end : min64(re[b], live_end);
+    if (x >= p1) break;
+    const long long kept = kb + __popc(word & ((1u << (x - p0)) - 1u));
+    const int32_t ne = (int32_t)((long long)re[b] - (x - kept));
+    hdr[5 + b] = ne;
+    if (b == last) hdr[0] = ne;
+  }
 }
 
 }  // namespace dense_tile

@@ -510,17 +510,6 @@ struct DenseParams {
   int B, qcols, m, W, kp, kk, rows;
 };
 
-// the n lowest set bits of x
-__device__ __forceinline__ unsigned low_set_bits(unsigned x, int n) {
-  unsigned r = 0;
-  for (; n > 0 && x; --n) {
-    const unsigned b = x & (0u - x);
-    r |= b;
-    x ^= b;
-  }
-  return r;
-}
-
 template <typename T, int MT>
 __global__ void __launch_bounds__(NT) dense_csr(DenseParams a) {
   namespace dt = dense_tile;
@@ -601,7 +590,7 @@ __global__ void __launch_bounds__(NT) dense_csr(DenseParams a) {
         break;
       }
       if (run + p > a.kp) {            // the first kp - run bits are
-        s_cword = low_set_bits(x, a.kp - run);
+        s_cword = dense_tile::low_set_bits(x, a.kp - run);
         atomicMin(&s_cut, w + 1);
         break;
       }

@@ -40,13 +40,16 @@ kernels.  The wrappers allocate every output and scratch buffer with
 | sharded_drain_fix | parallel/sharded.py:124 sharded_drain (one launch)    |
 | attr_tok       | parallel/sharded.py:566-576 (the token psum's terms)     |
 
-The fused kernels read every member store's tensors where they lie: the
-wrapper uploads one small table of per-store base pointers and sizes
-(``_store_refs``), and the kernel puts the store on a grid dimension.  The
-mesh kernels read the slices of one device the same way: their wrappers
-take the slices that lie on one device and launch once for them (K12 and
-K13 pass the blocks' or slices' pointers in the kernel parameter
-instead, up to ``MERGE_MAX_REFS`` and ``SHARDED_MAX_SLICES``).  K3 handed
+The fused kernels read every member store's tensors where they lie.  K5
+passes each member's pointers and sizes by value in its kernel parameter
+(up to ``FUSED_MAX_STORES`` members a launch, packed once into each
+column set's plan); K6's wrapper uploads one small table of per-store
+base pointers and sizes (``_store_refs``), and the kernel puts the store
+on a grid dimension.  The mesh kernels read the slices of one device the
+same way: their wrappers take the slices that lie on one device and
+launch once for them (K12 and K13 pass the blocks' or slices' pointers
+in the kernel parameter instead, up to ``MERGE_MAX_REFS`` and
+``SHARDED_MAX_SLICES``).  K3 handed
 numpy packs its index and rows into one pinned staging buffer
 (``StagingRing``) and uploads it in one copy.
 
@@ -141,7 +144,8 @@ def _check_cols(nt) -> None:
 
 # A column set checked once for its lifetime carries its plan: the
 # device its columns all lie on, contiguous (None if they do not), their
-# data pointers and their first-axis lengths.  The mirrors make such a set
+# data pointers, their first-axis lengths, and the launch values wrappers
+# have packed from them (``_values``).  The mirrors make such a set
 # where they build or replace one (``checked_cols``), so the plan lives and
 # dies with the tuple they keep; a wrapper handed any other set checks it
 # on every call.  A NamedTuple is immutable and the mirrors write rows in
@@ -163,14 +167,14 @@ def _planned(cls):
 
 
 def _plan(nt) -> tuple:
-    """(device or None, data pointers, first-axis lengths) of column set
-    ``nt``, its dtypes checked."""
+    """(device or None, data pointers, first-axis lengths, packed launch
+    values by builder) of column set ``nt``, its dtypes checked."""
     _check_cols(nt)
     devs = {c.device for c in nt}
     dev = (devs.pop() if len(devs) == 1
            and all(c.is_contiguous() for c in nt) else None)
     return (dev, [c.data_ptr() for c in nt],
-            [c.shape[0] if c.dim() else 1 for c in nt])
+            [c.shape[0] if c.dim() else 1 for c in nt], {})
 
 
 def checked_cols(nt):
@@ -183,14 +187,34 @@ def checked_cols(nt):
     return out
 
 
-def _cols_on(nt, dev: torch.device) -> tuple:
-    """(data pointers, first-axis lengths) of a column set that lies,
-    contiguous, on ``dev``; raises otherwise."""
+def _plan_on(nt, dev: torch.device) -> tuple:
+    """The plan of a column set that lies, contiguous, on ``dev``; raises
+    otherwise."""
     plan = getattr(nt, "_plan", None) or _plan(nt)
     if plan[0] != dev:
         raise ValueError(f"{type(nt).__name__}: its columns are not all "
                          f"contiguous on {dev}")
+    return plan
+
+
+def _cols_on(nt, dev: torch.device) -> tuple:
+    """(data pointers, first-axis lengths) of a column set that lies,
+    contiguous, on ``dev``; raises otherwise."""
+    plan = _plan_on(nt, dev)
     return plan[1], plan[2]
+
+
+def _values(nt, dev: torch.device, build) -> tuple:
+    """``build(nt, plan)``: (int64 launch values packed as bytes, *sizes)
+    of a column set that lies, contiguous, on ``dev``.  Its plan keeps
+    them, so a planned set's are built once."""
+    plan = getattr(nt, "_plan", None)
+    if plan is None or plan[0] != dev:
+        plan = _plan_on(nt, dev)
+    v = plan[3].get(build)
+    if v is None:
+        v = plan[3][build] = build(nt, plan)
+    return v
 
 
 # cudaError_t codes of a launch the runtime refused for want of resources
@@ -231,12 +255,13 @@ def _launch(name: str, device: torch.device, ptrs, vals,
             entry: str = None) -> None:
     """Call entry point ``entry`` (default ``name``) with the data pointers
     of ``ptrs`` (tensors, None for null, or int addresses) and the integers
-    ``vals``, on the current stream of ``device``.  The entry point is
+    ``vals`` (a list, or an ``array("q")`` already packed), on the current
+    stream of ``device``.  The entry point is
     resolved once, the argument arrays are packed by ``array`` in C, and
     the device is switched only when it is not the current one."""
     fn = _build.entries()[entry or name]
     p = array("Q", [t if type(t) is int else _ptr(t) for t in ptrs])
-    v = array("q", vals)
+    v = vals if type(vals) is array else array("q", vals)
     cur = torch.cuda.current_device()
     idx = cur if device.index is None else device.index
     stream = (_raw_stream(idx) if _raw_stream is not None
@@ -581,34 +606,77 @@ def frontier_dense(state: drk.DrainState) -> torch.Tensor:
 
 # -- K5: fused multi-store deps scan + attribution ----------------------------
 
-def _store_refs(dev: torch.device, rows) -> torch.Tensor:
-    """Upload the per-store pointer/size table a fused kernel reads."""
-    return torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
+# member stores a K5 launch takes by value (MAX_STORES of
+# csrc/fused_scan.cu); a larger group is split into launches
+FUSED_MAX_STORES = _build.LIMITS["ACCORD_FUSED_MAX_STORES"]
 
 
-def _deps_ref(table: dk.DepsTable, attr=None, aidx=None) -> list:
-    """One store's row of the fused deps kernels' table (the StoreRef
-    struct of csrc/fused_scan.cu, 32 int64 words): 7 table columns, 9
-    attribution columns, 11 index arrays (null for the raw stage), then
-    n, m_t, F, T, L."""
-    _check_cols(table)
-    ptrs = [_ptr(c) for c in table]
-    n, m_t = table.lo.shape
-    if attr is None:
-        return ptrs + [0] * 20 + [n, m_t, 0, 0, 0]
-    _check_cols(attr)
-    _check_cols(aidx)
-    if attr.dom.shape[0] != n:
-        raise ValueError("fused attribution columns do not fit the table")
-    return (ptrs + [_ptr(c) for c in attr] + [_ptr(c) for c in aidx]
-            + [n, m_t, aidx.fbnd.shape[0], aidx.etok.shape[0],
-               aidx.erank.shape[0]])
+# a K5 member's launch values, with the sizes the launch takes maxima of
+def _scan_values(t, plan):
+    # the table's 7 columns, n, m_t
+    n, m_t = t.lo.shape
+    return array("q", [*plan[1], n, m_t]).tobytes(), n, m_t
+
+
+def _lo_values(t, plan):
+    # the table's lo, n, m_t
+    n, m_t = t.lo.shape
+    return array("q", [plan[1][5], n, m_t]).tobytes(), n, m_t
+
+
+def _ptr_values(_a, plan):
+    # the 9 attribution columns
+    return array("q", plan[1]).tobytes(), plan[2][0]
+
+
+def _index_values(_x, plan):
+    # the 11 index arrays, F, T, L
+    ftl = plan[2][0], plan[2][4], plan[2][6]
+    return array("q", [*plan[1], *ftl]).tobytes(), *ftl
+
+
+@functools.lru_cache(maxsize=256)
+def _fused_scan_words(n_s: int, b: int, w: int) -> int:
+    """The int64 words of K5's scan workspace, as its entry point lays it
+    out, for ``n_s`` members of ``b`` rows and ``w`` mask words a row in
+    all."""
+    return _build.library().accord_fused_scan_workspace_words(n_s, b, w)
+
+
+@functools.lru_cache(maxsize=256)
+def _fused_attr_words(n_s: int, s: int) -> int:
+    """The int64 words of K5's attribution workspace."""
+    return _build.library().accord_fused_attr_workspace_words(n_s, s)
+
+
+def _fused_buffer(dev, n_s: int, s: int, b_hdr: int, wide: bool,
+                  words: int):
+    """One allocation for a K5 stage: the entries [S, s], the header
+    int32[S, b_hdr] and the workspace, each at a whole int64 word.
+    Returns (entries, header, workspace address)."""
+    n_out = n_s * s if wide else (n_s * s + 1) // 2
+    n_hdr = (n_s * b_hdr + 1) // 2
+    buf = torch.empty(n_out + n_hdr + words, dtype=torch.int64, device=dev)
+    b32 = buf.view(torch.int32)
+    ent = (buf if wide else b32).as_strided((n_s, s), (s, 1))
+    hdr = b32.as_strided((n_s, b_hdr), (b_hdr, 1), 2 * n_out)
+    return ent, hdr, buf.data_ptr() + 8 * (n_out + n_hdr)
+
+
+def _chunks(n_s: int):
+    """(first, last) member of each launch of a group of ``n_s``."""
+    return [(i, min(i + FUSED_MAX_STORES, n_s))
+            for i in range(0, n_s, FUSED_MAX_STORES)]
 
 
 def fused_deps_dense(tables: Sequence[dk.DepsTable], qmats: torch.Tensor,
                      prunes, m: int, s: int, k: int, wide: bool = False):
-    """Dense exact CSR for S stores in one launch: (header
-    int32[S, 2+B], entries [S, s]); codes on the group's m_max."""
+    """Dense exact CSR for S stores: (header int32[S, 2+B], entries
+    [S, s]); codes on the group's m_max.  One launch for up to
+    ``FUSED_MAX_STORES`` members, each member's columns and prune floor
+    passed by value; a member's table that carries its plan
+    (``checked_cols``) is not checked again.  The entries, the header and
+    the workspace are one allocation."""
     if not on_cuda(qmats):
         return dk.fused_flat_csr_plain(tables, qmats, prunes, m, s, k, wide)
     dev = qmats.device
@@ -617,21 +685,25 @@ def fused_deps_dense(tables: Sequence[dk.DepsTable], qmats: torch.Tensor,
     if n_s != len(tables) or qcols != 7 + 2 * m:
         raise ValueError(f"qmats {tuple(qmats.shape)} do not fit {len(tables)}"
                          f" stores and {7 + 2 * m} query columns")
-    n_max, m_max = dk.group_shape(tables)
-    refs = _store_refs(dev, [_deps_ref(t) for t in tables])
-    pr = _store_refs(dev, np.stack([np.asarray(p, np.int64)
-                                    for p in prunes], axis=1))
-    kp = min(k, n_max)
-    dt = dk.code_dtype(wide)
-    counts = torch.empty(n_s * b, dtype=torch.int32, device=dev)
-    pair_counts = torch.empty(n_s * b, dtype=torch.int32, device=dev)
-    sel = torch.empty(max(n_s * b * kp, 1), dtype=torch.int32, device=dev)
-    starts = torch.empty(n_s * b, dtype=torch.int64, device=dev)
-    hdr = torch.empty((n_s, 2 + b), dtype=torch.int32, device=dev)
-    ent = torch.empty((n_s, s), dtype=dt, device=dev)
-    _launch("fused_deps_dense", dev,
-            [refs, qmats, pr, counts, pair_counts, sel, starts, hdr, ent],
-            [n_s, b, qcols, m, n_max, m_max, int(wide), s, k])
+    vals = [_values(t, dev, _scan_values) for t in tables]
+    parts, ns, mts = zip(*vals)
+    n_max, m_max = max(ns), max(mts)
+    w = sum([(n + 31) >> 5 for n in ns])
+    pr = np.empty((n_s, 3), np.int64)
+    for c in range(3):
+        pr[:, c] = prunes[c]
+    words = _fused_scan_words(n_s, b, w)
+    ent, hdr, wsp = _fused_buffer(dev, n_s, s, 2 + b, wide, words)
+    q0, h0, e0 = _ptr(qmats), hdr.data_ptr(), ent.data_ptr()
+    cs = 8 if wide else 4
+    for i0, i1 in _chunks(n_s):
+        v = array("q", (i1 - i0, b, qcols, m, n_max, m_max, int(wide), s, k,
+                        words))
+        v.frombytes(b"".join(parts[i0:i1]))
+        v.frombytes(pr[i0:i1].tobytes())
+        _launch("fused_deps_dense", dev,
+                [q0 + 8 * i0 * b * qcols, wsp, h0 + 4 * i0 * (2 + b),
+                 e0 + cs * i0 * s], v)
     return hdr, ent
 
 
@@ -641,7 +713,10 @@ def fused_attr_post(tables: Sequence[dk.DepsTable],
                     hdr_raw: torch.Tensor, ent: torch.Tensor, m: int,
                     floors: bool = True, elide: bool = True):
     """Attributed CSRs (header int32[S, 5+B], entries [S, s]) of a fused
-    raw CSR, each store over its own (group-padded) columns and index."""
+    raw CSR, each store over its own (group-padded) columns and index.
+    One launch for up to ``FUSED_MAX_STORES`` members, their columns by
+    value; column sets that carry their plan are not checked again; one
+    allocation."""
     if not on_cuda(ent):
         return dk.fused_attr_post_plain(tables, attrs, aidxs, rankbs,
                                         hdr_raw, ent, m, floors, elide)
@@ -651,30 +726,39 @@ def fused_attr_post(tables: Sequence[dk.DepsTable],
     n_s, s = ent.shape
     b = hdr_raw.shape[1] - 2
     if rankbs.shape != (n_s, b) or hdr_raw.shape[0] != n_s \
-            or len(tables) != n_s:
+            or len(tables) != n_s or len(attrs) != n_s or len(aidxs) != n_s:
         raise ValueError("fused_attr_post: rankbs / header shapes do not "
                          "fit the group")
-    n_max, m_max = dk.group_shape(tables)
-    f, t, l = dk.attr_group_shape(aidxs)
-    refs = _store_refs(dev, [_deps_ref(*x)
-                             for x in zip(tables, attrs, aidxs)])
-    nb = -(-s // 256)
-    keep = torch.empty(max(n_s * s, 1), dtype=torch.int32, device=dev)
-    local = torch.empty(max(n_s * s, 1), dtype=torch.int32, device=dev)
-    bsum = torch.empty(max(n_s * nb, 1), dtype=torch.int64, device=dev)
-    drops = torch.empty(n_s * b, dtype=torch.int64, device=dev)
-    tallies = torch.empty(2 * n_s, dtype=torch.int64, device=dev)
-    hdr = torch.empty((n_s, 5 + b), dtype=torch.int32, device=dev)
-    out = torch.empty((n_s, s), dtype=ent.dtype, device=dev)
-    _launch("fused_attr_post", dev,
-            [refs, rankbs, hdr_raw, ent, keep, local, bsum, drops, tallies,
-             hdr, out],
-            [n_s, s, b, n_max, m_max, m, int(floors), int(elide), f, t, l,
-             int(ent.dtype == torch.int64)])
+    tvs = [_values(t, dev, _lo_values) for t in tables]
+    avs = [_values(a, dev, _ptr_values) for a in attrs]
+    ivs = [_values(x, dev, _index_values) for x in aidxs]
+    if [a[1] for a in avs] != [t[1] for t in tvs]:
+        raise ValueError("fused attribution columns do not fit the table")
+    parts = [t[0] + a[0] + x[0] for t, a, x in zip(tvs, avs, ivs)]
+    m_max = max([t[2] for t in tvs])
+    f, t_, l_ = (max(c) for c in list(zip(*ivs))[1:])
+    wide = ent.dtype == torch.int64
+    words = _fused_attr_words(n_s, s)
+    out, hdr, wsp = _fused_buffer(dev, n_s, s, 5 + b, wide, words)
+    r0, hr0, e0 = _ptr(rankbs), _ptr(hdr_raw), _ptr(ent)
+    h0, o0 = hdr.data_ptr(), out.data_ptr()
+    cs = 8 if wide else 4
+    for i0, i1 in _chunks(n_s):
+        v = array("q", (i1 - i0, s, b, m_max, m, int(floors), int(elide), f,
+                        t_, l_, int(wide), words))
+        v.frombytes(b"".join(parts[i0:i1]))
+        _launch("fused_attr_post", dev,
+                [r0 + 8 * i0 * b, hr0 + 4 * i0 * (2 + b), e0 + cs * i0 * s,
+                 wsp, h0 + 4 * i0 * (5 + b), o0 + cs * i0 * s], v)
     return hdr, out
 
 
 # -- K6: fused multi-store frontier sweeps -------------------------------------
+
+def _store_refs(dev: torch.device, rows) -> torch.Tensor:
+    """Upload the per-store pointer/size table a fused frontier reads."""
+    return torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
+
 
 def _drain_refs(dev, states, adj_col: str) -> torch.Tensor:
     rows = []

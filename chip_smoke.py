@@ -29,7 +29,13 @@ Phases:
      rows than CTAs) and K8 dense at N = 0 to 8,193 and either side of
      its handover; K1a also at the burn's median call, K8 also on a wide
      input and on narrow-then-wide levels, and the latency of one grid
-     barrier and one block barrier (ops/csrc/probes.cu);
+     barrier and one block barrier (ops/csrc/probes.cu); K5 on the CPU
+     tests' edge groups (members of 300, 40 and 96 FREE slots, unequal
+     interval widths, a query interval over the whole line, B = 1 and 33,
+     a kp cut inside a word, s and k overflowing), on two stores and on
+     one store more than a launch takes by value, and at phase 7's
+     recorded call and the burn's median (its bound on the operations
+     each member's data needs);
   4. the main path, a PreAccept deps store at real size: 100,000 in-flight
      txns over a 1,000,000-key space, up to 8 intervals each, with
      RedundantBefore floors and CommandsForKey state; 12,288 queries in
@@ -82,7 +88,9 @@ Phases:
      shows): 20,000 txns over 64 shards of 4,096 keys, 512 attributed
      queries through the mesh-bucketed, mesh-dense, host and routed
      paths; every route builds the same Deps, the mesh bucketed kernels
-     run; txn/s of each and the routes the router picks;
+     run; txn/s of each and the routes the router picks; then the mesh's
+     fused forms (sharded_fused_flat, sharded_fused_attr: K5 a slice)
+     on a seeded group, byte-equal to the same on CPU copies;
  10. store-sharded residency, bench config 5b (``bench_store_sharded``):
      one store walked up the budget ladder to 2^20 slots against a
      2^17-slot budget spills to 8 slices, not to the host; 128 pruned
@@ -101,10 +109,13 @@ twin store's bytes, one device fault, one quarantine, and the probe's
 restore.  A real launch the library refuses for an invalid argument
 (cudaErrorInvalidValue) must instead propagate, off the fault ladder.
 Then torch.profiler counts the device operations of one K12 call (one
-kernel), one live K3 call (one copy, one kernel) and K1a's, K1b's, K2's
-and K8's calls (one kernel, no memset, no copy), and traces two
-phase-4 batches and four phase-7 rounds, solo and fused, for the device's
-busy share and its time by kernel name.
+kernel), one live K3 call (one copy, one kernel) and K1a's, K1b's, K2's,
+K5's and K8's calls (one kernel, no memset, no copy; K5's checked last),
+times one whole fused flush at phase 7's recorded call (the host's
+enqueue and wall time beside its CUDA-event time, device tensors in and
+as the dispatcher uploads them), and traces two phase-4 batches and four
+phase-7 rounds, solo and fused, for the device's busy share and its time
+by kernel name.
 
 Every kernel launch count is set to 0 just before phases 4-11 and read
 after each; each phase's seconds are printed: each kernel of the path must
@@ -189,6 +200,9 @@ MESH_KERNELS = ("calc_deps", "ts_max", "merge_blocks", "sharded_frontier",
 # every mesh here lies on one card, so the main path never launches it
 # (its kernel is still held against its plain version below)
 MULTI_CARD_ONLY = ("sharded_drain",)
+# the queued device work a timed fused flush comes behind (about 0.1 ms of
+# torch.cuda._sleep on an H100)
+FLUSH_BUSY_CYCLES = 200_000
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and the dense
 # int8 tensor-core rate, the stand-in for K9's b1 products (no b1 rate is
 # published)
@@ -827,13 +841,24 @@ def dense_frontier_case(torch, kern, drk, state):
 
 def fused_scan_case(torch, kern, dk, tables, qmats, prunes, m, s, k,
                     wide=False):
-    """K5 raw stage: each member's dense-scan work over its own table."""
+    """K5 raw stage: each member's dense-scan work over its own table.
+    Its operations are what each member's data needs
+    (``dense_needed_ops`` over the member's own table, row block and
+    prune floor), counted only when the case is timed; the formula that
+    counts every interval pair, sum b n_i (2 m m_t_i + 12), stands
+    beside them."""
     n_s, b = qmats.shape[:2]
     cs = 8 if wide else 4
     nbytes = (sum(t.lo.shape[0] * (28 + 16 * t.lo.shape[1]) for t in tables)
               + qmats.numel() * 8 + n_s * ((2 + b) * 4 + s * cs))
-    ops = sum(b * t.lo.shape[0] * (2 * m * t.lo.shape[1] + 12)
-              for t in tables)
+
+    def ops():
+        need = sum(dense_needed_ops(
+            torch, dk, t, qmats[i], m, s, k,
+            tuple(int(p[i]) for p in prunes)) for i, t in enumerate(tables))
+        return need, {"ops_formula": sum(
+            b * t.lo.shape[0] * (2 * m * t.lo.shape[1] + 12)
+            for t in tables)}
     return (lambda: kern.fused_deps_dense(tables, qmats, prunes, m, s, k,
                                           wide),
             lambda: dk.fused_flat_csr_plain(tables, qmats, prunes, m, s, k,
@@ -857,6 +882,133 @@ def fused_attr_case(torch, kern, dk, tables, attrs, aidxs, rankbs, hdr_raw,
             lambda: dk.fused_attr_post_plain(tables, attrs, aidxs, rankbs,
                                              hdr_raw, ent, m, floors, elide),
             None, nbytes, live * 64)
+
+
+FULL_SPAN = (int(np.iinfo(np.int64).min), int(np.iinfo(np.int64).max))
+
+
+def fused_group(torch, convert, dev, dk, seed, shapes, b, empty=(),
+                full=False):
+    """A seeded fused group: members of (capacity, interval width) with
+    their attribution inputs, stacked qmats and rank bounds, and the
+    prune triples; the members in ``empty`` have every slot FREE (their
+    rows select nothing), and with ``full`` one query interval of member
+    0 is the whole line, so that it overlaps the PAD columns the group's
+    wider members add."""
+    ins = [small_inputs(seed * 1000 + i, dk, n=n, m_t=m_t, b=b)
+           for i, (n, m_t) in enumerate(shapes)]
+    for i in empty:
+        ins[i]["table"][4][:] = -1
+    qmats = np.stack([x["qmat"] for x in ins])
+    m = ins[0]["m"]
+    if full:
+        r = min(2, b - 1)
+        qmats[0, r, 7], qmats[0, r, 7 + m] = FULL_SPAN
+    ups = [convert.tables_from_numpy(
+        {"table": x["table"], "attr": x["attr"], "aidx": x["aidx"]}, dev)
+        for x in ins]
+    return {"tables": [u["table"] for u in ups],
+            "attrs": [u["attr"] for u in ups],
+            "aidxs": [u["aidx"] for u in ups],
+            "qmats": torch.from_numpy(qmats).to(dev),
+            "rankbs": torch.from_numpy(np.stack([x["rankb"] for x in ins]))
+            .to(dev),
+            "prunes": tuple(np.array([x["prune"][c] for x in ins], np.int64)
+                            for c in range(3)), "m": m}
+
+
+def fused_edge_cases(torch, kern, dk, convert, dev) -> dict:
+    """K5 at the edges of its work split (the CPU tests' groups): members
+    of 300 slots (not a whole number of 256-slot tiles), 40 (less than a
+    tile) and 96 with every slot FREE, unequal interval widths and a query
+    interval over the whole line (the PAD columns' pairs); B = 33 (two row
+    groups) and B = 1; a k that cuts kp inside a word with int64 codes;
+    s and k both overflowing; two stores; and one store more than a launch
+    takes by value (``FUSED_MAX_STORES``), so the group over the cap.
+    The attribution runs on the plain raw CSR with the group's leg
+    switches."""
+    cap = kern.FUSED_MAX_STORES
+    edge = ((300, 4), (40, 2), (96, 8))
+    groups = (("tiles b33", edge, 33, 8192, 256, False, True, True),
+              ("kp_in_word b1 i64", edge, 1, 8192, 5, True, False, True),
+              ("overflow", edge, 8, 24, 3, False, True, False),
+              ("two stores", ((64, 4), (64, 4)), 4, 4096, 64, False, False,
+               False),
+              (f"{cap + 1} stores", ((16, 2),) * (cap + 1), 2, 256, 16, False,
+               True, True))
+    cases = {}
+    for i, (tag, shapes, b, s, k, wide, floors, elide) in enumerate(groups):
+        g = fused_group(torch, convert, dev, dk, 70 + i, shapes, b,
+                        empty=(2,) if len(shapes) == 3 else (),
+                        full=len(shapes) == 3)
+        cases[f"fused_deps_dense[{tag}]"] = fused_scan_case(
+            torch, kern, dk, g["tables"], g["qmats"], g["prunes"], g["m"], s,
+            k, wide)
+        hdr, ent = dk.fused_flat_csr_plain(g["tables"], g["qmats"],
+                                           g["prunes"], g["m"], s, k, wide)
+        cases[f"fused_attr_post[{tag} {floors:d}{elide:d}]"] = \
+            fused_attr_case(torch, kern, dk, g["tables"], g["attrs"],
+                            g["aidxs"], g["rankbs"], hdr, ent, g["m"],
+                            floors, elide)
+    return cases
+
+
+def fused_flush_timing(torch, fn, on_cuda: bool, reps: int = 15,
+                       warm: int = 3, busy: int = 0) -> dict:
+    """One whole fused flush call: the host's wall time to enqueue it (the
+    call's return), its wall time to the end of its device work, and its
+    CUDA-event time, medians over ``reps`` calls after ``warm``; an
+    enqueue time near the whole call's means the host waited on the card
+    inside the call.  ``busy``: each call comes behind that many clock
+    cycles of queued device work (``torch.cuda._sleep``), as a flush
+    comes behind its stores' scatters; its CUDA-event time starts after
+    that work."""
+    for _ in range(warm):
+        fn()
+    if on_cuda:
+        torch.cuda.synchronize()
+    enq, wall, ev = [], [], []
+    for _ in range(reps):
+        if on_cuda:
+            if busy:
+                torch.cuda._sleep(busy)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        if on_cuda:
+            b.record()
+            b.synchronize()
+        t2 = time.perf_counter()
+        enq.append((t1 - t0) * 1e3)
+        wall.append((t2 - t0) * 1e3)
+        if on_cuda:
+            ev.append(a.elapsed_time(b))
+    return {"enqueue_ms": statistics.median(enq),
+            "wall_ms": statistics.median(wall),
+            "ms": statistics.median(ev) if ev else None}
+
+
+def pinned_upload(torch, arrays, dev) -> tuple:
+    """Copies of host arrays on ``dev`` by one asynchronous copy: packed at
+    16-byte offsets into one buffer of PyTorch's pinned-memory cache (which
+    reuses it only once the copy has completed, so the host never waits),
+    uploaded, and viewed.  The yardstick a fused flush's two pageable
+    uploads are timed against."""
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += -(-a.nbytes // 16) * 16
+    host = torch.empty(total, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    hb = host.numpy()
+    for a, o in zip(arrays, offs):
+        hb[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    staged = host.to(dev, non_blocking=True)
+    return tuple(staged[o:o + a.nbytes].view(torch.from_numpy(a).dtype)
+                 .view(a.shape) for a, o in zip(arrays, offs))
 
 
 def fused_frontier_case(torch, kern, drk, states):
@@ -1358,6 +1510,7 @@ def small_cases(torch, dev, kern, dk, drk, convert):
                                     [u["attr"] for u in ups],
                                     [u["aidx"] for u in ups], rankbs, hdr,
                                     ent, 4, floors, elide)
+    cases.update(fused_edge_cases(torch, kern, dk, convert, dev))
     return cases
 
 
@@ -1505,6 +1658,8 @@ def _work(name, a):
         return a[1].shape[0] * a[1].shape[1]
     if name == "fused_attr_post":
         return a[5].numel()
+    if name == "fused_flat_attr":
+        return a[3].shape[0] * a[3].shape[1]
     if name.startswith("fused_frontier"):
         return sum(st.status.shape[0] for st in a[0])
     if name == "calc_deps":
@@ -2048,34 +2203,38 @@ def burn_once(run_burn, device, n_ops):
     return r, tot, digest
 
 
-def device_ops(torch, fn) -> dict:
+def device_ops(torch, fn, takes: int = 1) -> dict:
     """The device operations one call of ``fn`` makes (after a warm-up
     call), from a torch.profiler trace: kernels, copies and memsets, and
     their device time; the rest of a call's CUDA-event time is the host's
-    (its path before the device starts, and the gaps between launches)."""
+    (its path before the device starts, and the gaps between launches).
+    The profiler may lose records of a short window, never add them: of
+    ``takes`` traces that hold a device event the one with the most is
+    kept (a trace with none is taken again, three times at most)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # the profiler may lose every record of a short window: a trace with
-    # no device event at all is taken again, three times at most
-    for traces in range(1, 4):
+    events, kept, traces = [], 0, 0
+    while kept < takes and traces < takes + 3:
+        traces += 1
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        if events:
-            break
+        got = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kept += bool(got)
+        if len(got) > len(events):
+            events = got
     ops = {"kernels": 0, "copies": 0, "memsets": 0, "device_us": 0.0,
-           "names": [], "traces": traces}
+           "names": [], "us": [], "traces": traces}
     for e in events:
         kind = ("copies" if e.name.startswith("Memcpy") else
                 "memsets" if e.name.startswith("Memset") else "kernels")
         ops[kind] += 1
         ops["device_us"] += e.time_range.elapsed_us()
         ops["names"].append(e.name[:80])
+        ops["us"].append(e.time_range.elapsed_us())
     return ops
 
 
@@ -2746,6 +2905,38 @@ def mesh_small_cases(torch, dev, kern, dk, drk, psh, convert, mesh):
     return cases
 
 
+def mesh_fused_check(torch, dk, psh, convert, dev, mesh) -> dict:
+    """The mesh's fused forms on ``dev``: ``sharded_fused_flat`` and
+    ``sharded_fused_attr`` (a K5 launch of each stage a slice, over the
+    slices' tuples, which carry no plan) on a seeded group of three stores
+    over the 8-slice mesh, each byte-equal to the same function on CPU
+    copies of its inputs over an 8-slice CPU mesh."""
+    d = mesh.size
+    shapes = ((d * 64, 4), (d * 32, 2), (d * 128, 4))
+    outs = []
+    for dv, ms in ((dev, mesh), (torch.device("cpu"),
+                                 psh.make_mesh(d, "cpu"))):
+        g = fused_group(torch, convert, dv, dk, 90, shapes, 8)
+        tabs = [psh.shard_table(ms, t) for t in g["tables"]]
+        attrs = [type(a)(*(psh._split_rows(ms, c) for c in a))
+                 for a in g["attrs"]]
+        pr = tuple(torch.from_numpy(p) for p in g["prunes"])
+        flat = psh.sharded_fused_flat(ms, len(shapes), g["m"], 512, 64)(
+            *tabs, g["qmats"], *pr)
+        attr = psh.sharded_fused_attr(ms, len(shapes), g["m"], 512, 64)(
+            *tabs, *attrs, *g["aidxs"], g["qmats"], g["rankbs"], *pr)
+        outs.append([t.cpu() for t in (*flat, *attr)])
+    err = _max_abs_err(torch, tuple(outs[0]), tuple(outs[1]))
+    check(err == 0, "phase9: the mesh's fused forms on the card != on CPU "
+                    f"copies: {_diff_report(torch, outs[0], outs[1])}")
+    out = {"stores": [list(x) for x in shapes], "slices": d,
+           "flat": [list(t.shape) for t in outs[0][:2]],
+           "attr": [list(t.shape) for t in outs[0][2:]],
+           "entries": int(outs[0][2][:, 0].sum()), "max_abs_err": err}
+    log("phase9: the mesh's fused forms equal on CPU copies " + json.dumps(out))
+    return out
+
+
 def config4_phase(torch, dev, mesh, rehearsal):
     """Phase 9: bench config 4 (``config4_child``, bench.py:859-932) on
     the 8-slice mesh: 20,000 txns over 64 shards of 4,096 keys, 512
@@ -3146,9 +3337,11 @@ def main(argv=None) -> int:
     # the fused harness's warm rounds (uploads, learned budgets), recording
     # the fused kernels' arguments at the fused phase's shapes
     rec7 = Recorder(kern, ["fused_deps_dense", "fused_attr_post"])
+    rec7f = Recorder(dk, ["fused_flat_attr"])   # and the whole flush call
     try:
         drive_flushes(fnode, fdevs, WARM5, KEYS5, seed=5)
     finally:
+        rec7f.restore()
         rec7.restore()
     check(fnode.dispatcher.n_fused_launches > 0,
           "fused warm pass: the pricing never chose a fused flush "
@@ -3481,7 +3674,8 @@ def main(argv=None) -> int:
     # every K1a, K1b and K2 call of the burn, to time each at its median
     # call
     med6 = MedianRecorder(kern, ["deps_bucketed", "deps_dense",
-                                 "attr_post"])
+                                 "attr_post", "fused_deps_dense",
+                                 "fused_attr_post"])
     try:
         r1, c1, d1 = burn_once(run_burn, dev, n_ops)
     finally:
@@ -3620,6 +3814,20 @@ def main(argv=None) -> int:
     try:
         phase9 = config4_phase(torch, dev, mesh, rehearsal)
         phase_done("9")
+        # the mesh's fused forms on a seeded group of their own, outside
+        # every phase's launch counts (config 4's traffic makes no fused
+        # flush); their launches are kept under a tag of their own
+        l0 = dict(kern.LAUNCHES)
+        phase9["fused_forms"] = mesh_fused_check(torch, dk, psh, convert, dev,
+                                                 mesh)
+        phase9["fused_forms"]["launches"] = {
+            k_: kern.LAUNCHES[k_] - l0[k_] for k_ in
+            ("fused_deps_dense", "fused_attr_post")}
+        check(rehearsal or all(phase9["fused_forms"]["launches"].values()),
+              "phase9: the mesh's fused forms launched no K5 kernel "
+              f"{phase9['fused_forms']['launches']}")
+        for k_ in seen:
+            seen[k_] += kern.LAUNCHES[k_] - l0[k_]
         phase10 = config5b_phase(torch, dk, psh, dev, mesh, rehearsal)
         phase_done("10")
         phase11 = graft_phase(torch, kern, drk, psh, dev, mesh, dense3,
@@ -3659,7 +3867,9 @@ def main(argv=None) -> int:
     # 7's solo leg (config 5's fused-off flushes)
     dense_more = {}
     for name, case in (("deps_bucketed", bucket_case),
-                       ("deps_dense", dense_case), ("attr_post", attr_case)):
+                       ("deps_dense", dense_case), ("attr_post", attr_case),
+                       ("fused_deps_dense", fused_scan_case),
+                       ("fused_attr_post", fused_attr_case)):
         if name in med6.calls:
             a, kw, _w, n_calls = med6.median(name)
             dense_more[name + "[burn median]"] = case(torch, kern, dk, *a,
@@ -3667,11 +3877,27 @@ def main(argv=None) -> int:
             shapes[name + "[burn median]"] = (
                 list(a[2].shape) if name == "deps_bucketed" else
                 list(a[1].shape) + [a[0].lo.shape[0]]
-                if name == "deps_dense" else [int(a[5].shape[0])])
+                if name == "deps_dense" else
+                [len(a[0]), a[1].shape[1], max(t.lo.shape[0] for t in a[0])]
+                if name == "fused_deps_dense" else list(a[5].shape)
+                if name == "fused_attr_post" else [int(a[5].shape[0])])
             if name == "deps_bucketed":
                 k1a_rows["burn median"] = bucket_row_stats(torch, dk, a, kw)
             log(f"burn: {n_calls} {name} calls, the median "
                 f"{shapes[name + '[burn median]']}")
+    # the burn's K5 calls: stores, rows, largest member and s, at the
+    # median call (by stores x rows) and the largest of each
+    k5_burn = {}
+    if "fused_deps_dense" in med6.calls:
+        calls = med6.calls["fused_deps_dense"]
+        dims = {"stores": [len(c[0][0]) for c in calls],
+                "rows": [c[0][1].shape[1] for c in calls],
+                "n_max": [max(t.lo.shape[0] for t in c[0][0]) for c in calls],
+                "s": [int(c[0][4]) for c in calls]}
+        k5_burn = {"calls": len(calls),
+                   **{k: {"p50": int(np.median(v)), "max": max(v)}
+                      for k, v in dims.items()}}
+        log("burn: K5 calls " + json.dumps(k5_burn))
     if "deps_dense" in rec7s.calls:
         a, kw, _w = rec7s.calls["deps_dense"]
         dense_more["deps_dense[phase7]"] = dense_case(torch, kern, dk, *a,
@@ -3745,11 +3971,13 @@ def main(argv=None) -> int:
         # K1a, K1b and K2 at the largest recorded call and the burn's
         # median, K8 on the chain and the wide input: the device's share of
         # each call's time
-        for name in ("deps_bucketed", "deps_dense", "attr_post"):
-            call_ops[name] = device_ops(torch, real[name][0])
+        for name in ("deps_bucketed", "deps_dense", "attr_post",
+                     "fused_deps_dense", "fused_attr_post"):
+            takes = 3 if name.startswith("fused_") else 1
+            call_ops[name] = device_ops(torch, real[name][0], takes)
             if name + "[burn median]" in dense_more:
                 call_ops[name + "[burn median]"] = device_ops(
-                    torch, dense_more[name + "[burn median]"][0])
+                    torch, dense_more[name + "[burn median]"][0], takes)
         for name in ("drain_fix_dense", "drain_fix_dense[wide]",
                      "drain_fix_dense[narrow then wide]"):
             call_ops[name] = device_ops(torch, real[name][0])
@@ -3766,6 +3994,13 @@ def main(argv=None) -> int:
                 check(ops_["kernels"] == 1 and ops_["copies"] == 0
                       and ops_["memsets"] == 0,
                       f"{name}: not one kernel and no copy a call {ops_}")
+            if name.startswith("fused_"):
+                want = ("fused_csr" if name.startswith("fused_deps_dense")
+                        else "fused_attr")
+                check(ops_["kernels"] == 1 and ops_["copies"] == 0
+                      and ops_["memsets"] == 0 and want in ops_["names"][0],
+                      f"K5 {name}: not one {want} kernel and no copy a "
+                      f"call {ops_}")
         k12, k3, k3s = (call_ops["merge_blocks"],
                         call_ops["scatter_rows[live]"],
                         call_ops["scatter_rows[live P8]"])
@@ -3776,6 +4011,53 @@ def main(argv=None) -> int:
                   and x["memsets"] == 0 for x in (k3, k3s)),
               f"K3 live: not one copy and one kernel a call {k3} {k3s}")
 
+    # one whole fused flush at phase 7's recorded call: the K5 pair with
+    # device tensors in, and as the dispatcher makes it, its query
+    # matrices and rank bounds uploaded from the host first by a pageable
+    # copy each (``device_index._upload``, which waits on the stream) and,
+    # to compare, by one asynchronous copy from pinned memory
+    # (``pinned_upload``); each on an idle stream and behind 0.1 ms of
+    # queued work, where the host's enqueue time shows whether it waits
+    from accord_tpu_torch.local import device_index as dix
+    a7, kw7, _w = rec7f.calls["fused_flat_attr"]
+    q7, r7 = a7[3].cpu().numpy(), a7[4].cpu().numpy()
+
+    def flush_dev():
+        return dk.fused_flat_attr(*a7, **kw7)
+
+    def flush_pinned():
+        q, r = pinned_upload(torch, (q7, r7), dev)
+        return dk.fused_flat_attr(*a7[:3], q, r, *a7[5:], **kw7)
+
+    def flush_pageable():
+        return dk.fused_flat_attr(*a7[:3], dix._upload(q7, dev),
+                                  dix._upload(r7, dev), *a7[5:], **kw7)
+    for fn in (flush_pinned, flush_pageable):
+        check(_max_abs_err(torch, fn(), flush_dev()) == 0,
+              "phase7's recorded flush: uploaded inputs give other bytes")
+    k5_flush = {"shape": [len(a7[0])] + list(a7[3].shape[1:]),
+                "busy_cycles": FLUSH_BUSY_CYCLES}
+    for tag, fn in (("device inputs", flush_dev),
+                    ("host inputs, pageable", flush_pageable),
+                    ("host inputs, pinned", flush_pinned)):
+        k5_flush[tag] = fused_flush_timing(torch, fn, on_cuda)
+        if on_cuda:
+            k5_flush[tag]["behind queued work"] = fused_flush_timing(
+                torch, fn, on_cuda, busy=FLUSH_BUSY_CYCLES)
+            k5_flush[tag]["ops"] = device_ops(torch, fn, takes=3)
+    if on_cuda:
+        for tag, copies in (("device inputs", 0),
+                            ("host inputs, pageable", 2),
+                            ("host inputs, pinned", 1)):
+            ops_ = k5_flush[tag]["ops"]
+            kn = ops_["names"]
+            check(ops_["kernels"] == 2 and ops_["copies"] == copies
+                  and ops_["memsets"] == 0
+                  and sum("fused_csr" in x for x in kn) == 1
+                  and sum("fused_attr" in x for x in kn) == 1,
+                  f"K5 whole flush, {tag}: not {copies} copies and the two "
+                  f"K5 kernels {ops_}")
+    log("K5 whole flush at phase 7's recorded call: " + json.dumps(k5_flush))
     # the latency floors of a sweep: one grid barrier of the fixpoint's
     # grid (the earlier design's: a warp a row, 256-thread CTAs; the
     # frontier design's: every resident 1,024-thread CTA), and one block
@@ -3862,7 +4144,8 @@ def main(argv=None) -> int:
                "k8_more": {k: dict(rows[k], shape=shapes[k]) for k in (
                    "drain_fix_dense[wide]",
                    "drain_fix_dense[narrow then wide]")},
-               "sync_floor_us": sync_floor,
+               "sync_floor_us": sync_floor, "k5_flush": k5_flush,
+               "k5_burn": k5_burn,
                "seconds": time.perf_counter() - t_start}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     if rehearsal:

@@ -7,6 +7,14 @@ each store where it lies and pads by rule).  Floors and elision each on
 and off, one case with int64 codes, one that overflows s and k.  Each
 store's block also decodes to the port's own solo answer for that store.
 
+K5's work split on the card (ops/csrc/fused_scan.cu), modelled step by
+step in numpy and held against the reference on groups at its edges:
+members of 300 slots (not a whole number of 256-slot tiles), 40 (less than
+a tile) and 96 with every slot FREE (rows that select nothing), unequal
+interval widths with a query interval over the whole line (so the PAD
+columns of the narrower members overlap it), B = 1 and 33, int64 codes,
+a kp cut inside a mask word, and s and k both overflowing.
+
 K6: ``fused_ready_frontier`` / ``fused_ready_frontier_ell`` on unequal
 drain states; each row's live prefix is the store's solo frontier.
 
@@ -21,10 +29,11 @@ import jax.numpy as jnp
 
 from accord_tpu.ops import deps_kernel as rdk
 from accord_tpu.ops import drain_kernel as rdrk
+from accord_tpu_torch.ops import _build
 from accord_tpu_torch.ops import convert
 from accord_tpu_torch.ops import deps_kernel as pdk
 from accord_tpu_torch.ops import drain_kernel as pdrk
-from tests.test_torch_deps_kernel import _inputs
+from tests.test_torch_deps_kernel import _inputs, _low_set_bits
 
 # three stores: (capacity, interval width)
 GROUP = ((64, 4), (40, 2), (96, 8))
@@ -107,6 +116,8 @@ def test_fused_flat_attr_equal(seed, wide, floors, elide):
     port = _port_fused_attr(stores, qmats, rankbs, prunes, s, k, wide,
                             floors, elide)
     _eq(ref, port)
+    _models_eq(stores, qmats, rankbs, prunes, s, k, wide, floors, elide,
+               None, ref)
     hdr, ent = port[0].numpy(), port[1].numpy()
     assert hdr.shape == (3, 5 + 8) and (hdr[:, 0] > 0).all()
     # each block is the store's own solo answer (codes on its own width)
@@ -130,6 +141,7 @@ def test_fused_flat_attr_overflow_equal():
     ref = _ref_fused_attr(*args)
     port = _port_fused_attr(*args)
     _eq(ref, port)
+    _models_eq(*args, None, ref)
     hdr = port[0].numpy()
     assert (hdr[:, 1] > 24).any() or (hdr[:, 2] > 3).any()
 
@@ -143,7 +155,299 @@ def test_fused_flat_csr_equal():
         [_port_cols("table", st["table"]) for st in stores],
         torch.from_numpy(qmats), prunes, M, 4096, 64)
     _eq(ref, port)
+    _eq(ref, _fused_csr_model([st["table"] for st in stores], qmats, prunes,
+                              M, 4096, 64))
     assert port[0].shape == (3, 2 + 8)
+
+
+# -- K5's work split, in plain arithmetic --------------------------------------
+#
+# ops/csrc/fused_scan.cu ``fused_csr``: (1) items of (member, 256-slot tile
+# of that member, group of query rows) write each member's mask words and
+# word triple sums, the PAD columns' pairs counted by rule; (2) per
+# (member, row) the word where the mask rank crosses kp = min(k, n_max)
+# keeps only its first bits (each thread of the CTA walks its segment of
+# words from its prefix), and each selected word gets its triple offset;
+# (3) each member's header and row starts; (4) a warp a word of a
+# (member, row), a lane a slot, writes the selected slots' triples in
+# (col, q) order over the group's m_max x m pairs after the word's offset
+# and the triples of the slots before it, up to kk = min(k, kp m_max m),
+# then -1 past each member's total and a row's kk.  ``fused_attr``: chunks of
+# CHUNK_WORDS words a member, keep words only up to its live entries, a
+# member-local scan of the chunks' sums, kept entries placed at their
+# chunk's offset, -1 past the member's kept total, and each row's new end
+# read off the kept prefix.  The launch geometry is the kernels'
+# (ops/_build.py GEOMETRY).
+
+NT = _build.GEOMETRY["ACCORD_DEPS_THREADS"]
+CW = _build.GEOMETRY["ACCORD_FUSED_CHUNK_WORDS"]
+I64 = np.iinfo(np.int64)
+UNSET = 0x5A5A5A5A      # a value no step writes: an unwritten cell shows
+
+
+def _ts_lt(am, al, an, bm, bl, bn):
+    """The 128-bit timestamp order: msb and lsb unsigned, then node."""
+    am, al, bm, bl = (np.asarray(x).astype(np.uint64)
+                      for x in (am, al, bm, bl))
+    return (am < bm) | ((am == bm) & ((al < bl) | ((al == bl) & (an < bn))))
+
+
+def _member_pairs(table, qmat, m, m_max, prune):
+    """(admitted [B, n], overlapping pairs [B, n, m_max, m]) of one member
+    over its own table, its columns past m_t PAD (lo > hi) by rule."""
+    msb, lsb, node, kind, status, lo, hi = table
+    n, m_t = lo.shape
+    lo_p = np.full((n, m_max), rdk.PAD_LO, np.int64)
+    hi_p = np.full((n, m_max), rdk.PAD_HI, np.int64)
+    lo_p[:, :m_t], hi_p[:, :m_t] = lo, hi
+    q = qmat.astype(np.int64)
+    qlo, qhi = q[:, 7:7 + m], q[:, 7 + m:7 + 2 * m]
+    ok = ((status >= 0) & (status != rdk.SLOT_INVALIDATED)
+          & ~_ts_lt(msb, lsb, node, np.int64(prune[0]), np.int64(prune[1]),
+                    np.int32(prune[2])))
+    adm = (ok[None, :] & (((q[:, 3:4] >> kind[None, :]) & 1) > 0)
+           & _ts_lt(msb[None, :], lsb[None, :], node[None, :], q[:, 0:1],
+                    q[:, 1:2], q[:, 2:3].astype(np.int32))
+           & ~((msb[None, :] == q[:, 4:5]) & (lsb[None, :] == q[:, 5:6])
+               & (node[None, :] == q[:, 6:7])))
+    ov = ((qlo[:, None, None, :] <= hi_p[None, :, :, None])
+          & (lo_p[None, :, :, None] <= qhi[:, None, None, :]))
+    return adm, ov
+
+
+def _fused_csr_model(tables, qmats, prunes, m: int, s: int, k: int,
+                     wide: bool = False):
+    """K5's raw stage as the kernel splits it; ``tables`` numpy column
+    tuples.  Returns (header int32[S, 2+B], entries [S, s]), equal to the
+    reference's ``fused_flat_csr``."""
+    n_s, b = qmats.shape[:2]
+    ns = [t[5].shape[0] for t in tables]
+    n_max, m_max = max(ns), max(t[5].shape[1] for t in tables)
+    kp = min(k, n_max)
+    kk = min(k, kp * m_max * m)
+    tri, ovs = [], []
+    for i, t in enumerate(tables):
+        adm, ov = _member_pairs(t, qmats[i], m, m_max,
+                                [p[i] for p in prunes])
+        ovs.append(ov)
+        tri.append(np.where(adm, ov.sum(axis=(2, 3)), 0))
+    # 1. (member, tile, row group) items: each member's words written once
+    rows = min(32, 1024 // max(m, 1))
+    tiles = [-(-n // NT) for n in ns]
+    tile0 = np.concatenate([[0], np.cumsum(tiles)])
+    nw = [-(-n // 32) for n in ns]
+    words = [np.full((b, w), -1, np.int64) for w in nw]
+    tsum = [np.zeros((b, w), np.int64) for w in nw]
+    for item in range(int(tile0[-1]) * -(-b // rows)):
+        tile = item % int(tile0[-1])
+        b0 = item // int(tile0[-1]) * rows
+        i = int(np.searchsorted(tile0, tile, side="right")) - 1
+        for r in range(b0, min(b0 + rows, b)):
+            for j0 in range((tile - tile0[i]) * NT,
+                            (tile - tile0[i] + 1) * NT, 32):
+                w = j0 // 32
+                if w >= nw[i]:
+                    continue
+                assert words[i][r, w] == -1
+                t = tri[i][r, j0:j0 + 32]
+                words[i][r, w] = sum(1 << l for l in range(len(t))
+                                     if t[l] > 0)
+                tsum[i][r, w] = t.sum()
+    assert all((w >= 0).all() for w in words)
+    # 2.-3. the kp cut, word offsets, header and starts, member by member
+    hdr = np.zeros((n_s, 2 + b), np.int32)
+    dt = np.int64 if wide else np.int32
+    ent = np.full((n_s, s), UNSET, dt)
+    wg = -(-n_max // 32)                  # phase-4 words a row, uniform
+    mq = m_max * m
+    for i in range(n_s):
+        w_i = nw[i]
+        per = -(-w_i // NT)
+        counts = np.zeros(b, np.int64)
+        nsel = np.zeros(b, np.int64)
+        tpre = np.zeros((b, w_i), np.int64)
+        sel = [list(x) for x in words[i]]
+        for r in range(b):
+            pcs = [bin(int(x)).count("1") for x in sel[r]]
+            cut, cword, pex = w_i, 0, 0
+            for th in range(NT):
+                run = pex
+                for w in range(min(th * per, w_i), min(th * per + per, w_i)):
+                    p = pcs[w]
+                    if p == 0:
+                        continue
+                    if run >= kp:
+                        cut = min(cut, w)
+                        break
+                    if run + p > kp:
+                        cword = _low_set_bits(int(sel[r][w]), kp - run)
+                        cut = min(cut, w + 1)
+                        break
+                    run += p
+                pex += sum(pcs[th * per:th * per + per])
+            full = cut - 1 if cword else cut
+            csum = sum(int(tri[i][r, (cut - 1) * 32 + l]) for l in range(32)
+                       if cword >> l & 1)
+            off = 0
+            for w in range(cut):
+                tpre[r, w] = off
+                off += int(tsum[i][r, w]) if w < full else csum
+            if cword:
+                sel[r][cut - 1] = cword
+            counts[r], nsel[r] = off, cut
+        row_end = np.cumsum(counts)
+        starts = row_end - counts
+        total = int(row_end[-1])
+        # 4. a warp a word, in any order: a lane a slot, each slot's
+        # triples after the word's offset and the triples of the slots
+        # before it in the word
+        for r in range(b):
+            for w in range(min(wg, int(nsel[r]))):
+                tri_w = [int(ovs[i][r, w * 32 + l].sum())
+                         if sel[r][w] >> l & 1 else 0 for l in range(32)]
+                for l in range(32):
+                    if not sel[r][w] >> l & 1:
+                        continue
+                    j = w * 32 + l
+                    off = int(tpre[r, w]) + sum(tri_w[:l])
+                    for p in np.flatnonzero(ovs[i][r, j].reshape(-1)):
+                        pos = int(starts[r]) + off
+                        if off < kk and pos < s:
+                            assert ent[i, pos] == UNSET
+                            ent[i, pos] = j * mq + p
+                        off += 1
+        ent[i, min(total, s):] = -1
+        for r in range(b):
+            if counts[r] > kk:
+                ent[i, int(starts[r]) + kk:min(int(row_end[r]), s)] = -1
+        pairc = max(sum(bin(int(x)).count("1") for x in words[i][r])
+                    for r in range(b))
+        hdr[i] = np.concatenate([[total, max(int(counts.max()), pairc)],
+                                 row_end])
+    return torch.from_numpy(hdr), torch.from_numpy(ent)
+
+
+def _fused_attr_model(tables, attrs, aidxs, rankbs, hdr_raw, ent, m: int,
+                      floors: bool = True, elide: bool = True):
+    """K5's attribution as the kernel splits it (port column sets on the
+    CPU): per member, chunks of CW words with keep words only below its
+    live entries, a member-local scan of the chunks' kept entries, each
+    chunk's kept entries placed at its offset and -1 in its positions past
+    the member's kept total, and the new row ends off the kept prefix
+    (X(b) = s in the member's first chunk).  Returns (header int32[S,
+    5+B], entries [S, s]), equal to the reference's ``fused_flat_attr``
+    stage."""
+    n_max, m_max = pdk.group_shape(tables)
+    f, t, l = pdk.attr_group_shape(aidxs)
+    n_s, s = ent.shape
+    nw = -(-s // 32)
+    cpm = max(1, -(-nw // CW))
+    hdrs, outs = [], []
+    for i, tab in enumerate(tables):
+        keep, _live, _row, n_trans, n_dec = pdk._attr_keep_plain(
+            pdk._pad_table_cols(tab, n_max, m_max).lo,
+            pdk._pad_attr_cols(attrs[i], n_max),
+            pdk._pad_attr_index(aidxs[i], f, t, l), rankbs[i], hdr_raw[i],
+            ent[i], m_max, m, floors, elide, None)
+        keep = keep.numpy()
+        e = ent[i].numpy()
+        h = hdr_raw[i].numpy().astype(np.int64)
+        row_end = h[2:]
+        b = row_end.shape[0]
+        live_end = min(max(int(h[0]), 0), s)
+        chunk = [(c * CW, min(c * CW + CW, nw)) for c in range(cpm)]
+        csum = [int(sum(keep[w * 32:min(w * 32 + 32, s)].sum()
+                        for w in range(w0, w1) if w * 32 < live_end))
+                for w0, w1 in chunk]
+        kept_all = sum(csum)
+        out = np.full(s, UNSET, e.dtype)
+        new_end = np.full(b, UNSET, np.int64)
+        x = np.minimum(row_end, live_end)
+        x[-1] = live_end
+        for c, (w0, w1) in enumerate(chunk):
+            base = sum(csum[:c])
+            for p in range(w0 * 32, min(w1 * 32, s)):
+                for r in np.flatnonzero(x == p):
+                    new_end[r] = row_end[r] - (p - base)
+                if p < live_end and keep[p]:
+                    assert out[base] == UNSET
+                    out[base] = e[p]
+                    base += 1
+            lo_ = max(w0 * 32, kept_all)
+            out[lo_:min(w1 * 32, s)] = -1
+        for r in np.flatnonzero(x == s):
+            new_end[r] = row_end[r] - (s - kept_all)
+        head = [new_end[-1], h[0], h[1], int(n_trans), int(n_dec)]
+        hdrs.append(np.concatenate([head, new_end]).astype(np.int32))
+        outs.append(out)
+    return torch.from_numpy(np.stack(hdrs)), torch.from_numpy(np.stack(outs))
+
+
+def _models_eq(stores, qmats, rankbs, prunes, s, k, wide, floors, elide,
+               ref_raw, ref_attr):
+    """Both models against the reference: the raw stage's, and the
+    attribution's over the port's raw CSR."""
+    if ref_raw is not None:
+        _eq(ref_raw, _fused_csr_model([st["table"] for st in stores],
+                                      qmats, prunes, M, s, k, wide))
+    raw = pdk.fused_flat_csr(
+        [_port_cols("table", st["table"]) for st in stores],
+        torch.from_numpy(qmats), prunes, M, s, k, wide)
+    _eq(ref_attr, _fused_attr_model(
+        [_port_cols("table", st["table"]) for st in stores],
+        [_port_cols("attr", st["attr"]) for st in stores],
+        [_port_cols("aidx", st["aidx"]) for st in stores],
+        torch.from_numpy(rankbs), *raw, M, floors, elide))
+
+
+# members of 300 slots (not a whole number of tiles), 40 (less than a
+# tile) and 96 whose slots are all FREE; interval widths 4, 2, 8
+EDGE = ((300, 4), (40, 2), (96, 8))
+
+
+def _edge_group(seed, b):
+    stores = [_inputs(seed * 10 + i, n=n, m_t=m_t, m=M, b=b)
+              for i, (n, m_t) in enumerate(EDGE)]
+    stores[2]["table"][4][:] = -1         # the attribution's status too
+    qmats = np.stack([st["qmat"] for st in stores])
+    r = min(2, b - 1)                     # a query interval over the line:
+    qmats[0, r, 7], qmats[0, r, 7 + M] = I64.min, I64.max   # PAD pairs
+    rankbs = np.stack([st["rankb"] for st in stores])
+    prunes = tuple(np.array([st["prune"][c] for st in stores],
+                            np.int32 if c == 2 else np.int64)
+                   for c in range(3))
+    return stores, qmats, rankbs, prunes
+
+
+SPLIT_CASES = [
+    pytest.param(30, 33, 8192, 256, False, True, True, id="b33"),
+    pytest.param(34, 1, 8192, 5, True, False, True, id="b1_kp_in_word_i64"),
+    pytest.param(32, 8, 24, 3, False, True, False, id="s_and_k_overflow")]
+
+
+@pytest.mark.parametrize("seed,b,s,k,wide,floors,elide", SPLIT_CASES)
+def test_fused_split_edges_equal(seed, b, s, k, wide, floors, elide):
+    """K5's work split at its edges: the port and both models equal the
+    reference's raw stage and attribution."""
+    stores, qmats, rankbs, prunes = _edge_group(seed, b)
+    tables = [_ref_cols("table", st["table"]) for st in stores]
+    ref_raw = rdk.fused_flat_csr(tables, qmats, prunes, M, s, k, wide)
+    _eq(ref_raw, pdk.fused_flat_csr(
+        [_port_cols("table", st["table"]) for st in stores],
+        torch.from_numpy(qmats), prunes, M, s, k, wide))
+    ref = _ref_fused_attr(stores, qmats, rankbs, prunes, s, k, wide, floors,
+                          elide)
+    _eq(ref, _port_fused_attr(stores, qmats, rankbs, prunes, s, k, wide,
+                              floors, elide))
+    _models_eq(stores, qmats, rankbs, prunes, s, k, wide, floors, elide,
+               ref_raw, ref)
+    hdr = np.asarray(ref_raw[0])
+    assert (hdr[2, 2:] == 0).all()        # the FREE member selects nothing
+    assert (hdr[:2, 0] > 0).all()
+    if k == 5:                            # a mask count passes kp
+        assert hdr[:, 1].max() > k
+    if s == 24:                           # both budgets overflow
+        assert (hdr[:, 0] > s).any() and (hdr[:, 1] > k).any()
 
 
 def _drain(seed, n, d):
