@@ -40,10 +40,12 @@ LIMITS = {"ACCORD_MERGE_MAX_REFS": 128, "ACCORD_SCATTER_MAX_COLS": 16,
           "ACCORD_SHARDED_MAX_SLICES": 16, "ACCORD_FUSED_MAX_STORES": 128}
 # launch geometry that the CPU tests' model of a kernel's decomposition
 # follows: K1b's and K5's threads a scan CTA, in which phase 2 walks a
-# row's mask words; the largest level of K8's dense frontier drain that
-# its first CTA finishes alone; the 32-entry words of a K5 attribution
-# chunk
+# row's mask words; the largest level of the frontier drain that its first
+# CTA takes alone, for the tile loader (K8 dense, K13) and the edge loader
+# (K8 ELL, in level entries), and the dependents in an item of the edge
+# loader's levels; the 32-entry words of a K5 attribution chunk
 GEOMETRY = {"ACCORD_DEPS_THREADS": 256, "ACCORD_DRAIN_HANDOVER": 128,
+            "ACCORD_DRAIN_HANDOVER_ELL": 512, "ACCORD_DRAIN_ELL_ITEM": 12,
             "ACCORD_FUSED_CHUNK_WORDS": 32}
 DEFINES = [f"-D{k}={v}" for k, v in {**LIMITS, **GEOMETRY}.items()]
 ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
@@ -160,6 +162,8 @@ def library() -> ctypes.CDLL:
         lib.accord_fused_attr_workspace_words.restype = ctypes.c_int64
         lib.accord_drain_fix_workspace_words.argtypes = [ctypes.c_int64]
         lib.accord_drain_fix_workspace_words.restype = ctypes.c_int64
+        lib.accord_drain_fix_ell_workspace_words.argtypes = [ctypes.c_int64] * 2
+        lib.accord_drain_fix_ell_workspace_words.restype = ctypes.c_int64
         _LIB = lib
         return lib
 

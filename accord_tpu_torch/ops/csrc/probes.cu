@@ -1,13 +1,16 @@
-// Latency probes: the cost of one grid barrier of a cooperative grid, and
-// of one block barrier with a shared-memory round trip, each measured as
-// an empty loop of ``iters`` steps.
+// Latency probes: the cost of one grid barrier of a cooperative grid, of
+// one block barrier with a shared-memory round trip, and of two dependent
+// L2 reads and a block barrier, each measured as an empty loop of
+// ``iters`` steps.
 //
 // Replaces no kernel of the JAX reference.  chip_smoke.py times them to
-// price the per-sweep floor of the fixpoint drains (K8): a Jacobi sweep
-// that ends on grid.sync() cannot cost less than the grid barrier, and a
-// level finished inside one CTA cannot cost less than a block barrier
-// plus the shared-memory counter it reads.  Bound: latency, not bytes or
-// operations.
+// price the per-sweep floor of the fixpoint drains (K8, K13): a Jacobi
+// sweep that ends on grid.sync() cannot cost less than the grid barrier,
+// a level finished inside one CTA cannot cost less than a block barrier
+// plus the shared-memory counter it reads, and one whose dependents lists
+// lie in global memory (K8 ELL) not less than its two dependent reads (a
+// row's offset, then its dependents) and the barrier.  Bound: latency,
+// not bytes or operations.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -46,11 +49,30 @@ __global__ void block_probe(ProbeArgs a) {
   if (threadIdx.x == 0) *a.out = seen;
 }
 
+// each step: thread 0 follows two links of a chain in global memory
+// (from L2: __ldcg) into one of two rotating slots, a block barrier, then
+// every thread reads the slot
+__global__ void chase_probe(ProbeArgs a, const int32_t* chain) {
+  __shared__ int32_t at[2];
+  if (threadIdx.x == 0) at[1] = 0;
+  __syncthreads();
+  int32_t seen = 0;
+  for (int64_t r = 0; r < a.iters; ++r) {
+    if (threadIdx.x == 0)
+      at[r & 1] = __ldcg(chain + __ldcg(chain + at[(r + 1) & 1]));
+    __syncthreads();
+    seen += *(volatile int32_t*)&at[r & 1];
+  }
+  if (threadIdx.x == 0) *a.out = seen;
+}
+
 }  // namespace
 
-// ptrs: out int32[1] (grid: the blocks launched; block: the counts read)
-// vals: mode (0 grid barrier, 1 block barrier), blocks wanted (grid mode),
-//       threads a block, iters
+// ptrs: out int32[1] (grid: the blocks launched; else what was read),
+//       then (mode 2) chain int32[n], chain[i] the next index of a cycle
+// vals: mode (0 grid barrier, 1 block barrier, 2 two dependent L2 reads
+//       and a block barrier), blocks wanted (grid mode), threads a block,
+//       iters
 ACCORD_EXPORT int accord_sync_probe(void* const* p, const int64_t* v,
                                     void* stream) {
   ProbeArgs a;
@@ -61,6 +83,7 @@ ACCORD_EXPORT int accord_sync_probe(void* const* p, const int64_t* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (v[0] == 0) return launch_cooperative(grid_probe, nt, v[1], a, st);
-  block_probe<<<1, nt, 0, st>>>(a);
+  if (v[0] == 2) chase_probe<<<1, nt, 0, st>>>(a, (const int32_t*)p[1]);
+  else block_probe<<<1, nt, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -28,18 +28,15 @@
 // sweep: one warp per row, each lane loading 16 bytes of the row at a time
 // (512 bytes a warp a step) and testing only the set bytes, a warp vote
 // ending the row at its first waiting edge.
-// drain_fix: modelled on K8's dense fixpoint (drain_fix.cu): the blocking
-// relation and the Stable rows are packed into bits once (2 MB at 8 x 512
-// x 4,096), each sweep ANDs a row's blocking words with the packed
-// unapplied words of the previous sweep (three rotating buffers: Jacobi
-// sweeps, as the reference's while loop), grid.sync() ends a sweep and a
-// flag in three rotating words ends the loop on the device.  Its time is
-// set by the grid barriers, one a sweep (depth + 1 of them).
-#include <cooperative_groups.h>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+// drain_fix: the frontier form of the fixpoint (drain_frontier.cuh), the
+// engine of K8's drain_fix_dense: its tile loader reads row i from slice
+// i / n_l's adjacency, status and executeAt and column j from slice
+// j / n_l's, tests the predicate of ``gates`` below, and writes each
+// slice's applied flags to its out.  One cooperative launch: counts and
+// levels, the grid on a level wider than K8's handover, the first CTA
+// alone on the others (config 3's 4,096-deep chain: 4,097 sweeps, its
+// lists in shared memory).
+#include "drain_frontier.cuh"
 
 namespace {
 
@@ -139,86 +136,6 @@ sweep(const __grid_constant__ SweepParams p) {
   }
 }
 
-struct FixParams {
-  SliceRef s[MAX_SLICES];
-  int32_t d, n_l, N, W;
-  uint32_t* blk;       // [N*W] packed blocking rows
-  uint32_t* bits;      // [4*W] three rotating applied sets, then Stable
-  int32_t* flags;      // [3]
-  int32_t* sweeps;
-};
-
-__global__ void __launch_bounds__(NT)
-drain_fix(const __grid_constant__ FixParams p) {
-  cg::grid_group grid = cg::this_grid();
-  const int64_t tid = (int64_t)blockIdx.x * NT + threadIdx.x;
-  const int64_t nthreads = (int64_t)gridDim.x * NT;
-  const int64_t warp = tid >> 5, nwarps = nthreads >> 5;
-  const int lane = threadIdx.x & 31;
-  const int32_t n_l = p.n_l, N = p.N;
-  const int64_t W = p.W;
-  uint32_t* stab = p.bits + 3 * W;
-
-  for (int64_t t = tid; t < (int64_t)N * W; t += nthreads) {
-    const int32_t i = (int32_t)(t / W), j0 = (int32_t)(t % W) * 32;
-    const SliceRef& r = p.s[i / n_l];
-    const int32_t il = i % n_l;
-    const uint8_t* row = r.adj + (int64_t)il * N + j0;
-    const int32_t nb = mini(32, N - j0);
-    uint32_t word = 0;
-    for (int32_t b = 0; b < nb; ++b)
-      if (row[b] && gates(p.s, n_l, r, il, j0 + b)) word |= 1u << b;
-    p.blk[t] = word;
-  }
-  for (int64_t v = tid; v < W; v += nthreads) {
-    uint32_t ap = 0, st = 0;
-    for (int32_t b = 0; b < 32 && v * 32 + b < N; ++b) {
-      const int32_t i = (int32_t)v * 32 + b;
-      const int32_t s = p.s[i / n_l].status[i % n_l];
-      if (s == SLOT_APPLIED) ap |= 1u << b;
-      if (s == SLOT_STABLE) st |= 1u << b;
-    }
-    p.bits[v] = ap;
-    p.bits[W + v] = 0;   // sweep 0 ORs its result into the second set
-    stab[v] = st;
-  }
-  if (tid == 0) p.flags[0] = p.flags[1] = p.flags[2] = 0;
-  grid.sync();
-
-  int64_t r = 0;
-  bool more = true;
-  while (more) {
-    const uint32_t* cur = p.bits + (r % 3) * W;
-    uint32_t* nxt = p.bits + ((r + 1) % 3) * W;
-    uint32_t* after = p.bits + ((r + 2) % 3) * W;   // the last sweep's input
-    for (int64_t v = tid; v < W; v += nthreads) {
-      after[v] = 0;
-      atomicOr(&nxt[v], cur[v]);
-    }
-    if (tid == 0) p.flags[(r + 1) % 3] = 0;
-    bool mine = false;
-    for (int64_t i = warp; i < N; i += nwarps) {
-      // warp-uniform: every lane reads the same row state
-      if (!((stab[i >> 5] & ~cur[i >> 5]) >> (i & 31) & 1)) continue;
-      const uint32_t* row = p.blk + i * W;
-      uint32_t wait = 0;
-      for (int64_t v = lane; v < W; v += 32) wait |= row[v] & ~cur[v];
-      if (!__any_sync(0xffffffffu, wait != 0) && lane == 0) {
-        atomicOr(&nxt[i >> 5], 1u << (i & 31));
-        mine = true;
-      }
-    }
-    if (mine) p.flags[r % 3] = 1;
-    grid.sync();
-    more = *(volatile int32_t*)&p.flags[r % 3] != 0;
-    ++r;
-  }
-  const uint32_t* fin = p.bits + (r % 3) * W;
-  for (int64_t i = tid; i < N; i += nthreads)
-    p.s[i / n_l].out[i % n_l] = (fin[i >> 5] >> (i & 31)) & 1;
-  if (tid == 0) *p.sweeps = (int32_t)r;
-}
-
 // ptrs per slice (8 each, slice-major): adj (null for a slice this launch
 // does not sweep), awaits, status, exec_msb, exec_lsb, exec_node, applied
 // (null in the frontier), out (null for a slice not swept)
@@ -233,6 +150,38 @@ int read_slices(void* const* p, int64_t d, SliceRef* s) {
   }
   return 0;
 }
+
+// every slice's rows and columns, for the engine's tile loader: row i is
+// row i % n_l of slice i / n_l
+struct SliceSrc {
+  SliceRef s[MAX_SLICES];
+  int32_t n_l;
+  int64_t N;
+  __device__ __forceinline__ const SliceRef& at(int64_t i) const {
+    return s[i / n_l];
+  }
+  __device__ __forceinline__ const uint8_t* row(int64_t i) const {
+    return at(i).adj + (i % n_l) * N;
+  }
+  __device__ __forceinline__ int32_t status(int64_t i) const {
+    return at(i).status[i % n_l];
+  }
+  __device__ __forceinline__ int64_t emsb(int64_t i) const {
+    return at(i).emsb[i % n_l];
+  }
+  __device__ __forceinline__ int64_t elsb(int64_t i) const {
+    return at(i).elsb[i % n_l];
+  }
+  __device__ __forceinline__ int32_t enode(int64_t i) const {
+    return at(i).enode[i % n_l];
+  }
+  __device__ __forceinline__ uint8_t awaits(int64_t i) const {
+    return at(i).awaits[i % n_l];
+  }
+  __device__ __forceinline__ void write(int64_t i, bool ap, bool) const {
+    at(i).out[i % n_l] = ap;
+  }
+};
 
 }  // namespace
 
@@ -262,24 +211,27 @@ ACCORD_EXPORT int accord_sharded_sweep(void* const* p, const int64_t* v,
   return (int)cudaGetLastError();
 }
 
-// ptrs: 8 per slice (applied null) for d slices, then blk int32[N*W]
-//       (W = ceil(N/32)), bits int32[4*W], flags int32[3], sweeps int32[1]
-// vals: d, n_l, N
+// ptrs: 8 per slice (applied null) for d slices, then workspace
+//       int32[accord_drain_fix_workspace_words(N)], sweeps int32[1]
+// vals: d, n_l, N (= d * n_l), workspace words
 ACCORD_EXPORT int accord_sharded_drain_fix(void* const* p, const int64_t* v,
                                            void* stream) {
-  FixParams a;
-  const int64_t d = v[0];
-  int e = read_slices(p, d, a.s);
+  SliceSrc src;
+  const int64_t d = v[0], N = v[2];
+  int e = read_slices(p, d, src.s);
   if (e) return e;
-  a.d = (int32_t)d;
-  a.n_l = (int32_t)v[1];
-  a.N = (int32_t)v[2];
-  a.W = (a.N + 31) / 32;
-  a.blk = (uint32_t*)p[8 * d];
-  a.bits = (uint32_t*)p[8 * d + 1];
-  a.flags = (int32_t*)p[8 * d + 2];
-  a.sweeps = (int32_t*)p[8 * d + 3];
-  // a warp per row
-  return launch_cooperative(drain_fix, NT, ((int64_t)a.N * 32 + NT - 1) / NT,
-                            a, (cudaStream_t)stream);
+  if (N < 0 || N > INT32_MAX / 2 || N != d * v[1] ||
+      v[3] < tile_workspace_words(N))
+    return (int)cudaErrorInvalidValue;
+  src.n_l = (int32_t)v[1];
+  src.N = N;
+  TileLoader<SliceSrc> a = tile_loader(src, N, (uint32_t*)p[8 * d]);
+  a.f.sweeps = (int32_t*)p[8 * d + 1];
+  a.vec = N % 16 == 0;
+  for (int64_t k = 0; k < d; ++k)
+    a.vec = a.vec && (uintptr_t)src.s[k].adj % 16 == 0;
+  // a warp a tile or a row, whichever is more
+  const int64_t want = (max64(a.W * a.W, N) + FW - 1) / FW;
+  return launch_cooperative(frontier_kernel<TileLoader<SliceSrc>>, FNT, want,
+                            a, (cudaStream_t)stream, FIX_SMEM);
 }

@@ -835,10 +835,6 @@ def level_dense(state: drk.DrainState):
 
 # -- K8: the fixpoint drains ---------------------------------------------------
 
-def _flags(dev) -> torch.Tensor:
-    return torch.empty(3, dtype=torch.int32, device=dev)
-
-
 def _square(state: drk.DrainState) -> int:
     n = state.status.shape[0]
     if state.adj.shape != (n, n):
@@ -853,16 +849,33 @@ def _drain_outputs(dev, n: int):
             torch.empty((), dtype=torch.int32, device=dev))
 
 
+def _fix_buffer(dev, words: int, n: int):
+    """One allocation for K8 ELL: its workspace of ``words`` int32 words,
+    and its outputs (applied bool[n], newly bool[n], sweeps int32[]) as
+    views behind it, which keep it alive."""
+    buf = torch.empty(words + 1 + -(-2 * n // 4), dtype=torch.int32,
+                      device=dev)
+    flags = buf[words + 1:].view(torch.bool)
+    return buf[:words], (flags[:n], flags[n:2 * n], buf[words])
+
+
 @functools.lru_cache(maxsize=64)
 def _drain_fix_words(n: int) -> int:
-    """The int32 words of K8 dense's workspace, as its entry point lays it
-    out."""
+    """The int32 words of the tile loader's workspace (K8 dense, K13), as
+    its entry points lay it out."""
     return _build.library().accord_drain_fix_workspace_words(n)
+
+
+@functools.lru_cache(maxsize=64)
+def _drain_fix_ell_words(n: int, d: int) -> int:
+    """The int32 words of K8 ELL's workspace, as its entry point lays it
+    out."""
+    return _build.library().accord_drain_fix_ell_workspace_words(n, d)
 
 
 def drain_fix_dense(state: drk.DrainState):
     """(applied, newly, sweeps int32[]) by one cooperative launch (the
-    frontier form of the fixpoint, ``csrc/drain_fix.cu``)."""
+    frontier form of the fixpoint, ``csrc/drain_frontier.cuh``)."""
     if not on_cuda(state.status):
         return drk._drain_fix_plain(state)
     dev = state.status.device
@@ -876,17 +889,16 @@ def drain_fix_dense(state: drk.DrainState):
 
 
 def drain_fix_ell(state: drk.EllDrainState):
-    """(applied, newly, sweeps int32[]) by one cooperative launch."""
+    """(applied, newly, sweeps int32[]) by one cooperative launch and one
+    allocation (the frontier form of the fixpoint over the ELL edges)."""
     if not on_cuda(state.status):
         return drk._drain_ell_fix_plain(state)
     dev = state.status.device
     _check_cols(state)
     n, d = state.adj_idx.shape
-    bidx = torch.empty(max(n * d, 1), dtype=torch.int32, device=dev)
-    stamp = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
-    out = _drain_outputs(dev, n)
-    _launch("drain_fix_ell", dev, [*state, bidx, stamp, _flags(dev), *out],
-            [n, d])
+    words = _drain_fix_ell_words(n, d)
+    ws, out = _fix_buffer(dev, words, n)
+    _launch("drain_fix_ell", dev, [*state, ws, *out], [n, d, words])
     return out
 
 
@@ -1172,14 +1184,12 @@ def sharded_drain_fix(rows, cols, n_l: int, n: int) -> torch.Tensor:
     if sorted(r[8] for r in rows) != list(range(d)):
         raise ValueError("sharded_drain_fix sweeps every slice in one "
                          "launch")
-    w = -(-n // 32)
-    blk = torch.empty(max(n * w, 1), dtype=torch.int32, device=dev)
-    bits = torch.empty(max(4 * w, 1), dtype=torch.int32, device=dev)
-    sweeps = torch.empty(1, dtype=torch.int32, device=dev)
+    words = _drain_fix_words(n)
+    buf = torch.empty(words + 1, dtype=torch.int32, device=dev)
     _launch("sharded_drain_fix", dev,
             _slice_ptrs(rows, cols, n_l, n, False)
-            + [blk, bits, _flags(dev), sweeps], [d, n_l, n])
-    return sweeps
+            + [buf[:words], buf[words:]], [d, n_l, n, words])
+    return buf[words:]
 
 
 # -- K2 extension: the mesh-bucketed entry tokens ------------------------------

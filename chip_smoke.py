@@ -27,9 +27,16 @@ Phases:
      edges (no valid candidate, merge-sorted rows, rows past SMEM_CODES,
      kk in a run of equal codes, s in a row, a row-sharded slice, more
      rows than CTAs) and K8 dense at N = 0 to 8,193 and either side of
-     its handover; K1a also at the burn's median call, K8 also on a wide
-     input and on narrow-then-wide levels, and the latency of one grid
-     barrier and one block barrier (ops/csrc/probes.cu); K5 on the CPU
+     its handover; K8 ELL on the ELL forms of those graphs, either side of
+     its own handover, on duplicate deps, -1 holes, dead deps, executeAt
+     ties and a count past a byte, and at 100,000 and 120,000 rows (wide
+     levels handed back to the grid, counts past the first CTA's shared
+     memory); K13's one-launch drain on K8's handover graphs and a wide
+     input, 8 slices; K1a also at the burn's median call, K8 dense and
+     K8 ELL also on narrow-then-wide levels, K8 dense on a wide input,
+     and the latency of one grid barrier, one block barrier and two
+     dependent L2 reads
+     (ops/csrc/probes.cu); K5 on the CPU
      tests' edge groups (members of 300, 40 and 96 FREE slots, unequal
      interval widths, a query interval over the whole line, B = 1 and 33,
      a kp cut inside a word, s and k overflowing), on two stores and on
@@ -110,7 +117,8 @@ restore.  A real launch the library refuses for an invalid argument
 (cudaErrorInvalidValue) must instead propagate, off the fault ladder.
 Then torch.profiler counts the device operations of one K12 call (one
 kernel), one live K3 call (one copy, one kernel) and K1a's, K1b's, K2's,
-K5's and K8's calls (one kernel, no memset, no copy; K5's checked last),
+K5's, K8's and K13's one-launch drain's calls (one kernel, no memset, no
+copy; K5's, K8 ELL's and K13's the most of three traces),
 times one whole fused flush at phase 7's recorded call (the host's
 enqueue and wall time beside its CUDA-event time, device tensors in and
 as the dispatcher uploads them), and traces two phase-4 batches and four
@@ -1090,18 +1098,26 @@ def sync_probe_us(torch, mode: int, blocks: int, threads: int,
                   iters: int = 4096) -> dict:
     """One step of ``ops/csrc/probes.cu``'s empty loops (mode 0: a grid
     barrier of a cooperative grid of ``blocks`` x ``threads``; mode 1: a
-    block barrier and a shared-memory round trip), in us: the CUDA-event
-    time of ``iters`` + 1 steps less that of one, over ``iters``."""
+    block barrier and a shared-memory round trip; mode 2: two dependent
+    reads from L2, along a random cycle over 4 MB, and a block barrier),
+    in us: the CUDA-event time of ``iters`` + 1 steps less that of one,
+    over ``iters``."""
     import ctypes
     from accord_tpu_torch.ops import _build
     fn = _build.library().accord_sync_probe
     fn.argtypes = [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    chain = torch.zeros(1, dtype=torch.int32, device="cuda")
+    if mode == 2:
+        perm = np.random.default_rng(5).permutation(1 << 20)
+        nxt = np.empty(1 << 20, np.int32)
+        nxt[perm] = np.roll(perm, -1)
+        chain = torch.from_numpy(nxt).to("cuda")
     stream = torch.cuda.current_stream().cuda_stream
 
     def run(it):
-        p = (ctypes.c_uint64 * 1)(out.data_ptr())
+        p = (ctypes.c_uint64 * 2)(out.data_ptr(), chain.data_ptr())
         v = (ctypes.c_int64 * 4)(mode, blocks, threads, it)
         rc = fn(p, v, stream)
         check(rc == 0, f"sync probe mode {mode}: error {rc}")
@@ -1161,13 +1177,13 @@ def levels_graph(sizes, n_pad, seed, deg=3):
             np.ones(n_pad, np.int32), np.zeros(n_pad, bool))
 
 
-def fix_edge_cases(torch, kern, drk, convert, dev) -> dict:
-    """K8 dense at the edges of the frontier form: N = 0, 1, 31, 33 and
-    4,097 (rows not 16-byte aligned), a level either side of the handover
-    size and a wide level after the handover (the first CTA alone), and
-    (on the card) 8,193 rows, past the counts held in shared memory."""
+def k8_graphs(dev) -> dict:
+    """K8 dense's edge graphs: N = 0, 1, 31, 33 and 4,097 (rows not
+    16-byte aligned), a level either side of the handover size and a wide
+    level after the handover (back to the grid), and (on the card) 8,193
+    rows, past the lists held in shared memory."""
     from accord_tpu_torch.ops import _build
-    h = _build.GEOMETRY.get("ACCORD_DRAIN_HANDOVER", 128)
+    h = _build.GEOMETRY["ACCORD_DRAIN_HANDOVER"]
     graphs = {"n0": levels_graph((), 0, 1), "n1": levels_graph((1,), 1, 2),
               "n31": small_drain(70, 31)[0], "n33": small_drain(71, 33)[0],
               "handover_below": levels_graph((h - 1, 3, 3), 4 * h, 11),
@@ -1179,9 +1195,123 @@ def fix_edge_cases(torch, kern, drk, convert, dev) -> dict:
               "n4097": levels_graph((1800, 1500, 797), 4097, 7)}
     if dev.type == "cuda":
         graphs["n8193"] = levels_graph((4000, 8, 4000, 185), 8193, 16)
+    return graphs
+
+
+def fix_edge_cases(torch, kern, drk, convert, dev) -> dict:
+    """K8 dense on its edge graphs (``k8_graphs``)."""
     return {f"drain_fix_dense[{tag}]": fix_case(
         torch, kern, drk,
         convert.tables_from_numpy({"drain": g}, dev)["drain"])
+        for tag, g in k8_graphs(dev).items()}
+
+
+def ell_of(dense):
+    """The ELL form of a dense case: a row's deps in slot order, -1 padded
+    to the widest row (at least one column)."""
+    adj = dense[0]
+    width = max(1, int(adj.sum(axis=1).max(initial=0)))
+    idx = np.full((adj.shape[0], width), -1, np.int32)
+    for i in range(adj.shape[0]):
+        e = np.nonzero(adj[i])[0]
+        idx[i, :len(e)] = e
+    return (idx,) + tuple(dense[1:])
+
+
+def levels_ell(sizes, n_pad, seed, deg=3):
+    """``levels_graph`` in ELL form, built without the dense array: a row
+    of antichain l > 0 lists 1 to ``deg`` rows of antichain l - 1, drawn
+    with replacement (a dep may repeat), -1 padded to ``deg``."""
+    rng = np.random.default_rng(seed)
+    slots = rng.permutation(n_pad)[:sum(sizes)]
+    idx = np.full((n_pad, deg), -1, np.int32)
+    status = np.full(n_pad, -1, np.int32)
+    msb = np.zeros(n_pad, np.int64)
+    ends = np.cumsum(sizes)
+    for lv, (a, b) in enumerate(zip(ends - sizes, ends)):
+        rows = slots[a:b]
+        status[rows] = 4
+        msb[rows] = lv
+        if lv:
+            prev = slots[a - sizes[lv - 1]:a]
+            k = rng.integers(1, deg + 1, len(rows))
+            pick = rng.choice(prev, (len(rows), deg))
+            idx[rows] = np.where(np.arange(deg)[None, :] < k[:, None], pick,
+                                 -1)
+    return (idx, status, msb, np.zeros(n_pad, np.int64),
+            np.ones(n_pad, np.int32), np.zeros(n_pad, bool))
+
+
+def ell_graph(n, rows, status, msb=None, node=None, awaits=()):
+    """A hand-made ELL case: ``rows`` {i: its adj_idx row, -1 holes and
+    duplicates kept}, -1 padded to the widest; executeAt ascending by slot
+    unless ``msb`` / ``node`` say otherwise (the CPU tests' ``_ell_graph``)."""
+    width = max(len(r) for r in rows.values())
+    idx = np.full((n, width), -1, np.int32)
+    for i, r in rows.items():
+        idx[i, :len(r)] = r
+    return (idx, np.asarray(status, np.int32),
+            np.asarray(range(n) if msb is None else msb, np.int64),
+            np.zeros(n, np.int64),
+            np.asarray([1] * n if node is None else node, np.int32),
+            np.asarray([i in awaits for i in range(n)], bool))
+
+
+def hot_legs_ell(n, chains, d=8, seed=41):
+    """``hot_drain_legs``'s ELL drain at ``n`` rows in ``chains`` hot
+    chains (every row Stable, executeAt ascending by slot)."""
+    rng = np.random.default_rng(seed)
+    idx = np.full((n, d), -1, np.int32)
+    for i in range(chains, n):
+        idx[i, 0] = i - chains
+        extra = rng.integers(1, d, 1)[0]
+        lo = max(0, i - 3 * chains)
+        if lo < i - 1:
+            idx[i, 1:1 + extra] = rng.integers(lo, i - 1, extra)
+    return (idx, np.full(n, 4, np.int32), np.arange(n, dtype=np.int64),
+            np.zeros(n, np.int64), np.ones(n, np.int32), np.zeros(n, bool))
+
+
+def fix_ell_edge_cases(torch, kern, drk, convert, dev) -> dict:
+    """K8 ELL at the edges of its frontier form (the CPU tests' cases): the
+    ELL forms of K8 dense's edge graphs, a first level either side of the
+    ELL handover and a wide level after it, duplicate deps (counted per
+    edge), -1 holes, FREE and INVALIDATED deps, executeAt ties, a count
+    past a byte (D = 300), config 3's hot chains at 4,096 rows, two rows
+    that 6,400 wait on (a level of 2 rows and 1,068 items); on the
+    card 100,000 rows whose wide levels the first CTA hands back to the
+    grid (its counts in shared memory written back), and 120,000 rows
+    whose counts do not fit it."""
+    from accord_tpu_torch.ops import _build
+    h = _build.GEOMETRY["ACCORD_DRAIN_HANDOVER_ELL"]
+    graphs = {f"dense {k}": ell_of(g) for k, g in k8_graphs(dev).items()}
+    graphs.update({
+        "handover_below": levels_ell((h - 1, 3, 3), 4 * h, 21),
+        "handover_at": levels_ell((h, 3, 3), 4 * h, 22),
+        "handover_above": levels_ell((h + 1, 3, 3), 4 * h, 23),
+        "handover_later": levels_ell((h + 1, h, h + 1, 2), 4 * h, 24),
+        "duplicates": ell_graph(
+            6, {2: [1], 3: [1, 2, 1], 4: [0, 3, 0, 3], 5: [5, 4, 5]},
+            [5, 4, 4, 4, 4, 4], awaits=(5,)),
+        "holes": ell_graph(
+            6, {1: [-1, 0, -1], 2: [-1, -1, 1], 3: [1, -1, 2, -1],
+                5: [-1, 3]}, [4] * 6),
+        "free_invalidated": ell_graph(
+            6, {0: [1, 2], 4: [2, 0, 1], 5: [1, 3]}, [4, -1, 6, 1, 4, 4]),
+        "ties": ell_graph(5, {1: [0], 2: [0, 1], 3: [2], 4: [3, 1]}, [4] * 5,
+                          msb=[3] * 5, node=[1, 2, 3, 1, 4]),
+        "wide_rows": ell_graph(
+            4, {1: [0] * 260 + [-1] * 40, 2: [1] * 300, 3: [2, 0]}, [4] * 4),
+        "hot_legs": hot_legs_ell(4096, 32),
+        "hubs": ell_graph(6402, {i: [0, 1] for i in range(2, 6402)},
+                          [4] * 6402)})
+    if dev.type == "cuda":
+        graphs["n100k wide levels handed back"] = levels_ell(
+            (2, 1, 3000, 3000, 2, 1), 100_000, 25)
+        graphs["n120k counts past shared memory"] = levels_ell(
+            (600, 30_000, 2, 30_000, 1), 120_000, 26)
+    return {f"drain_fix_ell[{tag}]": fix_case(
+        torch, kern, drk, convert.tables_from_numpy({"ell": g}, dev)["ell"])
         for tag, g in graphs.items()}
 
 
@@ -1435,6 +1565,7 @@ def small_cases(torch, dev, kern, dk, drk, convert):
     cases.update(dense_edge_cases(torch, kern, dk, convert, dev))
     cases.update(bucket_edge_cases(torch, kern, dk, convert, dev))
     cases.update(fix_edge_cases(torch, kern, drk, convert, dev))
+    cases.update(fix_ell_edge_cases(torch, kern, drk, convert, dev))
     # rows with more candidates than shared memory holds (C > 4096) sort
     # in global scratch: 8 intervals x 4 probes x 128 entries + the wide list
     for seed, wide in ((6, False), (7, True)):
@@ -2902,6 +3033,17 @@ def mesh_small_cases(torch, dev, kern, dk, drk, psh, convert, mesh):
             cases[f"{name}[n{n}]"] = sweep_case(torch, kern, drk, psh, *args)
         cases[f"sharded_drain_fix[n{n}]"] = fixd_case(
             torch, kern, drk, psh, *sweep_args(torch, psh, mesh, st, False))
+    # K13 on K8's handover graphs and a wide input (every level on the
+    # grid), sliced 8 ways
+    graphs = {k: g for k, g in k8_graphs(dev).items()
+              if k.startswith("handover")}
+    graphs["wide"] = wide_drain_input(
+        convert, dev, 4096 if dev.type == "cuda" else 512)
+    for tag, g in graphs.items():
+        st = (g if isinstance(g, drk.DrainState) else
+              convert.tables_from_numpy({"drain": g}, dev)["drain"])
+        cases[f"sharded_drain_fix[{tag}]"] = fixd_case(
+            torch, kern, drk, psh, *sweep_args(torch, psh, mesh, st, False))
     return cases
 
 
@@ -3402,6 +3544,12 @@ def main(argv=None) -> int:
     real["level_dense"] = level_case(torch, kern, drk, cstate)
     # K8-K10 at phase 8's shapes: the 100k ELL drain, the 4,096-deep chain
     real["drain_fix_ell"] = fix_case(torch, kern, drk, ell3)
+    # and on narrow levels between wide ones (phase 3's 120,000 rows):
+    # the grid on the wide levels, the first CTA on the narrow
+    ell_ntw = convert.tables_from_numpy({"ell": levels_ell(
+        (600, 30_000, 2, 30_000, 1), 120_000, 26)}, dev)["ell"]
+    real["drain_fix_ell[narrow then wide]"] = fix_case(torch, kern, drk,
+                                                       ell_ntw)
     real["drain_fix_dense"] = fix_case(torch, kern, drk, dense3)
     # and on a wide input: 4 antichains of NDD3 / 4 rows, 5 sweeps
     wide3 = wide_drain_input(convert, dev, NDD3)
@@ -3429,6 +3577,7 @@ def main(argv=None) -> int:
         torch, dk, *rec.calls["deps_bucketed"][:2])}
     fix_sweeps = {tag: int(kern.drain_fix_dense(st)[2]) for tag, st in (
         ("chain", dense3), ("wide", wide3))}
+    fix_sweeps["ell_100k"] = int(kern.drain_fix_ell(ell3)[2])
     log("K1a rows: " + json.dumps(k1a_rows) + "; K8 sweeps: "
         + json.dumps(fix_sweeps))
     pack_t = pack_timings(torch, kern, dk, *rec.calls["scatter_rows"][0],
@@ -3456,6 +3605,7 @@ def main(argv=None) -> int:
         "level_ell": list(dstate.adj_idx.shape),
         "level_dense": list(cstate.adj.shape),
         "drain_fix_ell": list(ell3.adj_idx.shape),
+        "drain_fix_ell[narrow then wide]": list(ell_ntw.adj_idx.shape),
         "drain_fix_dense": list(dense3.adj.shape),
         "drain_fix_dense[wide]": list(wide3.adj.shape),
         "drain_fix_dense[narrow then wide]": [NDD3, NDD3],
@@ -3981,6 +4131,11 @@ def main(argv=None) -> int:
         for name in ("drain_fix_dense", "drain_fix_dense[wide]",
                      "drain_fix_dense[narrow then wide]"):
             call_ops[name] = device_ops(torch, real[name][0])
+        # K8 ELL and K13's one-launch drain: the most of three traces
+        for name in ("drain_fix_ell", "drain_fix_ell[narrow then wide]"):
+            call_ops[name] = device_ops(torch, real[name][0], takes=3)
+        call_ops["sharded_drain_fix"] = device_ops(
+            torch, mesh_real["sharded_drain_fix"][0], takes=3)
         log("device operations per call: " + json.dumps(call_ops))
         for name, ops_ in call_ops.items():
             if name.startswith("attr_post"):
@@ -3990,7 +4145,8 @@ def main(argv=None) -> int:
             if name.startswith("deps_dense"):
                 check(ops_["kernels"] == 1 and ops_["memsets"] == 0,
                       f"K1b {name}: not one kernel and no memset {ops_}")
-            if name.startswith(("deps_bucketed", "drain_fix_dense")):
+            if name.startswith(("deps_bucketed", "drain_fix",
+                                "sharded_drain_fix")):
                 check(ops_["kernels"] == 1 and ops_["copies"] == 0
                       and ops_["memsets"] == 0,
                       f"{name}: not one kernel and no copy a call {ops_}")
@@ -4060,8 +4216,11 @@ def main(argv=None) -> int:
     log("K5 whole flush at phase 7's recorded call: " + json.dumps(k5_flush))
     # the latency floors of a sweep: one grid barrier of the fixpoint's
     # grid (the earlier design's: a warp a row, 256-thread CTAs; the
-    # frontier design's: every resident 1,024-thread CTA), and one block
-    # barrier with a shared-memory round trip
+    # frontier design's: every resident 1,024-thread CTA), one block
+    # barrier with a shared-memory round trip (a level of lists in shared
+    # memory), and two dependent L2 reads with a block barrier (a level of
+    # K8 ELL's lists in global memory); a drain's floor is its sweeps x
+    # its level's
     sync_floor = {}
     if on_cuda:
         n3 = dense3.status.shape[0]
@@ -4070,8 +4229,19 @@ def main(argv=None) -> int:
                                              256),
             "grid_resident_1024": sync_probe_us(torch, 0, 1 << 20, 1024),
             "block_256": sync_probe_us(torch, 1, 1, 256),
-            "block_1024": sync_probe_us(torch, 1, 1, 1024)}
+            "block_1024": sync_probe_us(torch, 1, 1, 1024),
+            "two_l2_reads_block_256": sync_probe_us(torch, 2, 1, 256)}
         log("sweep latency floors [us a step]: " + json.dumps(sync_floor))
+        blk, l2 = (sync_floor[k]["us"] for k in ("block_256",
+                                                 "two_l2_reads_block_256"))
+        sync_floor["drain_floor_ms"] = {
+            "drain_fix_dense chain": fix_sweeps["chain"] * blk * 1e-3,
+            "sharded_drain_fix chain": fix_sweeps["chain"] * blk * 1e-3,
+            "drain_fix_ell 100k": fix_sweeps["ell_100k"] * l2 * 1e-3,
+            "drain_fix_ell 100k, barriers only":
+                fix_sweeps["ell_100k"] * blk * 1e-3}
+        log("drain latency floors [ms]: "
+            + json.dumps(sync_floor["drain_floor_ms"]))
 
     profiles = {}
     if on_cuda:
@@ -4143,7 +4313,8 @@ def main(argv=None) -> int:
                "k1a_rows": k1a_rows, "k8_sweeps": fix_sweeps,
                "k8_more": {k: dict(rows[k], shape=shapes[k]) for k in (
                    "drain_fix_dense[wide]",
-                   "drain_fix_dense[narrow then wide]")},
+                   "drain_fix_dense[narrow then wide]",
+                   "drain_fix_ell[narrow then wide]")},
                "sync_floor_us": sync_floor, "k5_flush": k5_flush,
                "k5_burn": k5_burn,
                "seconds": time.perf_counter() - t_start}

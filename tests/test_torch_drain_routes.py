@@ -169,15 +169,16 @@ def test_logsq_equals_reference_at_tile_edges(n):
 
 # -- K8 dense's frontier form, in plain arithmetic ------------------------------
 #
-# csrc/drain_fix.cu ``fix_frontier_kernel`` does not sweep every row: it
-# counts each Stable row's gating deps not applied at the start, and each
+# csrc/drain_frontier.cuh ``frontier_kernel`` with its tile loader (K8
+# dense, and K13 on slices) does not sweep every row: it counts each
+# Stable row's gating deps not applied at the start, and each
 # level decrements the counts of the Stable rows that the level's rows
 # gate (the transposed words); a row whose count reaches 0 joins the next
 # level, in whatever order the atomics leave it.  The grid works on a
-# level while it holds more than HANDOVER rows (ops/_build.py GEOMETRY,
-# which the kernel is built with); from the first level that holds fewer,
-# the first CTA finishes alone.  This model follows those steps and is
-# held to the reference's drain_levels, sweeps included.
+# level that holds more than HANDOVER rows (ops/_build.py GEOMETRY, which
+# the kernel is built with), the first CTA alone on one that holds fewer,
+# handing a wider level back to the grid.  This model follows those steps
+# and is held to the reference's drain_levels, sweeps included.
 
 HANDOVER = _build.GEOMETRY["ACCORD_DRAIN_HANDOVER"]
 
@@ -201,10 +202,10 @@ def _frontier_drain_model(dense, rng):
     blk_t = (blk & stable[:, None]).T     # dep j -> the Stable rows it gates
     cnt = np.where(stable, (blk & ~app0[None, :]).sum(axis=1), -1)
     level = [int(i) for i in np.nonzero(stable & (cnt == 0))[0]]
-    modes, block = [], False
+    modes = []
     while level:
-        block = block or len(level) <= HANDOVER
-        modes.append(("block" if block else "grid", len(level)))
+        modes.append(("block" if len(level) <= HANDOVER else "grid",
+                      len(level)))
         nxt = []
         for j in rng.permutation(level):
             for i in np.nonzero(blk_t[j])[0]:
@@ -281,8 +282,9 @@ K8_GRAPHS = {
 def test_frontier_drain_model_equals_reference(name):
     """The model of K8 dense's frontier form equals the reference's
     drain_levels (applied, newly, sweeps), as does the port's plain
-    version, at the edges named; the handover falls on the first level of
-    at most HANDOVER rows and lasts."""
+    version, at the edges named; a level of at most HANDOVER rows is the
+    first CTA's, a wider one the grid's (handover_later: grid, first CTA,
+    grid again, first CTA)."""
     dense = K8_GRAPHS[name]()
     ref = rdrk.drain_levels(rdrk.DrainState(*map(jnp.asarray, dense)))
     got, modes = _frontier_drain_model(dense, np.random.default_rng(5))
@@ -290,13 +292,13 @@ def test_frontier_drain_model_equals_reference(name):
     port = convert.tables_from_numpy({"drain": dense}, "cpu")["drain"]
     _eq(ref, pdrk.drain_levels(port))
     sizes = [m[1] for m in modes]
-    assert [m[0] for m in modes] == [
-        "grid" if all(x > H for x in sizes[:i + 1]) else "block"
-        for i in range(len(sizes))]
+    assert [m[0] for m in modes] == ["grid" if x > H else "block"
+                                     for x in sizes]
     if name.startswith("handover"):
         assert sizes[0] == {"below": H - 1, "at": H, "above": H + 1,
                             "later": H + 1}[name.split("_")[1]]
-        assert modes[0][0] == ("grid" if sizes[0] > H else "block")
+    if name == "handover_later":
+        assert [m[0] for m in modes] == ["grid", "block", "grid", "block"]
     if name in ("cycle", "self_gating", "behind_non_stable"):
         assert not got[0].all()
 
@@ -314,6 +316,199 @@ def test_frontier_drain_model_on_seeded_graphs():
     dense = _arrays(chain_case(64), 64, 4)[0]
     got, modes = _frontier_drain_model(dense, rng)
     assert int(got[2]) == 64 and {m for m, _n in modes} == {"block"}
+
+
+# -- K8 ELL's frontier form (the edge loader), in plain arithmetic -------------
+#
+# csrc/drain_fix.cu ``EdgeLoader`` counts, per Stable row, its edges that
+# gate (the reference's _ell_blocking) and whose dep is not applied at the
+# start: per edge, so a dep listed twice counts twice.  The lists are those
+# edges transposed into CSR (a length per dep, offsets by a scan, each edge
+# placed in whatever order the atomics leave it), and a row listed twice in
+# a dep's list is decremented twice.  A level entry of the kernel is a row
+# of at most ITEM dependents or an item of ITEM dependents of a heavier
+# row (its list padded with -1, which moves no count): a level's size is
+# the sum of max(1, ceil(dependents / ITEM)) over its rows.
+# The engine then walks the levels as for the dense form, with the ELL
+# handover (ops/_build.py GEOMETRY, which the kernel is built with) in
+# items; the counts fit the byte a row the first CTA keeps them in while
+# D <= 255.
+
+HANDOVER_ELL = _build.GEOMETRY["ACCORD_DRAIN_HANDOVER_ELL"]
+ITEM = _build.GEOMETRY["ACCORD_DRAIN_ELL_ITEM"]
+
+
+def _ell_frontier_model(ell, rng):
+    """((applied, newly, sweeps), [(mode, level size in items), ...])."""
+    adj_idx, status, msb, lsb, node, awaits = ell
+    n, d = adj_idx.shape
+    j = np.clip(adj_idx, 0, None).astype(np.int64)
+    um, ul = msb.view(np.uint64), lsb.view(np.uint64)
+    before = ((um[j] < um[:, None])
+              | ((um[j] == um[:, None])
+                 & ((ul[j] < ul[:, None])
+                    | ((ul[j] == ul[:, None]) & (node[j] < node[:, None])))))
+    st_j = status[j]
+    dead = (st_j == INVALIDATED) | (st_j == FREE)
+    undecided = (st_j >= 0) & (st_j < COMMITTED)
+    stable, app0 = status == STABLE, status == APPLIED
+    counted = ((adj_idx >= 0) & ~dead & (undecided | awaits[:, None] | before)
+               & ~app0[j] & stable[:, None])
+    cnt = counted.sum(axis=1)
+    if d <= 255:
+        assert cnt.max(initial=0) <= 255
+    rows, cols = np.nonzero(counted)
+    deps = j[rows, cols]
+    deg = np.bincount(deps, minlength=n)
+    off = np.cumsum(deg) - deg
+    dep = np.empty(len(deps), np.int64)
+    fill = np.zeros(n, np.int64)
+    for e in rng.permutation(len(deps)):
+        dep[off[deps[e]] + fill[deps[e]]] = rows[e]
+        fill[deps[e]] += 1
+    items = np.maximum(1, -(-deg // ITEM))
+    level = [int(i) for i in np.nonzero(stable & (cnt == 0))[0]]
+    modes = []
+    while level:
+        size = int(items[level].sum())
+        modes.append(("block" if size <= HANDOVER_ELL else "grid", size))
+        nxt = []
+        for jj in rng.permutation(level):
+            for i in dep[off[jj]:off[jj] + deg[jj]]:
+                cnt[i] -= 1
+                if cnt[i] == 0:
+                    nxt.append(int(i))
+        level = nxt
+    newly = stable & (cnt == 0)
+    return (app0 | newly, newly, np.int32(len(modes) + 1)), modes
+
+
+def _ell_of(dense):
+    """The ELL form of a dense case: a row's deps in slot order, -1 padded
+    to the widest row (at least one column)."""
+    adj = dense[0]
+    width = max(1, int(adj.sum(axis=1).max(initial=0)))
+    idx = np.full((adj.shape[0], width), -1, np.int32)
+    for i in range(adj.shape[0]):
+        e = np.nonzero(adj[i])[0]
+        idx[i, :len(e)] = e
+    return (idx,) + tuple(dense[1:])
+
+
+def _ell_graph(n, rows, status, msb=None, node=None, awaits=()):
+    """A hand-made ELL case: ``rows`` {i: its adj_idx row (-1 holes kept,
+    duplicates kept)}, padded with -1 to the widest; executeAt ascending by
+    slot unless ``msb`` / ``node`` say otherwise."""
+    width = max(len(r) for r in rows.values())
+    idx = np.full((n, width), -1, np.int32)
+    for i, r in rows.items():
+        idx[i, :len(r)] = r
+    return (idx, np.asarray(status, np.int32),
+            np.asarray(range(n) if msb is None else msb, np.int64),
+            np.zeros(n, np.int64),
+            np.asarray([1] * n if node is None else node, np.int32),
+            np.asarray([i in awaits for i in range(n)], bool))
+
+
+def _hot_legs_ell(n=4096, chains=32, d=8, seed=41):
+    """``chip_smoke.hot_drain_legs``'s ELL drain at a small size: every
+    row Stable in ``chains`` hot chains, with 1 to d - 1 more deps among
+    the 3 x ``chains`` rows before it (duplicates possible), executeAt
+    ascending by slot."""
+    rng = np.random.default_rng(seed)
+    idx = np.full((n, d), -1, np.int32)
+    for i in range(chains, n):
+        idx[i, 0] = i - chains
+        extra = rng.integers(1, d, 1)[0]
+        lo = max(0, i - 3 * chains)
+        if lo < i - 1:
+            idx[i, 1:1 + extra] = rng.integers(lo, i - 1, extra)
+    return (idx, np.full(n, STABLE, np.int32), np.arange(n, dtype=np.int64),
+            np.zeros(n, np.int64), np.ones(n, np.int32), np.zeros(n, bool))
+
+
+HE = HANDOVER_ELL
+ELL_GRAPHS = {
+    **{f"dense_{k}": (lambda g=g: _ell_of(g())) for k, g in K8_GRAPHS.items()},
+    "handover_below": lambda: _ell_of(_levels_graph((HE - 1, 3, 3), 4 * HE,
+                                                    21)),
+    "handover_at": lambda: _ell_of(_levels_graph((HE, 3, 3), 4 * HE, 22)),
+    "handover_above": lambda: _ell_of(_levels_graph((HE + 1, 3, 3), 4 * HE,
+                                                    23)),
+    "handover_later": lambda: _ell_of(_levels_graph((HE + 1, HE, HE + 1, 2),
+                                                    4 * HE, 24)),
+    # row 3 lists dep 1 twice (both decrements come), row 4 lists dep 0
+    # (applied) twice and dep 3 twice, row 5 lists itself twice
+    "duplicates": lambda: _ell_graph(
+        6, {2: [1], 3: [1, 2, 1], 4: [0, 3, 0, 3], 5: [5, 4, 5]},
+        [APPLIED, STABLE, STABLE, STABLE, STABLE, STABLE], awaits=(5,)),
+    "holes": lambda: _ell_graph(
+        6, {1: [-1, 0, -1], 2: [-1, -1, 1], 3: [1, -1, 2, -1], 5: [-1, 3]},
+        [STABLE] * 6),
+    # deps on FREE (1) and INVALIDATED (2) rows never gate; row 5 also
+    # waits on an undecided row 3, which never applies
+    "free_invalidated": lambda: _ell_graph(
+        6, {0: [1, 2], 4: [2, 0, 1], 5: [1, 3]},
+        [STABLE, FREE, INVALIDATED, 1, STABLE, STABLE]),
+    # one executeAt (msb 3), the node breaking the tie: a dep gates a row
+    # whose node is larger, not one whose node is smaller
+    "ties": lambda: _ell_graph(
+        5, {1: [0], 2: [0, 1], 3: [2], 4: [3, 1]}, [STABLE] * 5,
+        msb=[3] * 5, node=[1, 2, 3, 1, 4]),
+    "hot_legs": _hot_legs_ell,
+    # two rows that 6,400 rows wait on: a level of 2 rows and 1,068 items
+    "hubs": lambda: _ell_graph(6402, {i: [0, 1] for i in range(2, 6402)},
+                               [STABLE] * 6402),
+    # 300 edges a row, 260 to one dep: a count past a byte
+    "wide_rows": lambda: _ell_graph(
+        4, {1: [0] * 260 + [-1] * 40, 2: [1] * 300, 3: [2, 0]},
+        [STABLE] * 4),
+    **{f"seeded{s}": (lambda s=s: _arrays(
+        make_case(np.random.default_rng(9500 + s)), N_PAD, D_PAD)[1])
+       for s in range(6)},
+}
+
+
+@pytest.mark.parametrize("name", list(ELL_GRAPHS))
+def test_ell_frontier_model_equals_reference(name):
+    """The model of K8 ELL's frontier form equals the reference's
+    drain_ell_levels (applied, newly, sweeps), as does the port's plain
+    version, on the ELL forms of every dense K8 case, the ELL handover's
+    edges, duplicate deps, -1 holes, FREE and INVALIDATED deps, executeAt
+    ties, a count past a byte, config 3's hot chains, two rows that
+    thousands wait on and seeded cases; a level of at most HANDOVER_ELL
+    items is the first CTA's, a wider one the grid's."""
+    ell = ELL_GRAPHS[name]()
+    ref = rdrk.drain_ell_levels(rdrk.EllDrainState(*map(jnp.asarray, ell)))
+    got, modes = _ell_frontier_model(ell, np.random.default_rng(6))
+    _eq(ref, tuple(torch.from_numpy(np.asarray(x)) for x in got))
+    port = convert.tables_from_numpy({"ell": ell}, "cpu")["ell"]
+    _eq(ref, pdrk.drain_ell_levels(port))
+    sizes = [m[1] for m in modes]
+    assert [m[0] for m in modes] == ["grid" if x > HE else "block"
+                                     for x in sizes]
+    if name.startswith("handover"):
+        assert sizes[0] == {"below": HE - 1, "at": HE, "above": HE + 1,
+                            "later": HE + 1}[name.split("_")[1]]
+    if name == "handover_later":
+        assert [m[0] for m in modes] == ["grid", "block", "grid", "block"]
+    applied = got[0]
+    if name in ("dense_cycle", "dense_self_gating", "dense_behind_non_stable"):
+        assert not applied.all()
+    if name == "duplicates":
+        assert applied.tolist() == [True] * 5 + [False]
+    if name == "free_invalidated":
+        assert applied.tolist() == [True, False, False, False, True, False]
+    if name == "ties":     # levels {0, 3}, {1}, {2, 4}: row 3's dep 2
+        # has the larger node, so it gates nothing
+        assert int(got[2]) == 4 and applied.all()
+    if name == "wide_rows":
+        assert int(got[2]) == 5 and applied.all()
+    if name == "hot_legs":
+        assert applied.all()
+    if name == "hubs":
+        assert modes == [("grid", 2 * -(-6400 // ITEM)), ("grid", 6400)]
+        assert applied.all()
 
 
 # -- the routed drains ----------------------------------------------------------

@@ -28,6 +28,7 @@ from accord_tpu_torch.ops import drain_kernel as pdrk
 from accord_tpu_torch.ops import packing as ppk
 from accord_tpu_torch.parallel import sharded as psh
 from tests.test_torch_deps_kernel import WORDS, _ids, _inputs
+from tests.test_torch_drain_routes import HANDOVER, K8_GRAPHS
 
 D = 8
 
@@ -512,14 +513,21 @@ def _drain_edge_cases(seed, n):
     return (adj, status, em, el, en, aw)
 
 
-@pytest.mark.parametrize("seed,n", [(3, 64), (4, 72), (5, 200)])
+@pytest.mark.parametrize("seed,n", [
+    (3, 64), (4, 72), (5, 200),
+    ("handover_below", 4 * HANDOVER), ("handover_at", 4 * HANDOVER),
+    ("handover_above", 4 * HANDOVER), ("handover_later", 4 * HANDOVER)])
 def test_sharded_drain_one_launch_equals_reference(meshes, seed, n):
     """sharded_drain through the one-launch entry's plain path (every
     slice on one device) against the reference on its 8 devices, at N
-    not a multiple of the 32-bit words too; the entry's sweep count is
-    the single-device fixpoint's."""
+    not a multiple of the 32-bit words too, and on K8's handover graphs
+    (a first level either side of the frontier form's handover, and a
+    wide level after it) sliced 8 ways; the entry's sweep count is the
+    single-device fixpoint's."""
     rm, pm = meshes
-    cols = _drain_edge_cases(seed, n)
+    edge = not isinstance(seed, str)
+    cols = _drain_edge_cases(seed, n) if edge else K8_GRAPHS[seed]()
+    assert cols[0].shape == (n, n)
     rs = _ref_nt("drain", cols)
     ps = _port_nt("drain", cols)
     assert len(pm.groups()) == 1
@@ -527,8 +535,8 @@ def test_sharded_drain_one_launch_equals_reference(meshes, seed, n):
     got = psh.sharded_drain(pm)(ps)
     _eq(want[0], got[0])
     _eq(want[1], got[1])
-    # the cycle and the undecided dep stay unapplied
-    assert not got[0][[3, 10, 5]].any()
+    if edge:   # the cycle and the undecided dep stay unapplied
+        assert not got[0][[3, 10, 5]].any()
     by_sweeps = psh.drain_by_sweeps(pm, ps)
     _eq(want[0], by_sweeps[0])
     _eq(want[1], by_sweeps[1])
