@@ -164,6 +164,14 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _host_written(t: torch.Tensor, device: torch.device) -> np.ndarray:
+    """A view of pinned host tensor ``t`` once the kernel that writes it
+    on ``device`` has run: one synchronisation of the device's current
+    stream, no copy."""
+    torch.cuda.current_stream(device).synchronize()
+    return t.numpy()
+
+
 def _fetch_entry_prefix(ent_dev, d: int, s: int, maxtot: int) -> np.ndarray:
     """Stage-2 of the compacted download: transfer ONLY the live prefix of
     the entry block (the pow2-padded tail never crosses the wire).
@@ -1105,6 +1113,7 @@ class _DrainMirror:
         self.edge_version = 0
         self._dirty_scalars: Set[int] = set()
         self._state_cache: Optional[Dict[str, object]] = None
+        self._ready: Optional[torch.Tensor] = None   # ready_buffer's
 
     # -- edge maintenance ---------------------------------------------------
     def add_edge(self, waiter: int, dep: int) -> None:
@@ -1288,6 +1297,19 @@ class _DrainMirror:
                              "edges": self.edge_version}
         self._dirty_scalars.clear()
         return state, live
+
+    def ready_buffer(self, state):
+        """The first N bytes of the mirror's pinned host buffer, which a
+        solo dense tick's frontier kernel writes over the bus (None off
+        the card).  One buffer serves every tick, read before the next
+        writes it; it grows to a power of two."""
+        if not state.status.is_cuda:
+            return None
+        n = state.status.shape[0]
+        if self._ready is None or self._ready.shape[0] < n:
+            self._ready = torch.empty(_pow2_at_least(n, 64),
+                                      dtype=torch.bool, pin_memory=True)
+        return self._ready[:n]
 
     def sweep_free(self) -> None:
         """Release slots that can no longer gate anything: terminal status,
@@ -4182,7 +4204,7 @@ class DeviceState:
                     state, live = self.drain.state()
                     faults.check("transfer", "drain download")
                     wave = self._drain_wavefront
-                    fut = None
+                    fut = pinned = None
                     if wave > 1 and drk.drain_logdepth_enabled():
                         # widened sweep: the level pass proposes the next
                         # ``wave`` executeAt antichains in one launch.
@@ -4222,12 +4244,17 @@ class DeviceState:
                         mode = "mesh"
                         fut = sharded_ready_frontier(self.mesh)(state)
                     else:
+                        # the kernel writes the flags straight into the
+                        # mirror's pinned host buffer
                         mode = "device"
-                        fut = drk.ready_frontier(state)
+                        pinned = self.drain.ready_buffer(state)
+                        fut = drk.ready_frontier(state, out=pinned)
                     # drain forensics: split the sweep at the dispatch
                     # boundary — upload+enqueue vs the result join
                     _t1 = _time.perf_counter()
-                    ready = _host(fut)[: len(live)]
+                    ready = (_host(fut) if pinned is None else
+                             _host_written(fut, state.status.device)
+                             )[: len(live)]
                     self._ktime_span("drain_tick_dispatch", _t0, _t1)
                     self._ktime("drain_tick_wait", _t1)
                     self.n_device_ticks += 1

@@ -31,10 +31,10 @@ LIB_NAME = "libaccord_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # what a launch takes by value in its kernel parameter: K12's blocks, K3's
-# columns, K13's slices, K5's member stores.  nvcc gets them as macros, so
-# that a kernel and its wrapper in ops.kernels read one number.  K5's
-# members are 104 bytes each in the scan and 192 in the attribution, so
-# 128 of them fill most of the 32,764 bytes a kernel parameter may hold
+# columns, K13's and K11's slices, K5's member stores.  nvcc gets them as
+# macros, so that a kernel and its wrapper in ops.kernels read one number.
+# K5's members are 104 bytes each in the scan and 192 in the attribution,
+# so 128 of them fill most of the 32,764 bytes a kernel parameter may hold
 # (CUDA 12.1 and later)
 LIMITS = {"ACCORD_MERGE_MAX_REFS": 128, "ACCORD_SCATTER_MAX_COLS": 16,
           "ACCORD_SHARDED_MAX_SLICES": 16, "ACCORD_FUSED_MAX_STORES": 128}
@@ -59,7 +59,7 @@ ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
                 "accord_dense_degree", "accord_dense_to_ell",
                 "accord_calc_deps", "accord_ts_max", "accord_merge_blocks",
                 "accord_sharded_sweep", "accord_sharded_drain_fix",
-                "accord_attr_tok")
+                "accord_attr_tok", "accord_empty_probe")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -164,6 +164,8 @@ def library() -> ctypes.CDLL:
         lib.accord_drain_fix_workspace_words.restype = ctypes.c_int64
         lib.accord_drain_fix_ell_workspace_words.argtypes = [ctypes.c_int64] * 2
         lib.accord_drain_fix_ell_workspace_words.restype = ctypes.c_int64
+        lib.accord_calc_tiles.argtypes = [ctypes.c_int64]
+        lib.accord_calc_tiles.restype = ctypes.c_int64
         _LIB = lib
         return lib
 

@@ -1,7 +1,7 @@
 // Latency probes: the cost of one grid barrier of a cooperative grid, of
 // one block barrier with a shared-memory round trip, and of two dependent
 // L2 reads and a block barrier, each measured as an empty loop of
-// ``iters`` steps.
+// ``iters`` steps; and an empty kernel, the floor of a short call.
 //
 // Replaces no kernel of the JAX reference.  chip_smoke.py times them to
 // price the per-sweep floor of the fixpoint drains (K8, K13): a Jacobi
@@ -9,8 +9,11 @@
 // a level finished inside one CTA cannot cost less than a block barrier
 // plus the shared-memory counter it reads, and one whose dependents lists
 // lie in global memory (K8 ELL) not less than its two dependent reads (a
-// row's offset, then its dependents) and the barrier.  Bound: latency,
-// not bytes or operations.
+// row's offset, then its dependents) and the barrier.  The empty kernel,
+// launched through the planned launch path of ops/kernels.py, is what a
+// short call such as the drain tick's dense frontier (K4b) cannot beat:
+// the host path and one launch with no work.  Bound: latency, not bytes
+// or operations.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -66,7 +69,16 @@ __global__ void chase_probe(ProbeArgs a, const int32_t* chain) {
   if (threadIdx.x == 0) *a.out = seen;
 }
 
+__global__ void empty_probe() {}
+
 }  // namespace
+
+// ptrs, vals: none read; one empty kernel of one warp
+ACCORD_EXPORT int accord_empty_probe(void* const*, const int64_t*,
+                                     void* stream) {
+  empty_probe<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
 
 // ptrs: out int32[1] (grid: the blocks launched; else what was read),
 //       then (mode 2) chain int32[n], chain[i] the next index of a cycle

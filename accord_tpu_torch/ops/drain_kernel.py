@@ -124,10 +124,12 @@ def ready_frontier_ell_plain(state: EllDrainState) -> torch.Tensor:
     return (state.status == SLOT_STABLE) & ~waiting
 
 
-def ready_frontier(state: DrainState) -> torch.Tensor:
-    """Dense frontier sweep (CUDA kernel on a CUDA tensor)."""
+def ready_frontier(state: DrainState, out=None) -> torch.Tensor:
+    """Dense frontier sweep (CUDA kernel on a CUDA tensor); ``out``, a
+    bool[N] on the state's device or in pinned host memory, takes the
+    flags in place of a new tensor."""
     from . import kernels
-    return kernels.frontier_dense(state)
+    return kernels.frontier_dense(state, out=out)
 
 
 def ready_frontier_ell(state: EllDrainState) -> torch.Tensor:

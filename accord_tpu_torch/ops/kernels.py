@@ -47,11 +47,12 @@ column set's plan); K6's wrapper uploads one small table of per-store
 base pointers and sizes (``_store_refs``), and the kernel puts the store
 on a grid dimension.  The mesh kernels read the slices of one device the
 same way: their wrappers take the slices that lie on one device and
-launch once for them (K12 and K13 pass the blocks' or slices' pointers
-in the kernel parameter instead, up to ``MERGE_MAX_REFS`` and
-``SHARDED_MAX_SLICES``).  K3 handed
+launch once for them (K11, K12 and K13 pass the slices' or blocks'
+pointers in the kernel parameter instead, up to ``SHARDED_MAX_SLICES``
+and ``MERGE_MAX_REFS``).  K3 handed
 numpy packs its index and rows into one pinned staging buffer
-(``StagingRing``) and uploads it in one copy.
+(``StagingRing``) and uploads it in one copy.  K4b may write its flags
+straight into a pinned host buffer (the drain tick's).
 
 A non-zero return code of an entry point raises ``launch_error``'s
 exception: ``faults.CudaLaunchError`` for a launch refused for want of
@@ -251,30 +252,45 @@ def launch_error(name: str, rc: int, message: str) -> RuntimeError:
                         "or of its wrapper")
 
 
+# the current device index, read without torch.cuda's lazy-init check
+_current_device = (getattr(torch._C, "_cuda_getDevice", None)
+                   or torch.cuda.current_device)
+
+
 def _launch(name: str, device: torch.device, ptrs, vals,
             entry: str = None) -> None:
     """Call entry point ``entry`` (default ``name``) with the data pointers
     of ``ptrs`` (tensors, None for null, or int addresses) and the integers
     ``vals`` (a list, or an ``array("q")`` already packed), on the current
-    stream of ``device``.  The entry point is
-    resolved once, the argument arrays are packed by ``array`` in C, and
-    the device is switched only when it is not the current one."""
-    fn = _build.entries()[entry or name]
+    stream of ``device``.  The entry point is resolved once and the
+    argument arrays are packed by ``array`` in C; ``_launch_packed``
+    makes the call."""
     p = array("Q", [t if type(t) is int else _ptr(t) for t in ptrs])
     v = vals if type(vals) is array else array("q", vals)
-    cur = torch.cuda.current_device()
-    idx = cur if device.index is None else device.index
+    idx = _current_device() if device.index is None else device.index
+    _launch_packed(name, idx, _build.entries()[entry or name],
+                   p.buffer_info()[0], v.buffer_info()[0])
+
+
+def _launch_packed(name: str, idx: int, fn, p: int, v: int) -> None:
+    """Call entry point ``fn`` with ``p`` and ``v``, the addresses of the
+    packed pointer and value arrays (which the caller keeps alive), on the
+    current stream of device index ``idx``, switching the device only
+    when it is not the current one.  A non-zero return code raises
+    ``launch_error``'s exception; ``name`` counts a launch when it is one
+    of ``KERNELS`` (a probe is not)."""
     stream = (_raw_stream(idx) if _raw_stream is not None
               else torch.cuda.current_stream(idx).cuda_stream)
-    if idx == cur:
-        rc = fn(p.buffer_info()[0], v.buffer_info()[0], stream)
+    if idx == _current_device():
+        rc = fn(p, v, stream)
     else:
         with torch.cuda.device(idx):
-            rc = fn(p.buffer_info()[0], v.buffer_info()[0], stream)
+            rc = fn(p, v, stream)
     if rc != 0:
         raise launch_error(
             name, rc, _build.library().accord_error_string(rc).decode())
-    LAUNCHES[name] += 1
+    if name in LAUNCHES:
+        LAUNCHES[name] += 1
 
 
 def _next_pow2(n: int) -> int:
@@ -579,29 +595,62 @@ def scatter_rows(cols: Sequence[torch.Tensor], idx,
 
 # -- K4: drain frontier -------------------------------------------------------
 
+# A frontier's plan packs its state's column pointers and its launch
+# values, with its entry point resolved (once for a planned state, on
+# each call for any other); each call adds the output's pointer.
+
+def _dense_frontier_values(st, plan):
+    n = st.status.shape[0]
+    if st.adj.shape != (n, n):
+        raise ValueError(f"adjacency {tuple(st.adj.shape)} is not "
+                         f"[{n}, {n}]")
+    return (array("Q", plan[1]), array("q", [n]), n,
+            _build.entries()["frontier_dense"])
+
+
+def _ell_frontier_values(st, plan):
+    n, d = st.adj_idx.shape
+    return (array("Q", plan[1]), array("q", [n, d]), n,
+            _build.entries()["frontier_ell"])
+
+
+def _frontier(name: str, state, build, out) -> torch.Tensor:
+    """A frontier launch into ``out`` (None: a new tensor): bool[n],
+    contiguous, on the state's device or in pinned host memory, which
+    the card maps."""
+    dev = state.status.device
+    cols, vals, n, fn = _values(state, dev, build)
+    if out is None:
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+    elif out.dtype is not torch.bool or out.shape != (n,) \
+            or not out.is_contiguous():
+        raise ValueError(f"frontier out: expected a contiguous bool[{n}]")
+    elif out.device != dev and not (out.device.type == "cpu"
+                                    and out.is_pinned()):
+        raise ValueError(f"frontier out lies on {out.device}: neither on "
+                         f"{dev} nor in pinned host memory")
+    p = cols + array("Q", (out.data_ptr(),))
+    _launch_packed(name, dev.index, fn, p.buffer_info()[0],
+                   vals.buffer_info()[0])
+    return out
+
+
 def frontier_ell(state: drk.EllDrainState) -> torch.Tensor:
+    """bool[N]: which rows are ready."""
     if not on_cuda(state.status):
         return drk.ready_frontier_ell_plain(state)
-    dev = state.status.device
-    _check_cols(state)
-    n, d = state.adj_idx.shape
-    out = torch.empty(n, dtype=torch.bool, device=dev)
-    _launch("frontier_ell", dev, [*state, out], [n, d])
-    return out
+    return _frontier("frontier_ell", state, _ell_frontier_values, None)
 
 
-def frontier_dense(state: drk.DrainState) -> torch.Tensor:
+def frontier_dense(state: drk.DrainState, out=None) -> torch.Tensor:
+    """bool[N]: which rows are ready.  ``out`` (bool[N] on the state's
+    card, or pinned host memory, which the kernel writes over the bus)
+    takes the flags in place of a new tensor.  A planned state
+    (``checked_cols``) is not checked again."""
     if not on_cuda(state.status):
-        return drk.ready_frontier_plain(state)
-    dev = state.status.device
-    _check_cols(state)
-    n = state.status.shape[0]
-    if state.adj.shape != (n, n):
-        raise ValueError(f"adjacency {tuple(state.adj.shape)} is not "
-                         f"[{n}, {n}]")
-    out = torch.empty(n, dtype=torch.bool, device=dev)
-    _launch("frontier_dense", dev, [*state, out], [n])
-    return out
+        ready = drk.ready_frontier_plain(state)
+        return ready if out is None else out.copy_(ready)
+    return _frontier("frontier_dense", state, _dense_frontier_values, out)
 
 
 # -- K5: fused multi-store deps scan + attribution ----------------------------
@@ -981,66 +1030,142 @@ def dense_to_ell(adj: torch.Tensor, d: int) -> torch.Tensor:
 
 # -- K11: calculate_deps and the lexicographic max ----------------------------
 
-def _query_matrix(query: dk.DepsQuery) -> torch.Tensor:
-    """A DepsQuery as the int64 [B, 7+2m] matrix the kernels read."""
-    i64 = torch.int64
-    head = torch.stack([query.msb, query.lsb, query.node.to(i64),
-                        query.witness_mask.to(i64), query.self_msb,
-                        query.self_lsb, query.self_node.to(i64)], dim=1)
-    return torch.cat([head, query.lo, query.hi], dim=1).contiguous()
+_QUERY_DTYPES = (_I64, _I64, _I32, _I32, _I64, _I64, _I64, _I64, _I32)
+
+
+def _query_values(query: dk.DepsQuery, idx: int) -> list:
+    """Each DepsQuery column's pointer and element strides, the launch
+    values K11 reads the query batch by, where it lies on device index
+    ``idx``: B rows each, lo and hi [B, m]."""
+    b, m = query.lo.shape
+    vals = []
+    for i, (col, dt) in enumerate(zip(query, _QUERY_DTYPES)):
+        shape = (b, m) if i in (4, 5) else (b,)
+        if col.dtype is not dt or col.get_device() != idx \
+                or col.shape != shape:
+            raise TypeError(f"DepsQuery.{query._fields[i]}: expected {dt}"
+                            f"{list(shape)} on cuda:{idx}, got {col.dtype}"
+                            f"{list(col.shape)} on {col.device}")
+        vals.append(col.data_ptr())
+        vals.extend(col.stride())
+    return vals
+
+
+def _slice_cols(t: dk.DepsTable, idx: int) -> list:
+    """A slot slice's column pointers, its dtypes, device index ``idx``
+    and contiguity checked."""
+    out = []
+    for i, (col, dt) in enumerate(zip(t, _DTYPES[dk.DepsTable])):
+        if col.dtype is not dt or col.get_device() != idx \
+                or not col.is_contiguous():
+            raise ValueError(f"DepsTable.{t._fields[i]}: expected a "
+                             f"contiguous {dt} on cuda:{idx}")
+        out.append(col.data_ptr())
+    return out
+
+
+# K11's last CTA of a slice folds its tiles' candidates, counting them on
+# a word it sets back to zero: one word a slice of a launch, kept per
+# (device, stream), since launches on one stream are ordered
+_FOLD: Dict[tuple, torch.Tensor] = {}
+
+
+def _fold_words(idx: int) -> int:
+    """The address of the uint32 fold words of device index ``idx``'s
+    current stream, zero between launches."""
+    key = (idx, _raw_stream(idx) if _raw_stream is not None
+           else torch.cuda.current_stream(idx).cuda_stream)
+    w = _FOLD.get(key)
+    if w is None:
+        w = _FOLD[key] = torch.zeros(SHARDED_MAX_SLICES, dtype=torch.int32,
+                                     device=torch.device("cuda", idx))
+    return w.data_ptr()
+
+
+@functools.lru_cache(maxsize=256)
+def _calc_tiles(n: int) -> int:
+    """The CTAs (slot tiles) K11 takes for a slice of ``n`` slots."""
+    return _build.library().accord_calc_tiles(n)
+
+
+def _align(x: int, a: int) -> int:
+    return -(-x // a) * a
 
 
 def calc_deps(tables: Sequence[dk.DepsTable], query: dk.DepsQuery,
               prune=None):
     """The dense dep mask and max-conflict of every slot slice in
-    ``tables`` (all on one device), in one launch: (masks [bool[B, n_i]],
-    (msb, lsb, node) [S, B])."""
-    dev = query.msb.device
+    ``tables`` (all on one device): (masks [bool[B, n_i]], (msb, lsb,
+    node) [S, B]).  One launch for up to ``SHARDED_MAX_SLICES`` slices,
+    their columns and the query's by value; the masks, the tiles'
+    candidates and the outputs are one allocation."""
     if not on_cuda(query.msb):
         return dk.calc_deps_plain(tables, query, prune)
-    qmat = _query_matrix(query)
+    dev = query.msb.device
+    idx = dev.index
     b, m = query.lo.shape
     m_t = tables[0].lo.shape[1]
-    n_max = max(t.capacity for t in tables)
-    masks, rows = [], []
-    for t in tables:
-        _check_cols(t)
-        if t.lo.shape[1] != m_t or t.msb.device != dev:
-            raise ValueError("calc_deps: slices differ in interval width "
-                             "or device")
-        mask = torch.empty((b, t.capacity), dtype=torch.bool, device=dev)
-        masks.append(mask)
-        rows.append([_ptr(c) for c in t] + [_ptr(mask), t.capacity])
-    refs = _store_refs(dev, rows)
     n_s = len(tables)
-    nblk = -(-n_max // 256)
-    part = [torch.empty(max(n_s * b * nblk, 1), dtype=dt, device=dev)
-            for dt in (torch.int64, torch.int64, torch.int32, torch.uint8)]
-    out = (torch.empty((n_s, b), dtype=torch.int64, device=dev),
-           torch.empty((n_s, b), dtype=torch.int64, device=dev),
-           torch.empty((n_s, b), dtype=torch.int32, device=dev))
+    qv = _query_values(query, idx)
+    cols = []
+    for t in tables:
+        if t.lo.shape[1] != m_t:
+            raise ValueError("calc_deps: slices differ in interval width")
+        cols.append(_slice_cols(t, idx))
+    ns = [t.msb.shape[0] for t in tables]
+    # the masks at 16-byte offsets, then the candidates [S, B, T] of the
+    # largest launch (msb, lsb int64, node int32, valid uint8), then the
+    # outputs (msb, lsb int64 [S, B], node int32 [S, B])
+    offs, at = [], 0
+    for n in ns:
+        offs.append(at)
+        at = _align(at + b * n, 16)
+    n_l = min(n_s, SHARDED_MAX_SLICES)
+    cand = at
+    at = _align(cand + 21 * n_l * b * max(map(_calc_tiles, ns)), 8)
+    nb = n_s * b
+    buf = torch.empty(at + _align(20 * nb, 8), dtype=torch.bool, device=dev)
+    masks = [buf.as_strided((b, n), (n, 1), o) for o, n in zip(offs, ns)]
+    out = buf[at:].view(torch.int64)
+    om = out[:nb].view(n_s, b)
+    ol = out[nb:2 * nb].view(n_s, b)
+    on = out[2 * nb:].view(torch.int32)[:nb].view(n_s, b)
+    base = buf.data_ptr()
+    o0 = base + at
+    fold = _fold_words(idx)
     pm, pl, pn = _prune_vals(prune)
-    _launch("calc_deps", dev, [refs, qmat, *part, *out],
-            [n_s, b, qmat.shape[1], m, m_t, n_max, pm, pl, pn])
-    return masks, out
+    for i0 in range(0, n_s, SHARDED_MAX_SLICES):
+        i1 = min(i0 + SHARDED_MAX_SLICES, n_s)
+        v = array("q", [i1 - i0, b, m, m_t, pm, pl, pn, *qv])
+        for i in range(i0, i1):
+            v.extend(cols[i])
+            v.append(base + offs[i])
+            v.append(ns[i])
+        _launch("calc_deps", dev,
+                [base + cand, o0 + 8 * i0 * b, o0 + 8 * (nb + i0 * b),
+                 o0 + 16 * nb + 4 * i0 * b, fold], v)
+    return masks, (om, ol, on)
 
 
 def ts_max(msb: torch.Tensor, lsb: torch.Tensor, node: torch.Tensor):
     """Lexicographic max over the first axis of [C, R] candidates, a
     candidate counting when any of its fields is non-zero: (msb, lsb,
-    node) [R]."""
+    node) [R], one allocation."""
     if not on_cuda(msb):
         return dk.ts_max_plain(msb, lsb, node)
     dev = msb.device
     c, r = msb.shape
-    msb, lsb = _check(msb, torch.int64, "msb"), _check(lsb, torch.int64, "lsb")
-    node = _check(node, torch.int32, "node")
-    out = (torch.empty(r, dtype=torch.int64, device=dev),
-           torch.empty(r, dtype=torch.int64, device=dev),
-           torch.empty(r, dtype=torch.int32, device=dev))
+    if msb.dtype is not _I64 or lsb.dtype is not _I64 \
+            or node.dtype is not _I32:
+        raise TypeError("ts_max: expected int64 msb and lsb, int32 node")
+    if lsb.shape != (c, r) or node.shape != (c, r):
+        raise ValueError("ts_max: the candidate fields differ in shape")
+    buf = torch.empty(2 * r + (r + 1) // 2, dtype=torch.int64, device=dev)
+    o = buf.data_ptr()
     _launch("ts_max", dev, [msb.contiguous(), lsb.contiguous(),
-                            node.contiguous(), *out], [r, c, 1, r])
-    return out
+                            node.contiguous(), o, o + 8 * r, o + 16 * r],
+            [r, c, 1, r])
+    return buf[:r], buf[r:2 * r], buf[2 * r:].view(torch.int32)[:r]
 
 
 # -- K12: the cross-shard merge ------------------------------------------------

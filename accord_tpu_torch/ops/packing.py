@@ -62,6 +62,10 @@ def masked_ts_max(msb, lsb, node, mask):
     last axis; Timestamp.NONE's bits (zeros) where the mask is empty.
     Three passes: max msb, then max lsb among msb ties, then node."""
     msb, lsb, node, mask = torch.broadcast_tensors(msb, lsb, node, mask)
+    if mask.shape[-1] == 0:   # no candidates (an empty slot slice)
+        zero = torch.zeros(mask.shape[:-1], dtype=torch.int64,
+                           device=msb.device)
+        return zero, zero.clone(), zero.to(node.dtype)
     neg = torch.tensor(I64_SIGN, dtype=torch.int64, device=msb.device)
     fm = torch.where(mask, _flip(msb), neg)
     m1 = fm.max(dim=-1, keepdim=True).values

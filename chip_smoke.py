@@ -42,7 +42,11 @@ Phases:
      a kp cut inside a word, s and k overflowing), on two stores and on
      one store more than a launch takes by value, and at phase 7's
      recorded call and the burn's median (its bound on the operations
-     each member's data needs);
+     each member's data needs); K4b planned at n = 200 and 1,000 (rows
+     that end inside a 16-byte chunk) and timed at config 3's [4096,
+     4096]; K11 on ragged slices (131,072 and 1,000 slots; 0 and 500),
+     B = 1 and 129, a slice of dead slots, the prune floor, interval
+     widths 1, 2, 3 and 8, and 17 slices (two launches);
   4. the main path, a PreAccept deps store at real size: 100,000 in-flight
      txns over a 1,000,000-key space, up to 8 intervals each, with
      RedundantBefore floors and CommandsForKey state; 12,288 queries in
@@ -109,7 +113,15 @@ Phases:
      ``dryrun_multichip(8)``), the row-sharded frontier and fixpoint
      drain on config 3's 4,096-deep chain against K4b and K8, and a store
      with the mesh on ticking until a mesh tick served.
-After the main path, a real CUDA error in a store's flush: every free
+After the main path, K4b is timed at the burn's largest dense tick in
+repeated calls on one state (unplanned, as the burn records it, and
+planned) and as the tick pays for it (a new state each call, its flags
+written into a pinned host buffer, one stream synchronisation; planned
+and not), beside an empty kernel launched through the same path
+(``kernels._launch_packed``: the short-call floor), and phase 6 prints the median dispatch and wait of the second
+burn's solo dense ticks; K11 is timed at phase 10's recorded call
+against the operations its data needs (``calc_needed_ops``) and the
+formula's count.  Then a real CUDA error in a store's flush: every free
 byte of the card is held while one dirty-row scatter allocates, so it
 raises torch.OutOfMemoryError; the flush fails over to the host with a
 twin store's bytes, one device fault, one quarantine, and the probe's
@@ -117,8 +129,10 @@ restore.  A real launch the library refuses for an invalid argument
 (cudaErrorInvalidValue) must instead propagate, off the fault ladder.
 Then torch.profiler counts the device operations of one K12 call (one
 kernel), one live K3 call (one copy, one kernel) and K1a's, K1b's, K2's,
-K5's, K8's and K13's one-launch drain's calls (one kernel, no memset, no
-copy; K5's, K8 ELL's and K13's the most of three traces),
+K4b's, K5's, K8's, K11's cross-slice reduce's and K13's one-launch
+drain's calls (one kernel, no memset, no copy; K5's, K8 ELL's and K13's
+the most of three traces) and gives K11's and the empty kernel's device
+time,
 times one whole fused flush at phase 7's recorded call (the host's
 enqueue and wall time beside its CUDA-event time, device tensors in and
 as the dispatcher uploads them), and traces two phase-4 batches and four
@@ -138,6 +152,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+from array import array
 import json
 import statistics
 import subprocess
@@ -224,6 +239,8 @@ TENSOR_INT8_OPS = 1979e12
 # integer instructions per second, 64 INT32 lanes an SM at the card's
 # maximum SM clock (logic_rate); a CPU rehearsal uses 132 SMs x 1.98 GHz
 LOGIC_OPS = 132 * 64 * 1.98e9
+# the (unread) argument arrays of the empty kernel's launch
+FLOOR_ARGS = array("q", [0])
 
 
 def fail(msg: str) -> None:
@@ -836,14 +853,32 @@ def ell_case(torch, kern, drk, state):
             *frontier_work(torch, drk, state))
 
 
-def dense_frontier_case(torch, kern, drk, state):
+def dense_frontier_case(torch, kern, drk, state, tick=None):
     """K4b; the library call is torch.any of the precomputed blocking
-    against the unapplied columns (as K13's)."""
+    against the unapplied columns (as K13's).  ``tick``: K4b as the solo
+    dense tick pays for it, since the drain mirror builds a new state for
+    almost every tick: each call wraps the state's columns in a new
+    DrainState ("planned": planned by ``kernels.checked_cols``), launches
+    into the first N bytes of a kept pinned host buffer (the mirror's
+    ``ready_buffer``) and reads the flags after one synchronisation of
+    the stream."""
     blk = drk.blocking_matrix(state)
     unapplied = state.status != 5
-    return (lambda: kern.frontier_dense(state),
-            lambda: drk.ready_frontier_plain(state),
-            lambda: torch.any(blk & unapplied[None, :], dim=1),
+    kfn = lambda: kern.frontier_dense(state)
+    pfn = lambda: drk.ready_frontier_plain(state)
+    if tick:
+        cols, n = tuple(state), state.status.shape[0]
+        kept = torch.empty(n, dtype=torch.bool, pin_memory=True)
+        wrap = kern.checked_cols if tick == "planned" else (lambda st: st)
+
+        def kfn():
+            buf = kept[:n]
+            kern.frontier_dense(wrap(drk.DrainState(*cols)), out=buf)
+            torch.cuda.current_stream().synchronize()
+            return buf
+
+        pfn = lambda: drk.ready_frontier_plain(state).cpu()
+    return (kfn, pfn, lambda: torch.any(blk & unapplied[None, :], dim=1),
             *frontier_work(torch, drk, state))
 
 
@@ -1126,6 +1161,16 @@ def sync_probe_us(torch, mode: int, blocks: int, threads: int,
          for it in (1, iters + 1)}
     return {"us": (t[iters + 1] - t[1]) / iters * 1e3,
             "blocks": int(out[0]) if mode == 0 else 1, "threads": threads}
+
+
+def launch_floor(kern, dev) -> None:
+    """One empty kernel (``ops/csrc/probes.cu``) through the launch path
+    that K4b takes (``kernels._launch_packed``), its arguments packed
+    once: the least time a short call can take.  It counts no launch."""
+    from accord_tpu_torch.ops import _build
+    p = FLOOR_ARGS.buffer_info()[0]
+    kern._launch_packed("empty_probe", dev.index or 0,
+                        _build.entries()["empty_probe"], p, p)
 
 
 def bucket_row_stats(torch, dk, a, kw) -> dict:
@@ -1589,6 +1634,12 @@ def small_cases(torch, dev, kern, dk, drk, convert):
         cases[f"level_ell[n{n}]"] = level_case(torch, kern, drk, st["ell"])
         cases.update(drain_cases(torch, kern, drk, f"n{n}", st["drain"],
                                  st["ell"]))
+    # K4b planned, on rows that end inside a 16-byte chunk
+    for seed, n in ((9, 200), (10, 1000)):
+        st = convert.tables_from_numpy({"drain": small_drain(seed, n)[0]},
+                                       dev)["drain"]
+        cases[f"frontier_dense[n{n} planned]"] = dense_frontier_case(
+            torch, kern, drk, kern.checked_cols(st))
     # K6 on unequal members: pad rows, pad edges
     cases["fused_frontier_dense[64,512,48]"] = fused_frontier_case(
         torch, kern, drk, [st["drain"] for st in drains])
@@ -1896,6 +1947,54 @@ class ScatterSizes:
                 "live_bytes_max": live[-1] if live else 0,
                 "live_bytes_total": sum(live),
                 "tensor_calls": len(self.tensor)}
+
+
+class DenseTickTimes:
+    """Each solo dense drain tick's ``drain_tick_dispatch`` and
+    ``drain_tick_wait`` (``DeviceState._ktime_span``), told apart from the
+    other ticks by its K4b call; and how many dense drain states the
+    mirrors built (``_DrainMirror._cache_state``) meanwhile."""
+
+    def __init__(self, kern, cls, mirror, drk):
+        self.kern, self.cls, self.mirror = kern, cls, mirror
+        self.k4b, self.span = kern.frontier_dense, cls._ktime_span
+        self.cache = mirror._cache_state
+        self.pending = False
+        self.dispatch, self.wait = [], []
+        self.built = 0
+        outer = self
+
+        def cache(m, state, *a):
+            outer.built += isinstance(state, drk.DrainState)
+            return outer.cache(m, state, *a)
+        mirror._cache_state = cache
+
+        def k4b(*a, **kw):
+            outer.pending = True
+            return outer.k4b(*a, **kw)
+
+        def span(dev, kind, t0, t1):
+            if outer.pending and kind == "drain_tick_dispatch":
+                outer.dispatch.append(t1 - t0)
+            elif outer.pending and kind == "drain_tick_wait":
+                outer.wait.append(t1 - t0)
+                outer.pending = False
+            return outer.span(dev, kind, t0, t1)
+        kern.frontier_dense = k4b
+        cls._ktime_span = span
+
+    def restore(self):
+        self.kern.frontier_dense = self.k4b
+        self.cls._ktime_span = self.span
+        self.mirror._cache_state = self.cache
+
+    def summary(self) -> dict:
+        both = [d + w for d, w in zip(self.dispatch, self.wait)]
+        med = (lambda x: statistics.median(x) * 1e3 if x else None)
+        return {"ticks": len(both), "dense_states_built": self.built,
+                "dispatch_ms_p50": med(self.dispatch),
+                "wait_ms_p50": med(self.wait),
+                "dispatch_plus_wait_ms_p50": med(both)}
 
 
 class DrainRecord:
@@ -2719,9 +2818,40 @@ def hot_keys_phase(torch, drk, store, dev3, safe, queries, b3, ell, dense,
 
 # -- the mesh kernels (K11-K13) and the mesh phases ---------------------------
 
+def calc_needed_ops(torch, dk, tables, query) -> int:
+    """The operations K11's inputs need, counted with torch on their
+    device: per (query, slot) the status test (1); per (query, live slot)
+    the (slot interval, query interval) pairs up to the first that
+    overlaps, slot columns outer (2 each: every pair when none does); per
+    (query, live slot) with an overlap the predicate (witness 2, earlier
+    3, not self 3, above the floor 3) and the max-conflict compare (3).
+    The formula b n (2 m m_t + 12) counts every pair and every test."""
+    b, m = query.lo.shape
+    ops = 0
+    for t in tables:
+        n, m_t = t.lo.shape
+        ops += b * n
+        live = ((t.status >= dk.SLOT_TRANSITIVE)
+                & (t.status != dk.SLOT_INVALIDATED))
+        lo, hi = t.lo[live], t.hi[live]
+        nl, w = lo.shape[0], m_t * m
+        step = max(1, (1 << 26) // max(nl * w, 1))
+        for r0 in range(0, b, step):
+            qlo, qhi = query.lo[r0:r0 + step], query.hi[r0:r0 + step]
+            ov = ((qlo[:, None, None, :] <= hi[None, :, :, None])
+                  & (lo[None, :, :, None] <= qhi[:, None, None, :])
+                  ).reshape(qlo.shape[0], nl, w)
+            hit = ov.any(dim=2)
+            first = torch.where(hit, ov.to(torch.int8).argmax(dim=2) + 1, w)
+            ops += 2 * int(first.sum()) + 14 * int(hit.sum())
+    return ops
+
+
 def calc_case(torch, kern, dk, tables, query, prune=None):
     """K11: the dep mask and max-conflict candidates of the slices of one
-    device: each table read once, the [B, N] mask written once."""
+    device: each table read once, the [B, N] mask written once.  Its
+    operations are what this run's data needs (``calc_needed_ops``),
+    counted only when the case is timed; the formula beside them."""
     b, m = query.lo.shape
     n = sum(t.capacity for t in tables)
     m_t = tables[0].lo.shape[1]
@@ -2731,9 +2861,81 @@ def calc_case(torch, kern, dk, tables, query, prune=None):
     def flat(out):
         return tuple(out[0]) + tuple(out[1])
 
+    def ops():
+        return (calc_needed_ops(torch, dk, tables, query),
+                {"ops_formula": b * n * (2 * m * m_t + 12)})
     return (lambda: flat(kern.calc_deps(tables, query, prune)),
             lambda: flat(dk.calc_deps_plain(tables, query, prune)), None,
-            nbytes, b * n * (2 * m * m_t + 12))
+            nbytes, ops)
+
+
+def calc_inputs(seed, dk, ns, b, m=1, m_t=4, dead=(), space=1 << 20):
+    """K11's edge inputs, made in bulk: slices of ``ns`` slots (every slot
+    of the slices in ``dead`` FREE or INVALIDATED), each slot's first
+    interval set and the rest PAD at 40%, over ``space`` keys; ``b``
+    queries of ``m`` intervals up to 4,096 keys wide, 40% of them bounded
+    by a slot's id and each naming a slot's id as its own.  Returns the
+    slices' columns and the qmat."""
+    rng = np.random.default_rng(seed)
+    tables = []
+    for i, n in enumerate(ns):
+        msb, lsb, node = _ids(rng, n)
+        kind = rng.integers(0, 6, n).astype(np.int32)
+        status = (rng.choice(np.array([dk.SLOT_FREE, dk.SLOT_INVALIDATED],
+                                      np.int32), n) if i in dead
+                  else rng.integers(-1, 7, n).astype(np.int32))
+        lo = rng.integers(0, space, (n, m_t)).astype(np.int64)
+        hi = lo + np.where(rng.random((n, m_t)) < 0.6, 0,
+                           rng.integers(1, 64, (n, m_t)))
+        pad = rng.random((n, m_t)) < 0.4
+        pad[:, 0] = False
+        lo[pad], hi[pad] = dk.PAD_LO, dk.PAD_HI
+        tables.append((msb, lsb, node, kind, status, lo, hi))
+    msb, lsb, node = (np.concatenate([t[c] for t in tables]) for c in range(3))
+    qmat = np.zeros((b, 7 + 2 * m), np.int64)
+    bm, bl, bn = _ids(rng, b)
+    pick = rng.integers(0, max(len(msb), 1), b)
+    same = (rng.random(b) < 0.4) & (len(msb) > 0)
+    ids = [c[pick] if len(c) else np.zeros(b, c.dtype)
+           for c in (msb, lsb, node)]
+    qmat[:, 0] = np.where(same, ids[0], bm)
+    qmat[:, 1] = np.where(same, ids[1], bl)
+    qmat[:, 2] = np.where(same, ids[2], bn)
+    qmat[:, 3] = rng.integers(0, 1 << 6, b)
+    qmat[:, 4], qmat[:, 5], qmat[:, 6] = ids
+    qlo = rng.integers(0, space, (b, m)).astype(np.int64)
+    qmat[:, 7:7 + m] = qlo
+    qmat[:, 7 + m:] = qlo + rng.integers(0, 1 << 12, (b, m))
+    return tables, qmat
+
+
+def calc_edge_cases(torch, kern, dk, convert, dev) -> dict:
+    """K11 at the edges of its design: ragged slices in one call (131,072
+    and 1,000 slots; 0 and 500), B = 1 and B = 129 (two query chunks), a
+    slice whose every slot is dead, the prune floor, the interval widths
+    the kernel unrolls (m_t 1, 2, 8) and one it loops over (3, with 3
+    query intervals), and 17 slices (two launches)."""
+    cases = {}
+    prune = (2, 3, 1)
+    for tag, ns, b, kw, pr in (
+            ("ragged 131072+1000", (131_072, 1000), 128, {}, None),
+            ("ragged 0+500", (0, 500), 16, {}, None),
+            ("B1", (4096, 4096), 1, {}, None),
+            ("B129", (4096, 2000, 4096), 129, {}, None),
+            ("dead slice", (4096, 4096, 4096), 32, {"dead": (1,)}, None),
+            ("prune", (4096, 4096), 64, {}, prune),
+            ("m_t 1 m 2", (3000, 1000), 32, {"m_t": 1, "m": 2}, prune),
+            ("m_t 2", (2048,), 32, {"m_t": 2}, None),
+            ("m_t 3 m 3", (3000, 1000), 32, {"m_t": 3, "m": 3}, None),
+            ("m_t 8", (2048, 64), 32, {"m_t": 8}, prune),
+            ("17 slices", (300,) * 17, 24, {}, None)):
+        cols, qmat = calc_inputs(len(cases) + 70, dk, ns, b, **kw)
+        tabs = [convert.tables_from_numpy({"table": c}, dev)["table"]
+                for c in cols]
+        q = dk.query_from_qmat(torch.from_numpy(qmat).to(dev),
+                               kw.get("m", 1))
+        cases[f"calc_deps[{tag}]"] = calc_case(torch, kern, dk, tabs, q, pr)
+    return cases
 
 
 def ts_max_case(torch, kern, dk, msb, lsb, node):
@@ -3425,6 +3627,8 @@ def main(argv=None) -> int:
     run_checks(torch, mesh_small_cases(torch, dev, kern, dk, drk, psh,
                                        convert, mesh),
                "small", on_cuda, timed=False)
+    run_checks(torch, calc_edge_cases(torch, kern, dk, convert, dev),
+               "small", on_cuda, timed=False)
     log(f"phase3a: small checks done at {time.perf_counter() - t_start:.1f}"
         " s")
 
@@ -3551,6 +3755,9 @@ def main(argv=None) -> int:
     real["drain_fix_ell[narrow then wide]"] = fix_case(torch, kern, drk,
                                                        ell_ntw)
     real["drain_fix_dense"] = fix_case(torch, kern, drk, dense3)
+    # K4b at config 3's [4096, 4096], planned: the adjacency-bound size
+    real["frontier_dense[4096]"] = dense_frontier_case(
+        torch, kern, drk, kern.checked_cols(dense3))
     # and on a wide input: 4 antichains of NDD3 / 4 rows, 5 sweeps
     wide3 = wide_drain_input(convert, dev, NDD3)
     real["drain_fix_dense[wide]"] = fix_case(torch, kern, drk, wide3)
@@ -3607,6 +3814,7 @@ def main(argv=None) -> int:
         "drain_fix_ell": list(ell3.adj_idx.shape),
         "drain_fix_ell[narrow then wide]": list(ell_ntw.adj_idx.shape),
         "drain_fix_dense": list(dense3.adj.shape),
+        "frontier_dense[4096]": list(dense3.adj.shape),
         "drain_fix_dense[wide]": list(wide3.adj.shape),
         "drain_fix_dense[narrow then wide]": [NDD3, NDD3],
         "logsq_dense": list(dense3.adj.shape),
@@ -3832,7 +4040,14 @@ def main(argv=None) -> int:
         med6.restore()
         rec6.restore()
     t1 = time.perf_counter()
-    r2, c2, d2 = burn_once(run_burn, dev, n_ops)
+    # the second run, with no recorder in the way: each solo dense tick's
+    # dispatch and wait
+    from accord_tpu_torch.local.device_index import _DrainMirror
+    ticks6 = DenseTickTimes(kern, P.DeviceState, _DrainMirror, drk)
+    try:
+        r2, c2, d2 = burn_once(run_burn, dev, n_ops)
+    finally:
+        ticks6.restore()
     t2 = time.perf_counter()
     log(f"phase6: burn seed 1, {n_ops} ops: {r1} in {t1 - t0:.1f} s and "
         f"{t2 - t1:.1f} s; " + json.dumps(c1))
@@ -3852,7 +4067,8 @@ def main(argv=None) -> int:
         f"flush launches ({c1['n_fused_flushes']} member flushes), "
         f"{r1.stats.get('device_fused_tick_launches')} fused tick launches "
         f"({c1['n_fused_ticks']} member ticks), {c1['n_wavefront_ticks']} "
-        f"widened ticks")
+        f"widened ticks; solo dense ticks of the second run "
+        + json.dumps(ticks6.summary()))
     phase_done("6")
 
     # 7. fused launches.  Flushes: config 5's harness, fusion off then on,
@@ -4006,12 +4222,33 @@ def main(argv=None) -> int:
                            f"{missing}")
 
     # the dense frontier, checked and timed at the largest state the burn
-    # gave it (the burn's in-flight sets stay below DENSE_MAX)
+    # gave it (the burn's in-flight sets stay below DENSE_MAX): repeated
+    # calls on the recorded state and on a planned copy of it, and as the
+    # tick pays for it, a new state each call, into a pinned buffer
     check("frontier_dense" in rec6.calls, "burn: no dense frontier sweep")
     a, kw, _w = rec6.calls["frontier_dense"]
-    rows.update(run_checks(torch, {"frontier_dense": dense_frontier_case(
-        torch, kern, drk, *a, **kw)}, "real", on_cuda, timed=True))
-    shapes["frontier_dense"] = list(a[0].adj.shape)
+    k4b_state = a[0]
+    k4b_case = dense_frontier_case(torch, kern, drk, k4b_state)
+    k4b_tick = dense_frontier_case(torch, kern, drk, k4b_state,
+                                   tick=on_cuda)
+    rows.update(run_checks(torch, {
+        "frontier_dense": k4b_case,
+        "frontier_dense[planned]": dense_frontier_case(
+            torch, kern, drk, kern.checked_cols(k4b_state)),
+        "frontier_dense[tick]": k4b_tick,
+        "frontier_dense[tick planned]": dense_frontier_case(
+            torch, kern, drk, k4b_state, tick=on_cuda and "planned")},
+        "real", on_cuda, timed=True))
+    for k in ("", "[planned]", "[tick]", "[tick planned]"):
+        shapes["frontier_dense" + k] = list(k4b_state.adj.shape)
+    k4b = {"planned": getattr(k4b_state, "_plan", None) is not None,
+           "phase6_dense_ticks": ticks6.summary()}
+    if on_cuda:
+        # the short-call floor: an empty kernel through the same launch
+        # path, timed the same way
+        k4b["launch_floor_ms"] = time_ms(
+            torch, lambda: launch_floor(kern, dev), on_cuda)
+    log("K4b: " + json.dumps(k4b))
     # K1a, K1b and K2 at the burn's median call (most of their launches
     # are the burn's small flushes), and K1b at the largest call of phase
     # 7's solo leg (config 5's fused-off flushes)
@@ -4129,8 +4366,18 @@ def main(argv=None) -> int:
                 call_ops[name + "[burn median]"] = device_ops(
                     torch, dense_more[name + "[burn median]"][0], takes)
         for name in ("drain_fix_dense", "drain_fix_dense[wide]",
-                     "drain_fix_dense[narrow then wide]"):
+                     "drain_fix_dense[narrow then wide]",
+                     "frontier_dense[4096]"):
             call_ops[name] = device_ops(torch, real[name][0])
+        # K4b at the burn's call, repeated and as the tick pays for it,
+        # and the empty kernel of its floor; K11 (its fold words zeroed
+        # before) and its cross-slice reduce at the recorded calls
+        call_ops["frontier_dense"] = device_ops(torch, k4b_case[0])
+        call_ops["frontier_dense[tick]"] = device_ops(torch, k4b_tick[0])
+        call_ops["launch floor"] = device_ops(
+            torch, lambda: launch_floor(kern, dev))
+        call_ops["calc_deps"] = device_ops(torch, mesh_real["calc_deps"][0])
+        call_ops["ts_max"] = device_ops(torch, mesh_real["ts_max"][0])
         # K8 ELL and K13's one-launch drain: the most of three traces
         for name in ("drain_fix_ell", "drain_fix_ell[narrow then wide]"):
             call_ops[name] = device_ops(torch, real[name][0], takes=3)
@@ -4146,7 +4393,8 @@ def main(argv=None) -> int:
                 check(ops_["kernels"] == 1 and ops_["memsets"] == 0,
                       f"K1b {name}: not one kernel and no memset {ops_}")
             if name.startswith(("deps_bucketed", "drain_fix",
-                                "sharded_drain_fix")):
+                                "sharded_drain_fix", "frontier_dense",
+                                "ts_max", "calc_deps")):
                 check(ops_["kernels"] == 1 and ops_["copies"] == 0
                       and ops_["memsets"] == 0,
                       f"{name}: not one kernel and no copy a call {ops_}")
@@ -4316,7 +4564,10 @@ def main(argv=None) -> int:
                    "drain_fix_dense[narrow then wide]",
                    "drain_fix_ell[narrow then wide]")},
                "sync_floor_us": sync_floor, "k5_flush": k5_flush,
-               "k5_burn": k5_burn,
+               "k5_burn": k5_burn, "k4b": k4b,
+               "k4b_more": {k: dict(rows[k], shape=shapes.get(k)) for k in (
+                   "frontier_dense[4096]", "frontier_dense[planned]",
+                   "frontier_dense[tick]", "frontier_dense[tick planned]")},
                "seconds": time.perf_counter() - t_start}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     if rehearsal:

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from accord_tpu.ops import drain_kernel as rdrk
 from accord_tpu_torch.ops import convert
 from accord_tpu_torch.ops import drain_kernel as pdrk
+from accord_tpu_torch.ops import kernels
 
 STATUSES = np.array([-1, 0, 1, 2, 3, 4, 4, 4, 5, 5, 6], np.int32)
 WORDS = np.array([0, 1, 5, (1 << 48) - 1, np.iinfo(np.int64).max,
@@ -73,3 +74,49 @@ def test_frontier_dense_and_ell_equal(seed, n):
     # the two forms agree with each other too
     np.testing.assert_array_equal(port.numpy(), port_e.numpy())
     assert port.dtype == torch.bool
+
+
+def _ref_frontier(dense):
+    return np.asarray(rdrk.ready_frontier(
+        rdrk.DrainState(*map(jnp.asarray, dense))))
+
+
+@pytest.mark.parametrize("n", [16, 64, 200])
+def test_frontier_dense_into_out_equal(n):
+    """The drain tick's form, ``ready_frontier(state, out=buf)``: the
+    flags land in ``buf`` (the mirror keeps one for the tick), equal to
+    ``ready_frontier(state)`` and to the reference's."""
+    dense = _case(n * 7 + 3, n)
+    st = convert.tables_from_numpy({"drain": dense}, "cpu")["drain"]
+    buf = torch.ones(n, dtype=torch.bool)
+    assert pdrk.ready_frontier(st, out=buf) is buf
+    np.testing.assert_array_equal(_ref_frontier(dense), buf.numpy())
+    np.testing.assert_array_equal(pdrk.ready_frontier(st).numpy(),
+                                  buf.numpy())
+
+
+def test_planned_state_after_scalar_scatter():
+    """A planned DrainState (``kernels.checked_cols``) gives the
+    reference's frontier, and again after the drain mirror's in-place
+    scatter of status and executeAt rows: its plan (the columns'
+    pointers) still holds."""
+    n = 48
+    dense = [a.copy() for a in _case(5, n)]
+    st = kernels.checked_cols(
+        convert.tables_from_numpy({"drain": dense}, "cpu")["drain"])
+    plan = st._plan
+    np.testing.assert_array_equal(_ref_frontier(dense),
+                                  pdrk.ready_frontier(st).numpy())
+    rng = np.random.default_rng(77)
+    rows = np.sort(rng.choice(n, 9, replace=False)).astype(np.int32)
+    new = [rng.choice(STATUSES, 9).astype(np.int32),
+           rng.integers(0, 6, 9).astype(np.int64),
+           rng.choice(WORDS, 9).astype(np.int64),
+           rng.integers(1, 3, 9).astype(np.int32)]
+    kernels.scatter_rows([st.status, st.exec_msb, st.exec_lsb,
+                          st.exec_node], rows, new)
+    for c, a in zip((1, 2, 3, 4), new):
+        dense[c][rows] = a
+    assert st._plan is plan and plan[1] == [c.data_ptr() for c in st]
+    np.testing.assert_array_equal(_ref_frontier(dense),
+                                  pdrk.ready_frontier(st).numpy())

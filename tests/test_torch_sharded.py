@@ -165,6 +165,41 @@ def test_sharded_calculate_deps_equals_reference(meshes, seed):
             _eq(w, g)
 
 
+@pytest.mark.parametrize("case", ["ragged", "B1", "dead slice"])
+def test_sharded_calculate_deps_ragged_equals_reference(meshes, case):
+    """The sharded scan over slices of unequal capacity (some empty), one
+    query, and a slice whose every slot is dead: the slices' masks side
+    by side and the max-conflict equal the reference's calculate_deps over
+    the whole table, with and without the prune floor."""
+    _rm, pm = meshes
+    caps = {"ragged": [17, 0, 5, 30, 1, 0, 9, 2],
+            "B1": [8] * D, "dead slice": [10, 6, 12, 8, 4, 8, 8, 8]}[case]
+    inp = _inputs(40 + len(case), n=sum(caps), b=1 if case == "B1" else 8)
+    m = inp["m"]
+    cols = [c.copy() for c in inp["table"]]
+    if case == "dead slice":
+        dead = slice(caps[0], caps[0] + caps[1])
+        cols[4][dead] = np.where(np.arange(caps[1]) % 2, -1, 6)
+    rt = _ref_nt("table", cols)
+    rq = rdk.query_from_qmat(jnp.asarray(inp["qmat"]), m)
+    whole = _port_nt("table", cols)
+    cuts = np.cumsum([0] + caps)
+    pt = pdk.DepsTable(*(tuple(c[a:b] for a, b in zip(cuts, cuts[1:]))
+                         for c in whole))
+    pq = pdk.query_from_qmat(torch.from_numpy(inp["qmat"]), m)
+    for prune in (None, inp["prune"]):
+        if prune is None:
+            want_mask, want = rdk.calculate_deps(rt, rq)
+            got_mask, got = psh.sharded_calculate_deps(pm)(pt, pq)
+        else:
+            want_mask, want = rdk.calculate_deps(rt, rq, *_prunes(prune))
+            got_mask, got = psh.sharded_calculate_deps(pm)(pt, pq, *prune)
+        assert [g.shape[1] for g in got_mask] == caps
+        _eq(want_mask, _cat(got_mask))
+        for w, g in zip(want, got):
+            _eq(w, g)
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 @pytest.mark.parametrize("pruned", [False, True])
 def test_sharded_flat_equals_reference(meshes, seed, pruned):
