@@ -30,7 +30,9 @@ per-store task-queue batching to the device boundary:
   one dispatcher event, and the members' frontier sweeps fuse into one
   launch (``ops.drain_kernel.fused_ready_frontier[_ell]``) when the same
   pricing says it pays.  A store whose drain wavefront is widened runs its
-  level pass solo.
+  level pass solo.  On the card the dense sweep writes its flags into a
+  pinned host buffer of the tick's own (``_TickSlots``), read at the
+  first member's harvest once the launch's event has passed.
 
 Correctness contract: every fused launch is bit-identical to the solo
 launches it replaces (``tests/test_torch_fused.py``,
@@ -48,10 +50,12 @@ from __future__ import annotations
 
 import os
 import time
+import weakref
 from functools import partial
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..obs import devprof
 from ..ops import deps_kernel as dk
@@ -141,12 +145,82 @@ class FusedFlushLaunch:
                 h["probing"] = False
 
 
+# free pinned buffers the fused dense ticks' pool keeps at most
+TICK_SLOTS_KEPT = 4
+
+
+class _TickSlot:
+    """A pinned host buffer that one fused dense tick's kernel writes its
+    flags into (a power of two of bytes), and an event recorded on the
+    launch's stream right after the launch: the buffer serves another
+    tick only once that event has passed."""
+
+    __slots__ = ("buf", "event")
+
+    def __init__(self, nbytes: int) -> None:
+        self.buf = torch.empty(_pow2_at_least(nbytes, 4096),
+                               dtype=torch.uint8, pin_memory=True)
+        self.event = torch.cuda.Event()
+
+    def launch(self, kernel, states):
+        """``kernel(states, out=...)`` into this buffer, viewed as
+        bool[S, n_max]; the event is recorded after it, raise or not."""
+        s, n_max = len(states), max(st.status.shape[0] for st in states)
+        try:
+            return kernel(states, out=self.buf[:s * n_max].view(torch.bool)
+                          .view(s, n_max))
+        finally:
+            self.event.record(
+                torch.cuda.current_stream(states[0].status.device))
+
+
+class _TickSlots:
+    """The pool of _TickSlots, one for each fused dense tick in flight: two
+    ticks with disjoint members may be launched before either is
+    harvested (a member's tick task runs later, through its store's
+    queue), so no two share a buffer.  A slot comes back at its tick's
+    first harvest, at its poison, at a failed launch, or when the tick is
+    dropped unharvested (``FusedTick``); it is taken again, or dropped
+    past ``TICK_SLOTS_KEPT`` free slots, only once its event has passed.
+    One pool for the process: a buffer leaves it only behind its event."""
+
+    def __init__(self) -> None:
+        self.free: List[_TickSlot] = []
+
+    def take(self, states) -> _TickSlot:
+        nbytes = len(states) * max(st.status.shape[0] for st in states)
+        for k, slot in enumerate(self.free):
+            if slot.buf.numel() >= nbytes and slot.event.query():
+                return self.free.pop(k)
+        return _TickSlot(nbytes)
+
+    def give(self, slot: Optional[_TickSlot]) -> None:
+        if slot is None:
+            return
+        self.free.append(slot)
+        if len(self.free) > TICK_SLOTS_KEPT:
+            done = [f for f in self.free if f.event.query()]
+            if done:
+                self.free.remove(min(done, key=lambda f: f.buf.numel()))
+
+
+_TICK_SLOTS = _TickSlots()
+
+
 class FusedTick:
     """One in-flight fused drain-frontier launch (see FusedFlushLaunch for
-    the failure contract)."""
+    the failure contract).  ``slot``: the _TickSlot whose pinned buffer
+    the launch writes its flags into (``dev_out`` views it); the first
+    harvest waits for that launch's event and copies the flags out.
+    The slot goes back to the pool at that harvest, at ``poison``, or
+    when the tick is dropped unharvested (its members' tick tasks ended
+    before ``result_for``), always behind its launch's event."""
 
-    def __init__(self, dev_out, group):
+    def __init__(self, dev_out, group, slot: Optional[_TickSlot] = None):
         self.dev = dev_out
+        self.slot = slot
+        self._release = (None if slot is None
+                         else weakref.finalize(self, _TICK_SLOTS.give, slot))
         self.rows = {id(dev): (i, live, dev.drain.version)
                      for i, (dev, _st, live) in enumerate(group)}
         self.members = [dev for dev, _st, _lv in group]
@@ -159,6 +233,14 @@ class FusedTick:
     def version_for(self, dev) -> int:
         return self.rows[id(dev)][2]
 
+    def _download(self) -> np.ndarray:
+        if self.slot is None:
+            return _host(self.dev)
+        self.slot.event.synchronize()      # the launch has written them
+        flags = self.dev.numpy().copy()
+        self._release()
+        return flags
+
     def result_for(self, dev) -> np.ndarray:
         if self.failed is not None:
             raise self.failed
@@ -166,7 +248,7 @@ class FusedTick:
             faults.check("transfer", "fused drain download")
             self._out = _profiled_harvest(
                 "fused_tick_harvest", self.members[0],
-                len(self.members), lambda: _host(self.dev))
+                len(self.members), self._download)
         i, live, _v = self.rows[id(dev)]
         ready = self._out[i][: len(live)]
         return live[ready & dev.drain.active[live]]
@@ -174,6 +256,8 @@ class FusedTick:
     def poison(self, exc: BaseException) -> None:
         if self.failed is None:
             self.failed = exc
+            if self._release is not None:
+                self._release()
             for dev in self.members:
                 dev._device_fault(exc, f"fused drain collect: {exc}")
 
@@ -488,13 +572,25 @@ class DeviceDispatcher:
                 continue
             prof = devprof.PROFILER
             _t0 = time.perf_counter() if prof is not None else 0.0
+            states = [st for _d, st, _lv in group]
+            slot = None
             try:
-                out_dev = kernel([st for _d, st, _lv in group])
+                if kind == "dense" and states[0].status.is_cuda:
+                    # the flags go over the bus into a pinned buffer of
+                    # this tick's own
+                    slot = _TICK_SLOTS.take(states)
+                    out_dev = slot.launch(kernel, states)
+                else:
+                    out_dev = kernel(states)
             except faults.DEVICE_EXCEPTIONS as e:
+                _TICK_SLOTS.give(slot)
                 for dev, _st, _lv in group:
                     dev._device_fault(e, f"fused drain launch: {e}")
                 continue
-            ft = FusedTick(out_dev, group)
+            except BaseException:
+                _TICK_SLOTS.give(slot)
+                raise
+            ft = FusedTick(out_dev, group, slot)
             self.n_fused_tick_launches += 1
             self.n_fused_tick_members += len(group)
             if prof is not None:

@@ -33,6 +33,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # what a launch takes by value in its kernel parameter: K12's blocks, K3's
 # columns, K13's and K11's slices, K5's member stores.  nvcc gets them as
 # macros, so that a kernel and its wrapper in ops.kernels read one number.
+# K6 dense takes up to ACCORD_FUSED_MAX_STORES members too (72 bytes each).
 # K5's members are 104 bytes each in the scan and 192 in the attribution,
 # so 128 of them fill most of the 32,764 bytes a kernel parameter may hold
 # (CUDA 12.1 and later)
@@ -164,6 +165,8 @@ def library() -> ctypes.CDLL:
         lib.accord_drain_fix_workspace_words.restype = ctypes.c_int64
         lib.accord_drain_fix_ell_workspace_words.argtypes = [ctypes.c_int64] * 2
         lib.accord_drain_fix_ell_workspace_words.restype = ctypes.c_int64
+        lib.accord_level_dense_workspace_words.argtypes = [ctypes.c_int64]
+        lib.accord_level_dense_workspace_words.restype = ctypes.c_int64
         lib.accord_calc_tiles.argtypes = [ctypes.c_int64]
         lib.accord_calc_tiles.restype = ctypes.c_int64
         _LIB = lib

@@ -157,6 +157,71 @@ __device__ __forceinline__ bool drain_gates(const int32_t* status,
          ts_lt(emsb[j], elsb[j], enode[j], emsb[i], elsb[i], enode[i]);
 }
 
+// the set (non-zero) bytes of a 16-byte chunk as a 16-bit mask, byte k
+// at bit k
+__device__ __forceinline__ uint32_t set_bytes(const uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t t = w[q] | (w[q] >> 4);
+    t |= t >> 2;
+    t |= t >> 1;
+    t &= 0x01010101u;          // bit 0 of each byte: the byte is set
+    bits |= ((t * 0x01020408u) >> 24) << (4 * q);   // gather to 4 bits
+  }
+  return bits;
+}
+
+// The walk of one row of a bool [N, N] matrix by a warp (K4b, K6 and K7
+// dense): each lane reads an aligned 16-byte chunk a step, so a warp
+// covers 512 bytes; the chunks are counted from the 16-byte boundary at
+// or below the matrix's start and the bytes outside the row are masked
+// (a row of N bytes need not start on a chunk); the next step's chunk is
+// loaded before this step's is used.  The constructor issues the first
+// loads, so a caller reads the row's own fields behind them.
+struct RowWalk {
+  const uint4* chunks;
+  int64_t r0, r1;   // the row's bytes, counted from ``chunks``
+  int64_t base;     // the chunk lane 0 reads this step
+  int64_t c1;       // the chunk past the row
+  int lane;
+  uint4 v, vn;      // this step's chunk, the next step's
+
+  __device__ __forceinline__ RowWalk(const uint8_t* adj, int64_t n,
+                                     int64_t i, int lane_)
+      : lane(lane_) {
+    chunks = (const uint4*)((uintptr_t)adj & ~(uintptr_t)15);
+    r0 = (int64_t)((uintptr_t)adj & 15) + i * n;
+    r1 = r0 + n;
+    c1 = (r1 + 15) >> 4;
+    base = r0 >> 4;
+    v = load(base + lane);
+    vn = load(base + lane + 32);
+  }
+  __device__ __forceinline__ uint4 load(int64_t c) const {
+    return c < c1 ? __ldg(chunks + c) : make_uint4(0, 0, 0, 0);
+  }
+  // this lane's set bytes of the row this step (byte k of its chunk at
+  // bit k), and in ``col0`` the column of bit 0
+  __device__ __forceinline__ uint32_t bits(int64_t& col0) const {
+    const int64_t c = base + lane;
+    if (c >= c1) return 0;
+    const int64_t p = c << 4;
+    const int lo = (int)max64(r0 - p, 0), hi = (int)min64(r1 - p, 16);
+    col0 = p - r0;
+    return set_bytes(v) & ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+  }
+  // on to the next step: false once the row is read (in every lane)
+  __device__ __forceinline__ bool next() {
+    base += 32;
+    if (base >= c1) return false;
+    v = vn;
+    vn = load(base + lane + 32);
+    return true;
+  }
+};
+
 // One cooperative launch of ``kernel(args)`` with ``nt`` threads and
 // ``smem`` bytes of dynamic shared memory a block: ``want`` blocks, at most
 // as many as fit on the card at once (grid.sync() needs every block

@@ -183,10 +183,12 @@ def fused_ready_frontier_ell_plain(states) -> torch.Tensor:
     return torch.stack(out)
 
 
-def fused_ready_frontier(states) -> torch.Tensor:
-    """One launch sweeping S dense states (CUDA kernel on CUDA tensors)."""
+def fused_ready_frontier(states, out=None) -> torch.Tensor:
+    """One launch sweeping S dense states (CUDA kernel on CUDA tensors);
+    ``out``, a bool[S, n_max] on the states' device or in pinned host
+    memory, takes the flags in place of a new tensor."""
     from . import kernels
-    return kernels.fused_frontier_dense(states)
+    return kernels.fused_frontier_dense(states, out=out)
 
 
 def fused_ready_frontier_ell(states) -> torch.Tensor:

@@ -41,18 +41,18 @@ kernels.  The wrappers allocate every output and scratch buffer with
 | attr_tok       | parallel/sharded.py:566-576 (the token psum's terms)     |
 
 The fused kernels read every member store's tensors where they lie.  K5
-passes each member's pointers and sizes by value in its kernel parameter
-(up to ``FUSED_MAX_STORES`` members a launch, packed once into each
-column set's plan); K6's wrapper uploads one small table of per-store
-base pointers and sizes (``_store_refs``), and the kernel puts the store
-on a grid dimension.  The mesh kernels read the slices of one device the
-same way: their wrappers take the slices that lie on one device and
-launch once for them (K11, K12 and K13 pass the slices' or blocks'
-pointers in the kernel parameter instead, up to ``SHARDED_MAX_SLICES``
-and ``MERGE_MAX_REFS``).  K3 handed
-numpy packs its index and rows into one pinned staging buffer
-(``StagingRing``) and uploads it in one copy.  K4b may write its flags
-straight into a pinned host buffer (the drain tick's).
+and K6 dense pass each member's pointers and sizes by value in their
+kernel parameter (up to ``FUSED_MAX_STORES`` members a launch, packed
+once into each column set's plan); K6 ELL's wrapper uploads one small
+table of per-store base pointers and sizes (``_store_refs``), and the
+kernel puts the store on a grid dimension.  The mesh kernels read the
+slices of one device the same way: their wrappers take the slices that
+lie on one device and launch once for them (K11, K12 and K13 pass the
+slices' or blocks' pointers in the kernel parameter instead, up to
+``SHARDED_MAX_SLICES`` and ``MERGE_MAX_REFS``).  K3 handed numpy packs
+its index and rows into one pinned staging buffer (``StagingRing``) and
+uploads it in one copy.  K4b and K6 dense may write their flags straight
+into a pinned host buffer (the drain ticks').
 
 A non-zero return code of an entry point raises ``launch_error``'s
 exception: ``faults.CudaLaunchError`` for a launch refused for want of
@@ -169,13 +169,21 @@ def _planned(cls):
 
 def _plan(nt) -> tuple:
     """(device or None, data pointers, first-axis lengths, packed launch
-    values by builder) of column set ``nt``, its dtypes checked."""
-    _check_cols(nt)
-    devs = {c.device for c in nt}
-    dev = (devs.pop() if len(devs) == 1
-           and all(c.is_contiguous() for c in nt) else None)
-    return (dev, [c.data_ptr() for c in nt],
-            [c.shape[0] if c.dim() else 1 for c in nt], {})
+    values by builder) of column set ``nt``, its dtypes checked (one pass
+    over the columns: a drain tick plans a new state almost every call)."""
+    want = _DTYPES[type(nt)]
+    idx = nt[0].get_device()
+    same = True
+    ptrs, lens = [], []
+    for k, c in enumerate(nt):
+        if c.dtype is not want[k]:
+            raise TypeError(f"{type(nt).__name__}.{nt._fields[k]}: expected "
+                            f"{want[k]}, got {c.dtype}")
+        same = same and c.get_device() == idx and c.is_contiguous()
+        ptrs.append(c.data_ptr())
+        shape = c.shape
+        lens.append(shape[0] if shape else 1)
+    return (nt[0].device if same else None, ptrs, lens, {})
 
 
 def checked_cols(nt):
@@ -599,11 +607,17 @@ def scatter_rows(cols: Sequence[torch.Tensor], idx,
 # values, with its entry point resolved (once for a planned state, on
 # each call for any other); each call adds the output's pointer.
 
-def _dense_frontier_values(st, plan):
-    n = st.status.shape[0]
+def _dense_n(st, plan) -> int:
+    """N of a dense drain state whose adjacency is [N, N]."""
+    n = plan[2][1]
     if st.adj.shape != (n, n):
         raise ValueError(f"adjacency {tuple(st.adj.shape)} is not "
                          f"[{n}, {n}]")
+    return n
+
+
+def _dense_frontier_values(st, plan):
+    n = _dense_n(st, plan)
     return (array("Q", plan[1]), array("q", [n]), n,
             _build.entries()["frontier_dense"])
 
@@ -614,21 +628,29 @@ def _ell_frontier_values(st, plan):
             _build.entries()["frontier_ell"])
 
 
+def _flags_out(out, shape, dev: torch.device) -> torch.Tensor:
+    """A frontier's output: ``out`` (None: a new bool tensor of ``shape``
+    on ``dev``), which must be a contiguous bool tensor of ``shape`` on
+    ``dev`` or in pinned host memory, which the card maps."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.bool, device=dev)
+    if out.dtype is not torch.bool or out.shape != shape \
+            or not out.is_contiguous():
+        raise ValueError(f"frontier out: expected a contiguous bool"
+                         f"{list(shape)}")
+    if out.get_device() != dev.index if out.is_cuda else not out.is_pinned():
+        raise ValueError(f"frontier out lies on {out.device}: neither on "
+                         f"{dev} nor in pinned host memory")
+    return out
+
+
 def _frontier(name: str, state, build, out) -> torch.Tensor:
     """A frontier launch into ``out`` (None: a new tensor): bool[n],
     contiguous, on the state's device or in pinned host memory, which
     the card maps."""
     dev = state.status.device
     cols, vals, n, fn = _values(state, dev, build)
-    if out is None:
-        out = torch.empty(n, dtype=torch.bool, device=dev)
-    elif out.dtype is not torch.bool or out.shape != (n,) \
-            or not out.is_contiguous():
-        raise ValueError(f"frontier out: expected a contiguous bool[{n}]")
-    elif out.device != dev and not (out.device.type == "cpu"
-                                    and out.is_pinned()):
-        raise ValueError(f"frontier out lies on {out.device}: neither on "
-                         f"{dev} nor in pinned host memory")
+    out = _flags_out(out, (n,), dev)
     p = cols + array("Q", (out.data_ptr(),))
     _launch_packed(name, dev.index, fn, p.buffer_info()[0],
                    vals.buffer_info()[0])
@@ -832,26 +854,66 @@ def fused_frontier_ell(states) -> torch.Tensor:
     return out
 
 
-def fused_frontier_dense(states) -> torch.Tensor:
-    """bool[S, n_max], dense adjacency per store (n_i x n_i)."""
+def _member_values(st, plan):
+    # a K6 dense member's column pointers and n, packed
+    n = _dense_n(st, plan)
+    return array("q", [*plan[1], n]).tobytes(), n
+
+
+# rows a K6 dense CTA takes (DENSE_ROWS of csrc/frontier.cu)
+FRONTIER_ROWS = 8
+
+
+@functools.lru_cache(maxsize=256)
+def fused_frontier_launches(ns: tuple, n_max: int):
+    """K6 dense's launches for members of ``ns`` rows (a tuple: the plans
+    of the sizes a group has are kept), padded to ``n_max``: for each
+    launch of at most ``FUSED_MAX_STORES`` members, (first member, last
+    member + 1, CTAs, [(the first row of the member's flags in the
+    launch's output, its first CTA) per member]).  A member takes one CTA
+    an 8-row group, one at least (its last CTA writes its pad rows); a
+    launch's output starts at its first member's row of the group's
+    ``bool[S, n_max]``."""
+    out = []
+    for i0, i1 in _chunks(len(ns)):
+        g, rows = 0, []
+        for k, n in enumerate(ns[i0:i1]):
+            rows.append((k * n_max, g))
+            g += max(1, -(-n // FRONTIER_ROWS))
+        out.append((i0, i1, g, rows))
+    return out
+
+
+def fused_frontier_dense(states, out=None) -> torch.Tensor:
+    """bool[S, n_max], dense adjacency per store (n_i x n_i): row i's
+    first n_i flags are states[i]'s frontier, the rest false.  Each
+    member's columns and size travel by value (up to ``FUSED_MAX_STORES``
+    a launch); ``out`` (bool[S, n_max] on the states' card, or pinned
+    host memory, which the kernel writes over the bus) takes the flags in
+    place of a new tensor."""
     if not on_cuda(states[0].status):
-        return drk.fused_ready_frontier_plain(states)
+        ready = drk.fused_ready_frontier_plain(states)
+        return ready if out is None else out.copy_(ready)
     dev = states[0].status.device
-    for st in states:
-        n = st.status.shape[0]
-        if st.adj.shape != (n, n):
-            raise ValueError(f"adjacency {tuple(st.adj.shape)} is not "
-                             f"[{n}, {n}]")
-    n_max = max(st.status.shape[0] for st in states)
-    refs = _drain_refs(dev, states, "adj")
-    out = torch.empty((len(states), n_max), dtype=torch.bool, device=dev)
-    _launch("fused_frontier_dense", dev, [refs, out], [len(states), n_max])
+    parts, ns = zip(*[_values(st, dev, _member_values) for st in states])
+    n_max = max(ns)
+    out = _flags_out(out, (len(states), n_max), dev)
+    base = out.data_ptr()
+    for i0, i1, ctas, rows in fused_frontier_launches(ns, n_max):
+        v = array("q", (i1 - i0, n_max, ctas))
+        for part, (row, g0) in zip(parts[i0:i1], rows):
+            v.frombytes(part)
+            v.extend((row, g0))
+        _launch("fused_frontier_dense", dev, [base + i0 * n_max], v)
     return out
 
 
 # -- K7: log-depth level assignment --------------------------------------------
 
-def _level_launch(name: str, state, width: int):
+def level_ell(state: drk.EllDrainState):
+    """(levels int32[N], rounds int32[]) by one cooperative launch."""
+    if not on_cuda(state.status):
+        return drk.level_assign_ell_plain(state)
     dev = state.status.device
     _check_cols(state)
     n = state.status.shape[0]
@@ -860,26 +922,39 @@ def _level_launch(name: str, state, width: int):
     flags = torch.empty(3, dtype=torch.int32, device=dev)
     levels = torch.empty(n, dtype=torch.int32, device=dev)
     rounds = torch.empty((), dtype=torch.int32, device=dev)
-    _launch(name, dev, [*state, *scratch, flags, rounds, levels], [n, width])
+    _launch("level_ell", dev, [*state, *scratch, flags, rounds, levels],
+            [n, state.adj_idx.shape[1]])
     return levels, rounds
 
 
-def level_ell(state: drk.EllDrainState):
-    """(levels int32[N], rounds int32[]) by one cooperative launch."""
-    if not on_cuda(state.status):
-        return drk.level_assign_ell_plain(state)
-    return _level_launch("level_ell", state, state.adj_idx.shape[1])
+@functools.lru_cache(maxsize=64)
+def _level_dense_words(n: int) -> int:
+    """The int32 words of K7 dense's workspace, its levels and rounds
+    first, as its entry point lays it out."""
+    return _build.library().accord_level_dense_workspace_words(n)
+
+
+def _level_values(st, plan):
+    # K7 dense's column pointers, N and workspace words
+    n = _dense_n(st, plan)
+    return array("Q", plan[1]), n, _level_dense_words(n)
 
 
 def level_dense(state: drk.DrainState):
-    """(levels int32[N], rounds int32[]) by one cooperative launch."""
+    """(levels int32[N], rounds int32[]) by one cooperative launch and one
+    allocation (the levels and rounds are views of its workspace).  The
+    device runs the rounds in its first CTA where their state fits, else
+    on the grid."""
     if not on_cuda(state.status):
         return drk.level_assign_dense_plain(state)
-    n = state.status.shape[0]
-    if state.adj.shape != (n, n):
-        raise ValueError(f"adjacency {tuple(state.adj.shape)} is not "
-                         f"[{n}, {n}]")
-    return _level_launch("level_dense", state, n)
+    dev = state.status.device
+    cols, n, words = _values(state, dev, _level_values)
+    buf = torch.empty(words, dtype=torch.int32, device=dev)
+    p = cols + array("Q", (buf.data_ptr(),))
+    v = array("q", (n, words))
+    _launch_packed("level_dense", dev.index, _build.entries()["level_dense"],
+                   p.buffer_info()[0], v.buffer_info()[0])
+    return buf[:n], buf[n]
 
 
 # -- K8: the fixpoint drains ---------------------------------------------------

@@ -46,7 +46,16 @@ Phases:
      that end inside a 16-byte chunk) and timed at config 3's [4096,
      4096]; K11 on ragged slices (131,072 and 1,000 slots; 0 and 500),
      B = 1 and 129, a slice of dead slots, the prune floor, interval
-     widths 1, 2, 3 and 8, and 17 slices (two launches);
+     widths 1, 2, 3 and 8, and 17 slices (two launches); K6 dense on
+     members of 1, 37, 100 and 17 rows (and into a pinned host buffer)
+     and on 130 members (two launches), timed at phase 7's 2 x [4096,
+     4096] (and on one planned group); K7 dense on more than 32 deps a
+     row (at 4,096 rows past the lists' regions), a 300-row chain closed
+     by an ``awaits_all`` cycle, 256 rows all blocked and a 1,024-row
+     DAG at its first CTA's shared-memory cap, with the grid form pinned
+     on phase 3's random inputs and the 1,024-deep chain, and timed on
+     config 3's chain, an 8,192-deep chain (the grid form) and the cap's
+     DAG, each form;
   4. the main path, a PreAccept deps store at real size: 100,000 in-flight
      txns over a 1,000,000-key space, up to 8 intervals each, with
      RedundantBefore floors and CommandsForKey state; 12,288 queries in
@@ -119,7 +128,11 @@ planned) and as the tick pays for it (a new state each call, its flags
 written into a pinned host buffer, one stream synchronisation; planned
 and not), beside an empty kernel launched through the same path
 (``kernels._launch_packed``: the short-call floor), and phase 6 prints the median dispatch and wait of the second
-burn's solo dense ticks; K11 is timed at phase 10's recorded call
+burn's solo dense ticks; K6 dense is timed at the burn's median fused
+group, repeated and as the fused tick pays for it (new states each call,
+into a pinned buffer, one synchronisation), and two fused dense ticks
+over disjoint stores are launched back to back and must each harvest
+their own flags; K11 is timed at phase 10's recorded call
 against the operations its data needs (``calc_needed_ops``) and the
 formula's count.  Then a real CUDA error in a store's flush: every free
 byte of the card is held while one dirty-row scatter allocates, so it
@@ -129,15 +142,20 @@ restore.  A real launch the library refuses for an invalid argument
 (cudaErrorInvalidValue) must instead propagate, off the fault ladder.
 Then torch.profiler counts the device operations of one K12 call (one
 kernel), one live K3 call (one copy, one kernel) and K1a's, K1b's, K2's,
-K4b's, K5's, K8's, K11's cross-slice reduce's and K13's one-launch
-drain's calls (one kernel, no memset, no copy; K5's, K8 ELL's and K13's
-the most of three traces) and gives K11's and the empty kernel's device
-time,
+K4b's, K5's, K6 dense's, K7 dense's, K8's, K11's cross-slice reduce's
+and K13's one-launch drain's calls (one kernel, no memset, no copy;
+K5's, K6's, K7's, K8 ELL's and K13's the most of three traces) and
+gives K11's and the empty kernel's device time,
 times one whole fused flush at phase 7's recorded call (the host's
 enqueue and wall time beside its CUDA-event time, device tensors in and
 as the dispatcher uploads them), and traces two phase-4 batches and four
 phase-7 rounds, solo and fused, for the device's busy share and its time
 by kernel name.
+
+The script runs on an earlier tree too (K6 without ``out``, K7 without
+``grid``: their tick form downloads by ``.cpu()``, the pinned checks and
+forms are left out), so that the parent and the change are timed by
+one script.
 
 Every kernel launch count is set to 0 just before phases 4-11 and read
 after each; each phase's seconds are printed: each kernel of the path must
@@ -152,6 +170,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 from array import array
 import json
 import statistics
@@ -239,6 +258,9 @@ TENSOR_INT8_OPS = 1979e12
 # integer instructions per second, 64 INT32 lanes an SM at the card's
 # maximum SM clock (logic_rate); a CPU rehearsal uses 132 SMs x 1.98 GHz
 LOGIC_OPS = 132 * 64 * 1.98e9
+# the digest of phase 6's burn (seed 1, 150 ops) on the card: a kernel
+# that changed a count the protocol sees would change it
+BURN_DIGEST = "63002a1ae0c60636"
 # the (unread) argument arrays of the empty kernel's launch
 FLOOR_ARGS = array("q", [0])
 
@@ -1054,13 +1076,42 @@ def pinned_upload(torch, arrays, dev) -> tuple:
                  .view(a.shape) for a, o in zip(arrays, offs))
 
 
-def fused_frontier_case(torch, kern, drk, states):
-    """K6: the members' own frontier work (pad rows need nothing)."""
+def k6_by_value(kern) -> bool:
+    """Does K6 dense take its members by value and write into a given
+    ``out`` (a pinned host buffer)?  An earlier tree's uploads a table of
+    them and returns a device tensor, which this script times too."""
+    return "out" in inspect.signature(kern.fused_frontier_dense).parameters
+
+
+def fused_frontier_case(torch, kern, drk, states, tick=False):
+    """K6: the members' own frontier work (pad rows need nothing).
+    ``tick``: K6 dense as the fused drain tick pays for it, since the
+    mirrors build new states for almost every tick: each call wraps the
+    members' columns in new DrainStates, launches into a kept pinned host
+    buffer and reads the flags after one synchronisation of the stream (a
+    tree without ``out``: launches and downloads by ``.cpu()``)."""
     work = [frontier_work(torch, drk, st) for st in states]
     ell = isinstance(states[0], drk.EllDrainState)
-    kfn = kern.fused_frontier_ell if ell else kern.fused_frontier_dense
+    kfn = ((lambda: kern.fused_frontier_ell(states)) if ell
+           else (lambda: kern.fused_frontier_dense(states)))
     pfn = (drk.fused_ready_frontier_ell_plain if ell
            else drk.fused_ready_frontier_plain)
+    pfn_ = lambda: pfn(states)
+    if tick:
+        cols = [tuple(st) for st in states]
+        n_max = max(st.status.shape[0] for st in states)
+        kept = torch.empty(len(states) * n_max, dtype=torch.bool,
+                           pin_memory=True).view(len(states), n_max)
+
+        def kfn():
+            fresh = [drk.DrainState(*c) for c in cols]
+            if not k6_by_value(kern):
+                return kern.fused_frontier_dense(fresh).cpu()
+            kern.fused_frontier_dense(fresh, out=kept)
+            torch.cuda.current_stream().synchronize()
+            return kept
+
+        pfn_ = lambda: pfn(states).cpu()
     lfn = None
     if not ell and len({st.adj.shape for st in states}) == 1:
         # members of one shape: torch.any over the stacked masked blocking
@@ -1069,8 +1120,8 @@ def fused_frontier_case(torch, kern, drk, states):
 
         def lfn():
             return torch.any(blk & unapplied[:, None, :], dim=2)
-    return (lambda: kfn(states), lambda: pfn(states), lfn,
-            sum(w[0] for w in work), sum(w[1] for w in work))
+    return (kfn, pfn_, lfn, sum(w[0] for w in work),
+            sum(w[1] for w in work))
 
 
 def level_work(torch, drk, state, out_bytes=None):
@@ -1090,12 +1141,66 @@ def level_work(torch, drk, state, out_bytes=None):
 
 
 def level_case(torch, kern, drk, state):
+    """K7."""
     ell = isinstance(state, drk.EllDrainState)
     return ((lambda: kern.level_ell(state)) if ell
             else (lambda: kern.level_dense(state)),
             (lambda: drk.level_assign_ell_plain(state)) if ell
             else (lambda: drk.level_assign_dense_plain(state)),
             None, *level_work(torch, drk, state))
+
+
+def dense_state(n, edges, status, msb=None, awaits=()):
+    """A dense drain input of ``n`` rows: ``edges`` (row, dep) pairs,
+    executeAt ascending by slot unless ``msb`` is given, node 1."""
+    adj = np.zeros((n, n), bool)
+    if len(edges):
+        e = np.asarray(edges)
+        adj[e[:, 0], e[:, 1]] = True
+    aw = np.zeros(n, bool)
+    aw[list(awaits)] = True
+    return (adj, np.asarray(status, np.int32),
+            np.arange(n, dtype=np.int64) if msb is None else msb,
+            np.zeros(n, np.int64), np.ones(n, np.int32), aw)
+
+
+def random_dag(n, deg, seed):
+    """``n`` Stable rows (row 0 applied), each waiting on ``deg`` random
+    earlier rows, executeAt ascending: every edge gates."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(1, n), deg)
+    deps = (rng.random(len(rows)) * rows).astype(np.int64)
+    st = np.full(n, 4)
+    st[0] = 5
+    return dense_state(n, np.stack([rows, deps], 1), st)
+
+
+def level_graphs(card: bool) -> dict:
+    """K7 dense's edge inputs (the CPU tests' edge cases, at the card's
+    sizes): Stable rows with more than 32 blocking deps (each row of an
+    antichain of 64 waits on every row of the one before, so 4,032 rows x
+    64 deps do not fit the lists' regions, or 33 deps a row at 512 rows,
+    which fit the first CTA), a 300-row chain closed by an ``awaits_all``
+    cycle at its tail (N not a multiple of 16), 256 rows all Stable and
+    blocked behind a cycle at the head, and a random DAG at the first
+    CTA's shared-memory cap (1,024 rows, 30 deps a row).  Off the card
+    (a rehearsal) the 4,096-row input is left out."""
+    def fanin(n, fan):
+        rows = np.arange(fan, n)
+        edges = [(i, j) for i in rows
+                 for j in range(i // fan * fan - fan, i // fan * fan)]
+        return dense_state(n, edges, [5] * fan + [4] * (n - fan),
+                           msb=np.arange(n, dtype=np.int64) // fan)
+    n = 300
+    chain = [(i, i - 1) for i in range(1, n)] + [(n - 2, n - 1)]
+    blocked = [(i, i - 1) for i in range(1, 256)] + [(0, 1)]
+    out = {"fanin64 n4096": fanin(4096, 64)} if card else {}
+    return {**out, "fanin33 n512": fanin(512, 33),
+            "chain300 cycle": dense_state(n, chain, [5] + [4] * (n - 1),
+                                          awaits=(n - 2,)),
+            "all blocked n256": dense_state(256, blocked, [4] * 256,
+                                            awaits=(0,)),
+            "dag1024x30": random_dag(1024, 30, 7)}
 
 
 def fix_case(torch, kern, drk, state):
@@ -1645,6 +1750,29 @@ def small_cases(torch, dev, kern, dk, drk, convert):
         torch, kern, drk, [st["drain"] for st in drains])
     cases["fused_frontier_ell[64,512,48]"] = fused_frontier_case(
         torch, kern, drk, [st["ell"] for st in drains])
+    # K6 dense on members whose n is not a multiple of 16 and a member of
+    # one row, into a pinned host buffer (the tick's form) too; and on
+    # 130 members, past the 128 a launch takes by value
+    odd = [convert.tables_from_numpy({"drain": small_drain(seed, n)[0]},
+                                     dev)["drain"]
+           for seed, n in ((31, 1), (32, 37), (33, 100), (34, 17))]
+    cases["fused_frontier_dense[1,37,100,17]"] = fused_frontier_case(
+        torch, kern, drk, odd)
+    if dev.type == "cuda":
+        cases["fused_frontier_dense[1,37,100,17 tick]"] = \
+            fused_frontier_case(torch, kern, drk, odd, tick=True)
+    sizes = np.random.default_rng(35).integers(1, 90, 130)
+    cases["fused_frontier_dense[130 members]"] = fused_frontier_case(
+        torch, kern, drk, [convert.tables_from_numpy(
+            {"drain": small_drain(400 + k, int(n))[0]}, dev)["drain"]
+            for k, n in enumerate(sizes)])
+    # K7 dense at its edges: more than 32 deps a row, lists past their
+    # regions, N not a multiple of 16, a cycle, all blocked, the first
+    # CTA's cap
+    for tag, g in level_graphs(dev.type == "cuda").items():
+        cases[f"level_dense[{tag}]"] = level_case(
+            torch, kern, drk, convert.tables_from_numpy({"drain": g},
+                                                        dev)["drain"])
     # K7 on a deep chain: logarithmic rounds, exact levels
     dchain, echain = chain_states(convert, dev, 1024)
     cases["level_dense[chain1024]"] = level_case(torch, kern, drk, dchain)
@@ -2431,6 +2559,42 @@ def burn_once(run_burn, device, n_ops):
          r.evictions, r.stats, r.metrics_snapshot, r.span_export],
         sort_keys=True, default=str).encode()).hexdigest()
     return r, tot, digest
+
+
+def back_to_back_ticks(torch, kern, drk, groups, on_cuda) -> dict:
+    """Two fused dense ticks over disjoint members, the second launched
+    before the first is harvested (a store's tick task runs later, and
+    another batch may be prepared first): each member's harvest must read
+    its own flags, its plain frontier's proposals, and on the card (where
+    K6 dense writes into a pinned buffer) each tick must hold a pinned
+    buffer of its own.  ``groups``: lists of (store, DeviceState) on one
+    TickNode."""
+    disp = groups[0][0][0].node.dispatcher
+    fused = []
+    for group in groups:
+        devs = [d for _st, d in group]
+        by = disp._prepare_fused_ticks(devs)
+        check(len(by) == len(devs) and len({id(f) for f in by.values()}) == 1,
+              f"two ticks: no single fused tick over {len(devs)} stores")
+        fused.append((by[id(devs[0])], devs))
+    slots = [getattr(f, "slot", None) for f, _d in fused]
+    if on_cuda and k6_by_value(kern):
+        check(None not in slots, "two ticks: a fused dense tick on the card "
+              "has no pinned buffer of its own")
+        check(slots[0].buf.data_ptr() != slots[1].buf.data_ptr(),
+              "two ticks in flight share one pinned buffer")
+    proposed = []
+    for f, devs in fused:
+        for d in devs:
+            s_, live = d.drain.state()
+            ready = drk.ready_frontier_plain(s_)[:len(live)].cpu().numpy()
+            want = live[ready & d.drain.active[live]]
+            got = f.result_for(d)
+            check(np.array_equal(np.sort(got), np.sort(want)),
+                  "two ticks: a member's harvest != its plain frontier")
+            proposed.append(int(len(got)))
+    return {"members": [len(d) for _f, d in fused], "proposed": proposed,
+            "pinned_slots": [s is not None for s in slots]}
 
 
 def device_ops(torch, fn, takes: int = 1) -> dict:
@@ -3629,6 +3793,16 @@ def main(argv=None) -> int:
                "small", on_cuda, timed=False)
     run_checks(torch, calc_edge_cases(torch, kern, dk, convert, dev),
                "small", on_cuda, timed=False)
+    # K6 dense splits a group past the members a launch takes by value
+    group = [convert.tables_from_numpy({"drain": small_drain(500 + k, 9)[0]},
+                                       dev)["drain"] for k in range(130)]
+    l0 = kern.LAUNCHES["fused_frontier_dense"]
+    check(bool(torch.equal(kern.fused_frontier_dense(group).cpu(),
+                           drk.fused_ready_frontier_plain(group).cpu())),
+          "K6 dense over 130 members != plain")
+    check(not on_cuda or not k6_by_value(kern)
+          or kern.LAUNCHES["fused_frontier_dense"] - l0 == 2,
+          "K6 dense over 130 members: not two launches")
     log(f"phase3a: small checks done at {time.perf_counter() - t_start:.1f}"
         " s")
 
@@ -3664,6 +3838,8 @@ def main(argv=None) -> int:
     fnode, fdevs = launch_harness(S5, NPER5, KEYS5, True, dev)
     tick_ell = [drain_store(ND, dev, seed=sd) for sd in (13, 17)]
     tick_dense = [drain_store(NDT, dev, seed=sd) for sd in (19, 23)]
+    # and two more, for two fused dense ticks in flight at once
+    tick_dense2 = [drain_store(NDT, dev, seed=sd) for sd in (29, 31)]
     cstore, cds, cchain = chain_store(NDD, dev)
     log(f"setup: {S5} x {NPER5} fused-flush stores, 2 x {ND} + 2 x {NDT} "
         f"fused-tick drain stores, a {NDD}-deep chain store in "
@@ -3746,6 +3922,20 @@ def main(argv=None) -> int:
                                                        dense_pair)
     real["level_ell"] = level_case(torch, kern, drk, dstate)
     real["level_dense"] = level_case(torch, kern, drk, cstate)
+    # K6 dense on one planned group (repeated calls, no checks a call);
+    # K7 dense past the first CTA's rows (a chain twice as deep: the grid
+    # form), at the first CTA's shared-memory cap, and on phase 3's random
+    # inputs
+    real["fused_frontier_dense[planned]"] = fused_frontier_case(
+        torch, kern, drk, [kern.checked_cols(st) for st in dense_pair])
+    k7_inputs = {"chain8192": chain_states(convert, dev, 2 * NDD)[0],
+                 "dag1024x30": convert.tables_from_numpy(
+                     {"drain": random_dag(1024, 30, 7)}, dev)["drain"],
+                 **{f"n{n}": convert.tables_from_numpy(
+                     {"drain": small_drain(seed, n)[0]}, dev)["drain"]
+                    for seed, n in ((3, 64), (4, 512), (8, 48))}}
+    for tag, st in k7_inputs.items():
+        real[f"level_dense[{tag}]"] = level_case(torch, kern, drk, st)
     # K8-K10 at phase 8's shapes: the 100k ELL drain, the 4,096-deep chain
     real["drain_fix_ell"] = fix_case(torch, kern, drk, ell3)
     # and on narrow levels between wide ones (phase 3's 120,000 rows):
@@ -3811,6 +4001,10 @@ def main(argv=None) -> int:
         + list(dense_pair[0].adj.shape),
         "level_ell": list(dstate.adj_idx.shape),
         "level_dense": list(cstate.adj.shape),
+        "fused_frontier_dense[planned]": [len(dense_pair)]
+        + list(dense_pair[0].adj.shape),
+        **{f"level_dense[{tag}]": list(st.adj.shape)
+           for tag, st in k7_inputs.items()},
         "drain_fix_ell": list(ell3.adj_idx.shape),
         "drain_fix_ell[narrow then wide]": list(ell_ntw.adj_idx.shape),
         "drain_fix_dense": list(dense3.adj.shape),
@@ -4033,7 +4227,7 @@ def main(argv=None) -> int:
     # call
     med6 = MedianRecorder(kern, ["deps_bucketed", "deps_dense",
                                  "attr_post", "fused_deps_dense",
-                                 "fused_attr_post"])
+                                 "fused_attr_post", "fused_frontier_dense"])
     try:
         r1, c1, d1 = burn_once(run_burn, dev, n_ops)
     finally:
@@ -4062,6 +4256,8 @@ def main(argv=None) -> int:
     check(not any(k.startswith("DeviceFault.") for k in r1.stats),
           "burn: fault events in the stats")
     check(d1 == d2 and c1 == c2, "burn: two runs of seed 1 differ")
+    check(rehearsal or d1.startswith(BURN_DIGEST),
+          f"burn: digest {d1[:16]} != {BURN_DIGEST}")
     log(f"phase6: digest {d1[:16]} equal across two runs; default "
         f"configuration: {r1.stats.get('device_fused_launches')} fused "
         f"flush launches ({c1['n_fused_flushes']} member flushes), "
@@ -4249,6 +4445,30 @@ def main(argv=None) -> int:
         k4b["launch_floor_ms"] = time_ms(
             torch, lambda: launch_floor(kern, dev), on_cuda)
     log("K4b: " + json.dumps(k4b))
+    # K6 dense at the burn's median fused group, repeated on the recorded
+    # states and as the fused tick pays for it (new states each call,
+    # into a pinned buffer, one sync; an earlier tree: .cpu()); and two
+    # fused dense ticks in flight at once, each harvesting its own flags
+    check("fused_frontier_dense" in med6.calls, "burn: no fused dense tick")
+    a, _kw, _w, n_k6 = med6.median("fused_frontier_dense")
+    k6_group = a[0]
+    rows.update(run_checks(torch, {
+        "fused_frontier_dense[burn median]": fused_frontier_case(
+            torch, kern, drk, k6_group),
+        "fused_frontier_dense[burn median tick]": fused_frontier_case(
+            torch, kern, drk, k6_group, tick=on_cuda)}, "real", on_cuda,
+        timed=True))
+    k6_shape = [len(k6_group), max(st.status.shape[0] for st in k6_group)]
+    shapes["fused_frontier_dense[burn median]"] = k6_shape
+    shapes["fused_frontier_dense[burn median tick]"] = k6_shape
+    tnode2 = TickNode()
+    for sid, (st_, d_) in enumerate(tick_dense2 + tick_dense):
+        st_.node, st_.store_id = tnode2, sid
+    two_ticks = back_to_back_ticks(torch, kern, drk,
+                                   [tick_dense2, tick_dense], on_cuda)
+    log(f"burn: {n_k6} fused dense ticks, the median group "
+        f"{[st.status.shape[0] for st in k6_group]}; two fused ticks in "
+        f"flight, each its own flags: " + json.dumps(two_ticks))
     # K1a, K1b and K2 at the burn's median call (most of their launches
     # are the burn's small flushes), and K1b at the largest call of phase
     # 7's solo leg (config 5's fused-off flushes)
@@ -4376,6 +4596,19 @@ def main(argv=None) -> int:
         call_ops["frontier_dense[tick]"] = device_ops(torch, k4b_tick[0])
         call_ops["launch floor"] = device_ops(
             torch, lambda: launch_floor(kern, dev))
+        # K6 dense (the phase 3 pair, planned, the burn's median group
+        # repeated and in the tick's form) and K7 dense (the chain in the
+        # first CTA, past its rows on the grid)
+        for name in ("fused_frontier_dense", "fused_frontier_dense[planned]",
+                     "fused_frontier_dense[burn median]",
+                     "fused_frontier_dense[burn median tick]", "level_dense",
+                     "level_dense[chain8192]", "level_dense[n512]",
+                     "level_dense[n64]", "level_ell"):
+            if name in rows:
+                case = (real.get(name)
+                        or fused_frontier_case(torch, kern, drk, k6_group,
+                                               tick=name.endswith("tick]")))
+                call_ops[name] = device_ops(torch, case[0], takes=3)
         call_ops["calc_deps"] = device_ops(torch, mesh_real["calc_deps"][0])
         call_ops["ts_max"] = device_ops(torch, mesh_real["ts_max"][0])
         # K8 ELL and K13's one-launch drain: the most of three traces
@@ -4394,11 +4627,13 @@ def main(argv=None) -> int:
                       f"K1b {name}: not one kernel and no memset {ops_}")
             if name.startswith(("deps_bucketed", "drain_fix",
                                 "sharded_drain_fix", "frontier_dense",
-                                "ts_max", "calc_deps")):
+                                "ts_max", "calc_deps", "level_")) or (
+                    name.startswith("fused_frontier_dense")
+                    and k6_by_value(kern)):
                 check(ops_["kernels"] == 1 and ops_["copies"] == 0
                       and ops_["memsets"] == 0,
                       f"{name}: not one kernel and no copy a call {ops_}")
-            if name.startswith("fused_"):
+            if name.startswith(("fused_deps_dense", "fused_attr_post")):
                 want = ("fused_csr" if name.startswith("fused_deps_dense")
                         else "fused_attr")
                 check(ops_["kernels"] == 1 and ops_["copies"] == 0
@@ -4487,7 +4722,13 @@ def main(argv=None) -> int:
             "sharded_drain_fix chain": fix_sweeps["chain"] * blk * 1e-3,
             "drain_fix_ell 100k": fix_sweeps["ell_100k"] * l2 * 1e-3,
             "drain_fix_ell 100k, barriers only":
-                fix_sweeps["ell_100k"] * blk * 1e-3}
+                fix_sweeps["ell_100k"] * blk * 1e-3,
+            # K7 dense on the chain: one read of its adjacency, then two
+            # barriers of the first CTA (1,024 threads) a round
+            "level_dense chain": (
+                cstate.adj.numel() / HBM_BPS * 1e3
+                + level_rounds["dense_chain"] * 2
+                * sync_floor["block_1024"]["us"] * 1e-3)}
         log("drain latency floors [ms]: "
             + json.dumps(sync_floor["drain_floor_ms"]))
 
@@ -4568,6 +4809,11 @@ def main(argv=None) -> int:
                "k4b_more": {k: dict(rows[k], shape=shapes.get(k)) for k in (
                    "frontier_dense[4096]", "frontier_dense[planned]",
                    "frontier_dense[tick]", "frontier_dense[tick planned]")},
+               "k6_k7_more": {k: dict(rows[k], shape=shapes.get(k))
+                              for k in rows if k.startswith((
+                                  "fused_frontier_dense[",
+                                  "level_dense["))},
+               "k6_two_ticks": two_ticks,
                "seconds": time.perf_counter() - t_start}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     if rehearsal:

@@ -16,7 +16,12 @@ columns of the narrower members overlap it), B = 1 and 33, int64 codes,
 a kp cut inside a mask word, and s and k both overflowing.
 
 K6: ``fused_ready_frontier`` / ``fused_ready_frontier_ell`` on unequal
-drain states; each row's live prefix is the store's solo frontier.
+drain states; each row's live prefix is the store's solo frontier; also
+members whose n is not a multiple of 16 (the dense kernel's 16-byte
+chunks) and a member of one row.  K6 dense's launch plan
+(``kernels.fused_frontier_launches``): 130 members split into launches of
+at most ``FUSED_MAX_STORES``, each member's output row and CTAs, and a
+model of the kernel's CTA-to-member search covering every row once.
 
 CPU only: the port takes its plain versions here; tolerance zero (every
 output is integer or boolean)."""
@@ -33,6 +38,7 @@ from accord_tpu_torch.ops import _build
 from accord_tpu_torch.ops import convert
 from accord_tpu_torch.ops import deps_kernel as pdk
 from accord_tpu_torch.ops import drain_kernel as pdrk
+from accord_tpu_torch.ops import kernels as pkern
 from tests.test_torch_deps_kernel import _inputs, _low_set_bits
 
 # three stores: (capacity, interval width)
@@ -478,7 +484,18 @@ def _drain(seed, n, d):
 def test_fused_frontiers_equal():
     """Unequal rows and degrees; each row's live prefix is the solo
     frontier, pad rows are never ready."""
-    shapes = ((16, 4), (40, 8), (24, 4))
+    _frontiers_equal(((16, 4), (40, 8), (24, 4)))
+
+
+@pytest.mark.parametrize("shapes", [((1, 2), (37, 8), (100, 4), (17, 4)),
+                                    ((50, 8), (1, 1))])
+def test_fused_frontiers_odd_sizes_equal(shapes):
+    """Members whose n is not a multiple of 16 (the dense kernel's
+    16-byte chunks) and a member of one row."""
+    _frontiers_equal(shapes)
+
+
+def _frontiers_equal(shapes):
     cases = [_drain(30 + i, n, d) for i, (n, d) in enumerate(shapes)]
     ref_d = rdrk.fused_ready_frontier(
         [rdrk.DrainState(*map(jnp.asarray, c[0])) for c in cases])
@@ -490,7 +507,8 @@ def test_fused_frontiers_equal():
     port_e = pdrk.fused_ready_frontier_ell([s["ell"] for s in sts])
     np.testing.assert_array_equal(np.asarray(ref_d), port_d.numpy())
     np.testing.assert_array_equal(np.asarray(ref_e), port_e.numpy())
-    assert port_d.shape == port_e.shape == (3, 40)
+    assert port_d.shape == port_e.shape == (len(shapes),
+                                            max(n for n, _d in shapes))
     for i, ((n, _d), st) in enumerate(zip(shapes, sts)):
         np.testing.assert_array_equal(
             port_d[i, :n].numpy(), pdrk.ready_frontier(st["drain"]).numpy())
@@ -498,3 +516,42 @@ def test_fused_frontiers_equal():
             port_e[i, :n].numpy(),
             pdrk.ready_frontier_ell(st["ell"]).numpy())
         assert not port_e[i, n:].any()
+
+
+@pytest.mark.parametrize("ns", [[1] * 130, list(range(1, 131)),
+                                [64, 7, 0, 129], [8] * 128 + [9]])
+def test_fused_frontier_launch_plan(ns):
+    """Members split into launches of at most FUSED_MAX_STORES in order;
+    each member's flags start at its row of the group's [S, n_max] output
+    (a launch's output at its first member's row), its CTAs follow the
+    members' before it in the launch, max(1, ceil(n / 8)) of them; the
+    kernel's search (the last member whose first CTA is at or before a
+    CTA) gives every row below n to exactly one (CTA, warp), and each
+    member's pad rows to its last CTA."""
+    n_max = max(ns)
+    plan = pkern.fused_frontier_launches(tuple(ns), n_max)
+    cap = _build.LIMITS["ACCORD_FUSED_MAX_STORES"]
+    assert [(i0, i1) for i0, i1, _c, _r in plan] == [
+        (i, min(i + cap, len(ns))) for i in range(0, len(ns), cap)]
+    if len(ns) == 130:
+        assert [i1 - i0 for i0, i1, _c, _r in plan] == [128, 2]
+    written = np.zeros((len(ns), n_max), np.int64)
+    walked = np.zeros((len(ns), n_max), np.int64)
+    for i0, i1, ctas, rows in plan:
+        assert len(rows) == i1 - i0
+        g0s = [g0 for _row, g0 in rows]
+        assert g0s[0] == 0 and ctas == g0s[-1] + max(1, -(-ns[i1 - 1] // 8))
+        for k, (row, _g0) in enumerate(rows):
+            assert i0 * n_max + row == (i0 + k) * n_max
+        for g in range(ctas):
+            m = int(np.searchsorted(g0s, g, side="right")) - 1
+            n, first = ns[i0 + m], (g - g0s[m]) * pkern.FRONTIER_ROWS
+            # a warp a row; the CTA's flags stored from its first row
+            for w in range(pkern.FRONTIER_ROWS):
+                walked[i0 + m, first + w:first + w + 1] += first + w < n
+            written[i0 + m, first:first + pkern.FRONTIER_ROWS] += 1
+            if g + 1 == (g0s[m + 1] if m + 1 < len(g0s) else ctas):
+                written[i0 + m, first + pkern.FRONTIER_ROWS:] += 1
+    np.testing.assert_array_equal(written, 1)
+    np.testing.assert_array_equal(
+        walked, np.arange(n_max)[None, :] < np.array(ns)[:, None])
