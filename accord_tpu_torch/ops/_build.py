@@ -31,14 +31,17 @@ LIB_NAME = "libaccord_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # what a launch takes by value in its kernel parameter: K12's blocks, K3's
-# columns, K13's and K11's slices, K5's member stores.  nvcc gets them as
-# macros, so that a kernel and its wrapper in ops.kernels read one number.
+# columns, K13's and K11's slices, K5's member stores, K2 attr_tok's
+# pointers (every slice's lo, then as many rows' entries as fit).  nvcc
+# gets them as macros, so that a kernel and its wrapper in ops.kernels read
+# one number.
 # K6 dense takes up to ACCORD_FUSED_MAX_STORES members too (72 bytes each).
 # K5's members are 104 bytes each in the scan and 192 in the attribution,
 # so 128 of them fill most of the 32,764 bytes a kernel parameter may hold
 # (CUDA 12.1 and later)
 LIMITS = {"ACCORD_MERGE_MAX_REFS": 128, "ACCORD_SCATTER_MAX_COLS": 16,
-          "ACCORD_SHARDED_MAX_SLICES": 16, "ACCORD_FUSED_MAX_STORES": 128}
+          "ACCORD_SHARDED_MAX_SLICES": 16, "ACCORD_FUSED_MAX_STORES": 128,
+          "ACCORD_TOK_MAX_REFS": 64}
 # launch geometry that the CPU tests' model of a kernel's decomposition
 # follows: K1b's and K5's threads a scan CTA, in which phase 2 walks a
 # row's mask words; the largest level of the frontier drain that its first
@@ -165,6 +168,8 @@ def library() -> ctypes.CDLL:
         lib.accord_drain_fix_workspace_words.restype = ctypes.c_int64
         lib.accord_drain_fix_ell_workspace_words.argtypes = [ctypes.c_int64] * 2
         lib.accord_drain_fix_ell_workspace_words.restype = ctypes.c_int64
+        lib.accord_level_ell_workspace_words.argtypes = [ctypes.c_int64] * 2
+        lib.accord_level_ell_workspace_words.restype = ctypes.c_int64
         lib.accord_level_dense_workspace_words.argtypes = [ctypes.c_int64]
         lib.accord_level_dense_workspace_words.restype = ctypes.c_int64
         lib.accord_calc_tiles.argtypes = [ctypes.c_int64]

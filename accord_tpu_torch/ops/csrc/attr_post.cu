@@ -344,47 +344,67 @@ ACCORD_EXPORT int accord_attr_post(void* const* p, const int64_t* v,
 
 namespace {
 
-// tok[i*s + p]: the token lo[slot, col] of shard i's entry p, read from the
-// slice that owns the slot when that slice is on this device (lo_refs[o]
-// non-null), else 0 — one device's contribution to the cross-slice sum
+// the pointers an attr_tok launch takes by value: every slice's lo (null
+// for a slice on another device), then the entries of its rows of tok
+constexpr int TOK_REFS = ACCORD_TOK_MAX_REFS;   // ops/_build.py LIMITS
+
+struct TokParams {
+  int64_t d, s, sn, rows;
+  int m_t, m;
+  int64_t* tok;                // the launch's first row of tok [d, s]
+  const void* ref[TOK_REFS];   // lo [sn * m_t] of slice o < d, then row
+                               // i's entries [s] at ref[d + i]
+};
+
+// tok[i*s + p]: the token lo[slot, col] of row i's entry p, read from the
+// slice that owns the slot when that slice is on this device (ref[owner]
+// non-null), else 0 — one device's contribution to the cross-slice sum.
+// A thread a code.
 template <typename T>
 __global__ void __launch_bounds__(NT)
-attr_tok(const uint64_t* ent_refs, const uint64_t* lo_refs, int64_t d,
-         int64_t s, int64_t sn, int m_t, int m, int64_t* tok) {
+attr_tok(const __grid_constant__ TokParams a) {
   const int64_t p = (int64_t)blockIdx.x * NT + threadIdx.x;
   const int64_t i = blockIdx.y;
-  if (p >= s) return;
-  const int64_t code = (int64_t)((const T*)ent_refs[i])[p];
-  const int64_t mq = (int64_t)m_t * m;
+  if (p >= a.s) return;
+  const int64_t code = (int64_t)__ldg((const T*)a.ref[a.d + i] + p);
+  const int64_t mq = (int64_t)a.m_t * a.m;
   const int64_t slot = max64(floordiv(code, mq), 0);
-  const int64_t col = min64(max64(floordiv(floormod(code, mq), m), 0),
-                            m_t - 1);
-  const int64_t owner = slot / sn;
-  int64_t t = 0;
-  if (code >= 0 && owner < d && lo_refs[owner])
-    t = ((const int64_t*)lo_refs[owner])[(slot - owner * sn) * m_t + col];
-  tok[i * s + p] = t;
+  const int64_t col = min64(max64(floordiv(floormod(code, mq), a.m), 0),
+                            a.m_t - 1);
+  const int64_t owner = slot / a.sn;
+  const int64_t* lo =
+      owner < a.d ? (const int64_t*)a.ref[owner] : (const int64_t*)nullptr;
+  a.tok[i * a.s + p] =
+      code >= 0 && lo ? __ldg(lo + (slot - owner * a.sn) * a.m_t + col) : 0;
 }
 
 }  // namespace
 
-// ptrs: ent_refs uint64[d] (shard i's entries[s]), lo_refs uint64[d] (slice
-//       o's lo[sn*m_t] on this device, or 0), tok int64[d*s]
-// vals: d, s, sn, m_t, m, wide
+// ptrs: tok int64 (the launch's first row of tok[d, s])
+// vals: d, s, sn, m_t, m, wide, rows, then d lo pointers (slice o's
+//       lo[sn * m_t] on this device, or 0), then ``rows`` entries
+//       pointers (int32[s], int64[s] when wide); d + rows <= TOK_REFS
 ACCORD_EXPORT int accord_attr_tok(void* const* p, const int64_t* v,
                                   void* stream) {
+  TokParams a;
+  a.d = v[0];
+  a.s = v[1];
+  a.sn = v[2];
+  a.m_t = (int)v[3];
+  a.m = (int)v[4];
+  a.rows = v[6];
+  if (a.d < 1 || a.rows < 0 || a.d + a.rows > TOK_REFS || a.s < 0 ||
+      a.sn < 1 || a.m_t < 1 || a.m < 1)
+    return (int)cudaErrorInvalidValue;
+  if (a.s == 0 || a.rows == 0) return (int)cudaGetLastError();
+  a.tok = (int64_t*)p[0];
+  for (int64_t k = 0; k < a.d + a.rows; ++k)
+    a.ref[k] = (const void*)v[7 + k];
   cudaStream_t st = (cudaStream_t)stream;
-  const int64_t d = v[0], s = v[1];
-  if (d > 0 && s > 0) {
-    const dim3 grid((unsigned)((s + NT - 1) / NT), (unsigned)d);
-    if (v[5])
-      attr_tok<int64_t><<<grid, NT, 0, st>>>(
-          (const uint64_t*)p[0], (const uint64_t*)p[1], d, s, v[2],
-          (int)v[3], (int)v[4], (int64_t*)p[2]);
-    else
-      attr_tok<int32_t><<<grid, NT, 0, st>>>(
-          (const uint64_t*)p[0], (const uint64_t*)p[1], d, s, v[2],
-          (int)v[3], (int)v[4], (int64_t*)p[2]);
-  }
+  const dim3 grid((unsigned)((a.s + NT - 1) / NT), (unsigned)a.rows);
+  if (v[5])
+    attr_tok<int64_t><<<grid, NT, 0, st>>>(a);
+  else
+    attr_tok<int32_t><<<grid, NT, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

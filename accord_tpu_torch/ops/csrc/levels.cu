@@ -12,49 +12,69 @@
 // followed by a pointer jump along each row's critical-parent chain
 // (level >= off + level[ptr]; then ptr <- ptr[ptr], off <- off + off[ptr]),
 // until no level changes or the round count reaches N + 3 (N the padded
-// row count).  The jump reads the relax's output of OTHER rows, and the
-// doubling reads the old ptr/off of other rows, so every round has two
-// ordering points and double buffers for level, ptr and off.  Both forms
-// are ONE cooperative launch a call (the blocks that fit on the card at
-// once), and a per-round "changed" vote ends the loop on the device: no
-// host round trip per round.
+// row count).  Levels above N are clamped to INF.
 //
-// ELL (level_kernel): a thread a row, the rounds on the grid, two grid
-// barriers a round (cooperative_groups grid.sync(); three rotating
-// "changed" words, so a reset never races a read).
+// One engine, two loaders, ONE cooperative launch a call.  The blocking
+// set is fixed for the call (status and executeAt do not change), so a
+// loader gates each edge once, in a prologue that also takes each row's
+// base level and its critical parent (the gating dep of the largest
+// level0 * N + slot key), and hands the engine a round state of R rows:
+// levels, walks (ptr, off, one int2 word a row) and each row's list of
+// gating deps as a range (another int2) of a global list.  A per-round
+// "changed" vote ends the loop on the device: no host round trip per
+// round.  On the grid the vote rides on the arrivals of the barrier that
+// ends the round (vote_barrier); a grid of one CTA takes block barriers.
 //
-// Dense (level_dense_kernel).  The blocking set is fixed for the call
-// (status and executeAt do not change), so the [N, N] bytes are read once.
-// A CTA takes a run of rows, a warp a row, 32 at a time: the warp walks
-// the row's bytes (K4b's 16-byte walk, common.cuh RowWalk), runs the gate
-// on its set bytes only, counts the row's gating deps, keeps the first
-// KEEP of them and takes the base level and the critical parent (the
-// gating dep of the largest level0 * N + slot key) in the same pass; a
-// block scan of the 32 counts places each row's list in the CTA's region
-// of the workspace's list (cap / CTAs entries), where a row of at most
-// KEEP deps writes those it kept and a heavier row walks its bytes again.
-// A list past its region is not written, and its row walks its bytes in
-// every round (the grid form only).  One grid barrier ends the prologue.
-// Then the rounds on the lists.  When the round state fits the first
-// CTA (N <= RPT * LNT, and 4 * (6N + CTAs + E) bytes for E gating deps in
-// LEVEL_SMEM: the levels, mid, ptr x2, off x2, the regions' starts and
-// the lists), the first CTA runs them alone, its threads holding their
-// own rows' state in registers, with two block barriers a round (the
-// "changed" vote is __syncthreads_or) and the other CTAs gone; else the
-// grid runs them, a warp a row over its list, with two grid barriers a
-// round.  The device picks the form from the counts.  Crossover
-// (chip_smoke.py's K7 dense cases with the rounds pinned to the grid by a
-// launch value that has since gone; NVIDIA H100 80GB HBM3, PERF.md's K7
-// dense row): none where the state fits.  The first CTA won
-// on every input timed: 0.057 and 0.075 ms against 0.099 and 0.105 on
-// the 4,096-deep chain, 0.51 and 0.52 against 0.85 and 0.83 at its
-// shared-memory cap (1,024 rows, 30 deps a row).  A grid
-// barrier costs more than a round of one CTA's shared-memory reads up to
-// the edges its shared memory holds.
+// The rounds engine.  When the round state fits the first CTA (at most
+// RPT * LNT rows that can change, and 4 * (6R + E) bytes for E list
+// entries in LEVEL_SMEM: the levels, mid, ptr x2, off x2 and the lists,
+// packed by a block scan of the rows' list lengths), the first CTA runs
+// the rounds alone, its threads holding their own rows' state in
+// registers, with two block barriers a round (the vote is
+// __syncthreads_or) and the other CTAs gone; else the grid runs them.
+// The device picks the form from the counts.  A row below INF other than
+// level 0 is a Stable row: only those relax.
 //
-// Bound on this card: bytes and latency: one read of the N*N adjacency,
-// then ~2*log2(depth) + c rounds of two barriers each; the chain's floor
-// is one read of 16 MB plus its rounds' block barriers.
+// Dense loader (level_dense_kernel; R = N, every row).  A CTA takes a run
+// of rows, a warp a row, 32 at a time: the warp walks the row's bytes
+// (K4b's 16-byte walk, common.cuh RowWalk), runs the gate on its set bytes
+// only, counts the row's gating deps, keeps the first KEEP of them and
+// takes the critical parent in the same pass; a block scan of the 32
+// counts places each row's list in the CTA's region of the workspace's
+// list (cap / CTAs entries), where a row of at most KEEP deps writes those
+// it kept and a heavier row walks its bytes again.  A list past its
+// region is not written, and its row walks its bytes in every round (the
+// grid form only).  Its grid form relaxes a warp a row, two grid barriers
+// a round.  (PR 12's crossover, NVIDIA H100 80GB HBM3, PERF.md's K7 dense
+// row: the first CTA won on every input timed where the state fits.)
+//
+// ELL loader (level_ell_kernel; R = A + 2).  Only Stable rows can change
+// level: applied rows stay 0 and every other row stays INF through every
+// round.  So a thread a row gates its D edges once; a Stable row lists
+// its Stable gating deps at its own slot of the list (i * D), or only the
+// constant INF row when some gating dep is neither Stable nor applied
+// (its relax is INF then); applied deps add 0 and are dropped.  The A
+// Stable rows are compacted in row order (a CTA's run of rows ranked by a
+// block scan, the CTAs' bases by a scan of their counts after one grid
+// barrier), then two constant rows follow: Z = A at level 0 (every
+// applied dep) and I = A + 1 at INF (every other inactive dep), each
+// pointing at itself with off 0, so that a critical parent that is
+// inactive jumps by a constant, as the reference's does.  A second pass
+// maps the lists and the parents to compacted indices (in place); a
+// second grid barrier hands them to the engine.  The clamp and the round
+// cap keep the padded N, and the vote over the active rows is the vote
+// over all rows, so levels and rounds equal the reference's.  Its grid
+// form runs a thread a row, the row's state in registers and its list in
+// shared memory, with ONE grid barrier a round: a row computes its
+// parent's relax itself from the previous round's levels (the jump needs
+// mid[ptr]), so no row waits for another's relax.  (Two barriers a round
+// read 1-2 us slower on phase 5's state, PERF.md's K7 ELL row, NVIDIA H100
+// 80GB HBM3.)
+//
+// Bound on this card: bytes and latency.  Dense: one read of the N*N
+// adjacency, then ~2*log2(depth) + c rounds of two barriers each.  ELL:
+// one read of the Stable rows' adjacency and their deps' fields, then the
+// rounds' barriers.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -63,31 +83,21 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 256;
 constexpr int32_t LEVEL_INF = 1 << 28;
-
-struct LevelArgs {
-  const int32_t* adj;   // int32[N*D]
-  const int32_t* status;
-  const int64_t *emsb, *elsb;
-  const int32_t* enode;
-  const uint8_t* awaits;
-  int32_t *lv[2], *mid, *ptr[2], *off[2], *flags, *rounds, *out;
-  int64_t N, D;
-};
-
-__device__ __forceinline__ bool gates(const LevelArgs& a, int64_t i,
-                                      int64_t j) {
-  return drain_gates(a.status, a.emsb, a.elsb, a.enode, a.awaits, i, j);
-}
+// threads a CTA; the gating deps a dense row keeps from its count walk;
+// the rows a thread of the first CTA holds in registers (so the first-CTA
+// form takes RPT * LNT rows that change); the dynamic shared memory (the
+// rest of the
+// 227 KB a CTA may hold is its static shared memory)
+constexpr int LNT = 1024;
+constexpr int LW = LNT / 32;
+constexpr int KEEP = 8;
+constexpr int RPT = 4;
+constexpr size_t LEVEL_SMEM = 220 * 1024;
+constexpr int32_t OVER = 0x7fffffff;   // a CTA's total: a list did not fit
 
 __device__ __forceinline__ int32_t base_of(int32_t s) {
   return s == SLOT_APPLIED ? 0 : (s == SLOT_STABLE ? 1 : LEVEL_INF);
-}
-
-__device__ __forceinline__ int32_t base_level(const LevelArgs& a,
-                                              int64_t i) {
-  return base_of(a.status[i]);
 }
 
 __device__ __forceinline__ int64_t warp_max64(int64_t v) {
@@ -104,111 +114,193 @@ __device__ __forceinline__ int32_t warp_max32(int32_t v) {
   return v;
 }
 
-// max over row i's blocking deps of key(j) (-1 when there is none), by
-// the calling thread
-template <typename Key>
-__device__ __forceinline__ int64_t row_max(const LevelArgs& a, int64_t i,
-                                           Key key) {
-  int64_t best = -1;
-  const int32_t* adj = a.adj + i * a.D;
-  for (int64_t d = 0; d < a.D; ++d) {
-    const int32_t j = adj[d];
-    if (j >= 0 && gates(a, i, j)) best = max64(best, key(j));
-  }
-  return best;
+// a grid barrier; a block barrier when the grid is one CTA
+__device__ __forceinline__ void grid_barrier(cg::grid_group& grid) {
+  if (gridDim.x == 1)
+    __syncthreads();
+  else
+    grid.sync();
 }
 
-__global__ void __launch_bounds__(NT) level_kernel(LevelArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  const int64_t tid = (int64_t)blockIdx.x * NT + threadIdx.x;
-  const int64_t nthreads = (int64_t)gridDim.x * NT;
-  const int64_t N = a.N;
+// -- the rounds engine -------------------------------------------------------
 
-  // base levels and each Stable row's critical parent: the blocking dep
-  // with the largest level0 * N + slot key (keys are unique per slot)
-  for (int64_t i = tid; i < N; i += nthreads) {
-    const int32_t lv0 = base_level(a, i);
-    const int64_t best = row_max(a, i, [&](int64_t j) {
-      return (int64_t)base_level(a, j) * N + j;
-    });
-    const bool stable = a.status[i] == SLOT_STABLE;
-    const int32_t p = (best >= 0 && stable) ? (int32_t)(best % N)
-                                            : (int32_t)i;
-    a.lv[0][i] = lv0;
-    a.ptr[0][i] = p;
-    a.off[0][i] = p != i ? 1 : 0;
-  }
-  if (tid == 0) {
-    a.flags[0] = 0;
-    a.flags[1] = 0;
-    a.flags[2] = 0;
-  }
-  grid.sync();
+// The round state a loader hands the engine, in the workspace: R rows
+// (the engine's functions take R, and A, the first rows that have an
+// output: row k's level goes to out[orig[k]], out[k] when orig is null).
+// It stays in the kernel's parameter, so a round's parity indexes it.
+struct Rounds {
+  int32_t *out, *rounds, *flags;   // levels [N], the rounds, 3 vote words
+  int32_t *lv[2], *mid;   // [R] each
+  int2* walk[2];          // [R] each: (ptr, off), one read for both
+  int2* span;             // [R] a row's list: [x, y) of ``list``
+  int32_t* list;
+  int32_t* orig;
+  int64_t N;              // the padded row count (clamp, round cap)
+};
 
-  int64_t r = 0;
+// The rounds by the first CTA alone: each thread holds the level, the
+// walk (ptr, off) and the list range of its rows (k = thread + q * LNT)
+// in registers; shared memory holds what other rows read: the levels, the
+// relax's output (mid), the walks (double-buffered: a jump reads other
+// rows' old ptr and off while it writes its own) and the lists, packed
+// into one run by a block scan of the rows' list lengths.  Rows past
+// RPT * LNT (ELL's two constant rows, when A = RPT * LNT) have no thread:
+// a constant row keeps its level, mid and walk, set here once.
+__device__ void first_cta_rounds(const Rounds& a, int32_t* sm, int R,
+                                 int64_t A) {
+  const int t = threadIdx.x;
+  int32_t* lv = sm;
+  int32_t* mid = sm + R;
+  int32_t* ptr = sm + 2 * R;   // [2][R]
+  int32_t* off = sm + 4 * R;   // [2][R]
+  int32_t* list = sm + 6 * R;
+  int32_t my_lv[RPT], my_ptr[RPT], my_off[RPT], my_s[RPT], my_e[RPT];
+  int32_t len = 0;
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const int k = t + q * LNT;
+    my_lv[q] = my_ptr[q] = my_off[q] = my_s[q] = my_e[q] = 0;
+    if (k < R) {
+      my_lv[q] = __ldcg(a.lv[0] + k);
+      const int2 w = __ldcg(a.walk[0] + k), sp = __ldcg(a.span + k);
+      my_ptr[q] = w.x;
+      my_off[q] = w.y;
+      my_s[q] = sp.x;
+      my_e[q] = sp.y;
+      lv[k] = my_lv[q];
+      ptr[k] = my_ptr[q];
+      off[k] = my_off[q];
+      len += my_e[q] - my_s[q];
+    }
+  }
+  for (int k = RPT * LNT + t; k < R; k += LNT) {
+    const int2 w = __ldcg(a.walk[0] + k);
+    lv[k] = mid[k] = __ldcg(a.lv[0] + k);
+    ptr[k] = ptr[R + k] = w.x;
+    off[k] = off[R + k] = w.y;
+  }
+  int32_t tot;
+  int32_t at = block_exclusive_scan<LNT>(len, &tot);
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {   // the lists into the one run
+    const int32_t s = my_s[q], e = my_e[q];
+    for (int32_t x = s; x < e; ++x) list[at + x - s] = __ldcg(a.list + x);
+    my_s[q] = at;
+    my_e[q] = at + e - s;
+    at += e - s;
+  }
+  __syncthreads();
+  int r = 0;
   bool changed = true;
-  while (changed && r < N + 3) {
-    const int c = (int)(r & 1);
-    const int32_t* lv = a.lv[c];
-    // relax: new = max(lv, min(relax(lv), INF)) for rows below INF
-    for (int64_t i = tid; i < N; i += nthreads) {
-      const int32_t old = lv[i];
-      int32_t nw = old;
-      if (old < LEVEL_INF) {
-        int32_t rel;
-        if (a.status[i] == SLOT_STABLE) {
-          const int64_t m = row_max(a, i, [&](int64_t j) {
-            return (int64_t)lv[j];
-          });
-          rel = 1 + (int32_t)max64(m, 0);
-        } else {
-          rel = base_level(a, i);
-        }
-        nw = maxi(mini(rel, LEVEL_INF), old);
+  while (changed && r < a.N + 3) {
+    const int c = r & 1;
+    int32_t my_mid[RPT];
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      const int k = t + q * LNT;
+      int32_t nw = my_lv[q];
+      if (k < R && nw >= 1 && nw < LEVEL_INF) {
+        int32_t m = 0;
+        for (int32_t e = my_s[q]; e < my_e[q]; ++e) m = maxi(m, lv[list[e]]);
+        nw = maxi(mini(1 + m, LEVEL_INF), nw);
       }
-      a.mid[i] = nw;
+      my_mid[q] = nw;
+      if (k < R) mid[k] = nw;
     }
-    if (tid == 0) a.flags[(r + 1) % 3] = 0;
-    grid.sync();
-    // jump along the witness walk, clamp, and double the walk
-    int32_t* lv_next = a.lv[c ^ 1];
-    const int32_t* ptr = a.ptr[c];
-    const int32_t* off = a.off[c];
+    __syncthreads();
     bool mine = false;
-    for (int64_t i = tid; i < N; i += nthreads) {
-      const int32_t o = off[i];
-      const int32_t p = ptr[i];
-      int32_t nw = a.mid[i];
-      if (o > 0) nw = maxi(nw, mini(o + a.mid[p], LEVEL_INF));
-      if (nw > N) nw = LEVEL_INF;
-      lv_next[i] = nw;
-      a.off[c ^ 1][i] = mini(o + off[p], LEVEL_INF);
-      a.ptr[c ^ 1][i] = ptr[p];
-      mine |= nw != lv[i];
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      const int k = t + q * LNT;
+      if (k < R) {
+        const int32_t o = my_off[q], p = my_ptr[q];
+        const int32_t mp = mid[p], op = off[c * R + p], pp = ptr[c * R + p];
+        int32_t nw = my_mid[q];
+        if (o > 0) nw = maxi(nw, mini(o + mp, LEVEL_INF));
+        if (nw > a.N) nw = LEVEL_INF;
+        mine |= nw != my_lv[q];
+        my_lv[q] = nw;
+        my_off[q] = mini(o + op, LEVEL_INF);
+        my_ptr[q] = pp;
+        lv[k] = nw;
+        off[(c ^ 1) * R + k] = my_off[q];
+        ptr[(c ^ 1) * R + k] = pp;
+      }
     }
-    if (mine) a.flags[r % 3] = 1;
-    grid.sync();
-    changed = *(volatile int32_t*)&a.flags[r % 3] != 0;
+    changed = __syncthreads_or(mine);
     ++r;
   }
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const int k = t + q * LNT;
+    if (k < A) a.out[a.orig ? __ldcg(a.orig + k) : k] = my_lv[q];
+  }
+  if (t == 0) *a.rounds = r;
+}
+
+// The grid barrier that ends round r and carries its "changed" vote: the
+// CTA's vote (``vote``, reduced by the caller's __syncthreads_or, which
+// also orders the CTA's writes before its arrival) is added with the
+// arrival to word r % 3 of the flags, which counts arrivals in its low 16
+// bits and votes above them; thread 0 of each CTA waits for every
+// arrival and shares the word (one read a CTA: every thread's read of one
+// word would queue thousands of requests at one L2 slice).  Word r % 3 is
+// zero when round r starts: CTA 0 zeroes word (r + 1) % 3 before it
+// arrives, when every CTA has left the barrier of round r - 2, its last
+// use.  Returns whether any CTA voted.
+__device__ __forceinline__ bool vote_barrier(const Rounds& a, int64_t r,
+                                             bool vote) {
+  __shared__ unsigned seen;
+  if (threadIdx.x == 0) {
+    unsigned* w = (unsigned*)a.flags + r % 3;
+    if (blockIdx.x == 0) a.flags[(r + 1) % 3] = 0;
+    __threadfence();
+    atomicAdd(w, vote ? 0x10001u : 1u);
+    unsigned v;
+    do {
+      v = *(volatile unsigned*)w;
+    } while ((v & 0xffffu) < gridDim.x);
+    __threadfence();
+    seen = v;
+  }
+  __syncthreads();
+  return (seen >> 16) != 0;
+}
+
+// the jump of round r on the grid, a thread a row, then the vote; returns
+// whether some level changed
+__device__ bool grid_jump(const Rounds& a, int64_t r, int64_t R) {
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t nthreads = (int64_t)gridDim.x * blockDim.x;
+  const int c = (int)(r & 1);
+  const int32_t* lv = a.lv[c];
+  const int2* walk = a.walk[c];
+  bool mine = false;
+  for (int64_t i = tid; i < R; i += nthreads) {
+    const int2 w = __ldcg(walk + i);
+    const int32_t o = w.y, p = w.x;
+    int32_t nw = __ldcg(a.mid + i);
+    const int2 wp = __ldcg(walk + p);
+    if (o > 0) nw = maxi(nw, mini(o + __ldcg(a.mid + p), LEVEL_INF));
+    if (nw > a.N) nw = LEVEL_INF;
+    a.lv[c ^ 1][i] = nw;
+    a.walk[c ^ 1][i] = make_int2(wp.x, mini(o + wp.y, LEVEL_INF));
+    mine |= nw != __ldcg(lv + i);
+  }
+  return vote_barrier(a, r, __syncthreads_or(mine));
+}
+
+// the levels of the last round to out, and the round count
+__device__ void grid_out(const Rounds& a, int64_t r, int64_t A) {
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t nthreads = (int64_t)gridDim.x * blockDim.x;
   const int32_t* fin = a.lv[r & 1];
-  for (int64_t i = tid; i < N; i += nthreads) a.out[i] = fin[i];
+  for (int64_t k = tid; k < A; k += nthreads)
+    a.out[a.orig ? __ldcg(a.orig + k) : k] = __ldcg(fin + k);
   if (tid == 0) *a.rounds = (int32_t)r;
 }
 
-// -- dense --------------------------------------------------------------------
-
-// threads a level_dense CTA; the gating deps a row keeps from its count
-// walk; the rows a thread of the first CTA holds in registers (so the
-// first-CTA form takes N <= RPT * LNT); the first CTA's dynamic shared
-// memory (the rest of the 227 KB a CTA may hold is its static shared
-// memory)
-constexpr int LNT = 1024;
-constexpr int LW = LNT / 32;
-constexpr int KEEP = 8;
-constexpr int RPT = 4;
-constexpr size_t LEVEL_SMEM = 220 * 1024;
-constexpr int32_t OVER = 0x7fffffff;   // a CTA's total: a list did not fit
+// -- dense loader ------------------------------------------------------------
 
 struct DenseArgs {
   const uint8_t* adj;   // bool[N*N]
@@ -216,13 +308,9 @@ struct DenseArgs {
   const int64_t *emsb, *elsb;
   const int32_t* enode;
   const uint8_t* awaits;
-  // the workspace (dense_workspace_words): the levels, the rounds, then
-  int32_t *out, *rounds, *flags, *lv[2], *mid, *ptr[2], *off[2];
-  int32_t *start, *end;   // [N] a row's list in ``list``; start -1: the
-                          // list did not fit, the row walks its bytes
-  int32_t *total;         // [CTAs] the entries of a CTA's list region
-  int32_t *list;          // [cap] a region of cap / CTAs entries a CTA
-  int64_t N, cap;
+  Rounds r;               // span.x -1: the list did not fit, the row walks
+  int32_t* total;         // [CTAs] the entries of a CTA's list region
+  int64_t cap;            // the list's entries: a region of cap / CTAs a CTA
 };
 
 // the list capacity of an N-row workspace: 8 entries a row, and at least
@@ -250,7 +338,7 @@ template <typename Dep, typename Put>
 __device__ __forceinline__ int32_t walk_gating(const DenseArgs& a, int64_t i,
                                                int lane, int32_t limit,
                                                Dep dep, Put put) {
-  RowWalk rw(a.adj, a.N, i, lane);
+  RowWalk rw(a.adj, a.r.N, i, lane);
   const int64_t em = __ldg(a.emsb + i), el = __ldg(a.elsb + i);
   const int32_t en = __ldg(a.enode + i);
   const bool aw = __ldg(a.awaits + i);
@@ -285,125 +373,22 @@ __device__ __forceinline__ int32_t walk_gating(const DenseArgs& a, int64_t i,
   return total;
 }
 
-// The rounds by the first CTA alone: each thread holds the level, the
-// walk (ptr, off) and the list range of its rows (i = thread + k * LNT)
-// in registers; shared memory holds what other rows read: the levels, the
-// relax's output (mid), the walks (double-buffered: a jump reads other
-// rows' old ptr and off while it writes its own) and the lists, copied
-// from the CTAs' regions into one run (``pre`` the regions' starts in it)
-__device__ void first_cta_rounds(const DenseArgs& a, int32_t* sm, int64_t E,
-                                 int64_t rb, int64_t capb) {
-  const int N = (int)a.N;
-  const int G = (int)gridDim.x;
-  const int t = threadIdx.x;
-  int32_t* lv = sm;
-  int32_t* mid = sm + N;
-  int32_t* ptr = sm + 2 * N;   // [2][N]
-  int32_t* off = sm + 4 * N;   // [2][N]
-  int32_t* pre = sm + 6 * N;   // [G]
-  int32_t* list = pre + G;     // [E]
-  int32_t tot;
-  const int32_t mine_tot = t < G ? __ldcg(a.total + t) : 0;
-  const int32_t before = block_exclusive_scan<LNT>(mine_tot, &tot);
-  if (t < G) pre[t] = before;
-  int32_t my_lv[RPT], my_ptr[RPT], my_off[RPT], my_s[RPT], my_e[RPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int i = t + k * LNT;
-    my_lv[k] = my_ptr[k] = my_off[k] = my_s[k] = my_e[k] = 0;
-    if (i < N) {
-      my_lv[k] = __ldcg(a.lv[0] + i);
-      my_ptr[k] = __ldcg(a.ptr[0] + i);
-      my_off[k] = __ldcg(a.off[0] + i);
-      my_s[k] = __ldcg(a.start + i);
-      my_e[k] = __ldcg(a.end + i);
-      lv[i] = my_lv[k];
-      ptr[i] = my_ptr[k];
-      off[i] = my_off[k];
-    }
-  }
-  __syncthreads();   // pre
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {   // the ranges into the one run
-    const int i = t + k * LNT;
-    if (i < N && my_e[k] > my_s[k]) {
-      const int b = (int)(i / rb);
-      const int32_t d = pre[b] - (int32_t)(b * capb);
-      my_s[k] += d;
-      my_e[k] += d;
-    }
-  }
-  for (int e = t; e < E; e += LNT) {
-    const int b = (int)upper_bound(pre, G, e) - 1;
-    list[e] = __ldcg(a.list + b * capb + (e - pre[b]));
-  }
-  __syncthreads();
-  int r = 0;
-  bool changed = true;
-  while (changed && r < N + 3) {
-    const int c = r & 1;
-    // relax; a row below INF other than level 0 is a Stable row (the
-    // other rows stay 0 or INF)
-    int32_t my_mid[RPT];
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const int i = t + k * LNT;
-      int32_t nw = my_lv[k];
-      if (i < N && nw >= 1 && nw < LEVEL_INF) {
-        int32_t m = 0;
-        for (int32_t e = my_s[k]; e < my_e[k]; ++e) m = maxi(m, lv[list[e]]);
-        nw = maxi(mini(1 + m, LEVEL_INF), nw);
-      }
-      my_mid[k] = nw;
-      if (i < N) mid[i] = nw;
-    }
-    __syncthreads();
-    bool mine = false;
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const int i = t + k * LNT;
-      if (i < N) {
-        const int32_t o = my_off[k], p = my_ptr[k];
-        const int32_t mp = mid[p], op = off[c * N + p], pp = ptr[c * N + p];
-        int32_t nw = my_mid[k];
-        if (o > 0) nw = maxi(nw, mini(o + mp, LEVEL_INF));
-        if (nw > N) nw = LEVEL_INF;
-        mine |= nw != my_lv[k];
-        my_lv[k] = nw;
-        my_off[k] = mini(o + op, LEVEL_INF);
-        my_ptr[k] = pp;
-        lv[i] = nw;
-        off[(c ^ 1) * N + i] = my_off[k];
-        ptr[(c ^ 1) * N + i] = pp;
-      }
-    }
-    changed = __syncthreads_or(mine);
-    ++r;
-  }
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int i = t + k * LNT;
-    if (i < N) a.out[i] = my_lv[k];
-  }
-  if (t == 0) *a.rounds = r;
-}
-
 __global__ void __launch_bounds__(LNT) level_dense_kernel(DenseArgs a) {
   extern __shared__ int32_t sm[];
   __shared__ int32_t kept[LW][KEEP];   // a warp's row's first gating deps
   __shared__ int32_t woff[LW + 1];     // the warps' list offsets, the sum
   __shared__ int64_t seen;             // the entries of all regions (or -1)
   cg::grid_group grid = cg::this_grid();
-  const int64_t N = a.N;
+  const Rounds& R = a.r;
+  const int64_t N = R.N;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t tid = (int64_t)blockIdx.x * LNT + threadIdx.x;
-  const int64_t nthreads = (int64_t)gridDim.x * LNT;
-  const int64_t warp = tid >> 5, warps = nthreads >> 5;
+  const int64_t warp = tid >> 5, warps = ((int64_t)gridDim.x * LNT) >> 5;
   const int G = (int)gridDim.x;
   // a CTA takes rows [rb * b, rb * (b + 1)), a warp a row, 32 at a time,
   // and lists them in its region of the list, capb entries
   const int64_t rb = (N + G - 1) / G, capb = a.cap / G;
-  int32_t* region = a.list + blockIdx.x * capb;
+  int32_t* region = R.list + blockIdx.x * capb;
 
   // 1. count and list: base levels; each Stable row's gating deps, its
   // critical parent (the dep of the largest level0 * N + slot key; keys
@@ -432,9 +417,8 @@ __global__ void __launch_bounds__(LNT) level_dense_kernel(DenseArgs a) {
       }
       if (lane == 0) {
         const int32_t p = best >= 0 ? (int32_t)(best % N) : (int32_t)i;
-        a.lv[0][i] = base_of(si);
-        a.ptr[0][i] = p;
-        a.off[0][i] = p != i ? 1 : 0;
+        R.lv[0][i] = base_of(si);
+        R.walk[0][i] = make_int2(p, p != i ? 1 : 0);
       }
     }
     if (lane == 0) woff[w] = cnt;
@@ -456,9 +440,9 @@ __global__ void __launch_bounds__(LNT) level_dense_kernel(DenseArgs a) {
       const bool fits = e <= capb;
       over |= cnt > 0 && !fits;
       if (lane == 0) {
-        a.start[i] = cnt == 0 ? 0 : fits ? (int32_t)(blockIdx.x * capb) + s
-                                         : -1;
-        a.end[i] = cnt == 0 ? 0 : (int32_t)(blockIdx.x * capb) + e;
+        R.span[i] = cnt == 0 ? make_int2(0, 0)
+                    : make_int2(fits ? (int32_t)(blockIdx.x * capb) + s : -1,
+                                (int32_t)(blockIdx.x * capb) + e);
       }
       __syncwarp();
       if (cnt > 0 && fits) {
@@ -477,8 +461,8 @@ __global__ void __launch_bounds__(LNT) level_dense_kernel(DenseArgs a) {
   }
   over = __syncthreads_or(over);
   if (threadIdx.x == 0) a.total[blockIdx.x] = over ? OVER : used;
-  if (tid < 3) a.flags[tid] = 0;
-  grid.sync();
+  if (tid < 3) R.flags[tid] = 0;
+  grid_barrier(grid);
 
   // the form, from the regions' totals (each CTA reads them all)
   if (w == 0) {
@@ -497,29 +481,27 @@ __global__ void __launch_bounds__(LNT) level_dense_kernel(DenseArgs a) {
   }
   __syncthreads();
   const int64_t E = seen;
-  const bool first = E >= 0 && N <= RPT * LNT &&
-                     4 * (6 * N + G + E) <= (int64_t)LEVEL_SMEM;
-  if (first) {
-    if (blockIdx.x == 0) first_cta_rounds(a, sm, E, rb, capb);
+  if (E >= 0 && N <= RPT * LNT && 4 * (6 * N + E) <= (int64_t)LEVEL_SMEM) {
+    if (blockIdx.x == 0) first_cta_rounds(R, sm, (int)N, N);
     return;
   }
 
-  // the rounds on the grid: a warp a row over its list (or its bytes,
-  // for a list that did not fit), a thread a row for the jump
+  // the rounds on the grid: a warp a row over its list (or its bytes, for
+  // a list that did not fit) for the relax, a thread a row for the jump
   int64_t r = 0;
   bool changed = true;
   while (changed && r < N + 3) {
-    const int c = (int)(r & 1);
-    const int32_t* lv = a.lv[c];
+    const int32_t* lv = R.lv[r & 1];
     for (int64_t i = warp; i < N; i += warps) {
       const int32_t old = __ldcg(lv + i);
       int32_t nw = old;
       if (old >= 1 && old < LEVEL_INF) {
-        const int32_t s = __ldcg(a.start + i), e = __ldcg(a.end + i);
+        const int2 sp = __ldcg(R.span + i);
+        const int32_t s = sp.x, e = sp.y;
         int32_t m = 0;
         if (s >= 0) {
           for (int32_t k = s + lane; k < e; k += 32)
-            m = maxi(m, __ldcg(lv + __ldcg(a.list + k)));
+            m = maxi(m, __ldcg(lv + __ldcg(R.list + k)));
         } else {
           walk_gating(a, i, lane, INT32_MAX,
                       [&](int64_t j, int32_t) { m = maxi(m, __ldcg(lv + j)); },
@@ -527,65 +509,352 @@ __global__ void __launch_bounds__(LNT) level_dense_kernel(DenseArgs a) {
         }
         nw = maxi(mini(1 + warp_max32(m), LEVEL_INF), old);
       }
-      if (lane == 0) a.mid[i] = nw;
+      if (lane == 0) R.mid[i] = nw;
     }
-    if (tid == 0) a.flags[(r + 1) % 3] = 0;
-    grid.sync();
-    int32_t* lv_next = a.lv[c ^ 1];
-    const int32_t* ptr = a.ptr[c];
-    const int32_t* off = a.off[c];
-    bool mine = false;
-    for (int64_t i = tid; i < N; i += nthreads) {
-      const int32_t o = __ldcg(off + i);
-      const int32_t p = __ldcg(ptr + i);
-      int32_t nw = __ldcg(a.mid + i);
-      if (o > 0) nw = maxi(nw, mini(o + __ldcg(a.mid + p), LEVEL_INF));
-      if (nw > N) nw = LEVEL_INF;
-      lv_next[i] = nw;
-      a.off[c ^ 1][i] = mini(o + __ldcg(off + p), LEVEL_INF);
-      a.ptr[c ^ 1][i] = __ldcg(ptr + p);
-      mine |= nw != __ldcg(lv + i);
-    }
-    if (mine) a.flags[r % 3] = 1;
-    grid.sync();
-    changed = *(volatile int32_t*)&a.flags[r % 3] != 0;
+    grid_barrier(grid);
+    changed = grid_jump(R, r, N);
     ++r;
   }
-  const int32_t* fin = a.lv[r & 1];
-  for (int64_t i = tid; i < N; i += nthreads) a.out[i] = __ldcg(fin + i);
-  if (tid == 0) *a.rounds = (int32_t)r;
+  grid_out(R, r, N);
+}
+
+// -- ELL loader --------------------------------------------------------------
+
+struct EllArgs {
+  const int32_t* adj;   // int32[N*D]
+  const int32_t* status;
+  const int64_t *emsb, *elsb;
+  const int32_t* enode;
+  const uint8_t* awaits;
+  Rounds r;   // R = N + 2 rows of room; ``list`` [N*D]: row i's at i * D
+  int32_t* stats;   // A, E, the form (0 the first CTA, 1 the grid)
+  int32_t* tot;     // [2 * CTAs] a CTA's Stable rows and list entries
+  int64_t D;
+};
+
+// a Stable row's critical parent between the passes: a Stable slot, or
+// one of these
+constexpr int32_t PARENT_INF = -1, PARENT_APPLIED = -2, PARENT_NONE = -3;
+
+// a thread a row, and a thread for each round-state row (N + 2)
+__host__ __device__ inline int64_t ell_ctas(int64_t N) {
+  return (N + 2 + LNT - 1) / LNT;
+}
+
+__host__ __device__ inline int64_t ell_workspace_words(int64_t N,
+                                                       int64_t D) {
+  return N + 1 + 3 + 4 + 10 * (N + 2) + 2 * ell_ctas(N) + N * D;
+}
+
+// the edges a thread gathers at once: each step of a loop over a row's
+// edges issues its EB loads together, so a row pays one latency a step
+constexpr int EB = 8;
+
+// does dep j (status sj, executeAt words jm, jl) gate Stable row i (the
+// reference's _ell_blocking); j's node is read only on a tie of both words
+__device__ __forceinline__ bool ell_gates(const EllArgs& a, int32_t sj,
+                                          uint64_t jm, uint64_t jl,
+                                          int64_t j, bool aw, uint64_t em,
+                                          uint64_t el, int32_t en) {
+  if (sj == SLOT_INVALIDATED || sj == SLOT_FREE) return false;
+  if ((sj >= 0 && sj < SLOT_COMMITTED) || aw) return true;
+  if (jm != em) return jm < em;
+  if (jl != el) return jl < el;
+  return __ldg(a.enode + j) < en;
+}
+
+// The relax of a round-state row by the calling thread, from levels lv:
+// its level ``old`` and its list [s, e)
+__device__ __forceinline__ int32_t relax_list(const Rounds& a,
+                                              const int32_t* lv, int32_t old,
+                                              int32_t s, int32_t e) {
+  if (old < 1 || old >= LEVEL_INF) return old;
+  int32_t m = 0;
+  for (int32_t x0 = s; x0 < e; x0 += EB) {
+    int32_t v[EB];
+#pragma unroll
+    for (int q = 0; q < EB; ++q)
+      v[q] = x0 + q < e ? __ldcg(a.list + x0 + q) : -1;
+#pragma unroll
+    for (int q = 0; q < EB; ++q)
+      if (v[q] >= 0) m = maxi(m, __ldcg(lv + v[q]));
+  }
+  return maxi(mini(1 + m, LEVEL_INF), old);
+}
+
+// the relax of round-state row k, its level and list read here
+__device__ __forceinline__ int32_t relax_row(const Rounds& a,
+                                             const int32_t* lv, int64_t k) {
+  const int32_t old = __ldcg(lv + k);
+  const int2 sp = __ldcg(a.span + k);
+  return relax_list(a, lv, old, sp.x, sp.y);
+}
+
+__global__ void __launch_bounds__(LNT) level_ell_kernel(EllArgs a) {
+  extern __shared__ int32_t sm[];
+  cg::grid_group grid = cg::this_grid();
+  const Rounds& R = a.r;
+  // int32 indices throughout (N * D < 2^31): a 1,024-thread CTA has 64
+  // registers a thread, and a spill goes to L2 here (the shared memory
+  // takes most of L1)
+  const int32_t N = (int32_t)R.N, D = (int32_t)a.D;
+  const int t = threadIdx.x;
+  const int32_t tid = blockIdx.x * LNT + t;
+  const int32_t nthreads = gridDim.x * LNT;
+  const int G = (int)gridDim.x;
+  const int32_t rb = (N + G - 1) / G;
+  const int32_t r0 = mini(N, blockIdx.x * rb);
+  const int32_t r1 = mini(N, r0 + rb);
+  // a row's edges by 16-byte loads where the rows are 16-byte aligned
+  const bool vec = D % 4 == 0 && ((uintptr_t)a.adj & 15) == 0;
+  // between the passes: a Stable row's rank in its CTA (mid), its list's
+  // length (lv[1]) and its critical parent (walk[1]), by its slot
+  int32_t* rank = R.mid;
+  int32_t* cnt_of = R.lv[1];
+  int32_t* parent = (int32_t*)R.walk[1];
+
+  // 1. a thread a row, LNT rows at a time: base levels (the output of
+  // every row but the Stable ones), each Stable row's gate over its D
+  // edges, four at a time, its list, its critical parent and its rank
+  int32_t used = 0, edges = 0;
+  // the thread's row of the first LNT, for pass 2: its rank (or -1), its
+  // list's length and its parent
+  int32_t k1 = -1, cnt1 = 0, pc1 = 0;
+  for (int32_t c0 = r0; c0 < r1; c0 += LNT) {
+    const int32_t i = c0 + t;
+    int32_t stable = 0;
+    if (i < r1) {
+      const int32_t si = __ldg(a.status + i);
+      if (si == SLOT_STABLE) {
+        stable = 1;
+        const uint64_t em = (uint64_t)__ldg(a.emsb + i);
+        const uint64_t el = (uint64_t)__ldg(a.elsb + i);
+        const int32_t en = __ldg(a.enode + i);
+        const bool aw = __ldg(a.awaits + i);
+        const int32_t* row = a.adj + i * D;
+        int32_t* li = R.list + i * D;
+        int64_t best = -1;
+        int32_t cnt = 0;
+        bool inf = false;
+        for (int32_t d0 = 0; d0 < D; d0 += 4) {
+          int32_t j[4], sj[4];
+          uint64_t jm[4], jl[4];
+          if (vec) {
+            const int4 v = __ldg((const int4*)(row + d0));
+            j[0] = v.x;
+            j[1] = v.y;
+            j[2] = v.z;
+            j[3] = v.w;
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              j[q] = d0 + q < D ? __ldg(row + d0 + q) : -1;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {   // executeAt ties are common
+            sj[q] = j[q] >= 0 ? __ldg(a.status + j[q]) : SLOT_FREE;
+            jm[q] = j[q] >= 0 ? (uint64_t)__ldg(a.emsb + j[q]) : 0;
+            jl[q] = j[q] >= 0 ? (uint64_t)__ldg(a.elsb + j[q]) : 0;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (!ell_gates(a, sj[q], jm[q], jl[q], j[q], aw, em, el, en))
+              continue;
+            const int32_t b = base_of(sj[q]);
+            best = max64(best, (int64_t)b * N + j[q]);
+            if (b == 1) li[cnt++] = j[q];
+            inf |= b == LEVEL_INF;
+          }
+        }
+        if (inf) {   // its relax is INF: one entry, the INF row
+          li[0] = PARENT_INF;
+          cnt = 1;
+        }
+        const int64_t cls = best / N;
+        const int32_t pc = best < 0 ? PARENT_NONE
+                           : cls == 0 ? PARENT_APPLIED
+                           : cls == 1 ? (int32_t)(best - cls * N) : PARENT_INF;
+        parent[i] = pc;
+        cnt_of[i] = cnt;
+        edges += cnt;
+        if (c0 == r0) {
+          cnt1 = cnt;
+          pc1 = pc;
+        }
+      } else {
+        R.out[i] = si == SLOT_APPLIED ? 0 : LEVEL_INF;
+      }
+    }
+    int32_t n_stable;
+    const int32_t before = block_exclusive_scan<LNT>(stable, &n_stable);
+    if (stable) rank[i] = used + before;
+    if (stable && c0 == r0) k1 = before;
+    used += n_stable;
+  }
+  int32_t n_edges;
+  block_exclusive_scan<LNT>(edges, &n_edges);
+  if (t == 0) {
+    a.tot[2 * blockIdx.x] = used;
+    a.tot[2 * blockIdx.x + 1] = n_edges;
+  }
+  if (tid < 3) R.flags[tid] = 0;
+  grid_barrier(grid);
+
+  // 2. the CTAs' bases (G <= LNT: one CTA an SM), A and E; each Stable
+  // row's compacted index, its list and parent mapped to it, in place
+  int32_t A, E;
+  const int32_t mine_rows = t < G ? __ldcg(a.tot + 2 * t) : 0;
+  const int32_t base = block_exclusive_scan<LNT>(mine_rows, &A);
+  block_exclusive_scan<LNT>(t < G ? __ldcg(a.tot + 2 * t + 1) : 0, &E);
+  if (t < G) sm[t] = base;
+  __syncthreads();
+  const int32_t Z = A, I = A + 1;
+  auto cidx = [&](int32_t j) { return sm[j / rb] + __ldcg(rank + j); };
+  for (int32_t i = r0 + t; i < r1; i += LNT) {
+    const bool mine1 = i < r0 + LNT;
+    if (mine1 ? k1 < 0 : __ldg(a.status + i) != SLOT_STABLE) continue;
+    const int32_t k = sm[blockIdx.x] + (mine1 ? k1 : __ldcg(rank + i));
+    const int32_t cnt = mine1 ? cnt1 : __ldcg(cnt_of + i);
+    const int32_t pc = mine1 ? pc1 : __ldcg(parent + i);
+    const int32_t p = pc >= 0 ? cidx(pc)
+                      : pc == PARENT_INF ? I : pc == PARENT_APPLIED ? Z : k;
+    int32_t* li = R.list + i * D;
+    for (int32_t x0 = 0; x0 < cnt; x0 += EB) {
+      int32_t j[EB];
+#pragma unroll
+      for (int q = 0; q < EB; ++q)
+        j[q] = x0 + q < cnt ? __ldcg(li + x0 + q) : 0;
+#pragma unroll
+      for (int q = 0; q < EB; ++q)   // every rank read before a store
+        j[q] = x0 + q >= cnt ? 0 : j[q] < 0 ? I : cidx(j[q]);
+#pragma unroll
+      for (int q = 0; q < EB; ++q)
+        if (x0 + q < cnt) li[x0 + q] = j[q];
+    }
+    R.lv[0][k] = 1;
+    R.walk[0][k] = make_int2(p, p != k ? 1 : 0);
+    R.span[k] = make_int2(i * D, i * D + cnt);
+    R.orig[k] = i;
+  }
+  const bool first = A <= RPT * LNT &&
+                     4 * (6 * ((int64_t)A + 2) + E) <= (int64_t)LEVEL_SMEM;
+  if (tid < 2) {   // Z at level 0, I at INF: constant, pointing at itself
+    R.lv[0][A + tid] = tid ? LEVEL_INF : 0;
+    R.walk[0][A + tid] = make_int2(A + tid, 0);
+    R.span[A + tid] = make_int2(0, 0);
+  }
+  if (tid == 0) {
+    a.stats[0] = A;
+    a.stats[1] = E;
+    a.stats[2] = first ? 0 : 1;
+  }
+  const int32_t RA = A + 2;   // the round state's rows
+  grid_barrier(grid);
+  if (first) {
+    if (blockIdx.x == 0) first_cta_rounds(R, sm, RA, A);
+    return;
+  }
+
+  // the rounds on the grid: thread ``me`` keeps round-state row me, its
+  // level, walk and list range, in registers; a row past the grid's
+  // threads is read from global memory each round.  (Rows spread over
+  // every CTA instead read slower on phase 5's state: their stores do not
+  // coalesce.)
+  const int32_t me = tid;
+  const bool own = me < RA;
+  int32_t my_lv = 0, my_o = 0, my_p = 0, my_s = 0, my_e = 0;
+  if (own) {
+    my_lv = __ldcg(R.lv[0] + me);
+    const int2 w = __ldcg(R.walk[0] + me), sp = __ldcg(R.span + me);
+    my_o = w.y;
+    my_p = w.x;
+    my_s = sp.x;
+    my_e = sp.y;
+  }
+  int32_t r = 0;
+  bool changed = true;
+  while (changed && r < N + 3) {
+    const int c = r & 1;
+    const int32_t* lv = R.lv[c];
+    const int2* walk = R.walk[c];
+    // the jump's mid[ptr] is the parent's relax, computed here from the
+    // previous round's levels: one grid barrier a round
+    bool mine = false;
+    if (own) {
+      const int2 wp = __ldcg(walk + my_p);
+      int32_t nw = relax_list(R, lv, my_lv, my_s, my_e);
+      if (my_o > 0)
+        nw = maxi(nw, mini(my_o + relax_row(R, lv, my_p), LEVEL_INF));
+      if (nw > N) nw = LEVEL_INF;
+      mine = nw != my_lv;
+      my_lv = nw;
+      my_o = mini(my_o + wp.y, LEVEL_INF);
+      my_p = wp.x;
+      R.lv[c ^ 1][me] = nw;
+      R.walk[c ^ 1][me] = make_int2(my_p, my_o);
+    }
+    for (int32_t k = me + nthreads; k < RA; k += nthreads) {
+      const int2 w = __ldcg(walk + k);
+      const int32_t o = w.y, p = w.x;
+      const int2 wp = __ldcg(walk + p);
+      int32_t nw = relax_row(R, lv, k);
+      if (o > 0) nw = maxi(nw, mini(o + relax_row(R, lv, p), LEVEL_INF));
+      if (nw > N) nw = LEVEL_INF;
+      R.lv[c ^ 1][k] = nw;
+      R.walk[c ^ 1][k] = make_int2(wp.x, mini(o + wp.y, LEVEL_INF));
+      mine |= nw != __ldcg(lv + k);
+    }
+    changed = vote_barrier(R, r, __syncthreads_or(mine));
+    ++r;
+  }
+  grid_out(R, r, A);
 }
 
 }  // namespace
 
+// int32 words of level_ell's workspace for N rows of D deps: the levels
+// [N], the rounds, the stats (A, E, the form), then its scratch
+ACCORD_EXPORT int64_t accord_level_ell_workspace_words(int64_t N, int64_t D) {
+  return ell_workspace_words(N, D);
+}
+
 // ptrs: adj_idx int32[N*D], status, exec_msb, exec_lsb, exec_node,
-//       awaits_all, lv0, lv1, mid, ptr0, ptr1, off0, off1 (int32[N]
-//       scratch each), flags int32[3], rounds int32[1], levels int32[N]
-// vals: N, D
+//       awaits_all, workspace int32[accord_level_ell_workspace_words(N, D)]
+// vals: N, D (N * D < 2^31), workspace words
 ACCORD_EXPORT int accord_level_ell(void* const* p, const int64_t* v,
                                    void* stream) {
-  LevelArgs a;
+  EllArgs a;
+  const int64_t N = v[0], D = v[1];
+  if (N < 0 || D < 1 || N * D > INT32_MAX - 2 ||
+      v[2] < ell_workspace_words(N, D))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaGetLastError();
   a.adj = (const int32_t*)p[0];
   a.status = (const int32_t*)p[1];
   a.emsb = (const int64_t*)p[2];
   a.elsb = (const int64_t*)p[3];
   a.enode = (const int32_t*)p[4];
   a.awaits = (const uint8_t*)p[5];
-  a.lv[0] = (int32_t*)p[6];
-  a.lv[1] = (int32_t*)p[7];
-  a.mid = (int32_t*)p[8];
-  a.ptr[0] = (int32_t*)p[9];
-  a.ptr[1] = (int32_t*)p[10];
-  a.off[0] = (int32_t*)p[11];
-  a.off[1] = (int32_t*)p[12];
-  a.flags = (int32_t*)p[13];
-  a.rounds = (int32_t*)p[14];
-  a.out = (int32_t*)p[15];
-  a.N = v[0];
-  a.D = v[1];
-  if (a.N <= 0) return (int)cudaGetLastError();
-  return launch_cooperative(level_kernel, NT, (a.N + NT - 1) / NT, a,
-                            (cudaStream_t)stream);
+  a.D = D;
+  int32_t* w = (int32_t*)p[6];
+  const int64_t R = N + 2;
+  Rounds& r = a.r;
+  r.out = w;
+  r.rounds = w + N;
+  a.stats = r.rounds + 1;
+  r.flags = a.stats + 3;
+  r.lv[0] = r.flags + 4;   // a pad word: the int2 arrays at 8 bytes
+  r.lv[1] = r.lv[0] + R;
+  r.mid = r.lv[1] + R;
+  r.walk[0] = (int2*)(r.mid + R);
+  r.walk[1] = r.walk[0] + R;
+  r.span = r.walk[1] + R;
+  r.orig = (int32_t*)(r.span + R);
+  a.tot = r.orig + R;
+  r.list = a.tot + 2 * ell_ctas(N);
+  r.N = N;
+  return launch_cooperative(level_ell_kernel, LNT, ell_ctas(N), a,
+                            (cudaStream_t)stream, LEVEL_SMEM);
 }
 
 // int32 words of level_dense's workspace for N rows: the levels [N], the
@@ -601,11 +870,10 @@ ACCORD_EXPORT int64_t accord_level_dense_workspace_words(int64_t N) {
 ACCORD_EXPORT int accord_level_dense(void* const* p, const int64_t* v,
                                      void* stream) {
   DenseArgs a;
-  a.N = v[0];
-  if (a.N < 0 || a.N * a.N > INT32_MAX ||
-      v[1] < dense_workspace_words(a.N))
+  const int64_t N = v[0];
+  if (N < 0 || N * N > INT32_MAX || v[1] < dense_workspace_words(N))
     return (int)cudaErrorInvalidValue;
-  if (a.N == 0) return (int)cudaGetLastError();
+  if (N == 0) return (int)cudaGetLastError();
   a.adj = (const uint8_t*)p[0];
   a.status = (const int32_t*)p[1];
   a.emsb = (const int64_t*)p[2];
@@ -613,21 +881,20 @@ ACCORD_EXPORT int accord_level_dense(void* const* p, const int64_t* v,
   a.enode = (const int32_t*)p[4];
   a.awaits = (const uint8_t*)p[5];
   int32_t* w = (int32_t*)p[6];
-  const int64_t N = a.N;
-  a.out = w;
-  a.rounds = w + N;
-  a.flags = a.rounds + 1;
-  a.lv[0] = a.flags + 3;
-  a.lv[1] = a.lv[0] + N;
-  a.mid = a.lv[1] + N;
-  a.ptr[0] = a.mid + N;
-  a.ptr[1] = a.ptr[0] + N;
-  a.off[0] = a.ptr[1] + N;
-  a.off[1] = a.off[0] + N;
-  a.start = a.off[1] + N;
-  a.end = a.start + N;
-  a.total = a.end + N;
-  a.list = a.total + dense_ctas(N);
+  Rounds& r = a.r;
+  r.out = w;
+  r.rounds = w + N;
+  r.flags = r.rounds + 1;
+  r.lv[0] = r.flags + 3;   // N + 4 words before the int2 arrays' 3N
+  r.lv[1] = r.lv[0] + N;
+  r.mid = r.lv[1] + N;
+  r.walk[0] = (int2*)(r.mid + N);
+  r.walk[1] = r.walk[0] + N;
+  r.span = r.walk[1] + N;
+  r.orig = nullptr;
+  a.total = (int32_t*)(r.span + N);
+  r.list = a.total + dense_ctas(N);
+  r.N = N;
   a.cap = list_cap(N);
   // a warp a row for the count pass
   return launch_cooperative(level_dense_kernel, LNT, dense_ctas(N), a,

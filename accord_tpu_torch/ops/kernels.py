@@ -47,9 +47,11 @@ once into each column set's plan); K6 ELL's wrapper uploads one small
 table of per-store base pointers and sizes (``_store_refs``), and the
 kernel puts the store on a grid dimension.  The mesh kernels read the
 slices of one device the same way: their wrappers take the slices that
-lie on one device and launch once for them (K11, K12 and K13 pass the
-slices' or blocks' pointers in the kernel parameter instead, up to
-``SHARDED_MAX_SLICES`` and ``MERGE_MAX_REFS``).  K3 handed numpy packs
+lie on one device and launch once for them (K11, K12, K13 and K2's
+``attr_tok`` pass the slices' or blocks' pointers in the kernel parameter
+instead, up to ``SHARDED_MAX_SLICES``, ``MERGE_MAX_REFS`` and
+``TOK_MAX_REFS``; K12 uploads a table over its limit, ``attr_tok``
+splits its rows into more launches).  K3 handed numpy packs
 its index and rows into one pinned staging buffer (``StagingRing``) and
 uploads it in one copy.  K4b and K6 dense may write their flags straight
 into a pinned host buffer (the drain ticks').
@@ -65,6 +67,7 @@ from __future__ import annotations
 
 import functools
 import threading
+import weakref
 from array import array
 from typing import Dict, Sequence
 
@@ -910,21 +913,49 @@ def fused_frontier_dense(states, out=None) -> torch.Tensor:
 
 # -- K7: log-depth level assignment --------------------------------------------
 
+@functools.lru_cache(maxsize=64)
+def _level_ell_words(n: int, d: int) -> int:
+    """The int32 words of K7 ELL's workspace, its levels, rounds and
+    stats first, as its entry point lays it out."""
+    return _build.library().accord_level_ell_workspace_words(n, d)
+
+
+def _level_ell_values(st, plan):
+    # K7 ELL's column pointers, N, D and workspace words
+    n, d = st.adj_idx.shape
+    if plan[2][1] != n:
+        raise ValueError(f"adjacency {tuple(st.adj_idx.shape)} does not fit "
+                         f"{plan[2][1]} rows")
+    return array("Q", plan[1]), n, d, _level_ell_words(n, d)
+
+
 def level_ell(state: drk.EllDrainState):
-    """(levels int32[N], rounds int32[]) by one cooperative launch."""
+    """(levels int32[N], rounds int32[]) by one cooperative launch and one
+    allocation: the levels and rounds are views of its workspace, which
+    lives as long as they do (``level_assign_ell``'s callers, the drain
+    tick and the log-depth drains, drop them within the call).  The
+    device runs the rounds over the Stable rows only, in its first CTA
+    where their state fits, else on the grid."""
     if not on_cuda(state.status):
         return drk.level_assign_ell_plain(state)
     dev = state.status.device
-    _check_cols(state)
-    n = state.status.shape[0]
-    scratch = [torch.empty(n, dtype=torch.int32, device=dev)
-               for _ in range(7)]        # lv x2, mid, ptr x2, off x2
-    flags = torch.empty(3, dtype=torch.int32, device=dev)
-    levels = torch.empty(n, dtype=torch.int32, device=dev)
-    rounds = torch.empty((), dtype=torch.int32, device=dev)
-    _launch("level_ell", dev, [*state, *scratch, flags, rounds, levels],
-            [n, state.adj_idx.shape[1]])
-    return levels, rounds
+    cols, n, d, words = _values(state, dev, _level_ell_values)
+    buf = torch.empty(words, dtype=torch.int32, device=dev)
+    p = cols + array("Q", (buf.data_ptr(),))
+    v = array("q", (n, d, words))
+    _launch_packed("level_ell", dev.index, _build.entries()["level_ell"],
+                   p.buffer_info()[0], v.buffer_info()[0])
+    return buf[:n], buf[n]
+
+
+def level_ell_stats(levels: torch.Tensor) -> dict:
+    """What the K7 ELL call that returned ``levels`` found, read from its
+    workspace (a synchronisation): its Stable rows ``A``, their list
+    entries ``E`` (gating deps that can change level, one for a row held
+    at INF) and the ``form`` its rounds took ("first CTA" or "grid")."""
+    n = levels.shape[0]
+    a, e, form = levels._base[n + 1:n + 4].tolist()
+    return {"A": a, "E": e, "form": "grid" if form else "first CTA"}
 
 
 @functools.lru_cache(maxsize=64)
@@ -1394,21 +1425,73 @@ def sharded_drain_fix(rows, cols, n_l: int, n: int) -> torch.Tensor:
 
 # -- K2 extension: the mesh-bucketed entry tokens ------------------------------
 
+# pointers an attr_tok launch takes by value (TOK_REFS of
+# csrc/attr_post.cu): every slice's lo, then its rows' entries; more rows
+# than fit take more launches
+TOK_MAX_REFS = _build.LIMITS["ACCORD_TOK_MAX_REFS"]
+# the lo pointers of the last slice set each device took, with weak
+# references to its tensors: an unchanged set (the mirror's sharded table,
+# kept until it mutates) is not checked again
+_TOK_LOS: Dict[int, tuple] = {}
+
+
+def _tok_los(los, idx: int, sn: int, m_t: int) -> array:
+    """The lo pointers of ``los`` (0 for a slice elsewhere), each lo an
+    int64[sn, m_t], contiguous, on device index ``idx``."""
+    got = _TOK_LOS.get(idx)
+    if got is not None and got[2] == (sn, m_t) and len(got[0]) == len(los) \
+            and all(lo is None if w is None else w() is lo
+                    for w, lo in zip(got[0], los)):
+        return got[1]
+    ptrs = array("q")
+    for o, lo in enumerate(los):
+        if lo is not None and (lo.dtype is not torch.int64
+                               or lo.get_device() != idx
+                               or lo.shape != (sn, m_t)
+                               or not lo.is_contiguous()):
+            raise ValueError(f"attr_tok: slice {o}'s lo is not a contiguous "
+                             f"int64[{sn}, {m_t}] on cuda:{idx}")
+        ptrs.append(0 if lo is None else lo.data_ptr())
+    _TOK_LOS[idx] = ([None if lo is None else weakref.ref(lo) for lo in los],
+                     ptrs, (sn, m_t))
+    return ptrs
+
+
 def attr_tok(ents: Sequence[torch.Tensor], los, sn: int, m_t: int, m: int):
     """int64[d, s]: the token lo[slot, col] of every shard's entry, from
     the slices in ``los`` (a slice's lo on this device, or None when it
-    lies elsewhere: its terms are 0 here and come from its own device)."""
+    lies elsewhere: its terms are 0 here and come from its own device).
+    Every pointer travels by value: each launch takes every slice's lo
+    and up to ``TOK_MAX_REFS - d`` rows of entries; one allocation."""
     if not on_cuda(ents[0]):
         from ..parallel.sharded import attr_tok_plain
         return attr_tok_plain(ents, los, sn, m_t, m)
     dev = ents[0].device
+    idx = dev.index
     d, s = len(ents), ents[0].shape[0]
-    for lo in los:
-        if lo is not None:
-            _check(lo, torch.int64, "lo")
+    if len(los) != d or d >= TOK_MAX_REFS:
+        raise ValueError(f"attr_tok: {d} shards, {len(los)} slices (at most "
+                         f"{TOK_MAX_REFS - 1})")
+    lo_ptrs = _tok_los(los, idx, sn, m_t)
+    dt = ents[0].dtype
+    if dt is not torch.int32 and dt is not torch.int64:
+        raise TypeError(f"attr_tok: entries of {dt}")
+    ent_ptrs = array("q")
+    for e in ents:
+        if e.dtype is not dt or e.get_device() != idx or e.shape != (s,) \
+                or not e.is_contiguous():
+            raise ValueError(f"attr_tok: every shard's entries must be a "
+                             f"contiguous {dt}[{s}] on cuda:{idx}")
+        ent_ptrs.append(e.data_ptr())
     tok = torch.empty((d, s), dtype=torch.int64, device=dev)
-    _launch("attr_tok", dev,
-            [_store_refs(dev, [[_ptr(e)] for e in ents]),
-             _store_refs(dev, [[_ptr(lo)] for lo in los]), tok],
-            [d, s, sn, m_t, m, int(ents[0].dtype == torch.int64)])
+    fn = _build.entries()["attr_tok"]
+    per = TOK_MAX_REFS - d
+    for r0 in range(0, d, per):
+        rows = min(per, d - r0)
+        v = array("q", (d, s, sn, m_t, m, int(dt is torch.int64), rows))
+        v.extend(lo_ptrs)
+        v.extend(ent_ptrs[r0:r0 + rows])
+        p = array("Q", (tok.data_ptr() + 8 * r0 * s,))
+        _launch_packed("attr_tok", idx, fn, p.buffer_info()[0],
+                       v.buffer_info()[0])
     return tok

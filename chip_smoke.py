@@ -55,7 +55,15 @@ Phases:
      DAG at its first CTA's shared-memory cap, with the grid form pinned
      on phase 3's random inputs and the 1,024-deep chain, and timed on
      config 3's chain, an 8,192-deep chain (the grid form) and the cap's
-     DAG, each form;
+     DAG, each form; K7 ELL either side of its first CTA's caps (a chain
+     of 4,097 / 4,098 rows, 4,026 / 4,027 Stable rows of 8 deps), D = 1
+     and D = 33, an ``awaits_all`` cycle, all blocked and 131,072 Stable
+     rows (the grid form), each cap's form checked, and timed at phase
+     5's and phase 8's states, the 131,072 rows, the 1,024-row chain and
+     phase 3's random inputs, with each real input's Stable rows A, list
+     entries E and form printed; K2's token gather (``attr_tok``) over
+     40 shards (past what a launch takes by value: two launches), with
+     slices on no device of the group (None), on int32 and int64 codes;
   4. the main path, a PreAccept deps store at real size: 100,000 in-flight
      txns over a 1,000,000-key space, up to 8 intervals each, with
      RedundantBefore floors and CommandsForKey state; 12,288 queries in
@@ -144,7 +152,8 @@ Then torch.profiler counts the device operations of one K12 call (one
 kernel), one live K3 call (one copy, one kernel) and K1a's, K1b's, K2's,
 K4b's, K5's, K6 dense's, K7 dense's, K8's, K11's cross-slice reduce's
 and K13's one-launch drain's calls (one kernel, no memset, no copy;
-K5's, K6's, K7's, K8 ELL's and K13's the most of three traces) and
+K5's, K6's, K7's, K8 ELL's, K13's and ``attr_tok``'s the most of three
+traces) and
 gives K11's and the empty kernel's device time,
 times one whole fused flush at phase 7's recorded call (the host's
 enqueue and wall time beside its CUDA-event time, device tensors in and
@@ -154,12 +163,16 @@ by kernel name.
 
 The script runs on an earlier tree too (K6 without ``out``, K7 without
 ``grid``: their tick form downloads by ``.cpu()``, the pinned checks and
-forms are left out), so that the parent and the change are timed by
-one script.
+forms are left out; K7 ELL without ``level_ell_stats`` and ``attr_tok``
+without ``TOK_MAX_REFS``: no form, A or E printed, no launch-count or
+one-kernel check of theirs), so that the parent and the change are
+timed by one script.  The profiler runs only after the main path: a
+trace taken before it lost the device records of later traces.
 
 Every kernel launch count is set to 0 just before phases 4-11 and read
 after each; each phase's seconds are printed: each kernel of the path must
-have launched.  The second-to-last
+have launched.  Phases 5 and 8 print what each of their K7 ELL calls
+found (rows, A, E, form, rounds).  The second-to-last
 lines carry the kernel table (JSON) and the card's name and power limit;
 the last line is the result object.  Any failure exits non-zero without the
 result line.  Long output (build log, profiler table, summary) goes to
@@ -1203,6 +1216,104 @@ def level_graphs(card: bool) -> dict:
             "dag1024x30": random_dag(1024, 30, 7)}
 
 
+def chain_ell(n, d=1):
+    """A serial chain of ``n`` rows in ELL form, ``d`` wide (head
+    applied: n - 1 Stable rows)."""
+    idx = np.full((n, d), -1, np.int32)
+    idx[1:, 0] = np.arange(n - 1)
+    st = np.full(n, 4, np.int32)
+    st[0] = 5
+    return (idx, st, np.arange(n, dtype=np.int64), np.zeros(n, np.int64),
+            np.ones(n, np.int32), np.zeros(n, bool))
+
+
+def blocked_chain_ell(n):
+    """A chain of ``n`` Stable rows whose head waits on a Committed row
+    (slot n): every level INF, through K7 ELL's constant INF row."""
+    idx, st, msb, lsb, node, aw = chain_ell(n + 1)
+    idx[0, 0] = n
+    idx[n, 0] = -1
+    st = np.full(n + 1, 4, np.int32)
+    st[n] = 3
+    msb = (msb + 1) % (n + 1)   # the Committed row executes first: it gates
+    return idx, st, msb, lsb, node, aw
+
+
+def stable_dag_ell(n, d=8, seed=43):
+    """``n`` Stable rows in ELL form, executeAt ascending: the first ``d``
+    wait on nothing, every later row on ``d`` random earlier rows
+    (repeats kept), so every edge gates and K7 ELL lists ``d * (n - d)``
+    entries."""
+    rng = np.random.default_rng(seed)
+    idx = np.full((n, d), -1, np.int32)
+    rows = np.arange(d, n)
+    idx[d:] = (rng.random((len(rows), d)) * rows[:, None]).astype(np.int32)
+    return (idx, np.full(n, 4, np.int32), np.arange(n, dtype=np.int64),
+            np.zeros(n, np.int64), np.ones(n, np.int32), np.zeros(n, bool))
+
+
+# K7 ELL's first CTA takes the rounds of A Stable rows with E list entries
+# when A <= 4,096 and 6 (A + 2) + E <= 56,320 (LEVEL_SMEM / 4): inputs
+# either side of each cap, and the form each must take
+LEVEL_ELL_CAPS = {"rows under": (lambda: chain_ell(4097), "first CTA"),
+                  "rows over": (lambda: chain_ell(4098), "grid"),
+                  "smem under": (lambda: stable_dag_ell(4026), "first CTA"),
+                  "smem over": (lambda: stable_dag_ell(4027), "grid")}
+
+
+def level_ell_graphs(card: bool) -> dict:
+    """K7 ELL's edge inputs: either side of its first CTA's caps (at the
+    row cap with the constant rows Z and I each referenced), D = 1
+    (a chain) and D = 33 (each row of an antichain of 33 waits on every
+    row of the one before), an ``awaits_all`` cycle at a 300-row chain's
+    tail, 256 rows all Stable and blocked, and (the card only) 131,072
+    Stable rows of 8 deps (the grid form) and 270,000 of 2 (more rows
+    than the grid has threads, more than a CTA's threads a CTA)."""
+    dense = level_graphs(False)
+    out = {f"cap {k}": f() for k, (f, _form) in LEVEL_ELL_CAPS.items()}
+    out.update({"cap rows under, blocked": blocked_chain_ell(4096),
+                "chain d1 n1000": chain_ell(1000),
+                "fanin33 d33 n512": ell_of(dense["fanin33 n512"]),
+                "chain300 cycle": ell_of(dense["chain300 cycle"]),
+                "all blocked n256": ell_of(dense["all blocked n256"])})
+    if card:
+        out["all stable 131072"] = stable_dag_ell(131072)
+        out["stable 270000 d2"] = stable_dag_ell(270_000, 2)
+    return out
+
+
+def level_ell_form(kern, state):
+    """(the K7 ELL stats of one call on ``state``, its form), or None on a
+    tree whose K7 ELL reports none."""
+    if not hasattr(kern, "level_ell_stats"):
+        return None
+    lv, rounds = kern.level_ell(state)
+    return dict(kern.level_ell_stats(lv), rounds=int(rounds),
+                n=int(state.status.shape[0]), d=int(state.adj_idx.shape[1]))
+
+
+class LevelStats:
+    """Wrap K7 ELL's wrapper to note what each call of the main path found:
+    its rows, Stable rows A, list entries E and the form its rounds took
+    (one synchronisation a call, outside the launch)."""
+
+    def __init__(self, kern, on_cuda: bool):
+        self.kern, self.orig, self.calls = kern, kern.level_ell, []
+        noted = on_cuda and hasattr(kern, "level_ell_stats")
+
+        def wrapped(state):
+            lv, rounds = self.orig(state)
+            if noted:
+                self.calls.append(dict(
+                    kern.level_ell_stats(lv), rounds=int(rounds),
+                    n=int(state.status.shape[0])))
+            return lv, rounds
+        kern.level_ell = wrapped
+
+    def restore(self):
+        self.kern.level_ell = self.orig
+
+
 def fix_case(torch, kern, drk, state):
     """K8: the fixpoint drain (applied, newly, sweeps)."""
     n = state.status.shape[0]
@@ -1773,6 +1884,12 @@ def small_cases(torch, dev, kern, dk, drk, convert):
         cases[f"level_dense[{tag}]"] = level_case(
             torch, kern, drk, convert.tables_from_numpy({"drain": g},
                                                         dev)["drain"])
+    # K7 ELL at its edges: either side of the first CTA's caps, D = 1 and
+    # 33, a cycle, all blocked, all Stable at 131,072 rows (the grid)
+    for tag, g in level_ell_graphs(dev.type == "cuda").items():
+        cases[f"level_ell[{tag}]"] = level_case(
+            torch, kern, drk, convert.tables_from_numpy({"ell": g},
+                                                        dev)["ell"])
     # K7 on a deep chain: logarithmic rounds, exact levels
     dchain, echain = chain_states(convert, dev, 1024)
     cases["level_dense[chain1024]"] = level_case(torch, kern, drk, dchain)
@@ -3270,6 +3387,32 @@ def tok_case(torch, kern, psh, ents, los, sn, m_t, m):
             d * s * (ents[0].element_size() + 8) + live * 8, d * s * 8)
 
 
+def tok_edge_inputs(torch, dev, d, wide, none, seed, sn=64, m_t=4, m=4,
+                    s=300):
+    """A K2 token input of ``d`` shards on ``dev``: every slice's lo a
+    random int64[sn, m_t] (every third slice None when ``none``: on
+    another device), ``s`` codes a shard, int64 when ``wide``, with -1
+    holes, negative codes (Python's floor division and modulo differ from
+    C's there) and codes past the last slice."""
+    rng = np.random.default_rng(seed)
+    mq = m_t * m
+    los = [torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, (sn, m_t)))
+           .to(dev) for _ in range(d)]
+    if none:
+        los = [lo if o % 3 else None for o, lo in enumerate(los)]
+    codes = rng.integers(-3 * mq, (d * sn + 2) * mq, (d, s))
+    codes[:, :3] = [-1, -mq - 1, d * sn * mq + 5]
+    ents = [torch.from_numpy(c.astype(np.int64 if wide else np.int32))
+            .to(dev) for c in codes]
+    return ents, los, sn, m_t, m
+
+
+# K2 token inputs past what a launch takes by value (40 shards: a launch
+# takes every slice's lo and 24 rows), with None slices, int32 and int64
+TOK_EDGES = {"d40 i32": (40, False, False), "d40 i64 None": (40, True, True),
+             "d8 i64": (8, True, False), "d8 i32 None": (8, False, True)}
+
+
 def merge_blocks_small(seed, torch, dev, d=8, b=6, s=24, codespace=4096,
                        dup=False, wide=False, n_s=1, holes=False):
     """d ascending shard blocks (some rows empty, repeats across shards in
@@ -3803,6 +3946,31 @@ def main(argv=None) -> int:
     check(not on_cuda or not k6_by_value(kern)
           or kern.LAUNCHES["fused_frontier_dense"] - l0 == 2,
           "K6 dense over 130 members: not two launches")
+    # K2's token gather past its by-value capacity, None slices, int32 and
+    # int64 codes; 40 shards take two launches
+    run_checks(torch, {f"attr_tok[{tag}]": tok_case(
+        torch, kern, psh, *tok_edge_inputs(torch, dev, *spec, seed=70 + k))
+        for k, (tag, spec) in enumerate(TOK_EDGES.items())},
+        "small", on_cuda, timed=False)
+    l0 = kern.LAUNCHES["attr_tok"]
+    kern.attr_tok(*tok_edge_inputs(torch, dev, 40, False, True, seed=79))
+    check(not on_cuda or not hasattr(kern, "TOK_MAX_REFS")
+          or kern.LAUNCHES["attr_tok"] - l0 == 2,
+          "attr_tok over 40 shards: not two launches")
+    # K7 ELL takes the first CTA's form under each of its caps, the grid
+    # over them and on 131,072 Stable rows
+    if on_cuda and hasattr(kern, "level_ell_stats"):
+        forms = {f"cap {k}": (f, form)
+                 for k, (f, form) in LEVEL_ELL_CAPS.items()}
+        forms["all stable 131072"] = (lambda: stable_dag_ell(131072),
+                                      "grid")
+        for tag, (f, form) in forms.items():
+            got = level_ell_form(kern, convert.tables_from_numpy(
+                {"ell": f()}, dev)["ell"])
+            check(got["form"] == form,
+                  f"K7 ELL {tag}: the {got['form']} form, not the {form}: "
+                  f"{got}")
+            log(f"K7 ELL {tag}: " + json.dumps(got))
     log(f"phase3a: small checks done at {time.perf_counter() - t_start:.1f}"
         " s")
 
@@ -3922,6 +4090,20 @@ def main(argv=None) -> int:
                                                        dense_pair)
     real["level_ell"] = level_case(torch, kern, drk, dstate)
     real["level_dense"] = level_case(torch, kern, drk, cstate)
+    # K7 ELL at phase 8's states (the 100k drain, the chain in ELL form),
+    # 131,072 Stable rows of 8 deps (the grid form), and the first CTA's:
+    # the 1,024-row chain and phase 3's random inputs
+    ell_more = {
+        "phase8 100k": ell3, "phase8 chain": dense3_ell,
+        "all stable 131072": convert.tables_from_numpy(
+            {"ell": stable_dag_ell(131072 if not rehearsal else 4096)},
+            dev)["ell"],
+        "chain1024": chain_states(convert, dev, 1024)[1],
+        **{f"n{n}": convert.tables_from_numpy(
+            {"ell": small_drain(seed, n)[1]}, dev)["ell"]
+           for seed, n in ((3, 64), (4, 512), (8, 48))}}
+    for tag, st in ell_more.items():
+        real[f"level_ell[{tag}]"] = level_case(torch, kern, drk, st)
     # K6 dense on one planned group (repeated calls, no checks a call);
     # K7 dense past the first CTA's rows (a chain twice as deep: the grid
     # form), at the first CTA's shared-memory cap, and on phase 3's random
@@ -3984,6 +4166,11 @@ def main(argv=None) -> int:
         "dense_chain": int(drk.level_assign_dense_plain(cstate)[1])}
     log("level pass rounds (plain, the same as the kernels'): "
         + json.dumps(level_rounds))
+    k7_ell_forms = ({tag: level_ell_form(kern, st) for tag, st in
+                     {"phase5 first tick": dstate, **ell_more}.items()}
+                    if on_cuda else {})
+    log("K7 ELL on the real inputs (rows n, width d, Stable rows A, list "
+        "entries E, form, rounds): " + json.dumps(k7_ell_forms))
     shapes = {
         "deps_bucketed": list(rec.calls["deps_bucketed"][0][2].shape),
         "deps_dense": list(rec.calls["deps_dense"][0][1].shape),
@@ -4005,6 +4192,8 @@ def main(argv=None) -> int:
         + list(dense_pair[0].adj.shape),
         **{f"level_dense[{tag}]": list(st.adj.shape)
            for tag, st in k7_inputs.items()},
+        **{f"level_ell[{tag}]": list(st.adj_idx.shape)
+           for tag, st in ell_more.items()},
         "drain_fix_ell": list(ell3.adj_idx.shape),
         "drain_fix_ell[narrow then wide]": list(ell_ntw.adj_idx.shape),
         "drain_fix_dense": list(dense3.adj.shape),
@@ -4113,6 +4302,9 @@ def main(argv=None) -> int:
     phase_done("4")
     log("phase4: host/device time by launch boundary [calls, ms] "
         + json.dumps(breakdown))
+    # what each K7 ELL call of phases 5 and 8 found (A, E, its form)
+    k7_ell_calls = {}
+    lstats = LevelStats(kern, on_cuda)
 
     # 5. the drain at real size, through the store's drain tick: the tick
     # DeviceState.arm scheduled sweeps the cached device state (ELL above
@@ -4215,6 +4407,8 @@ def main(argv=None) -> int:
           and cstore.applied == cchain,
           f"phase5: the dense chain took {chain_c} ticks")
     phase_done("5")
+    lstats.restore()
+    k7_ell_calls["5"] = lstats.calls
     for k_ in ("frontier_ell", "level_ell", "frontier_dense", "level_dense"):
         check(rehearsal or phase_launches["5"][k_] > 0,
               f"phase5: {k_} never launched {phase_launches['5']}")
@@ -4360,11 +4554,21 @@ def main(argv=None) -> int:
     check(rehearsal or phase_launches["7"]["fused_deps_dense"] > 0,
           "phase7: fused_deps_dense never launched")
 
-    phase8 = hot_keys_phase(torch, drk, hstore, hdev, hsafe, hqueries, B3,
-                            ell3, dense3, dense3_ell, rows3, deep_edges3,
-                            dev, rehearsal)
+    lstats = LevelStats(kern, on_cuda)
+    try:
+        phase8 = hot_keys_phase(torch, drk, hstore, hdev, hsafe, hqueries,
+                                B3, ell3, dense3, dense3_ell, rows3,
+                                deep_edges3, dev, rehearsal)
+    finally:
+        lstats.restore()
+    k7_ell_calls["8"] = lstats.calls
     phase8["registration_txn_per_s"] = hbuild_rate
     phase_done("8")
+    for tag, calls in k7_ell_calls.items():
+        log(f"phase{tag}: K7 ELL calls (rows n, Stable rows A, list entries "
+            "E, form, rounds): " + json.dumps(
+                [[c["n"], c["A"], c["E"], c["form"], c["rounds"]]
+                 for c in calls]))
     for k_ in ("drain_fix_dense", "drain_fix_ell", "level_drain",
                "logsq_dense", "dense_degree", "dense_to_ell"):
         check(rehearsal or phase_launches["8"][k_] > 0,
@@ -4603,12 +4807,16 @@ def main(argv=None) -> int:
                      "fused_frontier_dense[burn median]",
                      "fused_frontier_dense[burn median tick]", "level_dense",
                      "level_dense[chain8192]", "level_dense[n512]",
-                     "level_dense[n64]", "level_ell"):
+                     "level_dense[n64]", "level_ell",
+                     "level_ell[all stable 131072]", "level_ell[phase8 100k]",
+                     "level_ell[chain1024]", "level_ell[n512]"):
             if name in rows:
                 case = (real.get(name)
                         or fused_frontier_case(torch, kern, drk, k6_group,
                                                tick=name.endswith("tick]")))
                 call_ops[name] = device_ops(torch, case[0], takes=3)
+        call_ops["attr_tok"] = device_ops(torch, mesh_real["attr_tok"][0],
+                                          takes=3)
         call_ops["calc_deps"] = device_ops(torch, mesh_real["calc_deps"][0])
         call_ops["ts_max"] = device_ops(torch, mesh_real["ts_max"][0])
         # K8 ELL and K13's one-launch drain: the most of three traces
@@ -4633,6 +4841,10 @@ def main(argv=None) -> int:
                 check(ops_["kernels"] == 1 and ops_["copies"] == 0
                       and ops_["memsets"] == 0,
                       f"{name}: not one kernel and no copy a call {ops_}")
+            if name == "attr_tok" and hasattr(kern, "TOK_MAX_REFS"):
+                check(ops_["kernels"] == 1 and ops_["copies"] == 0
+                      and ops_["memsets"] == 0,
+                      f"attr_tok: not one kernel and no copy a call {ops_}")
             if name.startswith(("fused_deps_dense", "fused_attr_post")):
                 want = ("fused_csr" if name.startswith("fused_deps_dense")
                         else "fused_attr")
@@ -4812,7 +5024,8 @@ def main(argv=None) -> int:
                "k6_k7_more": {k: dict(rows[k], shape=shapes.get(k))
                               for k in rows if k.startswith((
                                   "fused_frontier_dense[",
-                                  "level_dense["))},
+                                  "level_dense[", "level_ell["))},
+               "k7_ell_forms": k7_ell_forms, "k7_ell_calls": k7_ell_calls,
                "k6_two_ticks": two_ticks,
                "seconds": time.perf_counter() - t_start}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))

@@ -11,8 +11,12 @@ than 32 blocking deps, N not a multiple of 16, a 300-row chain closed by
 an ``awaits_all`` cycle at its tail, and a graph of Stable rows all
 blocked; each also through a numpy model of the kernel's list form
 (count, keep, scan, fill, a list capacity, the rounds on the lists) held
-against the reference.  CPU only: the port takes its plain versions
-here; tolerance zero (integers)."""
+against the reference.  Last, K7 ELL's compacted form through a PyTorch
+model (the edges gated once, the Stable rows compacted with two constant
+rows for the inactive deps, the rounds with one grid barrier or two) on
+the same edge cases, D = 1 and 33, awaits cycles, a self-dep, no Stable
+row, -1 holes and repeated deps.  CPU only: the port takes its plain
+versions here; tolerance zero (integers): levels and rounds byte-equal."""
 
 import numpy as np
 import pytest
@@ -276,4 +280,157 @@ def test_level_list_model_equal(name, cap):
     ref = rdrk.level_assign_dense(rdrk.DrainState(*map(jnp.asarray, dense)))
     lv, rounds = k7_list_model(dense, cap)
     np.testing.assert_array_equal(np.asarray(ref[0]), lv)
+    assert int(ref[1]) == rounds
+
+
+# -- K7 ELL's compacted form --------------------------------------------------
+
+def k7_ell_model(state, ctas=1, one_barrier=False):
+    """K7 ELL (ops/csrc/levels.cu) step by step, in PyTorch.  The
+    prologue gates each edge once (``_ell_blocking``), takes each row's
+    base level and its critical parent by the level0 * N + slot key, and
+    lists a Stable row's Stable gating deps; a row with a gating dep
+    that is neither Stable nor applied (a constant INF) lists only that
+    row.  The A Stable rows are compacted in row order: a CTA of
+    ``ctas`` takes a run of rows, ranks its Stable rows, and a row's
+    index is its CTA's base (a scan of the CTAs' counts) plus its rank.
+    Two constant rows follow them: Z = A at level 0 (every applied dep)
+    and I = A + 1 at INF (every other inactive dep); both point at
+    themselves with off 0, so a parent that is inactive jumps by a
+    constant.  Then the rounds of the shared engine over the A + 2 rows,
+    the clamp and the round cap on the padded N; with ``one_barrier``
+    each row computes its parent's relax itself.  Returns (levels,
+    rounds, A, E)."""
+    torch = pdrk.torch
+    inf = pdrk.LEVEL_INF
+    blocking, j = pdrk._ell_blocking(state)
+    st = state.status.long()
+    n, d = j.shape
+    stable = st == STABLE
+    sj = st[j]
+    lv0 = torch.where(sj == STABLE, 1, torch.where(sj == APPLIED, 0, inf))
+    best = torch.where(blocking, lv0 * n + j, -1).max(dim=1).values
+    act = blocking & (sj == STABLE)
+    has_inf = (blocking & (lv0 == inf)).any(dim=1)
+    # the compaction: a CTA's run of rb rows, its ranks, the bases
+    rb = -(-n // ctas)
+    blk = torch.arange(n) // rb
+    total = torch.bincount(blk[stable], minlength=ctas)
+    base = torch.cumsum(total, 0) - total
+    before = torch.cumsum(stable.long(), 0) - stable.long()
+    lrank = before - before[torch.clamp(blk * rb, max=n - 1)]
+    cidx = base[blk] + lrank
+    a = int(total.sum())
+    z, i_inf, r = a, a + 1, a + 2
+    rows = torch.nonzero(stable)[:, 0]
+    # the lists (compacted indices, -1 padded) and the walks
+    lists = torch.where(act, cidx[j], -1)[rows]
+    lists = torch.where(has_inf[rows, None],
+                        torch.where(torch.arange(d) == 0, i_inf, -1), lists)
+    e_total = int((lists >= 0).sum())
+    cls = torch.div(best, n, rounding_mode="floor")
+    par = torch.where(best < 0, cidx, torch.where(
+        cls == 0, z, torch.where(cls == 1, cidx[best % n], i_inf)))[rows]
+    lists = torch.cat([lists, torch.full((2, d), -1)])
+    ptr = torch.cat([par, torch.tensor([z, i_inf])])
+    off = (ptr != torch.arange(r)).long()
+    lv = torch.cat([torch.ones(a, dtype=torch.long),
+                    torch.tensor([0, inf])])
+
+    def relax(lv, k):
+        """Row k's relax from levels ``lv``: rows at 0 or INF keep theirs."""
+        got = torch.where(lists[k] >= 0, lv[torch.clamp(lists[k], min=0)], 0)
+        nw = torch.maximum(torch.clamp(1 + got.max(dim=1).values, max=inf),
+                           lv[k])
+        return torch.where((lv[k] >= 1) & (lv[k] < inf), nw, lv[k])
+
+    rounds, changed, every = 0, True, torch.arange(r)
+    while changed and rounds < n + 3:
+        mid = relax(lv, every)
+        mid_p = relax(lv, ptr) if one_barrier else mid[ptr]
+        new = torch.where(off > 0, torch.maximum(
+            mid, torch.clamp(off + mid_p, max=inf)), mid)
+        new = torch.where(new > n, inf, new)
+        off, ptr = torch.clamp(off + off[ptr], max=inf), ptr[ptr]
+        changed, lv, rounds = bool((new != lv).any()), new, rounds + 1
+    out = torch.where(st == APPLIED, 0, inf)
+    out[rows] = lv[:a]
+    return out, rounds, a, e_total
+
+
+def _holes_and_duplicates(ell, seed):
+    """``ell`` with -1 holes between a row's deps and some deps repeated:
+    the same gating set, another layout (the reference reads either)."""
+    idx = ell[0]
+    rng = np.random.default_rng(seed)
+    n, d = idx.shape
+    out = np.full((n, 2 * d), -1, np.int32)
+    for i in range(n):
+        deps = [int(x) for x in idx[i] if x >= 0]
+        row = []
+        for x in deps:
+            row += [x] * int(rng.integers(1, 3))
+            if rng.random() < 0.5:
+                row.append(-1)
+        out[i, :len(row)] = row[:2 * d]
+    return (out,) + tuple(ell[1:])
+
+
+ELL_MODEL_CASES = {
+    **{name: (case, case["n"], 40) for name, case in EDGE_CASES.items()},
+    "fanin33_d33": (fanin_case(n=70, fan=33), 70, 33),
+    "chain_d1": (chain_case(45), 45, 1),
+    "chain_d1_unapplied_head": (chain_case(40, applied_head=False), 40, 1),
+    "awaits_cycle": ({"n": 4, "edges": [(1, 2), (2, 1), (3, 2)],
+                      "status": [APPLIED, STABLE, STABLE, STABLE],
+                      "msb": [0, 1, 2, 3], "node": [1, 1, 1, 1],
+                      "awaits": [False, True, False, False]}, 37, 8),
+    "self_dep_awaits": ({"n": 3, "edges": [(1, 1), (2, 1)],
+                         "status": [APPLIED, STABLE, STABLE],
+                         "msb": [0, 1, 2], "node": [1, 1, 1],
+                         "awaits": [False, True, False]}, 33, 4),
+    "no_stable": ({"n": 5, "edges": [(1, 0), (2, 1)],
+                   "status": [APPLIED, COMMITTED, TRANSITIVE, FREE,
+                              INVALIDATED],
+                   "msb": [0, 1, 2, 3, 4], "node": [1] * 5,
+                   "awaits": [False] * 5}, 5, 2),
+    **{f"random{s}": (make_case(np.random.default_rng(9100 + s)), N_PAD,
+                      D_PAD) for s in range(6)},
+}
+
+
+@pytest.mark.parametrize("ctas,one_barrier", [(1, False), (3, True)])
+@pytest.mark.parametrize("name", sorted(ELL_MODEL_CASES))
+def test_level_ell_compacted_model_equal(name, ctas, one_barrier):
+    """K7 ELL's compacted form (gate once, fold the inactive deps, the
+    Stable rows and two constant rows, the shared rounds) against the
+    reference's ``level_assign_ell``: levels and the round count
+    byte-equal (tolerance zero), on the edge cases (fan-in past 32, D = 1
+    and 33, awaits cycles, a self-dep, all blocked, no Stable row, N not
+    a multiple of 32): one CTA with the engine's two barriers a round (the
+    first CTA's and K7 dense's grid form), three CTAs with one (K7 ELL's
+    grid form)."""
+    case, n_pad, d_pad = ELL_MODEL_CASES[name]
+    _dense, ell = _arrays(case, n_pad, d_pad)
+    ref = rdrk.level_assign_ell(rdrk.EllDrainState(*map(jnp.asarray, ell)))
+    st = convert.tables_from_numpy({"ell": ell}, "cpu")["ell"]
+    lv, rounds, a, e = k7_ell_model(st, ctas, one_barrier)
+    np.testing.assert_array_equal(np.asarray(ref[0]), lv.numpy())
+    assert int(ref[1]) == rounds
+    assert a == int((st.status == STABLE).sum())
+    assert e <= a * d_pad
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_level_ell_holes_and_duplicates_equal(seed):
+    """-1 holes inside a row and repeated deps: the reference, the port's
+    plain version and the compacted model agree, byte-equal."""
+    case = make_case(np.random.default_rng(9300 + seed))
+    _dense, ell = _arrays(case, N_PAD, D_PAD)
+    ell = _holes_and_duplicates(ell, seed)
+    ref = rdrk.level_assign_ell(rdrk.EllDrainState(*map(jnp.asarray, ell)))
+    st = convert.tables_from_numpy({"ell": ell}, "cpu")["ell"]
+    _eq(ref, pdrk.level_assign_ell(st))
+    lv, rounds, _a, _e = k7_ell_model(st, 3, True)
+    np.testing.assert_array_equal(np.asarray(ref[0]), lv.numpy())
     assert int(ref[1]) == rounds

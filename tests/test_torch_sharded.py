@@ -488,6 +488,57 @@ def test_attr_tok_plain_matches_whole_table_gather(meshes):
     torch.testing.assert_close(tok, want, rtol=0, atol=0)
 
 
+def _ref_tok(rm, table, codes, m_t, m):
+    """The reference's token (``accord_tpu/parallel/sharded.py:566-576``):
+    each slice's terms for the slots it owns, summed by ``lax.psum``
+    over the JAX mesh, on the all-gathered codes [d, s]."""
+    from jax import lax
+    from jax.sharding import PartitionSpec as P
+    rt = rsh.shard_table(rm, _ref_nt("table", table))
+
+    def local(lo, ents_all):
+        n_local = lo.shape[0]
+        soff = lax.axis_index(rsh.STORE_AXIS).astype(jnp.int64) * n_local
+        code = ents_all.astype(jnp.int64)
+        mq = m_t * m
+        slot = jnp.clip(code // mq, 0)
+        col = jnp.clip(code % mq // m, 0, m_t - 1)
+        mine = (slot >= soff) & (slot < soff + n_local) & (code >= 0)
+        lslot = jnp.clip(slot - soff, 0, n_local - 1)
+        return lax.psum(jnp.where(mine, lo[lslot, col], 0), rsh.STORE_AXIS)
+
+    fn = jax.jit(rsh._shard_map(local, rm, (P(rsh.STORE_AXIS, None), P()),
+                                P()))
+    return np.asarray(fn(rt.lo, jnp.asarray(codes)))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_attr_tok_plain_equals_reference_psum(meshes, wide):
+    """The port's token terms of two device groups (slices 0-2 on one,
+    3-7 on the other; a slice elsewhere is None) sum to the reference's
+    psum, byte-equal, on int32 and int64 (wide) codes with -1 holes,
+    negative codes whose floor division and modulo differ from C's, and
+    codes past the last slice."""
+    rm, pm = meshes
+    inp = _inputs(3)
+    m, m_t = inp["m"], inp["m_t"]
+    st = psh.shard_table(pm, _port_nt("table", inp["table"]))
+    sn = st.lo[0].shape[0]
+    mq = m_t * m
+    rng = np.random.default_rng(40 + wide)
+    codes = rng.integers(-3 * mq, (D * sn + 2) * mq, (D, 48))
+    codes[:, :4] = [-1, -mq - 1, -(1 << 40) - 3 if wide else -(1 << 31),
+                    D * sn * mq + 1]
+    codes = codes.astype(np.int64 if wide else np.int32)
+    want = _ref_tok(rm, inp["table"], codes, m_t, m)
+    ents = [torch.from_numpy(c) for c in codes]
+    tok = sum(psh.attr_tok_plain(
+        ents, [st.lo[o] if o in grp else None for o in range(D)], sn, m_t, m)
+        for grp in (range(0, 3), range(3, D)))
+    assert tok.dtype == torch.int64
+    np.testing.assert_array_equal(tok.numpy(), want)
+
+
 def test_sharded_fused_attr_equals_reference(meshes):
     rm, pm = meshes
     stores, qmats, rankbs, prunes = _fused_group(4)
