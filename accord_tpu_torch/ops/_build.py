@@ -59,7 +59,7 @@ ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
                 "accord_fused_frontier_ell", "accord_fused_frontier_dense",
                 "accord_level_ell", "accord_level_dense",
                 "accord_drain_fix_dense", "accord_drain_fix_ell",
-                "accord_level_drain", "accord_logsq_dense",
+                "accord_logsq_dense",
                 "accord_dense_degree", "accord_dense_to_ell",
                 "accord_calc_deps", "accord_ts_max", "accord_merge_blocks",
                 "accord_sharded_sweep", "accord_sharded_drain_fix",

@@ -9,9 +9,17 @@
 // at or past d: a row with more than d deps is truncated).
 //
 // Design: a warp per row.  dense_degree: lanes count their bytes, a warp
-// sum, one atomicMax.  dense_to_ell: lanes read 32 consecutive columns, a
-// ballot gives the set ones and a popcount below each lane its slot; the
-// warp stops once d columns are placed, then fills the rest with -1.
+// sum, one atomicMax.  dense_to_ell: the warp walks the row by K4b's
+// 16-byte chunks (common.cuh RowWalk: 512 bytes a warp step, the next
+// step's chunk in flight, the bytes outside the row masked, so a row need
+// not start on a chunk); each lane takes its chunk's set bytes (up to 16)
+// and their count; a warp exclusive scan of the counts (shuffles) gives
+// each lane its first slot, and the lane writes its set columns, in byte
+// order, into the slots below d; a step where no lane has a set byte costs
+// one vote.  The walk stops by the warp's count once d columns are placed,
+// then the rest is filled with -1.  (A lane a byte a step would keep one
+// 32-byte request a warp in flight: 128 dependent steps for a row of
+// 4,096 bytes with fewer than d deps, as config 3's chain rows are.)
 // Bound on this card: bytes — the N*N adjacency read once (dense_to_ell
 // stops early on rows that reach d) and N*d int32 written.
 #include "common.cuh"
@@ -39,19 +47,27 @@ to_ell_kernel(const uint8_t* adj, int64_t N, int64_t d, int32_t* out) {
   const int64_t tid = (int64_t)blockIdx.x * NT + threadIdx.x;
   const int64_t nwarps = ((int64_t)gridDim.x * NT) >> 5;
   const int lane = threadIdx.x & 31;
-  const uint32_t below = (1u << lane) - 1;
   for (int64_t i = tid >> 5; i < N; i += nwarps) {
-    int64_t placed = 0;
-    for (int64_t c0 = 0; c0 < N && placed < d; c0 += 32) {
-      const int64_t j = c0 + lane;
-      const bool set = j < N && adj[i * N + j];
-      const uint32_t m = __ballot_sync(0xffffffffu, set);
-      const int64_t slot = placed + __popc(m & below);
-      if (set && slot < d) out[i * d + slot] = (int32_t)j;
-      placed += __popc(m);
-    }
-    for (int64_t s = min64(placed, d) + lane; s < d; s += 32)
-      out[i * d + s] = -1;
+    int32_t* row = out + i * d;
+    RowWalk rw(adj, N, i, lane);
+    int64_t placed = 0;   // the row's set columns so far (every lane)
+    do {
+      int64_t col0 = 0;
+      uint32_t bits = rw.bits(col0);
+      if (!__any_sync(0xffffffffu, bits != 0)) continue;
+      const int32_t n = __popc(bits);
+      int32_t incl = n;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int32_t y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      for (int64_t slot = placed + incl - n; bits && slot < d;
+           bits &= bits - 1u, ++slot)
+        row[slot] = (int32_t)(col0 + __ffs(bits) - 1);
+      placed += __shfl_sync(0xffffffffu, incl, 31);
+    } while (placed < d && rw.next());
+    for (int64_t s = min64(placed, d) + lane; s < d; s += 32) row[s] = -1;
   }
 }
 

@@ -3,10 +3,19 @@
 // Replaces (JAX reference, accord_tpu/ops/drain_kernel.py):
 //   level_ell   <- level_assign_ell (:397) = _ell_levels (:381)
 //   level_dense <- level_assign_dense (:421) = _dense_levels (:404)
-// with _level_base (:321), _critical_ptr (:366) and _level_loop (:331).
+// with _level_base (:321), _critical_ptr (:366) and _level_loop (:331);
+// and, as the epilogue of the same launch (K9 level_drain), the drain of
+// the reference's one-program log-depth drains: _levels_to_drain (:427)
+// and the depth of _drain_ell_logdepth_full (:434) /
+// _drain_dense_logdepth_full (:451), or the prefix of
+// drain_ell_watermark (:465) / drain_dense_watermark (:479).
 // Output, equal to the reference: levels int32[N] (0 applied, 1..N the
 // frontier sweep that would apply the slot, LEVEL_INF = 2^28 blocked
-// forever) and the round count int32.
+// forever) and the round count int32; with the epilogue, also applied
+// bool[N] = applied0 | (stable & lv <= w) (w = LEVEL_INF - 1 for "lv <
+// INF", else the watermark, a value or a device scalar), newly bool[N] =
+// applied & ~applied0 and the depth int32 (the largest finite level, 0 if
+// none).
 //
 // Each round is a Bellman relax (1 + max level over the blocking deps)
 // followed by a pointer jump along each row's critical-parent chain
@@ -71,10 +80,27 @@
 // read 1-2 us slower on phase 5's state, PERF.md's K7 ELL row, NVIDIA H100
 // 80GB HBM3.)
 //
+// The level-drain epilogue (K9).  A level is final where the engine
+// writes it out, so the drain's flags are written there, by the thread
+// that holds the level in a register: in the first CTA form at the end of
+// its rounds, the depth a block max (a warp reduce, then one shared
+// word); in the grid form by each writer of grid_out, the depth a warp
+// max, then a CTA's max by one atomicMax into the depth word the kernel
+// zeroes before its first grid barrier.  ELL's inactive rows (every row
+// that is not Stable) take their flags in the prologue, where their level
+// is written (applied = status == APPLIED, newly = 0); their levels, 0 or
+// INF, add nothing to the depth.  The compacted rows are Stable, so their
+// flags need no status read; K7 dense's rows all pass through the engine
+// and read their status.  The levels-only form (null flag pointers) writes
+// no flag and no depth.  The reference's programs are one program each;
+// a launch of its own would cost a launch's host path, a memset and a
+// second read of the levels for 1 MB of work at 100,000 rows.
+//
 // Bound on this card: bytes and latency.  Dense: one read of the N*N
 // adjacency, then ~2*log2(depth) + c rounds of two barriers each.  ELL:
 // one read of the Stable rows' adjacency and their deps' fields, then the
-// rounds' barriers.
+// rounds' barriers.  The epilogue adds two bytes a row written (and
+// dense's status read again).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -136,7 +162,37 @@ struct Rounds {
   int32_t* list;
   int32_t* orig;
   int64_t N;              // the padded row count (clamp, round cap)
+  // the level-drain epilogue: null flags for the levels alone
+  const int32_t* status;
+  uint8_t *applied, *newly;   // [N] each
+  int32_t* depth;
+  const void* wptr;   // the watermark word (wbytes 4 or 8), or wval
+  int64_t wval;
+  int32_t wbytes;
 };
+
+// the epilogue's bound w: applied where lv <= w
+__device__ __forceinline__ int64_t watermark(const Rounds& a) {
+  return a.wbytes == 8   ? __ldg((const int64_t*)a.wptr)
+         : a.wbytes == 4 ? (int64_t)__ldg((const int32_t*)a.wptr)
+                         : a.wval;
+}
+
+// row ``row``'s drain flags at its final level ``lv``; a row with an
+// original index (ELL's compacted rows) is Stable
+__device__ __forceinline__ void drain_flags(const Rounds& a, int64_t row,
+                                            int32_t lv, int64_t w) {
+  const int32_t s = a.orig ? SLOT_STABLE : __ldg(a.status + row);
+  const bool a0 = s == SLOT_APPLIED;
+  const bool ap = a0 || (s == SLOT_STABLE && (int64_t)lv <= w);
+  a.applied[row] = ap;
+  a.newly[row] = ap && !a0;
+}
+
+// a level's share of the depth: itself where finite, else 0
+__device__ __forceinline__ int32_t finite(int32_t lv) {
+  return lv < LEVEL_INF ? lv : 0;
+}
 
 // The rounds by the first CTA alone: each thread holds the level, the
 // walk (ptr, off) and the list range of its rows (k = thread + q * LNT)
@@ -189,6 +245,8 @@ __device__ void first_cta_rounds(const Rounds& a, int32_t* sm, int R,
     my_e[q] = at + e - s;
     at += e - s;
   }
+  __shared__ int32_t depth;
+  if (t == 0) depth = 0;
   __syncthreads();
   int r = 0;
   bool changed = true;
@@ -230,10 +288,25 @@ __device__ void first_cta_rounds(const Rounds& a, int32_t* sm, int R,
     changed = __syncthreads_or(mine);
     ++r;
   }
+  int32_t best = 0;
+  const int64_t w = a.applied ? watermark(a) : 0;
 #pragma unroll
   for (int q = 0; q < RPT; ++q) {
     const int k = t + q * LNT;
-    if (k < A) a.out[a.orig ? __ldcg(a.orig + k) : k] = my_lv[q];
+    if (k < A) {
+      const int32_t row = a.orig ? __ldcg(a.orig + k) : k;
+      a.out[row] = my_lv[q];
+      if (a.applied) {
+        drain_flags(a, row, my_lv[q], w);
+        best = maxi(best, finite(my_lv[q]));
+      }
+    }
+  }
+  if (a.applied) {
+    best = __reduce_max_sync(0xffffffffu, best);
+    if ((t & 31) == 0 && best > 0) atomicMax(&depth, best);
+    __syncthreads();
+    if (t == 0) *a.depth = depth;
   }
   if (t == 0) *a.rounds = r;
 }
@@ -290,14 +363,34 @@ __device__ bool grid_jump(const Rounds& a, int64_t r, int64_t R) {
   return vote_barrier(a, r, __syncthreads_or(mine));
 }
 
-// the levels of the last round to out, and the round count
+// the levels of the last round to out, and the round count; with the
+// epilogue each writer's flags, and a CTA's depth into the depth word
+// (zeroed before the first grid barrier)
 __device__ void grid_out(const Rounds& a, int64_t r, int64_t A) {
+  __shared__ int32_t depth;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t nthreads = (int64_t)gridDim.x * blockDim.x;
   const int32_t* fin = a.lv[r & 1];
-  for (int64_t k = tid; k < A; k += nthreads)
-    a.out[a.orig ? __ldcg(a.orig + k) : k] = __ldcg(fin + k);
+  const int64_t w = a.applied ? watermark(a) : 0;
+  int32_t best = 0;
+  for (int64_t k = tid; k < A; k += nthreads) {
+    const int64_t row = a.orig ? __ldcg(a.orig + k) : k;
+    const int32_t lv = __ldcg(fin + k);
+    a.out[row] = lv;
+    if (a.applied) {
+      drain_flags(a, row, lv, w);
+      best = maxi(best, finite(lv));
+    }
+  }
   if (tid == 0) *a.rounds = (int32_t)r;
+  if (a.applied) {
+    if (threadIdx.x == 0) depth = 0;
+    __syncthreads();
+    best = __reduce_max_sync(0xffffffffu, best);
+    if ((threadIdx.x & 31) == 0 && best > 0) atomicMax(&depth, best);
+    __syncthreads();
+    if (threadIdx.x == 0 && depth > 0) atomicMax(a.depth, depth);
+  }
 }
 
 // -- dense loader ------------------------------------------------------------
@@ -325,7 +418,7 @@ __host__ __device__ inline int64_t dense_ctas(int64_t N) {
 }
 
 __host__ __device__ inline int64_t dense_workspace_words(int64_t N) {
-  return N + 1 + 3 + 9 * N + dense_ctas(N) + list_cap(N);
+  return N + 2 + 4 + 9 * N + dense_ctas(N) + list_cap(N);
 }
 
 // Walk Stable row i's gating deps in column order by the calling warp
@@ -462,6 +555,7 @@ __global__ void __launch_bounds__(LNT) level_dense_kernel(DenseArgs a) {
   over = __syncthreads_or(over);
   if (threadIdx.x == 0) a.total[blockIdx.x] = over ? OVER : used;
   if (tid < 3) R.flags[tid] = 0;
+  if (tid == 0 && R.applied) *R.depth = 0;
   grid_barrier(grid);
 
   // the form, from the regions' totals (each CTA reads them all)
@@ -543,7 +637,7 @@ __host__ __device__ inline int64_t ell_ctas(int64_t N) {
 
 __host__ __device__ inline int64_t ell_workspace_words(int64_t N,
                                                        int64_t D) {
-  return N + 1 + 3 + 4 + 10 * (N + 2) + 2 * ell_ctas(N) + N * D;
+  return N + 2 + 3 + 3 + 10 * (N + 2) + 2 * ell_ctas(N) + N * D;
 }
 
 // the edges a thread gathers at once: each step of a loop over a row's
@@ -681,8 +775,12 @@ __global__ void __launch_bounds__(LNT) level_ell_kernel(EllArgs a) {
           cnt1 = cnt;
           pc1 = pc;
         }
-      } else {
+      } else {   // inactive: a constant level; the epilogue's flags here
         R.out[i] = si == SLOT_APPLIED ? 0 : LEVEL_INF;
+        if (R.applied) {
+          R.applied[i] = si == SLOT_APPLIED;
+          R.newly[i] = 0;
+        }
       }
     }
     int32_t n_stable;
@@ -698,6 +796,7 @@ __global__ void __launch_bounds__(LNT) level_ell_kernel(EllArgs a) {
     a.tot[2 * blockIdx.x + 1] = n_edges;
   }
   if (tid < 3) R.flags[tid] = 0;
+  if (tid == 0 && R.applied) *R.depth = 0;
   grid_barrier(grid);
 
   // 2. the CTAs' bases (G <= LNT: one CTA an SM), A and E; each Stable
@@ -810,23 +909,44 @@ __global__ void __launch_bounds__(LNT) level_ell_kernel(EllArgs a) {
   grid_out(R, r, A);
 }
 
+// the epilogue's arguments: ptrs applied, newly, the watermark word (each
+// may be null); vals the watermark value, the watermark word's bytes (0:
+// the value)
+void set_epilogue(Rounds& r, const int32_t* status, void* const* p,
+                  const int64_t* v) {
+  r.status = status;
+  r.applied = (uint8_t*)p[0];
+  r.newly = (uint8_t*)p[1];
+  r.wptr = p[2];
+  r.wval = v[0];
+  r.wbytes = (int32_t)v[1];
+}
+
+bool epilogue_ok(void* const* p, const int64_t* v) {
+  return (p[0] == nullptr) == (p[1] == nullptr) &&
+         (v[1] == 0 || ((v[1] == 4 || v[1] == 8) && p[2] != nullptr));
+}
+
 }  // namespace
 
 // int32 words of level_ell's workspace for N rows of D deps: the levels
-// [N], the rounds, the stats (A, E, the form), then its scratch
+// [N], the rounds, the depth, the stats (A, E, the form), then its scratch
 ACCORD_EXPORT int64_t accord_level_ell_workspace_words(int64_t N, int64_t D) {
   return ell_workspace_words(N, D);
 }
 
 // ptrs: adj_idx int32[N*D], status, exec_msb, exec_lsb, exec_node,
-//       awaits_all, workspace int32[accord_level_ell_workspace_words(N, D)]
-// vals: N, D (N * D < 2^31), workspace words
+//       awaits_all, workspace int32[accord_level_ell_workspace_words(N, D)],
+//       then the level-drain epilogue's applied bool[N], newly bool[N] and
+//       watermark word (int32 or int64), each null for the levels alone
+// vals: N, D (N * D < 2^31), workspace words, the watermark value (read
+//       when its word's bytes are 0), the watermark word's bytes (0, 4, 8)
 ACCORD_EXPORT int accord_level_ell(void* const* p, const int64_t* v,
                                    void* stream) {
   EllArgs a;
   const int64_t N = v[0], D = v[1];
   if (N < 0 || D < 1 || N * D > INT32_MAX - 2 ||
-      v[2] < ell_workspace_words(N, D))
+      v[2] < ell_workspace_words(N, D) || !epilogue_ok(p + 7, v + 3))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
   a.adj = (const int32_t*)p[0];
@@ -839,11 +959,13 @@ ACCORD_EXPORT int accord_level_ell(void* const* p, const int64_t* v,
   int32_t* w = (int32_t*)p[6];
   const int64_t R = N + 2;
   Rounds& r = a.r;
+  set_epilogue(r, a.status, p + 7, v + 3);
   r.out = w;
   r.rounds = w + N;
-  a.stats = r.rounds + 1;
+  r.depth = r.rounds + 1;
+  a.stats = r.depth + 1;
   r.flags = a.stats + 3;
-  r.lv[0] = r.flags + 4;   // a pad word: the int2 arrays at 8 bytes
+  r.lv[0] = r.flags + 3;   // N + 8 words: the int2 arrays at 8 bytes
   r.lv[1] = r.lv[0] + R;
   r.mid = r.lv[1] + R;
   r.walk[0] = (int2*)(r.mid + R);
@@ -858,20 +980,24 @@ ACCORD_EXPORT int accord_level_ell(void* const* p, const int64_t* v,
 }
 
 // int32 words of level_dense's workspace for N rows: the levels [N], the
-// rounds, then its scratch
+// rounds, the depth, then its scratch
 ACCORD_EXPORT int64_t accord_level_dense_workspace_words(int64_t N) {
   return dense_workspace_words(N);
 }
 
 // ptrs: adj bool[N*N], status, exec_msb, exec_lsb, exec_node, awaits_all,
 //       workspace int32[accord_level_dense_workspace_words(N)]: the
-//       levels int32[N], the rounds int32, then the scratch
-// vals: N (N * N < 2^31), workspace words
+//       levels int32[N], the rounds int32, the depth int32, then the
+//       scratch; then the level-drain epilogue's applied bool[N], newly
+//       bool[N] and watermark word, each null for the levels alone
+// vals: N (N * N < 2^31), workspace words, the watermark value, the
+//       watermark word's bytes (0, 4, 8)
 ACCORD_EXPORT int accord_level_dense(void* const* p, const int64_t* v,
                                      void* stream) {
   DenseArgs a;
   const int64_t N = v[0];
-  if (N < 0 || N * N > INT32_MAX || v[1] < dense_workspace_words(N))
+  if (N < 0 || N * N > INT32_MAX || v[1] < dense_workspace_words(N) ||
+      !epilogue_ok(p + 7, v + 2))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
   a.adj = (const uint8_t*)p[0];
@@ -882,10 +1008,13 @@ ACCORD_EXPORT int accord_level_dense(void* const* p, const int64_t* v,
   a.awaits = (const uint8_t*)p[5];
   int32_t* w = (int32_t*)p[6];
   Rounds& r = a.r;
+  set_epilogue(r, a.status, p + 7, v + 2);
   r.out = w;
   r.rounds = w + N;
-  r.flags = r.rounds + 1;
-  r.lv[0] = r.flags + 3;   // N + 4 words before the int2 arrays' 3N
+  r.depth = r.rounds + 1;
+  r.flags = r.depth + 1;
+  r.lv[0] = r.flags + 4;   // a pad word: N + 6 words before the int2
+                           // arrays' 3N
   r.lv[1] = r.lv[0] + N;
   r.mid = r.lv[1] + N;
   r.walk[0] = (int2*)(r.mid + N);

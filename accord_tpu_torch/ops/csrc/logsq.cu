@@ -1,18 +1,10 @@
-// K9: the log-depth drains' device work beside the level pass (K7).
+// K9: the dense log-squaring drain.
 //
 // Replaces (JAX reference, accord_tpu/ops/drain_kernel.py):
-//   level_drain <- _levels_to_drain (:427) and the depth reduction of
-//                  _drain_ell_logdepth_full (:434) /
-//                  _drain_dense_logdepth_full (:451); with a watermark, the
-//                  prefix of drain_ell_watermark (:465) /
-//                  drain_dense_watermark (:479)
 //   logsq_dense <- drain_dense_logsq (:489)
-//
-// level_drain: applied = applied0 | (stable & lv <= w) (w = LEVEL_INF - 1
-// for "lv < INF"; the watermark from a device scalar or a value), newly =
-// applied & ~applied0, depth = the largest finite level (0 if none).  A
-// thread per row, a warp max and one atomicMax.  Bound: bytes (status and
-// levels read once, the two flags written once).
+// (K9's other part, the level-drain epilogue of the log-depth drains,
+// _levels_to_drain (:427) and the depth, runs inside K7's launch:
+// levels.cu.)
 //
 // logsq_dense: a Stable row is blocked forever iff it reaches, along
 // blocking edges into Stable deps, a dep that never applies (``hit``) or a
@@ -58,34 +50,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int32_t LEVEL_INF = 1 << 28;
-
-// -- the level-drain epilogue ----------------------------------------------
-
-constexpr int EPI_NT = 256;
-
-__global__ void __launch_bounds__(EPI_NT)
-level_drain_kernel(const int32_t* status, const int32_t* lv,
-                   const int64_t* wptr, int64_t wval, uint8_t* applied,
-                   uint8_t* newly, int32_t* depth, int64_t N) {
-  const int64_t w = wptr ? *wptr : wval;
-  int32_t best = 0;
-  for (int64_t i = (int64_t)blockIdx.x * EPI_NT + threadIdx.x; i < N;
-       i += (int64_t)gridDim.x * EPI_NT) {
-    const int32_t l = lv[i];
-    const int32_t s = status[i];
-    const bool a0 = s == SLOT_APPLIED;
-    const bool ap = a0 || (s == SLOT_STABLE && (int64_t)l <= w);
-    applied[i] = ap;
-    newly[i] = ap && !a0;
-    if (l < LEVEL_INF) best = maxi(best, l);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    best = maxi(best, __shfl_xor_sync(0xffffffffu, best, o));
-  if ((threadIdx.x & 31) == 0 && best > 0) atomicMax(depth, best);
-}
 
 // -- log-squaring ------------------------------------------------------------
 
@@ -484,25 +448,6 @@ __global__ void __launch_bounds__(NT, 2) logsq_kernel(LogsqArgs a) {
 }
 
 }  // namespace
-
-// ptrs: status int32[N], levels int32[N], watermark int64[1] or null,
-//       applied bool[N], newly bool[N], depth int32[1]
-// vals: N, watermark (read when the pointer is null)
-ACCORD_EXPORT int accord_level_drain(void* const* p, const int64_t* v,
-                                     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int64_t N = v[0];
-  int32_t* depth = (int32_t*)p[5];
-  cudaError_t e = cudaMemsetAsync(depth, 0, sizeof(int32_t), st);
-  if (e != cudaSuccess) return (int)e;
-  if (N <= 0) return (int)cudaGetLastError();
-  int64_t blocks = (N + EPI_NT - 1) / EPI_NT;
-  if (blocks > 1024) blocks = 1024;
-  level_drain_kernel<<<(unsigned)blocks, EPI_NT, 0, st>>>(
-      (const int32_t*)p[0], (const int32_t*)p[1], (const int64_t*)p[2], v[1],
-      (uint8_t*)p[3], (uint8_t*)p[4], depth, N);
-  return (int)cudaGetLastError();
-}
 
 // ptrs: adj bool[N*N], status, exec_msb, exec_lsb, exec_node, awaits_all,
 //       work int32[logsq_work_words(N)], applied bool[N], newly bool[N],

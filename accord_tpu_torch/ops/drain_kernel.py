@@ -368,7 +368,9 @@ def drain_ell_levels(state: EllDrainState):
 # -- the log-depth drains ------------------------------------------------------
 #
 # The level pass above gives every slot's execution round in O(log depth)
-# rounds; the drain is then one masked compare over the levels.
+# rounds; the drain is then one masked compare over the levels.  On the
+# card each drain is one launch, as each is one program in the reference:
+# K7's, with the compare and the depth as its epilogue.
 
 def level_drain_plain(status, lv, watermark=None):
     """The level-to-drain epilogue: (applied, newly, depth int32[]).
@@ -384,20 +386,11 @@ def level_drain_plain(status, lv, watermark=None):
     return applied, applied & ~applied0, depth.to(torch.int32)
 
 
-def _levels_to_drain(state, lv, watermark=None):
-    """(applied, newly) from the levels: every Stable slot with a finite
-    level, or with ``level <= watermark``."""
-    from . import kernels
-    applied, newly, _depth = kernels.level_drain(state.status, lv, watermark)
-    return applied, newly
-
-
 def _drain_ell_logdepth_full(state: EllDrainState):
-    """(applied, newly, rounds, depth) by the ELL level pass."""
+    """(applied, newly, rounds, depth) by the ELL level pass (one launch
+    on a CUDA tensor: the level pass with its drain epilogue)."""
     from . import kernels
-    lv, rounds = level_assign_ell(state)
-    applied, newly, depth = kernels.level_drain(state.status, lv)
-    return applied, newly, rounds, depth
+    return kernels.level_drain_ell(state)
 
 
 def drain_ell_logdepth(state: EllDrainState):
@@ -409,9 +402,7 @@ def drain_ell_logdepth(state: EllDrainState):
 
 def _drain_dense_logdepth_full(state: DrainState):
     from . import kernels
-    lv, rounds = level_assign_dense(state)
-    applied, newly, depth = kernels.level_drain(state.status, lv)
-    return applied, newly, rounds, depth
+    return kernels.level_drain_dense(state)
 
 
 def drain_logdepth(state: DrainState):
@@ -424,14 +415,18 @@ def drain_ell_watermark(state: EllDrainState, watermark):
     """Apply every Stable slot whose round is <= ``watermark`` (an int or a
     0-d tensor) in one shot — byte-identical to ``watermark`` fixpoint
     sweeps: (applied, newly)."""
-    lv, _rounds = level_assign_ell(state)
-    return _levels_to_drain(state, lv, watermark)
+    from . import kernels
+    applied, newly, _rounds, _depth = kernels.level_drain_ell(state,
+                                                              watermark)
+    return applied, newly
 
 
 def drain_dense_watermark(state: DrainState, watermark):
     """Dense-state analogue of :func:`drain_ell_watermark`."""
-    lv, _rounds = level_assign_dense(state)
-    return _levels_to_drain(state, lv, watermark)
+    from . import kernels
+    applied, newly, _rounds, _depth = kernels.level_drain_dense(state,
+                                                                watermark)
+    return applied, newly
 
 
 def drain_dense_logsq_plain(state: DrainState):
@@ -640,6 +635,19 @@ def drain_calibration(device="cuda") -> dict:
     return _DRAIN_CALIB
 
 
+def _rounds_depth(rounds: torch.Tensor, depth: torch.Tensor) -> tuple:
+    """(int rounds, int depth) of a log-depth drain: one device-to-host
+    transfer where the two are adjacent words of one buffer (the fused
+    drains' on the card), else one read each."""
+    if rounds.is_cuda and depth.data_ptr() == rounds.data_ptr() + 4 \
+            and rounds.dtype is depth.dtype is torch.int32 \
+            and depth.untyped_storage().data_ptr() == \
+            rounds.untyped_storage().data_ptr():
+        r, d = rounds.as_strided((2,), (1,)).tolist()
+        return r, d
+    return int(rounds), int(depth)
+
+
 def _record_stats(key, depth: int, rounds: Optional[int]) -> None:
     st = _ROUTE_STATS.setdefault(key, {})
     st["depth"] = depth
@@ -672,8 +680,8 @@ def drain_ell_auto(state: EllDrainState):
             launch_check("drain logdepth")
             applied, newly, rounds, depth = _drain_ell_logdepth_full(state)
             faults.check("transfer", "drain logdepth download")
-            rounds = int(rounds)
-            _record_stats(key, int(depth), rounds)
+            rounds, depth = _rounds_depth(rounds, depth)
+            _record_stats(key, depth, rounds)
             _COUNTERS["drain_logdepth"] += 1
             return applied, newly, rounds, route
         except faults.DEVICE_EXCEPTIONS:
@@ -718,8 +726,8 @@ def drain_auto(state):
             ell = dense_to_ell(state)
             applied, newly, rounds, depth = _drain_ell_logdepth_full(ell)
             faults.check("transfer", "drain logdepth download")
-            rounds = int(rounds)
-            _record_stats(key, int(depth), rounds)
+            rounds, depth = _rounds_depth(rounds, depth)
+            _record_stats(key, depth, rounds)
             _ROUTE_STATS[key]["ell_d"] = ell.adj_idx.shape[1]
             _COUNTERS["drain_logdepth"] += 1
             return applied, newly, rounds, route

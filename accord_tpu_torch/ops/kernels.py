@@ -28,7 +28,6 @@ kernels.  The wrappers allocate every output and scratch buffer with
 | level_dense    | ops/drain_kernel.py:421 level_assign_dense              |
 | drain_fix_dense | ops/drain_kernel.py:126 drain_levels (:115 drain; :87)  |
 | drain_fix_ell  | ops/drain_kernel.py:300 drain_ell_levels (:292; :274)   |
-| level_drain    | ops/drain_kernel.py:427 _levels_to_drain (in :434, :451, :465, :479) |
 | logsq_dense    | ops/drain_kernel.py:489 drain_dense_logsq               |
 | dense_degree   | ops/drain_kernel.py:524 _dense_degree                   |
 | dense_to_ell   | ops/drain_kernel.py:539 dense_to_ell (the convert at :554) |
@@ -55,6 +54,12 @@ splits its rows into more launches).  K3 handed numpy packs
 its index and rows into one pinned staging buffer (``StagingRing``) and
 uploads it in one copy.  K4b and K6 dense may write their flags straight
 into a pinned host buffer (the drain ticks').
+
+K9's level-drain epilogue (ops/drain_kernel.py:427 ``_levels_to_drain``
+and the depth, in :434, :451, :465 and :479) has no launch of its own: it
+runs inside K7's launch (``level_drain_ell`` / ``level_drain_dense``),
+which counts as a ``level_ell`` / ``level_dense`` launch, and each such
+call adds one to ``EPILOGUES["level_drain"]``.
 
 A non-zero return code of an entry point raises ``launch_error``'s
 exception: ``faults.CudaLaunchError`` for a launch refused for want of
@@ -83,10 +88,13 @@ KERNELS = ("deps_bucketed", "deps_dense", "attr_post", "scatter_rows",
            "frontier_ell", "frontier_dense", "fused_deps_dense",
            "fused_attr_post", "fused_frontier_ell", "fused_frontier_dense",
            "level_ell", "level_dense", "drain_fix_dense", "drain_fix_ell",
-           "level_drain", "logsq_dense", "dense_degree", "dense_to_ell",
+           "logsq_dense", "dense_degree", "dense_to_ell",
            "calc_deps", "ts_max", "merge_blocks", "sharded_frontier",
            "sharded_drain", "sharded_drain_fix", "attr_tok")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the calls that ran a fused epilogue inside another kernel's launch (not
+# launches of their own)
+EPILOGUES: Dict[str, int] = {"level_drain": 0}
 
 # candidates a row of deps_bucketed sorts in shared memory (SMEM_CODES of
 # csrc/deps_scan.cu); a row with more sorts in its CTA's global scratch
@@ -96,6 +104,8 @@ SMEM_CODES = 4096
 def reset_launches() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
+    for k in EPILOGUES:
+        EPILOGUES[k] = 0
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -911,12 +921,12 @@ def fused_frontier_dense(states, out=None) -> torch.Tensor:
     return out
 
 
-# -- K7: log-depth level assignment --------------------------------------------
+# -- K7: log-depth level assignment, and K9's level-drain epilogue -----------
 
 @functools.lru_cache(maxsize=64)
 def _level_ell_words(n: int, d: int) -> int:
-    """The int32 words of K7 ELL's workspace, its levels, rounds and
-    stats first, as its entry point lays it out."""
+    """The int32 words of K7 ELL's workspace, its levels, rounds, depth
+    and stats first, as its entry point lays it out."""
     return _build.library().accord_level_ell_workspace_words(n, d)
 
 
@@ -929,39 +939,10 @@ def _level_ell_values(st, plan):
     return array("Q", plan[1]), n, d, _level_ell_words(n, d)
 
 
-def level_ell(state: drk.EllDrainState):
-    """(levels int32[N], rounds int32[]) by one cooperative launch and one
-    allocation: the levels and rounds are views of its workspace, which
-    lives as long as they do (``level_assign_ell``'s callers, the drain
-    tick and the log-depth drains, drop them within the call).  The
-    device runs the rounds over the Stable rows only, in its first CTA
-    where their state fits, else on the grid."""
-    if not on_cuda(state.status):
-        return drk.level_assign_ell_plain(state)
-    dev = state.status.device
-    cols, n, d, words = _values(state, dev, _level_ell_values)
-    buf = torch.empty(words, dtype=torch.int32, device=dev)
-    p = cols + array("Q", (buf.data_ptr(),))
-    v = array("q", (n, d, words))
-    _launch_packed("level_ell", dev.index, _build.entries()["level_ell"],
-                   p.buffer_info()[0], v.buffer_info()[0])
-    return buf[:n], buf[n]
-
-
-def level_ell_stats(levels: torch.Tensor) -> dict:
-    """What the K7 ELL call that returned ``levels`` found, read from its
-    workspace (a synchronisation): its Stable rows ``A``, their list
-    entries ``E`` (gating deps that can change level, one for a row held
-    at INF) and the ``form`` its rounds took ("first CTA" or "grid")."""
-    n = levels.shape[0]
-    a, e, form = levels._base[n + 1:n + 4].tolist()
-    return {"A": a, "E": e, "form": "grid" if form else "first CTA"}
-
-
 @functools.lru_cache(maxsize=64)
 def _level_dense_words(n: int) -> int:
-    """The int32 words of K7 dense's workspace, its levels and rounds
-    first, as its entry point lays it out."""
+    """The int32 words of K7 dense's workspace, its levels, rounds and
+    depth first, as its entry point lays it out."""
     return _build.library().accord_level_dense_workspace_words(n)
 
 
@@ -971,6 +952,107 @@ def _level_values(st, plan):
     return array("Q", plan[1]), n, _level_dense_words(n)
 
 
+def _watermark(watermark, dev: torch.device) -> tuple:
+    """(pointer, value, bytes) of a drain's watermark for the epilogue:
+    none is ``lv < INF`` (``lv <= INF - 1``); an int or a CPU tensor goes
+    by value; an int32 or int64 tensor of one element on ``dev`` is read
+    by the kernel (no host synchronisation)."""
+    if watermark is None:
+        return 0, drk.LEVEL_INF - 1, 0
+    if not torch.is_tensor(watermark):
+        return 0, int(watermark), 0
+    if watermark.numel() != 1:
+        raise ValueError("watermark is not a scalar")
+    if not watermark.is_cuda:
+        return 0, int(watermark), 0
+    if watermark.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"watermark: expected torch.int32 or torch.int64, "
+                        f"got {watermark.dtype}")
+    if watermark.get_device() != dev.index:
+        raise ValueError(f"watermark on {watermark.device}, not on {dev}")
+    return watermark.data_ptr(), 0, watermark.element_size()
+
+
+def _level_launch(name: str, state, build, drain: bool, watermark=None):
+    """One K7 launch on ``state``: its one allocation, the workspace
+    (levels, rounds and depth first) and, with the level-drain epilogue
+    (``drain``), the flags behind it (applied bool[N], newly bool[N]).
+    Returns the allocation, N and the workspace words."""
+    dev = state.status.device
+    cols, n, *vals = _values(state, dev, build)
+    words = vals[-1]
+    if drain:
+        wptr, wval, wbytes = _watermark(watermark, dev)
+        buf = torch.empty(words + -(-2 * n // 4), dtype=torch.int32,
+                          device=dev)
+        base = buf.data_ptr()
+        flags = (base + 4 * words, base + 4 * words + n, wptr)
+    else:
+        wval = wbytes = 0
+        buf = torch.empty(words, dtype=torch.int32, device=dev)
+        base, flags = buf.data_ptr(), (0, 0, 0)
+    p = cols + array("Q", (base, *flags))
+    v = array("q", (n, *vals, wval, wbytes))
+    _launch_packed(name, dev.index, _build.entries()[name],
+                   p.buffer_info()[0], v.buffer_info()[0])
+    if drain:
+        EPILOGUES["level_drain"] += 1
+    return buf, n, words
+
+
+def _drain_views(buf, n: int, words: int):
+    """(applied, newly, rounds, depth) of a K7 launch with the epilogue:
+    views of its one allocation, rounds and depth two adjacent words."""
+    flags = buf[words:].view(torch.bool)
+    return flags[:n], flags[n:2 * n], buf[n], buf[n + 1]
+
+
+def _drain_plain(levels_plain, state, watermark):
+    """(applied, newly, rounds, depth): the plain level pass, then the
+    plain epilogue."""
+    lv, rounds = levels_plain(state)
+    applied, newly, depth = drk.level_drain_plain(state.status, lv,
+                                                  watermark)
+    return applied, newly, rounds, depth
+
+
+def level_ell(state: drk.EllDrainState):
+    """(levels int32[N], rounds int32[]) by one cooperative launch and one
+    allocation: the levels and rounds are views of its workspace, which
+    lives as long as they do (``level_assign_ell``'s callers, the drain
+    tick and the log-depth drains, drop them within the call).  The
+    device runs the rounds over the Stable rows only, in its first CTA
+    where their state fits, else on the grid."""
+    if not on_cuda(state.status):
+        return drk.level_assign_ell_plain(state)
+    buf, n, _words = _level_launch("level_ell", state, _level_ell_values,
+                                   False)
+    return buf[:n], buf[n]
+
+
+def level_drain_ell(state: drk.EllDrainState, watermark=None):
+    """The log-depth drain over the ELL adjacency: (applied bool[N], newly
+    bool[N], rounds int32[], depth int32[]), K7 ELL's one launch with the
+    level-drain epilogue (K9), one allocation; ``watermark`` (an int or a
+    one-element tensor) replaces ``lv < INF`` by ``lv <= watermark``.
+    Rounds and depth are adjacent words (one read takes both)."""
+    if not on_cuda(state.status):
+        return _drain_plain(drk.level_assign_ell_plain, state, watermark)
+    return _drain_views(*_level_launch("level_ell", state,
+                                       _level_ell_values, True, watermark))
+
+
+def level_ell_stats(t: torch.Tensor) -> dict:
+    """What the K7 ELL call that returned ``t`` (its levels, or its
+    applied flags with the epilogue) found, read from its workspace (a
+    synchronisation): its Stable rows ``A``, their list entries ``E``
+    (gating deps that can change level, one for a row held at INF) and the
+    ``form`` its rounds took ("first CTA" or "grid")."""
+    n = t.shape[0]
+    a, e, form = t._base[n + 2:n + 5].tolist()
+    return {"A": a, "E": e, "form": "grid" if form else "first CTA"}
+
+
 def level_dense(state: drk.DrainState):
     """(levels int32[N], rounds int32[]) by one cooperative launch and one
     allocation (the levels and rounds are views of its workspace).  The
@@ -978,14 +1060,18 @@ def level_dense(state: drk.DrainState):
     on the grid."""
     if not on_cuda(state.status):
         return drk.level_assign_dense_plain(state)
-    dev = state.status.device
-    cols, n, words = _values(state, dev, _level_values)
-    buf = torch.empty(words, dtype=torch.int32, device=dev)
-    p = cols + array("Q", (buf.data_ptr(),))
-    v = array("q", (n, words))
-    _launch_packed("level_dense", dev.index, _build.entries()["level_dense"],
-                   p.buffer_info()[0], v.buffer_info()[0])
+    buf, n, _words = _level_launch("level_dense", state, _level_values,
+                                   False)
     return buf[:n], buf[n]
+
+
+def level_drain_dense(state: drk.DrainState, watermark=None):
+    """Dense-state analogue of :func:`level_drain_ell`: K7 dense's one
+    launch with the level-drain epilogue."""
+    if not on_cuda(state.status):
+        return _drain_plain(drk.level_assign_dense_plain, state, watermark)
+    return _drain_views(*_level_launch("level_dense", state, _level_values,
+                                       True, watermark))
 
 
 # -- K8: the fixpoint drains ---------------------------------------------------
@@ -1057,30 +1143,7 @@ def drain_fix_ell(state: drk.EllDrainState):
     return out
 
 
-# -- K9: the level-drain epilogue and log-squaring ---------------------------
-
-def level_drain(status: torch.Tensor, lv: torch.Tensor, watermark=None):
-    """(applied, newly, depth int32[]) from the levels; ``watermark`` (an
-    int or a 0-d tensor) replaces ``lv < INF`` by ``lv <= watermark``."""
-    if not on_cuda(status):
-        return drk.level_drain_plain(status, lv, watermark)
-    dev = status.device
-    _check(status, torch.int32, "status")
-    _check(lv, torch.int32, "levels")
-    n = status.shape[0]
-    if lv.shape != (n,):
-        raise ValueError(f"levels {tuple(lv.shape)} do not fit {n} rows")
-    wptr, wval = None, drk.LEVEL_INF - 1
-    if torch.is_tensor(watermark):
-        if watermark.numel() != 1:
-            raise ValueError("watermark is not a scalar")
-        wptr = watermark.to(device=dev, dtype=torch.int64).reshape(())
-    elif watermark is not None:
-        wval = int(watermark)
-    out = _drain_outputs(dev, n)
-    _launch("level_drain", dev, [status, lv, wptr, *out], [n, wval])
-    return out
-
+# -- K9: log-squaring ------------------------------------------------------
 
 def logsq_dense(state: drk.DrainState):
     """(applied, newly, squarings int32[]) by one cooperative launch."""
@@ -1123,14 +1186,21 @@ def dense_degree(adj: torch.Tensor) -> torch.Tensor:
 
 
 def dense_to_ell(adj: torch.Tensor, d: int) -> torch.Tensor:
-    """int32[N, d]: each row's first d set columns ascending, then -1."""
+    """int32[N, d]: each row's first d set columns ascending, then -1; one
+    launch, one allocation (the output)."""
     if not on_cuda(adj):
         return drk.dense_to_ell_plain(adj, d)
     n = _square_adj(adj)
     if d < 1:
         raise ValueError(f"ELL width {d} < 1")
+    if not adj.is_contiguous():
+        raise ValueError("adj is not contiguous")
     out = torch.empty((n, d), dtype=torch.int32, device=adj.device)
-    _launch("dense_to_ell", adj.device, [adj, out], [n, d])
+    p = array("Q", (adj.data_ptr(), out.data_ptr()))
+    v = array("q", (n, d))
+    _launch_packed("dense_to_ell", adj.device.index,
+                   _build.entries()["dense_to_ell"], p.buffer_info()[0],
+                   v.buffer_info()[0])
     return out
 
 

@@ -64,6 +64,18 @@ Phases:
      entries E and form printed; K2's token gather (``attr_tok``) over
      40 shards (past what a launch takes by value: two launches), with
      slices on no device of the group (None), on int32 and int64 codes;
+     the log-depth drains (K7's one launch with K9's level-drain
+     epilogue; ``fused_k9``) on phase 3's inputs and the 1,024-row chain
+     in both loaders, with no watermark, an int and 0-d int64 and int32
+     tensors on the card, and timed at phase 8's 100k ELL rows (the grid
+     form), phase 8's chain in ELL form and config 3's chain in dense
+     form (the first CTA), an 8,192-deep chain (dense's grid form), phase
+     3's random inputs and the watermark forms (131,072 Stable rows: ELL's
+     grid form); K10's dense -> ELL at N = 1 to 4,097 (rows off a 16-byte
+     chunk, a matrix that starts 7 bytes into one), d = 1, 4, 8 and 64,
+     rows of 0, d - 1, d, d + 1 and N deps and a dep in a row's last byte,
+     timed at config 3's chain and the router's probe (256 rows, d = 4),
+     and through ``kernels._launch`` beside its wrapper;
   4. the main path, a PreAccept deps store at real size: 100,000 in-flight
      txns over a 1,000,000-key space, up to 8 intervals each, with
      RedundantBefore floors and CommandsForKey state; 12,288 queries in
@@ -153,7 +165,9 @@ kernel), one live K3 call (one copy, one kernel) and K1a's, K1b's, K2's,
 K4b's, K5's, K6 dense's, K7 dense's, K8's, K11's cross-slice reduce's
 and K13's one-launch drain's calls (one kernel, no memset, no copy;
 K5's, K6's, K7's, K8 ELL's, K13's and ``attr_tok``'s the most of three
-traces) and
+traces), the log-depth drains' and K10's (one kernel, no memset, no copy;
+the fused drain's device time against the levels-only launch's on the
+same input is K9's epilogue) and
 gives K11's and the empty kernel's device time,
 times one whole fused flush at phase 7's recorded call (the host's
 enqueue and wall time beside its CUDA-event time, device tensors in and
@@ -165,13 +179,18 @@ The script runs on an earlier tree too (K6 without ``out``, K7 without
 ``grid``: their tick form downloads by ``.cpu()``, the pinned checks and
 forms are left out; K7 ELL without ``level_ell_stats`` and ``attr_tok``
 without ``TOK_MAX_REFS``: no form, A or E printed, no launch-count or
-one-kernel check of theirs), so that the parent and the change are
-timed by one script.  The profiler runs only after the main path: a
+one-kernel check of theirs; K9 as a launch of its own after K7's: each
+log-depth drain is the K7 call and the K9 call, counted as launches, with
+no one-kernel check), so that the parent and the change are timed by one
+script.  The profiler runs only after the main path: a
 trace taken before it lost the device records of later traces.
 
 Every kernel launch count is set to 0 just before phases 4-11 and read
 after each; each phase's seconds are printed: each kernel of the path must
-have launched.  Phases 5 and 8 print what each of their K7 ELL calls
+have launched.  K9's epilogue has a count of its own
+(``kernels.EPILOGUES``, the calls that ran it inside K7's launch): it must
+have run in phase 8, and no standalone K9 launch may exist; its row in the
+kernel table gives those calls as its launches, ``fused_into`` K7.  Phases 5 and 8 print what each of their K7 ELL calls
 found (rows, A, E, form, rounds).  The second-to-last
 lines carry the kernel table (JSON) and the card's name and power limit;
 the last line is the result object.  Any failure exits non-zero without the
@@ -226,7 +245,9 @@ KMETA = {
                         "accord_tpu/ops/drain_kernel.py:126"),
     "drain_fix_ell": ("accord_tpu_torch/ops/csrc/drain_fix.cu",
                       "accord_tpu/ops/drain_kernel.py:300"),
-    "level_drain": ("accord_tpu_torch/ops/csrc/logsq.cu",
+    # K9's level-drain epilogue: inside K7's launch (levels.cu); a
+    # launch of its own in logsq.cu on a tree before the fused form
+    "level_drain": ("accord_tpu_torch/ops/csrc/levels.cu",
                     "accord_tpu/ops/drain_kernel.py:427"),
     "logsq_dense": ("accord_tpu_torch/ops/csrc/logsq.cu",
                     "accord_tpu/ops/drain_kernel.py:489"),
@@ -1299,19 +1320,32 @@ class LevelStats:
 
     def __init__(self, kern, on_cuda: bool):
         self.kern, self.orig, self.calls = kern, kern.level_ell, []
+        self.orig_drain = getattr(kern, "level_drain_ell", None)
         noted = on_cuda and hasattr(kern, "level_ell_stats")
+
+        def note(state, out, rounds):
+            if noted:
+                self.calls.append(dict(
+                    kern.level_ell_stats(out), rounds=int(rounds),
+                    n=int(state.status.shape[0])))
 
         def wrapped(state):
             lv, rounds = self.orig(state)
-            if noted:
-                self.calls.append(dict(
-                    kern.level_ell_stats(lv), rounds=int(rounds),
-                    n=int(state.status.shape[0])))
+            note(state, lv, rounds)
             return lv, rounds
+
+        def wrapped_drain(state, watermark=None):
+            out = self.orig_drain(state, watermark)
+            note(state, out[0], out[2])
+            return out
         kern.level_ell = wrapped
+        if self.orig_drain is not None:
+            kern.level_drain_ell = wrapped_drain
 
     def restore(self):
         self.kern.level_ell = self.orig
+        if self.orig_drain is not None:
+            self.kern.level_drain_ell = self.orig_drain
 
 
 def fix_case(torch, kern, drk, state):
@@ -1576,13 +1610,38 @@ def fix_ell_edge_cases(torch, kern, drk, convert, dev) -> dict:
         for tag, g in graphs.items()}
 
 
-def level_drain_case(torch, kern, drk, status, lv, watermark=None):
-    """K9 epilogue: status and levels read, two flags and the depth
-    written."""
-    n = status.shape[0]
-    return (lambda: kern.level_drain(status, lv, watermark),
-            lambda: drk.level_drain_plain(status, lv, watermark), None,
-            n * 10 + 4, n * 4)
+def fused_k9(kern) -> bool:
+    """Whether K9's level-drain epilogue runs inside K7's launch (else, on
+    an earlier tree, it is a launch of its own after K7's)."""
+    return hasattr(kern, "level_drain_ell")
+
+
+def level_drain_case(torch, kern, drk, state, watermark=None):
+    """A log-depth drain, (applied, newly, rounds, depth): K7 with K9's
+    level-drain epilogue, one launch (on an earlier tree the K7 call and
+    the K9 call), against level_drain_plain over the plain levels.  Work:
+    the level pass's, the two flags, the rounds and the depth written."""
+    n = state.status.shape[0]
+    ell = isinstance(state, drk.EllDrainState)
+    if fused_k9(kern):
+        fused = kern.level_drain_ell if ell else kern.level_drain_dense
+
+        def run():
+            return fused(state, watermark)
+    else:
+        def run():
+            lv, rounds = (kern.level_ell if ell else kern.level_dense)(state)
+            a, nw, depth = kern.level_drain(state.status, lv, watermark)
+            return a, nw, rounds, depth
+
+    def plain():
+        lv, rounds = (drk.level_assign_ell_plain if ell
+                      else drk.level_assign_dense_plain)(state)
+        a, nw, depth = drk.level_drain_plain(state.status, lv, watermark)
+        return a, nw, rounds, depth
+
+    return (run, plain, None,
+            *level_work(torch, drk, state, 2 * n + 8))
 
 
 def logsq_tile_pairs(torch, step, squarings: int) -> int:
@@ -1659,25 +1718,72 @@ def degree_case(torch, kern, drk, adj):
             lambda: torch.count_nonzero(adj, dim=1), n * n + 4, n * n)
 
 
-def to_ell_case(torch, kern, drk, adj, d):
-    """K10: the adjacency read once, the ELL rows written."""
+def to_ell_case(torch, kern, drk, adj, d, launch=False):
+    """K10: the adjacency read once, the ELL rows written.  ``launch``:
+    the same kernel through ``kernels._launch`` (the generic launcher),
+    to time against the wrapper's ``_launch_packed``."""
     n = adj.shape[0]
-    return (lambda: kern.dense_to_ell(adj, d),
+
+    def generic():
+        out = torch.empty((n, d), dtype=torch.int32, device=adj.device)
+        kern._launch("dense_to_ell", adj.device, [adj, out], [n, d])
+        return out
+
+    return (generic if launch else lambda: kern.dense_to_ell(adj, d),
             lambda: drk.dense_to_ell_plain(adj, d), None, n * n + n * d * 4,
             n * n)
 
 
+def to_ell_edge_cases(torch, kern, drk, dev) -> dict:
+    """K10 at the edges of its row walk: N of 1, 17, 31, 45, 300 and
+    4,097 (rows that do not start on a 16-byte chunk, fewer than a warp's
+    chunks), a matrix that starts 7 bytes into a chunk, d of 1, 4, 8 and
+    64 (d > N), and rows with 0, d - 1, d, d + 1 and N deps and one whose
+    only dep is its last byte."""
+    out = {}
+    for n in (1, 17, 31, 45, 300, 4097):
+        for d in (1, 4, 8, 64):
+            rng = np.random.default_rng(900 + n + d)
+            adj = np.zeros((n, n), bool)
+            for i, c in enumerate((0, d - 1, d, d + 1, n, -1)):
+                if i >= n:
+                    break
+                if c == -1:
+                    adj[i, n - 1] = True
+                elif c > 0:
+                    adj[i, rng.choice(n, min(c, n), replace=False)] = True
+            if n > 6:
+                adj[6:] = rng.random((n - 6, n)) < 3.0 / n
+            flat = torch.zeros(n * n + 7, dtype=torch.bool, device=dev)
+            flat[7:] = torch.from_numpy(adj.reshape(-1)).to(dev)
+            for tag, a in (("", flat[7:].view(n, n).clone()),
+                           (" at +7", flat[7:].view(n, n))):
+                out[f"dense_to_ell[n{n} d={d}{tag}]"] = to_ell_case(
+                    torch, kern, drk, a, d)
+    return out
+
+
 def drain_cases(torch, kern, drk, tag, dense, ell):
-    """Every K8-K10 kernel on one dense state and its ELL twin."""
-    lv = drk.level_assign_ell_plain(ell)[0]
+    """Every K8-K10 kernel on one dense state and its ELL twin; the
+    log-depth drains (K7 with K9's epilogue) on both, with and without a
+    watermark (an int, a 0-d int64 and a 0-d int32 tensor on the card)."""
+    w64 = torch.tensor(2, device=ell.status.device)
+    w32 = torch.tensor(1, dtype=torch.int32, device=ell.status.device)
     return {
         f"drain_fix_dense[{tag}]": fix_case(torch, kern, drk, dense),
         f"drain_fix_ell[{tag}]": fix_case(torch, kern, drk, ell),
         f"logsq_dense[{tag}]": logsq_case(torch, kern, drk, dense),
-        f"level_drain[{tag}]": level_drain_case(torch, kern, drk,
-                                                ell.status, lv),
-        f"level_drain[{tag} w=2]": level_drain_case(torch, kern, drk,
-                                                    ell.status, lv, 2),
+        f"level_drain[{tag} ell]": level_drain_case(torch, kern, drk, ell),
+        f"level_drain[{tag} dense]": level_drain_case(torch, kern, drk,
+                                                      dense),
+        f"level_drain[{tag} ell w=2]": level_drain_case(torch, kern, drk,
+                                                        ell, 2),
+        f"level_drain[{tag} dense w=2]": level_drain_case(torch, kern, drk,
+                                                          dense, 2),
+        f"level_drain[{tag} ell w=2 i64]": level_drain_case(
+            torch, kern, drk, ell, w64),
+        f"level_drain[{tag} dense w=1 i32]": level_drain_case(
+            torch, kern, drk, dense, w32),
         f"dense_degree[{tag}]": degree_case(torch, kern, drk, dense.adj),
         f"dense_to_ell[{tag} d=4]": to_ell_case(torch, kern, drk, dense.adj,
                                                 4),
@@ -1827,6 +1933,7 @@ def small_cases(torch, dev, kern, dk, drk, convert):
     cases.update(bucket_edge_cases(torch, kern, dk, convert, dev))
     cases.update(fix_edge_cases(torch, kern, drk, convert, dev))
     cases.update(fix_ell_edge_cases(torch, kern, drk, convert, dev))
+    cases.update(to_ell_edge_cases(torch, kern, drk, dev))
     # rows with more candidates than shared memory holds (C > 4096) sort
     # in global scratch: 8 intervals x 4 probes x 128 entries + the wide list
     for seed, wide in ((6, False), (7, True)):
@@ -4145,11 +4252,41 @@ def main(argv=None) -> int:
     real["logsq_dense[dense input]"] = logsq_case(
         torch, kern, drk,
         logsq_dense_input(convert, dev, dense3.status.shape[0]))
-    real["level_drain"] = level_drain_case(
-        torch, kern, drk, ell3.status, drk.level_assign_ell_plain(ell3)[0])
+    # the log-depth drains (K7 with K9's epilogue; on an earlier tree the
+    # K7 call and the K9 call): phase 8's 100k ELL rows (the grid form) and
+    # chain in ELL form (the first CTA), config 3's chain in dense form
+    # (the first CTA), an 8,192-deep chain (dense's grid form), phase 3's
+    # random inputs, and the watermark forms (an int, a 0-d tensor on the
+    # card) on the chain and on 131,072 Stable rows (ELL's grid form)
+    wt = torch.tensor(NDD3 // 2, device=dev)
+    drain_inputs = {
+        "level_drain": (ell3, None),
+        "level_drain[phase8 chain]": (dense3_ell, None),
+        "level_drain[config3 chain dense]": (cstate, None),
+        "level_drain[chain8192 dense]": (k7_inputs["chain8192"], None),
+        "level_drain[phase8 chain w=int]": (dense3_ell, NDD3 // 2),
+        "level_drain[phase8 chain w=tensor]": (dense3_ell, wt),
+        "level_drain[config3 chain dense w=int]": (cstate, NDD3 // 2),
+        "level_drain[config3 chain dense w=tensor]": (cstate, wt),
+        "level_drain[all stable 131072 w=tensor]": (
+            ell_more["all stable 131072"], torch.tensor(
+                77, dtype=torch.int32, device=dev)),
+        **{f"level_drain[n{n}]": (ell_more[f"n{n}"], None)
+           for n in (64, 512, 48)}}
+    for name, (st, w) in drain_inputs.items():
+        real[name] = level_drain_case(torch, kern, drk, st, w)
     real["dense_degree"] = degree_case(torch, kern, drk, dense3.adj)
     real["dense_to_ell"] = to_ell_case(torch, kern, drk, dense3.adj,
                                        dense3_ell.adj_idx.shape[1])
+    # K10 at the router's probe (a 256-row chain, d = 4), and through the
+    # generic launcher on the same input as the wrapper's
+    probe = drk._probe_chain_dense(256, dev)
+    real["dense_to_ell[probe 256 d=4]"] = to_ell_case(torch, kern, drk,
+                                                      probe.adj, 4)
+    if on_cuda:
+        real["dense_to_ell[via _launch]"] = to_ell_case(
+            torch, kern, drk, dense3.adj, dense3_ell.adj_idx.shape[1],
+            launch=True)
     rows = run_checks(torch, real, "real", on_cuda, timed=True)
     # K1a's rows at its largest recorded call: candidates, valid, unique
     k1a_rows = {"largest": bucket_row_stats(
@@ -4201,9 +4338,12 @@ def main(argv=None) -> int:
         "drain_fix_dense[wide]": list(wide3.adj.shape),
         "drain_fix_dense[narrow then wide]": [NDD3, NDD3],
         "logsq_dense": list(dense3.adj.shape),
-        "level_drain": [ND3],
+        **{name: [int(st.status.shape[0])]
+           for name, (st, _w) in drain_inputs.items()},
         "dense_degree": list(dense3.adj.shape),
-        "dense_to_ell": list(dense3_ell.adj_idx.shape)}
+        "dense_to_ell": list(dense3_ell.adj_idx.shape),
+        "dense_to_ell[probe 256 d=4]": [256, 4],
+        "dense_to_ell[via _launch]": list(dense3_ell.adj_idx.shape)}
 
     # 4-11. the main path, with every launch count set to 0 first, and
     # the payload of each K3 call noted
@@ -4212,11 +4352,18 @@ def main(argv=None) -> int:
     phase_launches = {}
     phase_seconds = {}
     seen = dict(kern.LAUNCHES)
+    # the fused epilogues' calls (K9's inside K7's launch), not launches
+    epilogues = getattr(kern, "EPILOGUES", {})
+    phase_epilogues = {}
+    seen_epi = dict(epilogues)
     t_phase = [time.perf_counter()]
 
     def phase_done(tag):
         phase_launches[tag] = {k: v - seen[k] for k, v in kern.LAUNCHES.items()}
         seen.update(kern.LAUNCHES)
+        phase_epilogues[tag] = {k: v - seen_epi[k]
+                                for k, v in epilogues.items()}
+        seen_epi.update(epilogues)
         now = time.perf_counter()
         phase_seconds[tag] = now - t_phase[0]
         t_phase[0] = now
@@ -4569,10 +4716,23 @@ def main(argv=None) -> int:
             "E, form, rounds): " + json.dumps(
                 [[c["n"], c["A"], c["E"], c["form"], c["rounds"]]
                  for c in calls]))
-    for k_ in ("drain_fix_dense", "drain_fix_ell", "level_drain",
-               "logsq_dense", "dense_degree", "dense_to_ell"):
+    for k_ in ("drain_fix_dense", "drain_fix_ell", "logsq_dense",
+               "dense_degree", "dense_to_ell") + (
+                   () if fused_k9(kern) else ("level_drain",)):
         check(rehearsal or phase_launches["8"][k_] > 0,
               f"phase8: {k_} never launched {phase_launches['8']}")
+    if fused_k9(kern):
+        # K9 ran as K7's epilogue, never as a launch of its own
+        check(rehearsal or phase_epilogues["8"]["level_drain"] > 0,
+              f"phase8: the level-drain epilogue never ran "
+              f"{phase_epilogues['8']}")
+        check("level_drain" not in kern.LAUNCHES
+              and not hasattr(kern, "level_drain"),
+              "phase8: a standalone K9 level_drain launch exists")
+        log("phase8: K7 launches with K9's epilogue: "
+            + json.dumps(phase_epilogues["8"]) + ", K7 launches "
+            + json.dumps({k_: phase_launches["8"][k_]
+                          for k_ in ("level_ell", "level_dense")}))
 
     # 9-11. the mesh path (8 slices of this card), recording the mesh
     # kernels' arguments at these phases' shapes
@@ -4614,7 +4774,11 @@ def main(argv=None) -> int:
                   f"phase{tag}: {k_} never launched {phase_launches[tag]}")
     launches = {k: sum(p[k] for p in phase_launches.values())
                 for k in kern.KERNELS}
+    for k in epilogues:
+        launches[k] = sum(p[k] for p in phase_epilogues.values())
     log("launches by phase: " + json.dumps(phase_launches))
+    if epilogues:
+        log("fused epilogues by phase: " + json.dumps(phase_epilogues))
     if not rehearsal:
         missing = [k for k, v in launches.items()
                    if v == 0 and k not in MULTI_CARD_ONLY]
@@ -4809,7 +4973,8 @@ def main(argv=None) -> int:
                      "level_dense[chain8192]", "level_dense[n512]",
                      "level_dense[n64]", "level_ell",
                      "level_ell[all stable 131072]", "level_ell[phase8 100k]",
-                     "level_ell[chain1024]", "level_ell[n512]"):
+                     "level_ell[phase8 chain]", "level_ell[chain1024]",
+                     "level_ell[n512]", *drain_inputs):
             if name in rows:
                 case = (real.get(name)
                         or fused_frontier_case(torch, kern, drk, k6_group,
@@ -4824,7 +4989,30 @@ def main(argv=None) -> int:
             call_ops[name] = device_ops(torch, real[name][0], takes=3)
         call_ops["sharded_drain_fix"] = device_ops(
             torch, mesh_real["sharded_drain_fix"][0], takes=3)
+        # K10 at config 3's chain and the probe's
+        for name in ("dense_to_ell", "dense_to_ell[probe 256 d=4]"):
+            call_ops[name] = device_ops(torch, real[name][0], takes=3)
         log("device operations per call: " + json.dumps(call_ops))
+        # K9's epilogue: the fused call's device time against the
+        # levels-only launch on the same input
+        epi = {tag: {"fused_us": call_ops[f][
+                         "device_us"], "levels_only_us": call_ops[lo][
+                         "device_us"]}
+               for tag, f, lo in (
+                   ("phase8 100k (grid)", "level_drain",
+                    "level_ell[phase8 100k]"),
+                   ("phase8 chain (first CTA)", "level_drain[phase8 chain]",
+                    "level_ell[phase8 chain]"),
+                   ("config3 chain dense (first CTA)",
+                    "level_drain[config3 chain dense]", "level_dense"),
+                   ("chain8192 dense (grid)", "level_drain[chain8192 dense]",
+                    "level_dense[chain8192]"),
+                   ("n512 ELL (first CTA)", "level_drain[n512]",
+                    "level_ell[n512]"))}
+        for v in epi.values():
+            v["epilogue_us"] = v["fused_us"] - v["levels_only_us"]
+        log("K9 epilogue, device us (fused call against the levels-only "
+            "launch, the most of three traces): " + json.dumps(epi))
         for name, ops_ in call_ops.items():
             if name.startswith("attr_post"):
                 check(ops_["kernels"] == 1 and ops_["copies"] == 0
@@ -4835,9 +5023,11 @@ def main(argv=None) -> int:
                       f"K1b {name}: not one kernel and no memset {ops_}")
             if name.startswith(("deps_bucketed", "drain_fix",
                                 "sharded_drain_fix", "frontier_dense",
-                                "ts_max", "calc_deps", "level_")) or (
+                                "ts_max", "calc_deps", "level_ell",
+                                "level_dense", "dense_to_ell")) or (
                     name.startswith("fused_frontier_dense")
-                    and k6_by_value(kern)):
+                    and k6_by_value(kern)) or (
+                    name.startswith("level_drain") and fused_k9(kern)):
                 check(ops_["kernels"] == 1 and ops_["copies"] == 0
                       and ops_["memsets"] == 0,
                       f"{name}: not one kernel and no copy a call {ops_}")
@@ -4966,6 +5156,8 @@ def main(argv=None) -> int:
     table = []
     for name, (src, repl) in KMETA.items():
         row = rows[name]
+        if name == "level_drain" and not fused_k9(kern):
+            src = "accord_tpu_torch/ops/csrc/logsq.cu"
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": repl, "launches": launches[name],
                       "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -4974,6 +5166,9 @@ def main(argv=None) -> int:
                       "bound_by": row["bound_by"],
                       "library_ms": row["library_ms"],
                       "card": env["nvidia_smi"]})
+        if name in epilogues:
+            # its launches are the calls that ran it inside K7's launch
+            table[-1]["fused_into"] = ["level_ell", "level_dense"]
     detail = {name: {"shape": shapes[name], "bytes": rows[name]["bytes"],
                      "ops": rows[name]["ops"]} for name in KMETA}
     sq3 = int(drk.drain_dense_logsq_plain(dense3)[2])
