@@ -1300,9 +1300,9 @@ class _DrainMirror:
 
     def ready_buffer(self, state):
         """The first N bytes of the mirror's pinned host buffer, which a
-        solo dense tick's frontier kernel writes over the bus (None off
-        the card).  One buffer serves every tick, read before the next
-        writes it; it grows to a power of two."""
+        solo tick's frontier kernel (dense or ELL) writes over the bus
+        (None off the card).  One buffer serves every tick, read before
+        the next writes it; it grows to a power of two."""
         if not state.status.is_cuda:
             return None
         n = state.status.shape[0]
@@ -4231,9 +4231,11 @@ class DeviceState:
                     if wave > 1 and fut is not None:
                         pass
                     elif isinstance(state, drk.EllDrainState):
-                        # large in-flight set: sparse gather sweep
+                        # large in-flight set: sparse gather sweep, its
+                        # flags written into the mirror's pinned buffer
                         mode = "ell"
-                        fut = drk.ready_frontier_ell(state)
+                        pinned = self.drain.ready_buffer(state)
+                        fut = drk.ready_frontier_ell(state, out=pinned)
                     elif self.mesh is not None and \
                             state.status.shape[0] % self.mesh.size == 0 \
                             and self._mesh_tick_pays(state.status.shape[0]):

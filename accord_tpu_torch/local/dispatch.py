@@ -30,9 +30,10 @@ per-store task-queue batching to the device boundary:
   one dispatcher event, and the members' frontier sweeps fuse into one
   launch (``ops.drain_kernel.fused_ready_frontier[_ell]``) when the same
   pricing says it pays.  A store whose drain wavefront is widened runs its
-  level pass solo.  On the card the dense sweep writes its flags into a
-  pinned host buffer of the tick's own (``_TickSlots``), read at the
-  first member's harvest once the launch's event has passed.
+  level pass solo.  On the card the sweep (dense or ELL) writes its
+  flags into a pinned host buffer of the tick's own (``_TickSlots``),
+  read at the first member's harvest once the launch's event has
+  passed.
 
 Correctness contract: every fused launch is bit-identical to the solo
 launches it replaces (``tests/test_torch_fused.py``,
@@ -145,12 +146,12 @@ class FusedFlushLaunch:
                 h["probing"] = False
 
 
-# free pinned buffers the fused dense ticks' pool keeps at most
+# free pinned buffers the fused ticks' pool keeps at most
 TICK_SLOTS_KEPT = 4
 
 
 class _TickSlot:
-    """A pinned host buffer that one fused dense tick's kernel writes its
+    """A pinned host buffer that one fused tick's kernel writes its
     flags into (a power of two of bytes), and an event recorded on the
     launch's stream right after the launch: the buffer serves another
     tick only once that event has passed."""
@@ -175,7 +176,7 @@ class _TickSlot:
 
 
 class _TickSlots:
-    """The pool of _TickSlots, one for each fused dense tick in flight: two
+    """The pool of _TickSlots, one for each fused tick in flight: two
     ticks with disjoint members may be launched before either is
     harvested (a member's tick task runs later, through its store's
     queue), so no two share a buffer.  A slot comes back at its tick's
@@ -575,7 +576,7 @@ class DeviceDispatcher:
             states = [st for _d, st, _lv in group]
             slot = None
             try:
-                if kind == "dense" and states[0].status.is_cuda:
+                if states[0].status.is_cuda:
                     # the flags go over the bus into a pinned buffer of
                     # this tick's own
                     slot = _TICK_SLOTS.take(states)

@@ -35,7 +35,8 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # pointers (every slice's lo, then as many rows' entries as fit).  nvcc
 # gets them as macros, so that a kernel and its wrapper in ops.kernels read
 # one number.
-# K6 dense takes up to ACCORD_FUSED_MAX_STORES members too (72 bytes each).
+# K6 takes up to ACCORD_FUSED_MAX_STORES members too (72 bytes each dense,
+# 80 ELL).
 # K5's members are 104 bytes each in the scan and 192 in the attribution,
 # so 128 of them fill most of the 32,764 bytes a kernel parameter may hold
 # (CUDA 12.1 and later)
@@ -47,10 +48,13 @@ LIMITS = {"ACCORD_MERGE_MAX_REFS": 128, "ACCORD_SCATTER_MAX_COLS": 16,
 # row's mask words; the largest level of the frontier drain that its first
 # CTA takes alone, for the tile loader (K8 dense, K13) and the edge loader
 # (K8 ELL, in level entries), and the dependents in an item of the edge
-# loader's levels; the 32-entry words of a K5 attribution chunk
+# loader's levels; the 32-entry words of a K5 attribution chunk; the rows
+# (a thread each) of a K4a / K6 ELL frontier CTA and the edges a row
+# gathers at once
 GEOMETRY = {"ACCORD_DEPS_THREADS": 256, "ACCORD_DRAIN_HANDOVER": 128,
             "ACCORD_DRAIN_HANDOVER_ELL": 512, "ACCORD_DRAIN_ELL_ITEM": 12,
-            "ACCORD_FUSED_CHUNK_WORDS": 32}
+            "ACCORD_FUSED_CHUNK_WORDS": 32, "ACCORD_FRONTIER_ELL_ROWS": 256,
+            "ACCORD_FRONTIER_ELL_CHUNK": 4}
 DEFINES = [f"-D{k}={v}" for k, v in {**LIMITS, **GEOMETRY}.items()]
 ENTRY_POINTS = ("accord_deps_bucketed", "accord_deps_dense",
                 "accord_attr_post", "accord_scatter_rows",

@@ -132,10 +132,12 @@ def ready_frontier(state: DrainState, out=None) -> torch.Tensor:
     return kernels.frontier_dense(state, out=out)
 
 
-def ready_frontier_ell(state: EllDrainState) -> torch.Tensor:
-    """ELL frontier sweep (CUDA kernel on a CUDA tensor)."""
+def ready_frontier_ell(state: EllDrainState, out=None) -> torch.Tensor:
+    """ELL frontier sweep (CUDA kernel on a CUDA tensor); ``out``, a
+    bool[N] on the state's device or in pinned host memory, takes the
+    flags in place of a new tensor."""
     from . import kernels
-    return kernels.frontier_ell(state)
+    return kernels.frontier_ell(state, out=out)
 
 
 # -- fused sweeps over several stores (plain versions) -------------------------
@@ -191,10 +193,12 @@ def fused_ready_frontier(states, out=None) -> torch.Tensor:
     return kernels.fused_frontier_dense(states, out=out)
 
 
-def fused_ready_frontier_ell(states) -> torch.Tensor:
-    """One launch sweeping S ELL states (CUDA kernel on CUDA tensors)."""
+def fused_ready_frontier_ell(states, out=None) -> torch.Tensor:
+    """One launch sweeping S ELL states (CUDA kernel on CUDA tensors);
+    ``out``, a bool[S, n_max] on the states' device or in pinned host
+    memory, takes the flags in place of a new tensor."""
     from . import kernels
-    return kernels.fused_frontier_ell(states)
+    return kernels.fused_frontier_ell(states, out=out)
 
 
 # -- log-depth level assignment (plain versions) -------------------------------

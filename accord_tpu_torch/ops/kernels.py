@@ -40,19 +40,19 @@ kernels.  The wrappers allocate every output and scratch buffer with
 | attr_tok       | parallel/sharded.py:566-576 (the token psum's terms)     |
 
 The fused kernels read every member store's tensors where they lie.  K5
-and K6 dense pass each member's pointers and sizes by value in their
-kernel parameter (up to ``FUSED_MAX_STORES`` members a launch, packed
-once into each column set's plan); K6 ELL's wrapper uploads one small
-table of per-store base pointers and sizes (``_store_refs``), and the
-kernel puts the store on a grid dimension.  The mesh kernels read the
-slices of one device the same way: their wrappers take the slices that
-lie on one device and launch once for them (K11, K12, K13 and K2's
-``attr_tok`` pass the slices' or blocks' pointers in the kernel parameter
-instead, up to ``SHARDED_MAX_SLICES``, ``MERGE_MAX_REFS`` and
-``TOK_MAX_REFS``; K12 uploads a table over its limit, ``attr_tok``
-splits its rows into more launches).  K3 handed numpy packs
-its index and rows into one pinned staging buffer (``StagingRing``) and
-uploads it in one copy.  K4b and K6 dense may write their flags straight
+and K6 (dense and ELL) pass each member's pointers and sizes by value in
+their kernel parameter (up to ``FUSED_MAX_STORES`` members a launch,
+packed once into each column set's plan; a larger group splits into
+launches), and K6 runs a flat grid of (member, row group) CTAs whose plan
+is a cached function of the members' sizes (``fused_frontier_launches``).
+The mesh kernels read the slices of one device the same way: their
+wrappers take the slices that lie on one device and launch once for them
+(K11, K12, K13 and K2's ``attr_tok`` pass the slices' or blocks' pointers
+in the kernel parameter instead, up to ``SHARDED_MAX_SLICES``,
+``MERGE_MAX_REFS`` and ``TOK_MAX_REFS``; K12 uploads a table over its
+limit, ``attr_tok`` splits its rows into more launches).  K3 handed numpy
+packs its index and rows into one pinned staging buffer (``StagingRing``)
+and uploads it in one copy.  K4 and K6 may write their flags straight
 into a pinned host buffer (the drain ticks').
 
 K9's level-drain epilogue (ops/drain_kernel.py:427 ``_levels_to_drain``
@@ -635,8 +635,17 @@ def _dense_frontier_values(st, plan):
             _build.entries()["frontier_dense"])
 
 
-def _ell_frontier_values(st, plan):
+def _ell_shape(st, plan) -> tuple:
+    """(N, D) of an ELL drain state whose columns hold N rows."""
     n, d = st.adj_idx.shape
+    if plan[2][1] != n:
+        raise ValueError(f"adjacency {tuple(st.adj_idx.shape)} does not fit "
+                         f"{plan[2][1]} rows")
+    return n, d
+
+
+def _ell_frontier_values(st, plan):
+    n, d = _ell_shape(st, plan)
     return (array("Q", plan[1]), array("q", [n, d]), n,
             _build.entries()["frontier_ell"])
 
@@ -644,17 +653,30 @@ def _ell_frontier_values(st, plan):
 def _flags_out(out, shape, dev: torch.device) -> torch.Tensor:
     """A frontier's output: ``out`` (None: a new bool tensor of ``shape``
     on ``dev``), which must be a contiguous bool tensor of ``shape`` on
-    ``dev`` or in pinned host memory, which the card maps."""
+    ``dev``, or, for a card, in pinned host memory, which the card maps."""
     if out is None:
         return torch.empty(shape, dtype=torch.bool, device=dev)
     if out.dtype is not torch.bool or out.shape != shape \
             or not out.is_contiguous():
         raise ValueError(f"frontier out: expected a contiguous bool"
                          f"{list(shape)}")
-    if out.get_device() != dev.index if out.is_cuda else not out.is_pinned():
+    if dev.type == "cpu":
+        if out.device.type != "cpu":
+            raise ValueError(f"frontier out lies on {out.device}, not on "
+                             f"the CPU")
+    elif out.get_device() != dev.index if out.is_cuda \
+            else not out.is_pinned():
         raise ValueError(f"frontier out lies on {out.device}: neither on "
                          f"{dev} nor in pinned host memory")
     return out
+
+
+def _plain_into(ready: torch.Tensor, out) -> torch.Tensor:
+    """A plain frontier's flags, copied into ``out`` when one is given
+    (checked as ``_flags_out`` checks it on the CPU)."""
+    if out is None:
+        return ready
+    return _flags_out(out, ready.shape, ready.device).copy_(ready)
 
 
 def _frontier(name: str, state, build, out) -> torch.Tensor:
@@ -670,11 +692,14 @@ def _frontier(name: str, state, build, out) -> torch.Tensor:
     return out
 
 
-def frontier_ell(state: drk.EllDrainState) -> torch.Tensor:
-    """bool[N]: which rows are ready."""
+def frontier_ell(state: drk.EllDrainState, out=None) -> torch.Tensor:
+    """bool[N]: which rows are ready.  ``out`` (bool[N] on the state's
+    card, or pinned host memory, which the kernel writes over the bus)
+    takes the flags in place of a new tensor.  A planned state
+    (``checked_cols``) is not checked again."""
     if not on_cuda(state.status):
-        return drk.ready_frontier_ell_plain(state)
-    return _frontier("frontier_ell", state, _ell_frontier_values, None)
+        return _plain_into(drk.ready_frontier_ell_plain(state), out)
+    return _frontier("frontier_ell", state, _ell_frontier_values, out)
 
 
 def frontier_dense(state: drk.DrainState, out=None) -> torch.Tensor:
@@ -683,8 +708,7 @@ def frontier_dense(state: drk.DrainState, out=None) -> torch.Tensor:
     takes the flags in place of a new tensor.  A planned state
     (``checked_cols``) is not checked again."""
     if not on_cuda(state.status):
-        ready = drk.ready_frontier_plain(state)
-        return ready if out is None else out.copy_(ready)
+        return _plain_into(drk.ready_frontier_plain(state), out)
     return _frontier("frontier_dense", state, _dense_frontier_values, out)
 
 
@@ -839,62 +863,77 @@ def fused_attr_post(tables: Sequence[dk.DepsTable],
 
 # -- K6: fused multi-store frontier sweeps -------------------------------------
 
-def _store_refs(dev: torch.device, rows) -> torch.Tensor:
-    """Upload the per-store pointer/size table a fused frontier reads."""
-    return torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
-
-
-def _drain_refs(dev, states, adj_col: str) -> torch.Tensor:
-    rows = []
-    for st in states:
-        _check_cols(st)
-        adj = getattr(st, adj_col)
-        rows.append([_ptr(c) for c in st] + [st.status.shape[0],
-                                             adj.shape[1]])
-    return _store_refs(dev, rows)
-
-
-def fused_frontier_ell(states) -> torch.Tensor:
-    """bool[S, n_max]: row i's first n_i flags are states[i]'s frontier;
-    pad rows are never ready, edges past a store's degree read as -1."""
-    if not on_cuda(states[0].status):
-        return drk.fused_ready_frontier_ell_plain(states)
-    dev = states[0].status.device
-    n_max = max(st.adj_idx.shape[0] for st in states)
-    refs = _drain_refs(dev, states, "adj_idx")
-    out = torch.empty((len(states), n_max), dtype=torch.bool, device=dev)
-    _launch("fused_frontier_ell", dev, [refs, out], [len(states), n_max])
-    return out
-
-
 def _member_values(st, plan):
-    # a K6 dense member's column pointers and n, packed
+    # a K6 dense member's column pointers and n, packed; n
     n = _dense_n(st, plan)
     return array("q", [*plan[1], n]).tobytes(), n
 
 
+def _ell_member_values(st, plan):
+    # a K6 ELL member's column pointers, n and d, packed; n
+    n, d = _ell_shape(st, plan)
+    return array("q", [*plan[1], n, d]).tobytes(), n
+
+
 # rows a K6 dense CTA takes (DENSE_ROWS of csrc/frontier.cu)
 FRONTIER_ROWS = 8
+# rows (a thread each) a K4a / K6 ELL CTA takes (ELL_ROWS of
+# csrc/frontier.cu)
+FRONTIER_ELL_ROWS = _build.GEOMETRY["ACCORD_FRONTIER_ELL_ROWS"]
 
 
 @functools.lru_cache(maxsize=256)
-def fused_frontier_launches(ns: tuple, n_max: int):
-    """K6 dense's launches for members of ``ns`` rows (a tuple: the plans
-    of the sizes a group has are kept), padded to ``n_max``: for each
-    launch of at most ``FUSED_MAX_STORES`` members, (first member, last
-    member + 1, CTAs, [(the first row of the member's flags in the
-    launch's output, its first CTA) per member]).  A member takes one CTA
-    an 8-row group, one at least (its last CTA writes its pad rows); a
-    launch's output starts at its first member's row of the group's
-    ``bool[S, n_max]``."""
+def fused_frontier_launches(ns: tuple, n_max: int,
+                            rows: int = FRONTIER_ROWS):
+    """K6's launches for members of ``ns`` rows (a tuple: the plans of the
+    sizes a group has are kept), padded to ``n_max``, a CTA ``rows`` rows
+    of its member (8 dense, ``FRONTIER_ELL_ROWS`` ELL): for each launch of
+    at most ``FUSED_MAX_STORES`` members, (first member, last member + 1,
+    CTAs, [(the first row of the member's flags in the launch's output,
+    its first CTA) per member]).  A member takes max(1, ceil(n / rows))
+    CTAs (its last CTA writes its pad rows); a launch's output starts at
+    its first member's row of the group's ``bool[S, n_max]``."""
     out = []
     for i0, i1 in _chunks(len(ns)):
-        g, rows = 0, []
+        g, plan = 0, []
         for k, n in enumerate(ns[i0:i1]):
-            rows.append((k * n_max, g))
-            g += max(1, -(-n // FRONTIER_ROWS))
-        out.append((i0, i1, g, rows))
+            plan.append((k * n_max, g))
+            g += max(1, -(-n // rows))
+        out.append((i0, i1, g, plan))
     return out
+
+
+def _fused_frontier(name: str, states, build, rows: int,
+                    out) -> torch.Tensor:
+    """K6's launches (``fused_frontier_launches``, ``rows`` a CTA) over
+    ``states`` (``build`` packs a member's values and gives its n) into
+    ``out`` (None: a new tensor): bool[S, n_max], contiguous, on the
+    states' device or in pinned host memory."""
+    dev = states[0].status.device
+    parts, ns = zip(*[_values(st, dev, build) for st in states])
+    n_max = max(ns)
+    out = _flags_out(out, (len(states), n_max), dev)
+    base = out.data_ptr()
+    for i0, i1, ctas, plan in fused_frontier_launches(ns, n_max, rows):
+        v = array("q", (i1 - i0, n_max, ctas))
+        for part, (row, g0) in zip(parts[i0:i1], plan):
+            v.frombytes(part)
+            v.extend((row, g0))
+        _launch(name, dev, [base + i0 * n_max], v)
+    return out
+
+
+def fused_frontier_ell(states, out=None) -> torch.Tensor:
+    """bool[S, n_max]: row i's first n_i flags are states[i]'s frontier,
+    the rest false (pad rows are never ready; edges past a store's degree
+    read as -1).  Each member's columns, n and d travel by value (up to
+    ``FUSED_MAX_STORES`` a launch); ``out`` (bool[S, n_max] on the states'
+    card, or pinned host memory, which the kernel writes over the bus)
+    takes the flags in place of a new tensor."""
+    if not on_cuda(states[0].status):
+        return _plain_into(drk.fused_ready_frontier_ell_plain(states), out)
+    return _fused_frontier("fused_frontier_ell", states, _ell_member_values,
+                           FRONTIER_ELL_ROWS, out)
 
 
 def fused_frontier_dense(states, out=None) -> torch.Tensor:
@@ -905,20 +944,9 @@ def fused_frontier_dense(states, out=None) -> torch.Tensor:
     host memory, which the kernel writes over the bus) takes the flags in
     place of a new tensor."""
     if not on_cuda(states[0].status):
-        ready = drk.fused_ready_frontier_plain(states)
-        return ready if out is None else out.copy_(ready)
-    dev = states[0].status.device
-    parts, ns = zip(*[_values(st, dev, _member_values) for st in states])
-    n_max = max(ns)
-    out = _flags_out(out, (len(states), n_max), dev)
-    base = out.data_ptr()
-    for i0, i1, ctas, rows in fused_frontier_launches(ns, n_max):
-        v = array("q", (i1 - i0, n_max, ctas))
-        for part, (row, g0) in zip(parts[i0:i1], rows):
-            v.frombytes(part)
-            v.extend((row, g0))
-        _launch("fused_frontier_dense", dev, [base + i0 * n_max], v)
-    return out
+        return _plain_into(drk.fused_ready_frontier_plain(states), out)
+    return _fused_frontier("fused_frontier_dense", states, _member_values,
+                           FRONTIER_ROWS, out)
 
 
 # -- K7: log-depth level assignment, and K9's level-drain epilogue -----------
@@ -1393,7 +1421,7 @@ def merge_blocks(blocks, b: int, s: int, codespace: int,
             int(ent0.dtype == torch.int64), words]
     table = None
     if n_s * d > MERGE_MAX_REFS:
-        table = _store_refs(dev, np.asarray(refs, np.int64).reshape(-1, 3))
+        table = torch.from_numpy(np.asarray(refs, np.int64)).to(dev)
     else:
         vals += refs
     _launch("merge_blocks", dev,

@@ -75,7 +75,15 @@ Phases:
      chunk, a matrix that starts 7 bytes into one), d = 1, 4, 8 and 64,
      rows of 0, d - 1, d, d + 1 and N deps and a dep in a row's last byte,
      timed at config 3's chain and the router's probe (256 rows, d = 4),
-     and through ``kernels._launch`` beside its wrapper;
+     and through ``kernels._launch`` beside its wrapper; K4a at D = 1, 3,
+     4, 8, 32, 33 and 64 on 300 rows (one to 16 chunks of a row's edges;
+     every status, ``awaits_all`` rows, -1 edges mid-row), K6 ELL on
+     members of unequal n and d (one of 0
+     rows) and on 130 members (two launches), both into pinned and device
+     ``out``; K4a timed at phase 5's [131072, 8] state and K6 ELL at phase
+     7's 2 x [131072, 8], repeated and as the ticks pay for them (new
+     states each call, into a pinned buffer, one synchronisation; a tree
+     without ``out``: the launch and ``.cpu()``);
   4. the main path, a PreAccept deps store at real size: 100,000 in-flight
      txns over a 1,000,000-key space, up to 8 intervals each, with
      RedundantBefore floors and CommandsForKey state; 12,288 queries in
@@ -162,7 +170,8 @@ restore.  A real launch the library refuses for an invalid argument
 (cudaErrorInvalidValue) must instead propagate, off the fault ladder.
 Then torch.profiler counts the device operations of one K12 call (one
 kernel), one live K3 call (one copy, one kernel) and K1a's, K1b's, K2's,
-K4b's, K5's, K6 dense's, K7 dense's, K8's, K11's cross-slice reduce's
+K4a's and K6 ELL's (repeated and in the ticks' forms; the most of three
+traces), K4b's, K5's, K6 dense's, K7 dense's, K8's, K11's cross-slice reduce's
 and K13's one-launch drain's calls (one kernel, no memset, no copy;
 K5's, K6's, K7's, K8 ELL's, K13's and ``attr_tok``'s the most of three
 traces), the log-depth drains' and K10's (one kernel, no memset, no copy;
@@ -175,7 +184,10 @@ as the dispatcher uploads them), and traces two phase-4 batches and four
 phase-7 rounds, solo and fused, for the device's busy share and its time
 by kernel name.
 
-The script runs on an earlier tree too (K6 without ``out``, K7 without
+The script runs on an earlier tree too (K4a and K6 ELL without ``out``:
+their tick forms launch and download by ``.cpu()``, the ``out`` cases and
+the one-kernel checks of the tick forms and K6 ELL are left out; K6
+without ``out``, K7 without
 ``grid``: their tick form downloads by ``.cpu()``, the pinned checks and
 forms are left out; K7 ELL without ``level_ell_stats`` and ``attr_tok``
 without ``TOK_MAX_REFS``: no form, A or E printed, no launch-count or
@@ -459,6 +471,38 @@ def small_drain(seed, n):
         idx[i, :len(cols)] = cols
     return (adj, status, msb, lsb, node, awaits), (idx, status, msb, lsb,
                                                     node, awaits)
+
+
+def odd_ell(seed, n, d):
+    """An ELL drain state of ``n`` rows and degree ``d`` for K4a and K6
+    ELL (the CPU tests' ``_ell_case``): every status, ``awaits_all``
+    rows, executeAt ties and -1 edges anywhere in a row; a third of the
+    rows depend only on applied, invalidated or free slots, and a third
+    also on decided slots that execute after them, so that rows of every
+    degree are ready."""
+    rng = np.random.default_rng(seed)
+    status = rng.choice(np.array([-1, 0, 1, 2, 3, 4, 4, 4, 5, 5, 6],
+                                 np.int32), n)
+    msb = rng.integers(0, 4, n).astype(np.int64)
+    lsb = np.where(rng.random(n) < 0.1, rng.choice(WORDS, n),
+                   rng.integers(0, 2, n)).astype(np.int64)
+    node = rng.integers(1, 3, n).astype(np.int32)
+    awaits = rng.random(n) < 0.15
+    done = np.nonzero(np.isin(status, (-1, 5, 6)))[0]
+    idx = rng.integers(0, n, (n, d)).astype(np.int32)
+    for i in range(n):
+        kind = i % 3
+        if kind and len(done):
+            idx[i] = rng.choice(done, d)
+        if kind == 2:
+            later = np.nonzero((status >= 3) & (status <= 4)
+                               & (msb > msb[i]))[0]
+            if len(later):
+                k = rng.integers(0, d + 1)
+                idx[i, :k] = rng.choice(later, k)
+                rng.shuffle(idx[i])
+    idx[rng.random((n, d)) < 0.2] = -1
+    return idx, status, msb, lsb, node, awaits
 
 
 # -- the kernel checks ---------------------------------------------------------
@@ -903,10 +947,58 @@ def frontier_work(torch, drk, state):
     return nbytes, ops
 
 
-def ell_case(torch, kern, drk, state):
-    return (lambda: kern.frontier_ell(state),
-            lambda: drk.ready_frontier_ell_plain(state), None,
-            *frontier_work(torch, drk, state))
+def ell_out(kern) -> bool:
+    """Do K4a and K6 ELL write into a given ``out`` (pinned host memory or
+    the card's)?  An earlier tree's return a new device tensor (and its
+    K6 ELL uploads a table of its members), which this script times
+    too."""
+    return "out" in inspect.signature(kern.frontier_ell).parameters
+
+
+def _flags_buffer(torch, shape, out):
+    """A kept output for a frontier's ``out`` form: pinned host memory
+    ("pinned") or the card's ("device")."""
+    if out == "pinned":
+        return torch.empty(shape, dtype=torch.bool, pin_memory=True)
+    return torch.empty(shape, dtype=torch.bool, device="cuda")
+
+
+def ell_case(torch, kern, drk, state, tick=False, out=None):
+    """K4a.  ``out``: into a kept "pinned" host buffer (one
+    synchronisation a call) or a kept "device" tensor.  ``tick``: K4a as
+    the solo ELL tick pays for it, since the drain mirror builds a new
+    state for almost every tick: each call wraps the state's columns in a
+    new EllDrainState, launches into a kept pinned host buffer (the
+    mirror's ``ready_buffer``) and reads the flags after one
+    synchronisation of the stream (a tree without ``out``: launches and
+    downloads by ``.cpu()``, the earlier tick)."""
+    kfn = lambda: kern.frontier_ell(state)
+    pfn = lambda: drk.ready_frontier_ell_plain(state)
+    n = state.status.shape[0]
+    if out:
+        kept = _flags_buffer(torch, (n,), out)
+
+        def kfn():
+            kern.frontier_ell(state, out=kept)
+            if out == "pinned":
+                torch.cuda.current_stream().synchronize()
+            return kept
+        if out == "pinned":
+            pfn = lambda: drk.ready_frontier_ell_plain(state).cpu()
+    if tick:
+        cols = tuple(state)
+        kept = torch.empty(n, dtype=torch.bool, pin_memory=True)
+
+        def kfn():
+            fresh = drk.EllDrainState(*cols)
+            if not ell_out(kern):
+                return kern.frontier_ell(fresh).cpu()
+            kern.frontier_ell(fresh, out=kept)
+            torch.cuda.current_stream().synchronize()
+            return kept
+
+        pfn = lambda: drk.ready_frontier_ell_plain(state).cpu()
+    return (kfn, pfn, None, *frontier_work(torch, drk, state))
 
 
 def dense_frontier_case(torch, kern, drk, state, tick=None):
@@ -1117,31 +1209,45 @@ def k6_by_value(kern) -> bool:
     return "out" in inspect.signature(kern.fused_frontier_dense).parameters
 
 
-def fused_frontier_case(torch, kern, drk, states, tick=False):
+def fused_frontier_case(torch, kern, drk, states, tick=False, out=None):
     """K6: the members' own frontier work (pad rows need nothing).
-    ``tick``: K6 dense as the fused drain tick pays for it, since the
-    mirrors build new states for almost every tick: each call wraps the
-    members' columns in new DrainStates, launches into a kept pinned host
-    buffer and reads the flags after one synchronisation of the stream (a
-    tree without ``out``: launches and downloads by ``.cpu()``)."""
+    ``tick``: K6 as the fused drain tick pays for it, since the mirrors
+    build new states for almost every tick: each call wraps the members'
+    columns in new drain states, launches into a kept pinned host buffer
+    and reads the flags after one synchronisation of the stream (a tree
+    without ``out``: launches and downloads by ``.cpu()``).  ``out``:
+    into a kept "pinned" host buffer (one synchronisation a call) or a
+    kept "device" tensor."""
     work = [frontier_work(torch, drk, st) for st in states]
     ell = isinstance(states[0], drk.EllDrainState)
-    kfn = ((lambda: kern.fused_frontier_ell(states)) if ell
-           else (lambda: kern.fused_frontier_dense(states)))
+    fn = kern.fused_frontier_ell if ell else kern.fused_frontier_dense
+    has_out = ell_out(kern) if ell else k6_by_value(kern)
+    kfn = lambda: fn(states)
     pfn = (drk.fused_ready_frontier_ell_plain if ell
            else drk.fused_ready_frontier_plain)
     pfn_ = lambda: pfn(states)
+    n_max = max(st.status.shape[0] for st in states)
+    if out:
+        kept_o = _flags_buffer(torch, (len(states), n_max), out)
+
+        def kfn():
+            fn(states, out=kept_o)
+            if out == "pinned":
+                torch.cuda.current_stream().synchronize()
+            return kept_o
+        if out == "pinned":
+            pfn_ = lambda: pfn(states).cpu()
     if tick:
         cols = [tuple(st) for st in states]
-        n_max = max(st.status.shape[0] for st in states)
+        cls = drk.EllDrainState if ell else drk.DrainState
         kept = torch.empty(len(states) * n_max, dtype=torch.bool,
                            pin_memory=True).view(len(states), n_max)
 
         def kfn():
-            fresh = [drk.DrainState(*c) for c in cols]
-            if not k6_by_value(kern):
-                return kern.fused_frontier_dense(fresh).cpu()
-            kern.fused_frontier_dense(fresh, out=kept)
+            fresh = [cls(*c) for c in cols]
+            if not has_out:
+                return fn(fresh).cpu()
+            fn(fresh, out=kept)
             torch.cuda.current_stream().synchronize()
             return kept
 
@@ -1763,6 +1869,45 @@ def to_ell_edge_cases(torch, kern, drk, dev) -> dict:
     return out
 
 
+def ell_frontier_edge_cases(torch, kern, drk, convert, dev) -> dict:
+    """K4a and K6 ELL at their row walk's edges: D = 1, 3, 4, 8, 32, 33
+    and 64 (one to 16 chunks of a row's edges, a chunk cut short) on 300
+    rows, a whole number of no CTA's rows, with rows of every status,
+    ``awaits_all`` rows and -1 edges mid-row; K6 ELL on members of
+    unequal n and d (one of 0 rows) and on 130 members (two launches);
+    both into pinned and device ``out``."""
+    cases = {}
+    ells = {d: convert.tables_from_numpy({"ell": odd_ell(700 + d, 300, d)},
+                                         dev)["ell"]
+            for d in (1, 3, 4, 8, 32, 33, 64)}
+    for d, st in ells.items():
+        cases[f"frontier_ell[n300 d{d}]"] = ell_case(torch, kern, drk, st)
+    group = [convert.tables_from_numpy({"ell": odd_ell(760 + k, n, d)},
+                                       dev)["ell"]
+             for k, (n, d) in enumerate(((37, 3), (300, 64), (1, 1),
+                                         (100, 8), (45, 33), (0, 4)))]
+    cases["fused_frontier_ell[37x3,300x64,1x1,100x8,45x33,0x4]"] = \
+        fused_frontier_case(torch, kern, drk, group)
+    rng = np.random.default_rng(37)
+    many = [convert.tables_from_numpy(
+        {"ell": odd_ell(800 + k, int(n), int(d))}, dev)["ell"]
+        for k, (n, d) in enumerate(zip(
+            rng.integers(1, 60, 130),
+            rng.choice([1, 2, 3, 4, 5, 8, 16, 17, 32, 33, 64], 130)))]
+    cases["fused_frontier_ell[130 members]"] = fused_frontier_case(
+        torch, kern, drk, many)
+    if dev.type == "cuda" and ell_out(kern):
+        for out in ("pinned", "device"):
+            for d in (3, 8, 33):
+                cases[f"frontier_ell[n300 d{d} {out}]"] = ell_case(
+                    torch, kern, drk, ells[d], out=out)
+            cases[f"fused_frontier_ell[unequal {out}]"] = \
+                fused_frontier_case(torch, kern, drk, group, out=out)
+            cases[f"fused_frontier_ell[130 members {out}]"] = \
+                fused_frontier_case(torch, kern, drk, many, out=out)
+    return cases
+
+
 def drain_cases(torch, kern, drk, tag, dense, ell):
     """Every K8-K10 kernel on one dense state and its ELL twin; the
     log-depth drains (K7 with K9's epilogue) on both, with and without a
@@ -1934,6 +2079,7 @@ def small_cases(torch, dev, kern, dk, drk, convert):
     cases.update(fix_edge_cases(torch, kern, drk, convert, dev))
     cases.update(fix_ell_edge_cases(torch, kern, drk, convert, dev))
     cases.update(to_ell_edge_cases(torch, kern, drk, dev))
+    cases.update(ell_frontier_edge_cases(torch, kern, drk, convert, dev))
     # rows with more candidates than shared memory holds (C > 4096) sort
     # in global scratch: 8 intervals x 4 probes x 128 entries + the wide list
     for seed, wide in ((6, False), (7, True)):
@@ -4187,12 +4333,18 @@ def main(argv=None) -> int:
     real["scatter_rows[live P8]"] = scatter_case(torch, kern, dk,
                                                  *table_rows(ds), live=True)
     real["frontier_ell"] = ell_case(torch, kern, drk, dstate)
+    # and as the solo ELL tick pays for it (a new state a call, into a
+    # pinned buffer, one sync; an earlier tree: its launch and .cpu())
+    real["frontier_ell[tick]"] = ell_case(torch, kern, drk, dstate,
+                                          tick=on_cuda)
     a, kw, _w = rec7.calls["fused_deps_dense"]
     real["fused_deps_dense"] = fused_scan_case(torch, kern, dk, *a, **kw)
     a, kw, _w = rec7.calls["fused_attr_post"]
     real["fused_attr_post"] = fused_attr_case(torch, kern, dk, *a, **kw)
     real["fused_frontier_ell"] = fused_frontier_case(torch, kern, drk,
                                                      ell_pair)
+    real["fused_frontier_ell[tick]"] = fused_frontier_case(
+        torch, kern, drk, ell_pair, tick=on_cuda)
     real["fused_frontier_dense"] = fused_frontier_case(torch, kern, drk,
                                                        dense_pair)
     real["level_ell"] = level_case(torch, kern, drk, dstate)
@@ -4317,10 +4469,13 @@ def main(argv=None) -> int:
                                len(rec.calls["scatter_rows"][0][0])],
         "scatter_rows[live P8]": [8, 7],
         "frontier_ell": list(dstate.adj_idx.shape),
+        "frontier_ell[tick]": list(dstate.adj_idx.shape),
         "fused_deps_dense": list(rec7.calls["fused_deps_dense"][0][1].shape)
         + [max(t.lo.shape[0] for t in rec7.calls["fused_deps_dense"][0][0])],
         "fused_attr_post": list(rec7.calls["fused_attr_post"][0][5].shape),
         "fused_frontier_ell": [len(ell_pair)] + list(ell_pair[0].adj_idx.shape),
+        "fused_frontier_ell[tick]": [len(ell_pair)]
+        + list(ell_pair[0].adj_idx.shape),
         "fused_frontier_dense": [len(dense_pair)]
         + list(dense_pair[0].adj.shape),
         "level_ell": list(dstate.adj_idx.shape),
@@ -4962,6 +5117,11 @@ def main(argv=None) -> int:
         # before) and its cross-slice reduce at the recorded calls
         call_ops["frontier_dense"] = device_ops(torch, k4b_case[0])
         call_ops["frontier_dense[tick]"] = device_ops(torch, k4b_tick[0])
+        # K4a at phase 5's state and K6 ELL at phase 7's pair, repeated and
+        # as the ticks pay for them: the most of three traces
+        for name in ("frontier_ell", "frontier_ell[tick]",
+                     "fused_frontier_ell", "fused_frontier_ell[tick]"):
+            call_ops[name] = device_ops(torch, real[name][0], takes=3)
         call_ops["launch floor"] = device_ops(
             torch, lambda: launch_floor(kern, dev))
         # K6 dense (the phase 3 pair, planned, the burn's median group
@@ -5025,6 +5185,9 @@ def main(argv=None) -> int:
                                 "sharded_drain_fix", "frontier_dense",
                                 "ts_max", "calc_deps", "level_ell",
                                 "level_dense", "dense_to_ell")) or (
+                    name == "frontier_ell") or (
+                    name.startswith(("frontier_ell", "fused_frontier_ell"))
+                    and ell_out(kern)) or (
                     name.startswith("fused_frontier_dense")
                     and k6_by_value(kern)) or (
                     name.startswith("level_drain") and fused_k9(kern)):
@@ -5216,6 +5379,9 @@ def main(argv=None) -> int:
                "k4b_more": {k: dict(rows[k], shape=shapes.get(k)) for k in (
                    "frontier_dense[4096]", "frontier_dense[planned]",
                    "frontier_dense[tick]", "frontier_dense[tick planned]")},
+               "k4a_k6_ell": {k: dict(rows[k], shape=shapes.get(k))
+                              for k in rows if k.startswith((
+                                  "frontier_ell", "fused_frontier_ell"))},
                "k6_k7_more": {k: dict(rows[k], shape=shapes.get(k))
                               for k in rows if k.startswith((
                                   "fused_frontier_dense[",

@@ -22,6 +22,12 @@ chunks) and a member of one row.  K6 dense's launch plan
 (``kernels.fused_frontier_launches``): 130 members split into launches of
 at most ``FUSED_MAX_STORES``, each member's output row and CTAs, and a
 model of the kernel's CTA-to-member search covering every row once.
+K6 ELL's plan (the same function at ``FRONTIER_ELL_ROWS`` rows a CTA)
+against one written here, and the flat grid run through the walk model
+of ``tests/test_torch_drain_kernel.py`` (each CTA's member by the
+kernel's search, each member's own degree, its last CTA writing its pad
+rows) against the reference on members of unequal n and d, and on 130
+members (two launches).
 
 CPU only: the port takes its plain versions here; tolerance zero (every
 output is integer or boolean)."""
@@ -40,6 +46,7 @@ from accord_tpu_torch.ops import deps_kernel as pdk
 from accord_tpu_torch.ops import drain_kernel as pdrk
 from accord_tpu_torch.ops import kernels as pkern
 from tests.test_torch_deps_kernel import _inputs, _low_set_bits
+from tests.test_torch_drain_kernel import _ell_case, ell_walk_model
 
 # three stores: (capacity, interval width)
 GROUP = ((64, 4), (40, 2), (96, 8))
@@ -555,3 +562,78 @@ def test_fused_frontier_launch_plan(ns):
     np.testing.assert_array_equal(written, 1)
     np.testing.assert_array_equal(
         walked, np.arange(n_max)[None, :] < np.array(ns)[:, None])
+
+
+def _ell_member_shapes(seed, count):
+    rng = np.random.default_rng(seed)
+    return [(int(n), int(d)) for n, d in zip(
+        rng.integers(1, 600, count),
+        rng.choice([1, 2, 3, 4, 5, 8, 16, 17, 32, 33, 64], count))]
+
+
+@pytest.mark.parametrize("ns", [[0, 1, 255, 256, 257, 300, 513],
+                                [n for n, _d in _ell_member_shapes(36, 130)]])
+def test_fused_frontier_ell_launch_plan(ns):
+    """K6 ELL's plan (``fused_frontier_launches`` at FRONTIER_ELL_ROWS rows
+    a CTA, the GEOMETRY value nvcc gets) equals one written here: members
+    in launches of FUSED_MAX_STORES in order (130 split 128 + 2), a
+    member's flags at its row of the group's output, its CTAs after the
+    launch's earlier members', max(1, ceil(n / rows)) of them."""
+    n_max = max(ns)
+    cap = _build.LIMITS["ACCORD_FUSED_MAX_STORES"]
+    rows = _build.GEOMETRY["ACCORD_FRONTIER_ELL_ROWS"]
+    assert pkern.FRONTIER_ELL_ROWS == rows
+    want = []
+    for i0 in range(0, len(ns), cap):
+        g, plan = 0, []
+        for k, n in enumerate(ns[i0:i0 + cap]):
+            plan.append((k * n_max, g))
+            g += max(1, -(-n // rows))
+        want.append((i0, min(i0 + cap, len(ns)), g, plan))
+    assert pkern.fused_frontier_launches(tuple(ns), n_max, rows) == want
+    assert [i1 - i0 for i0, i1, _c, _r in want] == (
+        [128, 2] if len(ns) == 130 else [len(ns)])
+
+
+def _fused_ell_model(states):
+    """K6 ELL's flat grid on the CPU: each launch of the plan, each CTA's
+    member by the kernel's search (the last member whose first CTA is at
+    or before it), the member's CTAs run by the walk model at its own
+    degree, its last CTA writing its pad rows up to n_max."""
+    ns = tuple(st.adj_idx.shape[0] for st in states)
+    n_max = max(ns)
+    out = torch.zeros((len(states), n_max), dtype=torch.bool)
+    writes = torch.zeros((len(states), n_max), dtype=torch.int64)
+    for i0, i1, ctas, rows in pkern.fused_frontier_launches(
+            ns, n_max, pkern.FRONTIER_ELL_ROWS):
+        g0s = np.array([g0 for _row, g0 in rows])
+        member = np.searchsorted(g0s, np.arange(ctas), side="right") - 1
+        for k in range(i1 - i0):
+            mine = np.nonzero(member == k)[0]
+            assert list(mine) == list(range(g0s[k], g0s[k] + len(mine)))
+            assert rows[k][0] == k * n_max
+            flags, w, *_ = ell_walk_model(states[i0 + k], len(mine), n_max,
+                                          True)
+            out[i0 + k] = flags
+            writes[i0 + k] = w
+    assert (writes == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("shapes", [
+    ((37, 3), (300, 64), (1, 1), (100, 8), (45, 33), (0, 4), (257, 17)),
+    tuple(_ell_member_shapes(37, 130))])
+def test_fused_ell_model_equals_reference(shapes):
+    """Members of unequal n and d (the reference pads rows with FREE and
+    edges with -1; the kernel walks each member's own), and 130 members
+    in two launches: the model, the plain version and the reference
+    agree."""
+    cases = [_ell_case(5000 + k, n, d) for k, (n, d) in enumerate(shapes)]
+    ref = np.asarray(rdrk.fused_ready_frontier_ell(
+        [rdrk.EllDrainState(*map(jnp.asarray, c)) for c in cases]))
+    states = [convert.tables_from_numpy({"ell": c}, "cpu")["ell"]
+              for c in cases]
+    np.testing.assert_array_equal(ref, _fused_ell_model(states).numpy())
+    np.testing.assert_array_equal(
+        ref, pdrk.fused_ready_frontier_ell(states).numpy())
+    assert ref.any()
